@@ -1,0 +1,115 @@
+"""vlaser_tpu_torch fused int8 decoder stack (CPU twin) vs the JAX Pallas
+kernel (interpret mode) on the same int8 weights and inputs.
+
+Both sides keep the same rounding points (bf16 norms, q/k/v rounded around
+rope, fp32 softmax, bf16 residual stream); they differ in summation order
+only, so outputs are held to bf16 level: atol 2e-2 on x_out and the self
+K/V after 2 layers."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vlaser_tpu.kernels.fused_decode import NEG_INF as JAX_NEG_INF
+from vlaser_tpu.kernels.fused_decode import fused_int8_stack as jax_stack
+from vlaser_tpu_torch.kernels import fused_decode
+
+ATOL = 2e-2
+
+
+def _quant(w):
+    s = np.abs(w).max(axis=-2, keepdims=True) / 127.0 + 1e-12
+    q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
+
+
+def _case(R, ext_len, step0, rope_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    L, hidden, inter = 2, 256, 640
+    heads, kv_heads, head_dim = 4, 2, 64
+    q_dim, kv_dim = heads * head_dim, kv_heads * head_dim
+    W = {}
+    for name, k, n in (("q", hidden, q_dim), ("k", hidden, kv_dim),
+                       ("v", hidden, kv_dim), ("o", q_dim, hidden),
+                       ("g", hidden, inter), ("u", hidden, inter),
+                       ("d", inter, hidden)):
+        W["w" + name], W["s" + name] = _quant(
+            rng.standard_normal((L, k, n)).astype(np.float32) * 0.05)
+    pos = np.arange(R) + 7.0
+    freq = 1.0 / (10_000.0 ** (np.arange(0, head_dim, 2) / head_dim))
+    ang = pos[:, None] * freq[None, :]
+    cos = np.concatenate([np.cos(ang)] * 2, -1).astype(np.float32)
+    sin = np.concatenate([np.sin(ang)] * 2, -1).astype(np.float32)
+    ext_mask = np.zeros((1, ext_len), np.float32)
+    ext_mask[0, -3:] = fused_decode.NEG_INF  # padded external keys
+    self_mask = np.zeros((R, R), np.float32)
+    if step0:  # [proprio | action]: the proprio row is blind to the actions
+        self_mask[0, 1:] = fused_decode.NEG_INF
+    return dict(
+        x=rng.standard_normal((R, hidden)).astype(np.float32) * 0.3,
+        cos=cos, sin=sin, self_mask=self_mask, ext_mask=ext_mask,
+        ln1=rng.uniform(0.7, 1.3, (L, hidden)).astype(np.float32),
+        ln2=rng.uniform(0.7, 1.3, (L, hidden)).astype(np.float32),
+        bq=rng.standard_normal((L, q_dim)).astype(np.float32) * 0.02,
+        bk=rng.standard_normal((L, kv_dim)).astype(np.float32) * 0.02,
+        bv=rng.standard_normal((L, kv_dim)).astype(np.float32) * 0.02,
+        **W,
+        k_ext=rng.standard_normal((L, ext_len, kv_heads, head_dim))
+        .astype(np.float32) * 0.3,
+        v_ext=rng.standard_normal((L, ext_len, kv_heads, head_dim))
+        .astype(np.float32) * 0.3,
+    ), rope_dtype
+
+
+ORDER = ("x", "cos", "sin", "self_mask", "ext_mask", "ln1", "ln2", "bq", "bk",
+         "bv", "wq", "sq", "wk", "sk", "wv", "sv", "wo", "so", "wg", "sg",
+         "wu", "su", "wd", "sd", "k_ext", "v_ext")
+BF16_KEYS = ("x", "k_ext", "v_ext")
+
+
+def _run_both(case):
+    d, rope_dtype = case
+    jargs, targs = [], []
+    for k in ORDER:
+        a = d[k]
+        if k in BF16_KEYS or (k in ("cos", "sin") and rope_dtype == "bf16"):
+            jargs.append(jnp.asarray(a, jnp.bfloat16))
+            targs.append(torch.from_numpy(a).to(torch.bfloat16))
+        else:
+            jargs.append(jnp.asarray(a))
+            targs.append(torch.from_numpy(a))
+    want = jax_stack(*jargs, mlp_tile=128, interpret=True)
+    before = fused_decode.launch_count
+    got = fused_decode.fused_int8_stack(*targs)
+    assert fused_decode.launch_count == before  # CPU tensors take the twin
+    return got, want
+
+
+@pytest.mark.parametrize("R,ext_len,step0,rope_dtype", [
+    (4, 24, False, "bf16"),   # denoise steps 1..N-1: R=4 actions
+    (5, 21, True, "bf16"),    # step 0: [proprio | 4 actions], self mask
+    (4, 24, False, "f32"),    # fp32 rope tables (the JAX kernel test's form)
+])
+def test_twin_matches_jax_kernel(R, ext_len, step0, rope_dtype):
+    (gx, gk, gv), (wx, wk, wv) = _run_both(_case(R, ext_len, step0,
+                                                 rope_dtype))
+    assert gx.dtype == torch.bfloat16 and gx.shape == (R, 256)
+    assert gk.shape == gv.shape == (2, R, 2, 64)
+    for g, w in ((gx, wx), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   atol=ATOL, rtol=0)
+
+
+def test_neg_inf_matches_and_masked_keys_are_ignored():
+    assert fused_decode.NEG_INF == JAX_NEG_INF
+    d, rd = _case(4, 24, False, "bf16", seed=1)
+    base, _ = _run_both((d, rd))
+    d2 = dict(d)
+    d2["k_ext"] = d["k_ext"].copy()
+    d2["v_ext"] = d["v_ext"].copy()
+    d2["k_ext"][:, -3:] = 9.0  # the masked (padded) external keys
+    d2["v_ext"][:, -3:] = -9.0
+    moved, _ = _run_both((d2, rd))
+    for a, b in zip(base, moved):
+        assert torch.equal(a, b)
