@@ -76,7 +76,7 @@ def test_twin_matches_jax_pallas_kernel(qk_norm):
                      num_heads=cfg.num_heads, eps=cfg.layer_norm_eps,
                      qk_norm=qk_norm, interpret=True)
     temb = port.embed(torch.from_numpy(px))
-    np.testing.assert_allclose(temb.float().numpy(),
+    np.testing.assert_allclose(temb.detach().float().numpy(),
                                np.asarray(emb, np.float32), atol=BF16_ATOL)
     before = fused_vit.launch_count
     got = fused_vit.fused_vit_stack(
@@ -98,7 +98,7 @@ def test_plain_encoder_matches_jax_fp32(qk_norm):
     the bf16 twin stays within bf16 level of the same fp32 reference."""
     cfg, model, variables, port, px = _setup(qk_norm, "float32", 2)
     want = np.asarray(model.apply(variables, jnp.asarray(px)))
-    got = port(torch.from_numpy(px))
+    got = port(torch.from_numpy(px)).detach()
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
     emb = port.embed(torch.from_numpy(px))
     twin = fused_vit.fused_vit_stack_plain(

@@ -100,3 +100,101 @@ def test_cuda_wrappers_refuse_wrong_dtypes(cuda):
     z = torch.zeros(1, 128, device=cuda)
     with pytest.raises(TypeError):
         fused_vit.fused_vit_stack(x, *([z] * 16), num_heads=2)
+
+
+def _meta_case(B, S, pad, levels, device):
+    """Segments 1 with `pad` trailing padding tokens (segment 0); levels
+    [0 ... | 1 | 2 x 4] over the valid tail when `levels`."""
+    seg = torch.ones(B, S, dtype=torch.int32, device=device)
+    lev = None
+    if levels:
+        lev = torch.zeros(B, S, dtype=torch.int32, device=device)
+        lev[:, S - 5] = 1
+        lev[:, S - 4:] = 2
+        seg[:, S - 5 - pad:S - 5] = 0  # the padded prompt tail
+    elif pad:
+        seg[:, S - pad:] = 0
+    return seg, lev
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,pad,levels,causal,off", [
+    (2, 77, 77, 4, 4, 64, 9, False, False, 0),
+    (2, 100, 100, 6, 2, 128, 13, True, False, 0),
+    (2, 40, 100, 6, 2, 128, 0, False, True, 60),
+    (1, 130, 130, 2, 1, 64, 0, False, True, 0),
+])
+def test_flash_attention_kernels_match_plain(cuda, B, Sq, Skv, H, KVH, D, pad,
+                                             levels, causal, off):
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    bf = torch.bfloat16
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(bf)
+    q, k, v, do = r(B, Sq, H, D), r(B, Skv, KVH, D), r(B, Skv, KVH, D), \
+        r(B, Sq, H, D)
+    kv_seg, kv_lev = _meta_case(B, Skv, pad, levels, cuda)
+    q_seg, q_lev = (kv_seg, kv_lev) if Sq == Skv else _meta_case(
+        B, Sq, 0, False, cuda)
+    qm, km = fa.pack_meta(q_seg, q_lev), fa.pack_meta(kv_seg, kv_lev)
+    nf, nb = fa.fwd_launch_count, fa.bwd_launch_count
+    out, lse = fa.flash_attention_fwd(q, k, v, qm, km, off, causal)
+    grads = fa.flash_attention_bwd(q, k, v, qm, km, off, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launch_count, fa.bwd_launch_count) == (nf + 1, nb + 1)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, qm, km, off, causal)
+    p_grads = fa.flash_attention_bwd_plain(q, k, v, qm, km, off, out, lse, do,
+                                           causal)
+    _check(out, p_out)
+    for a, b in zip(grads, p_grads):
+        _check(a, b)
+    live = p_lse > -1e29
+    assert torch.equal(lse[~live], p_lse[~live])
+    assert (lse[live] - p_lse[live]).abs().max().item() <= 1e-2
+    dead = (q_seg == 0)
+    assert (out[dead] == 0).all() and (grads[0][dead] == 0).all()
+
+
+@pytest.mark.parametrize("n,H,dtype", [(300, 1536, torch.bfloat16),
+                                       (77, 136, torch.float32)])
+def test_rmsnorm_kernels_match_plain(cuda, n, H, dtype):
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x, w, gy = r(n, H).to(dtype), (1 + 0.1 * r(H)).to(dtype), r(n, H).to(dtype)
+    nf, nb = rmsnorm.fwd_launch_count, rmsnorm.bwd_launch_count
+    y, rrms = rmsnorm.rms_fwd(x, w, 1e-6)
+    dx, dw = rmsnorm.rms_bwd(x, w, gy, rrms)
+    dx2, dw2 = rmsnorm.rms_bwd(x, w, gy, rrms)
+    torch.cuda.synchronize()
+    assert (rmsnorm.fwd_launch_count, rmsnorm.bwd_launch_count) == (nf + 1,
+                                                                    nb + 2)
+    assert torch.equal(dw, dw2)  # no atomics: bit-identical reruns
+    p_y, p_rrms = rmsnorm.rms_fwd_plain(x, w, 1e-6)
+    p_dx, p_dw = rmsnorm.rms_bwd_plain(x, w, gy, rrms)
+    _check(y, p_y)
+    assert (rrms - p_rrms).abs().max().item() <= 1e-4 * p_rrms.abs().max()
+    _check(dx, p_dx)
+    _check(dw, p_dw)
+
+
+def test_autograd_functions_launch_their_backward_kernels(cuda):
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2048, 64, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    w = torch.ones(64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    q = torch.randn(1, 2048, 2, 64, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    counts = lambda: (fa.fwd_launch_count, fa.bwd_launch_count,
+                      rmsnorm.fwd_launch_count, rmsnorm.bwd_launch_count)
+    before = counts()
+    y = rmsnorm.rms_norm(x, w)  # auto: 2048 rows x 64 -> kernel
+    o = fa.attention(q, q, q)   # auto: Sq = 2048 -> kernel
+    (y.float().sum() + o.float().sum()).backward()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
+    assert torch.isfinite(x.grad.float()).all() and torch.isfinite(
+        q.grad.float()).all()

@@ -1,9 +1,12 @@
 """Routing guarantees of the port (vlaser_tpu_torch):
-- importing it never imports jax;
+- importing it, or what chip_smoke.py imports, never imports jax nor any
+  module of the JAX package (vlaser_tpu);
 - on CPU tensors the kernel wrappers run their plain twins and launch
-  nothing; a tensor on a device with no route raises;
+  nothing, also when the kernel route is forced; a tensor on a device with
+  no route raises;
 - chip_smoke.py refuses to run without a CUDA device."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -11,7 +14,7 @@ import sys
 import pytest
 import torch
 
-from vlaser_tpu.core.config import tiny_vla
+from vlaser_tpu_torch.core.config import tiny_vla
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,7 +24,13 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.kernels.ops",
     "vlaser_tpu_torch.kernels.fused_vit",
     "vlaser_tpu_torch.kernels.fused_decode",
+    "vlaser_tpu_torch.kernels.flash_attention",
+    "vlaser_tpu_torch.kernels.rmsnorm",
+    "vlaser_tpu_torch.core.config",
     "vlaser_tpu_torch.core.quant",
+    "vlaser_tpu_torch.image.tiling",
+    "vlaser_tpu_torch.envs.geometry",
+    "vlaser_tpu_torch.envs.adapters",
     "vlaser_tpu_torch.models.layers",
     "vlaser_tpu_torch.models.internvit",
     "vlaser_tpu_torch.models.vlm",
@@ -29,6 +38,11 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.policy.joint",
     "vlaser_tpu_torch.policy.pizero",
     "vlaser_tpu_torch.policy.fused_infer",
+    "vlaser_tpu_torch.policy.processing",
+    "vlaser_tpu_torch.policy.flow",
+    "vlaser_tpu_torch.train.optim",
+    "vlaser_tpu_torch.train.train_step",
+    "vlaser_tpu_torch.train.trainer",
     "vlaser_tpu_torch.serve.policy_server",
 )
 
@@ -39,11 +53,27 @@ def _env():
     return env
 
 
+def _chip_smoke_imports():
+    """Every module chip_smoke.py imports, at top level or in a function."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module)
+    return sorted(mods)
+
+
 def test_port_never_imports_jax():
+    mods = SLICE_MODULES + tuple(_chip_smoke_imports())
+    assert "vlaser_tpu_torch.train.trainer" in mods
     code = ("import importlib, sys\n"
-            f"for m in {SLICE_MODULES!r}:\n"
+            f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in ('jax', 'flax', 'jaxlib') if m in sys.modules]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'flax', 'jaxlib', 'vlaser_tpu')]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -101,3 +131,37 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_forced_kernel_route_on_cpu_launches_nothing():
+    """impl="kernel" on CPU tensors runs the plain versions (forward and
+    backward) and launches no kernel."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 4, 16, generator=g).requires_grad_()
+    kv = torch.randn(1, 8, 2, 16, generator=g).requires_grad_()
+    x = torch.randn(6, 16, generator=g).requires_grad_()
+    w = torch.ones(16, requires_grad=True)
+    counts = lambda: (fa.fwd_launch_count, fa.bwd_launch_count,
+                      rmsnorm.fwd_launch_count, rmsnorm.bwd_launch_count)
+    before = counts()
+    out = fa.attention(q, kv, kv, causal=True, impl="kernel")
+    y = rmsnorm.rms_norm(x, w, impl="kernel")
+    (out.sum() + y.sum()).backward()
+    assert counts() == before
+    assert q.grad is not None and w.grad is not None
+
+
+@pytest.mark.parametrize("which", ["flash_attention_fwd", "rms_fwd"])
+def test_new_kernels_have_no_route_for_other_devices(which):
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    x = torch.empty(1, 8, 2, 64, device="meta")
+    with pytest.raises(RuntimeError, match="no route"):
+        if which == "rms_fwd":
+            rmsnorm.rms_fwd(x[0, :, 0], x[0, 0, 0], 1e-6)
+        else:
+            fa.flash_attention_fwd(x, x, x, None, None)

@@ -104,7 +104,7 @@ def test_from_jax_variables_covers_quantized_tree(setup):
     w = np.asarray(qvars["params"]["vision_model"]["embeddings"]
                    ["patch_embedding"]["kernel"])
     np.testing.assert_array_equal(
-        tmodel.vision_model.embeddings.patch_embedding.weight.numpy(),
+        tmodel.vision_model.embeddings.patch_embedding.weight.detach().numpy(),
         w.transpose(3, 2, 0, 1))
 
 
@@ -118,7 +118,7 @@ def test_port_quantize_matches_jax_quantize(setup):
     quantize_for_serving(plain, target="policy", mode="int8")
     want = from_jax_variables(jax.tree_util.tree_map(
         np.asarray, quantize_variables(variables, POLICY_PATTERNS)))
-    got = dict(plain.named_buffers())
+    got = plain.state_dict()
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         assert torch.equal(got[k], v), k
@@ -141,7 +141,8 @@ def test_prefix_kv_matches_jax(setup):
         "jmodel", "qvars", "tmodel", "x"))
     jk, jv, _, _ = jmodel.apply(qvars, *_jargs(x)[:4],
                                 method=jmodel.prefix_forward)
-    tk, tv, _, _ = tmodel.prefix_forward(*_targs(x)[:4])
+    with torch.no_grad():
+        tk, tv, _, _ = tmodel.prefix_forward(*_targs(x)[:4])
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-4, rtol=0)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4, rtol=0)
 

@@ -41,10 +41,10 @@ def test_quantize_for_serving_modes():
         quantize_for_serving(model, target="policy", mode="int4")
     with pytest.raises(NotImplementedError):  # waits for the chat slice
         quantize_for_serving(model, target="vlm", mode="int8")
-    for buf in model.buffers():
-        buf.normal_(generator=torch.Generator().manual_seed(0))
+    for t in model.state_dict().values():
+        t.normal_(generator=torch.Generator().manual_seed(0))
     quantize_for_serving(model, target="policy", mode="int8")
-    names = {n for n, _ in model.named_buffers()}
+    names = set(model.state_dict())
     # the vlm mixture's kernels and the embedding pass the 4096 floor;
     # the ViT encoder is never matched
     assert "joint.layers.vlm.mlp.gate_proj.kernel_q" in names
@@ -53,6 +53,6 @@ def test_quantize_for_serving_modes():
     # tiny expert kernels fall under the floor and stay float
     assert "joint.layers.expert.k_proj.kernel" in names
     # already quantized: passes through unchanged
-    before = dict(model.named_buffers())
+    before = model.state_dict()
     quantize_for_serving(model, target="policy", mode="int8")
-    assert dict(model.named_buffers()).keys() == before.keys()
+    assert model.state_dict().keys() == before.keys()

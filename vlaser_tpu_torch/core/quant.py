@@ -4,8 +4,9 @@ vlaser_tpu/core/quant.py, `mode="int8"`).
 Matched kernels `[..., in, out]` get per-output-channel scales `[..., 1, out]`
 (reduce over `in`); embeddings `[V, H]` get per-row scales `[V, 1]`. Leaves
 under `min_size` elements stay as they are. The quantized tensors replace
-the float leaf in place: `kernel` -> `kernel_q` (int8) + `kernel_scale`
-(fp32), which `models.layers.Dense` / `Embed` dequantize inline. The w8a8
+the float parameter in place: `kernel` -> `kernel_q` (int8) + `kernel_scale`
+(fp32), frozen buffers that `models.layers.Dense` / `Embed` dequantize
+inline. The w8a8
 mode (int8 activations through an int8 tensor-core GEMM) is not ported yet.
 """
 
@@ -42,9 +43,10 @@ def is_quantized(model: nn.Module) -> bool:
                for name, _ in model.named_buffers())
 
 
+@torch.no_grad()
 def quantize_for_serving(model: nn.Module, target: str = "policy",
                          mode: str = "int8", min_size: int = 4096) -> nn.Module:
-    """Serving quantization in place: every `kernel` / `embedding` buffer
+    """Serving quantization in place: every `kernel` / `embedding` parameter
     that matches POLICY_PATTERNS becomes int8: the joint mixtures and the
     token embedding. Only target "policy" is ported. Already-quantized
     models pass through."""
@@ -61,7 +63,7 @@ def quantize_for_serving(model: nn.Module, target: str = "policy",
     regs = [re.compile(p) for p in POLICY_PATTERNS]
     for mod_name, mod in list(model.named_modules()):
         for leaf in ("kernel", "embedding"):
-            val = mod._buffers.get(leaf)
+            val = mod._parameters.get(leaf)
             if val is None or val.dim() < 2 or val.numel() < min_size:
                 continue
             path = "/".join(filter(None, [mod_name.replace(".", "/"), leaf]))
@@ -69,7 +71,7 @@ def quantize_for_serving(model: nn.Module, target: str = "policy",
                 continue
             q, s = quantize_int8(val, reduce_axis=-1 if leaf == "embedding"
                                  else -2)
-            del mod._buffers[leaf]
+            del mod._parameters[leaf]
             mod.register_buffer(leaf + "_q", q)
             mod.register_buffer(leaf + "_scale", s)
     return model

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -54,26 +54,43 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources if no library for their hash exists; -> path."""
+    """Compile the sources if no library for their hash exists; -> path.
+    One nvcc per source, all started together, then one link."""
     global last_build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libvlaser_kernels_{source_hash()}.so"
+    tag = source_hash()
+    out = BUILD_DIR / f"libvlaser_kernels_{tag}.so"
     if out.exists():
         last_build_seconds = 0.0
         return out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), *cus]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{cu.stem}_{tag}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+               str(cu)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{stderr[-8000:]}")
+    tmp = out.with_suffix(f".{pid}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (rc {proc.returncode}):\n{proc.stderr[-8000:]}")
     last_build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

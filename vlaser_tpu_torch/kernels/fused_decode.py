@@ -45,6 +45,7 @@ def _rope(v, cos, sin):
     return v * cos[:, None, :] + rot * sin[:, None, :]
 
 
+@torch.no_grad()  # an inference stack: no backward
 def fused_int8_stack_plain(x, cos, sin, self_mask, ext_mask, ln1, ln2,
                            bq, bk, bv, wq, sq, wk, sk, wv, sv, wo, so,
                            wg, sg, wu, su, wd, sd, k_ext, v_ext,
@@ -164,6 +165,7 @@ def _launch(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
     return x_out, k_self, v_self
 
 
+@torch.no_grad()  # an inference stack: no backward
 def fused_int8_stack(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
                      wq, sq, wk, sk, wv, sv, wo, so, wg, sg, wu, su, wd, sd,
                      k_ext, v_ext, eps: float = 1e-6):

@@ -60,6 +60,7 @@ def _attention(qs, ks, vs, B, S, heads):
     return o.permute(0, 2, 1, 3).reshape(B * S, C).to(torch.bfloat16)
 
 
+@torch.no_grad()  # an inference stack: no backward
 def fused_vit_stack_plain(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
                           qkvb, projb, fc1b, fc2b, qkvw, projw, fc1w, fc2w,
                           num_heads: int = 16, eps: float = 1e-6,
@@ -149,6 +150,7 @@ def _launch(x, vecs, mats, num_heads, eps, qk_norm):
     return out[0] if squeeze else out
 
 
+@torch.no_grad()  # an inference stack: no backward
 def fused_vit_stack(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
                     qkvb, projb, fc1b, fc2b, qkvw, projw, fc1w, fc2w,
                     qkvs=None, projs=None, fc1s=None, fc2s=None,
@@ -183,7 +185,7 @@ def pack_vit_stack(vision_model, dtype=torch.bfloat16) -> dict:
     enc = vision_model.encoder
     att = enc.attn
     L, hidden = enc.norm1.weight.shape
-    f32 = lambda t: t.float().contiguous()
+    f32 = lambda t: t.detach().float().contiguous()
     ones = torch.ones((L, hidden), dtype=torch.float32,
                       device=enc.norm1.weight.device)
     out = dict(
@@ -205,6 +207,6 @@ def pack_vit_stack(vision_model, dtype=torch.bfloat16) -> dict:
         if "kernel_q" in dense._buffers:
             w = dense.kernel_q.float() * dense.kernel_scale.float()
         else:
-            w = dense.kernel
+            w = dense.kernel.detach()
         out[name] = w.to(dtype).contiguous()
     return out

@@ -91,14 +91,20 @@ def make_attention_mask(
     device=None,
 ) -> Optional[torch.Tensor]:
     """Boolean [B, Sq, Skv] mask (True = attend): causal/window on global
-    positions, equal nonzero segment ids, kv_level <= q_level, kv_valid."""
+    positions (q_offset an int or a [B] tensor of per-row offsets), equal
+    nonzero segment ids, kv_level <= q_level, kv_valid."""
     allowed = None
 
     def _and(a, b):
         return b if a is None else a & b
 
     if causal or window is not None:
-        qpos = (q_offset + torch.arange(q_len, device=device)[:, None])[None]
+        qidx = torch.arange(q_len, device=device)
+        if torch.is_tensor(q_offset) and q_offset.dim() == 1:
+            # per-row offsets: [B, Sq, 1] global q positions
+            qpos = q_offset.to(device)[:, None, None] + qidx[None, :, None]
+        else:
+            qpos = (q_offset + qidx[:, None])[None]
         kpos = torch.arange(kv_len, device=device)[None, None, :]
         if causal:
             allowed = _and(allowed, qpos >= kpos)

@@ -3,9 +3,12 @@
 Public functions take NHWC pixels, as the JAX package does. The encoder's
 per-layer weights are stacked [L, ...] under `encoder` (the JAX scan
 layout), so `kernels.fused_vit.pack_vit_stack` reads them without copying
-layers together. `forward` is the plain layer loop (the oracle of the fused
-stack); bicubic position-embedding interpolation (non-native grids) is not
-ported yet.
+layers together. `forward` is the layer loop: the training path and the
+oracle of the fused serving stack. Its attention goes through
+`kernels.flash_attention.attention(impl=attn_impl)`; `remat=True` wraps each
+layer in `torch.utils.checkpoint` (the JAX `nn.remat`), so the backward
+recomputes a layer's activations instead of keeping them. Bicubic
+position-embedding interpolation (non-native grids) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels import ops
+from ..kernels.flash_attention import attention
 from .layers import Block, Dense, LayerNorm, RMSNorm
 
 
@@ -78,10 +82,11 @@ class InternVisionEncoder(Block):
     """All InternVisionLayers, weights stacked [L, ...]."""
 
     def __init__(self, cfg, param_dtype=torch.float32,
-                 compute_dtype=torch.bfloat16, device=None):
-        super().__init__(param_dtype, device)
+                 compute_dtype=torch.bfloat16, device=None,
+                 attn_impl: str = "auto"):
+        super().__init__(param_dtype, device, stacked=True)
         L, C = cfg.num_layers, cfg.hidden_size
-        self.cfg = cfg
+        self.cfg, self.attn_impl = cfg, attn_impl
         norm = (LayerNorm if cfg.norm_type == "layer_norm" else RMSNorm)
         self.norm1 = norm(C, cfg.layer_norm_eps, (L,), param_dtype, device)
         self.norm2 = norm(C, cfg.layer_norm_eps, (L,), param_dtype, device)
@@ -101,26 +106,27 @@ class InternVisionEncoder(Block):
             q = self.attn.q_norm(q, l)
             k = self.attn.k_norm(k, l)
         shape = (b, s, cfg.num_heads, cfg.head_dim)
-        out = ops.attention_reference(q.reshape(shape), k.reshape(shape),
-                                      v.reshape(shape))
+        out = attention(q.reshape(shape), k.reshape(shape), v.reshape(shape),
+                        causal=False, impl=self.attn_impl)
         h = self.attn.proj(out.reshape(b, s, C), l)
-        x = x + h * self.ls1[l].to(h.dtype)
+        x = x + h * self.leaf("ls1", l).to(h.dtype)
         h = self.norm2(x, l).to(x.dtype)
         h = self.mlp.fc2(F.gelu(self.mlp.fc1(h, l)), l)  # exact erf GELU
-        return x + h * self.ls2[l].to(h.dtype)
+        return x + h * self.leaf("ls2", l).to(h.dtype)
 
 
 class InternVisionModel(nn.Module):
     """Hidden states at `select_layer` (-1 = final layer output)."""
 
     def __init__(self, cfg, param_dtype=torch.float32,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None,
+                 remat: bool = False, attn_impl: str = "auto"):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.remat = cfg, remat
         self.embeddings = InternVisionEmbeddings(cfg, param_dtype,
                                                  compute_dtype, device)
         self.encoder = InternVisionEncoder(cfg, param_dtype, compute_dtype,
-                                           device)
+                                           device, attn_impl)
 
     def embed(self, pixel_values):
         """Patch conv + CLS + pos-emb: the fused stack's input."""
@@ -130,6 +136,10 @@ class InternVisionModel(nn.Module):
         n = self.cfg.num_layers
         stop = n if select_layer in (-1, n) else select_layer + n + 1
         x = self.embeddings(pixel_values)
+        remat = self.remat and torch.is_grad_enabled()
         for l in range(stop):
-            x = self.encoder.layer(x, l)
+            if remat:
+                x = checkpoint(self.encoder.layer, x, l, use_reentrant=False)
+            else:
+                x = self.encoder.layer(x, l)
         return x

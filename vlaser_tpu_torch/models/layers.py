@@ -1,62 +1,103 @@
 """Building blocks with the JAX package's parameter names
 (vlaser_tpu/models/layers.py).
 
-Weights are buffers (inference only). A block built for a scanned stack
+Float weights are `nn.Parameter`s (trainable); a `Dense` or `Embed` whose
+weight was quantized (core/quant.py) holds `kernel_q` / `embedding_q` int8
+plus a scale as buffers instead, frozen, and dequantizes inline in the
+compute dtype, as the JAX Dense does. A block built for a scanned stack
 holds every layer's weights stacked on a leading `[L]` axis, as the fused
-kernels consume them; `forward(x, layer)` picks one slice. A `Dense` whose
-kernel was quantized (core/quant.py) holds `kernel_q` int8 + `kernel_scale`
-and dequantizes inline in the compute dtype, as the JAX Dense does.
+kernels consume them; `forward(x, layer)` picks one slice. Inside
+`layer_slices(model)` each stacked parameter is cut into its L slices once
+for the whole pass, so the backward stacks the L slice gradients in one op
+(indexing per layer would add a zero-padded full-size gradient per layer).
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..kernels import ops
-
-
-def _pick(t: torch.Tensor, layer: Optional[int]) -> torch.Tensor:
-    return t if layer is None else t[layer]
+from ..kernels import ops, rmsnorm
 
 
 class Block(nn.Module):
-    """Module whose weights are buffers allocated from shapes up front."""
+    """Module whose weights are allocated from shapes up front. `stacked`:
+    every weight carries the scan's leading [L] axis."""
 
-    def __init__(self, param_dtype=torch.float32, device=None):
+    def __init__(self, param_dtype=torch.float32, device=None,
+                 stacked: bool = False):
         super().__init__()
         self.param_dtype = param_dtype
         self.device_ = device
+        self.stacked = stacked
+        self._slices: Optional[Dict[str, Sequence[torch.Tensor]]] = None
 
     def _alloc(self, name: str, shape: Sequence[int]):
-        self.register_buffer(name, torch.empty(
-            tuple(shape), dtype=self.param_dtype, device=self.device_))
+        self.register_parameter(name, nn.Parameter(torch.empty(
+            tuple(shape), dtype=self.param_dtype, device=self.device_)))
+
+    def leaf(self, name: str, layer: Optional[int] = None) -> torch.Tensor:
+        """Weight `name`, or its slice for `layer` of a stacked block."""
+        if layer is None:
+            return getattr(self, name)
+        if self._slices is not None and name in self._slices:
+            return self._slices[name][layer]
+        return getattr(self, name)[layer]
+
+
+@contextlib.contextmanager
+def layer_slices(model: nn.Module):
+    """Within the block, stacked parameters are read through one unbind per
+    parameter (see the module docstring)."""
+    blocks = [m for m in model.modules() if isinstance(m, Block) and m.stacked]
+    for m in blocks:
+        m._slices = {n: p.unbind(0) for n, p in m._parameters.items()}
+    try:
+        yield
+    finally:
+        for m in blocks:
+            m._slices = None
 
 
 class RMSNorm(Block):
+    """`impl` picks the route of kernels.rmsnorm.rms_norm ("auto": the
+    kernel for a CUDA tensor of >= 2048 rows x <= 2048, as the JAX dispatch
+    takes Pallas; "reference": the eager twin)."""
+
     def __init__(self, dim: int, eps: float = 1e-6, stack: Sequence[int] = (),
                  param_dtype=torch.float32, device=None):
-        super().__init__(param_dtype, device)
+        super().__init__(param_dtype, device, bool(stack))
         self.eps = eps
+        self.impl = "auto"
         self._alloc("weight", (*stack, dim))
 
     def forward(self, x, layer: Optional[int] = None):
-        return ops.rms_norm(x, _pick(self.weight, layer).to(x.dtype), self.eps)
+        w = self.leaf("weight", layer).to(x.dtype)
+        return rmsnorm.rms_norm(x, w, self.eps, impl=self.impl)
+
+
+def set_rms_impl(model: nn.Module, impl: str) -> nn.Module:
+    for m in model.modules():
+        if isinstance(m, RMSNorm):
+            m.impl = impl
+    return model
 
 
 class LayerNorm(Block):
     def __init__(self, dim: int, eps: float = 1e-6, stack: Sequence[int] = (),
                  param_dtype=torch.float32, device=None):
-        super().__init__(param_dtype, device)
+        super().__init__(param_dtype, device, bool(stack))
         self.eps = eps
         self._alloc("weight", (*stack, dim))
         self._alloc("bias", (*stack, dim))
 
     def forward(self, x, layer: Optional[int] = None):
-        return ops.layer_norm(x, _pick(self.weight, layer).float(),
-                              _pick(self.bias, layer).float(), self.eps)
+        return ops.layer_norm(x, self.leaf("weight", layer).float(),
+                              self.leaf("bias", layer).float(), self.eps)
 
 
 class Dense(Block):
@@ -65,7 +106,7 @@ class Dense(Block):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  stack: Sequence[int] = (), param_dtype=torch.float32,
                  compute_dtype=torch.bfloat16, device=None):
-        super().__init__(param_dtype, device)
+        super().__init__(param_dtype, device, bool(stack))
         self.use_bias = use_bias
         self.compute_dtype = compute_dtype
         self._alloc("kernel", (*stack, in_features, features))
@@ -78,14 +119,14 @@ class Dense(Block):
         if "kernel_q" in self._buffers:
             # int8 -> cd is exact, so one mixed-dtype multiply rounds exactly
             # as kq.to(cd) * ks.to(cd) does, in one pass over the weight
-            return _pick(self.kernel_q, layer) * _pick(self.kernel_scale,
-                                                       layer).to(cd)
-        return _pick(self.kernel, layer).to(cd)
+            return self.leaf("kernel_q", layer) * self.leaf(
+                "kernel_scale", layer).to(cd)
+        return self.leaf("kernel", layer).to(cd)
 
     def forward(self, x, layer: Optional[int] = None):
         y = torch.matmul(x.to(self.compute_dtype), self.weight(layer))
         if self.use_bias:
-            y = y + _pick(self.bias, layer).to(y.dtype)
+            y = y + self.leaf("bias", layer).to(y.dtype)
         return y
 
 
@@ -105,18 +146,23 @@ class Embed(Block):
         return self.embedding[ids].to(self.dtype)
 
 
+def _leaves(mod: nn.Module):
+    """(name, tensor) of a module's own parameters and buffers."""
+    return itertools.chain(mod._parameters.items(), mod._buffers.items())
+
+
 @torch.no_grad()
 def init_normal_(model: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
-    """Fill every floating buffer with N(0, std^2) draws from `generator`
-    (drawn in fp32 on the buffer's device, then cast)."""
+    """Fill every floating parameter and buffer with N(0, std^2) draws from
+    `generator` (drawn in fp32 on the tensor's device, then cast)."""
     for _, mod in model.named_modules():
-        for name, buf in list(mod._buffers.items()):
-            if buf is None or not buf.is_floating_point():
+        for _, t in list(_leaves(mod)):
+            if t is None or not t.is_floating_point():
                 continue
-            r = torch.randn(buf.shape, generator=generator, dtype=torch.float32,
-                            device=buf.device)
-            buf.copy_((r * std).to(buf.dtype))
+            r = torch.randn(t.shape, generator=generator, dtype=torch.float32,
+                            device=t.device)
+            t.copy_((r * std).to(t.dtype))
     return model
 
 
@@ -127,27 +173,29 @@ _QUANT_OF = {"kernel_q": "kernel", "kernel_scale": "kernel",
 @torch.no_grad()
 def load_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
     """Load a flat {dotted name: tensor} state (utils/convert.py) into the
-    model's buffers. Float leaves keep the model's dtype; int8 leaves and
-    their scales replace the float leaf they quantize. Every buffer must be
-    covered and every key must name one."""
+    model. Float leaves are copied into the model's parameters (their dtype
+    and identity kept); int8 leaves and their scales become buffers that
+    replace the float parameter they quantize. Every parameter and buffer
+    must be covered and every key must name one."""
     seen = set()
     for key, val in state.items():
         mod_name, _, leaf = key.rpartition(".")
         mod = model.get_submodule(mod_name)
-        device = next(iter(mod._buffers.values())).device
+        device = next(t for _, t in _leaves(mod) if t is not None).device
         if leaf in _QUANT_OF:
-            mod._buffers.pop(_QUANT_OF[leaf], None)
+            mod._parameters.pop(_QUANT_OF[leaf], None)
             mod.register_buffer(leaf, val.to(device))
         else:
-            if leaf not in mod._buffers:
-                raise KeyError(f"{key}: no such buffer in the model")
-            cur = mod._buffers[leaf]
+            cur = dict(_leaves(mod)).get(leaf)
+            if cur is None:
+                raise KeyError(f"{key}: no such weight in the model")
             if tuple(cur.shape) != tuple(val.shape):
                 raise ValueError(f"{key}: shape {tuple(val.shape)} != "
                                  f"{tuple(cur.shape)}")
-            mod.register_buffer(leaf, val.to(device=device, dtype=cur.dtype))
+            cur.copy_(val)
         seen.add(key)
-    missing = [n for n, _ in model.named_buffers() if n not in seen]
+    names = itertools.chain(model.named_parameters(), model.named_buffers())
+    missing = [n for n, _ in names if n not in seen]
     if missing:
         raise KeyError(f"state misses {missing[:8]}")
     return model

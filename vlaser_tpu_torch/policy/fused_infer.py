@@ -35,7 +35,7 @@ def pack_expert_stack(model) -> dict:
         if "kernel_q" in dense._buffers:
             return (dense.kernel_q.contiguous(),
                     dense.kernel_scale.float().contiguous())
-        q, s = quantize_int8(dense.kernel, reduce_axis=-2)
+        q, s = quantize_int8(dense.kernel.detach(), reduce_axis=-2)
         return q.contiguous(), s.contiguous()
 
     out = {}
@@ -45,12 +45,14 @@ def pack_expert_stack(model) -> dict:
         out["w" + name], out["s" + name] = wpair(dense)
     for name, dense in (("bq", p.q_proj), ("bk", p.k_proj), ("bv", p.v_proj)):
         n = out["w" + name[1]].shape[-1]
-        out[name] = (dense.bias.float().contiguous() if dense.use_bias else
+        out[name] = (dense.bias.detach().float().contiguous()
+                     if dense.use_bias else
                      torch.zeros(out["wq"].shape[0], n, dtype=torch.float32,
                                  device=out["wq"].device))
-    out["ln1"] = p.input_layernorm.weight.float().contiguous()
-    out["ln2"] = p.post_attention_layernorm.weight.float().contiguous()
-    out["final_norm"] = model.joint.expert_norm.weight.float()
+    f32 = lambda t: t.detach().float().contiguous()
+    out["ln1"] = f32(p.input_layernorm.weight)
+    out["ln2"] = f32(p.post_attention_layernorm.weight)
+    out["final_norm"] = f32(model.joint.expert_norm.weight)
     return out
 
 

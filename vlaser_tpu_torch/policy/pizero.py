@@ -1,16 +1,19 @@
 """PiZero-style flow-matching VLA, internvl backbone (port of
 vlaser_tpu/policy/pizero.py).
 
-`infer_action` is the plain oracle of the serving path: one joint
-vlm+proprio prefix pass producing per-layer K/V, then num_inference_steps
-Euler steps over the action suffix. Ported: the encoders, `vit_embed`,
-`fuse_vit_features`, the prefix passes, `denoise_step`, `infer_action`.
-Not ported yet: the PaliGemma backbone, vision-in-expert, adaLN, the text
-head (`infer_text`, `forward_vlm`) and the flow-matching loss.
+`forward` is the flow-matching training loss: psi_t = (1 - (1 - sig_min)
+t) x0 + t x1 through the joint `train` pass, then the mean of
+(v_psi - (x1 - (1 - sig_min) x0))^2. `infer_action` is the plain oracle of
+the serving path: one joint vlm+proprio prefix pass producing per-layer
+K/V, then num_inference_steps Euler steps over the action suffix.
+`attn_impl` and `remat` are the JAX constructor flags: they reach the ViT
+and the joint stack. Not ported yet: the PaliGemma backbone,
+vision-in-expert, adaLN and the text head (`infer_text`, `forward_vlm`).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -19,7 +22,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..models.internvit import InternVisionModel
-from ..models.layers import Dense, Embed
+from ..models.layers import Dense, Embed, layer_slices
 from ..models.vlm import MLP1, scatter_image_embeds
 from .joint import JointModel
 
@@ -55,7 +58,8 @@ class ActionEncoder(nn.Module):
 
 class PiZeroVLA(nn.Module):
     def __init__(self, cfg, param_dtype=torch.float32,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None,
+                 remat: bool = False, attn_impl: str = "auto"):
         super().__init__()
         if cfg.backbone != "internvl":
             raise NotImplementedError("only the internvl backbone is ported")
@@ -66,12 +70,14 @@ class PiZeroVLA(nn.Module):
         self.compute_dtype = compute_dtype
         vlm, expert = cfg.vlm, cfg.expert
         pd, cd = param_dtype, compute_dtype
-        self.vision_model = InternVisionModel(vlm.vision, pd, cd, device)
+        self.vision_model = InternVisionModel(vlm.vision, pd, cd, device,
+                                              remat, attn_impl)
         self.mlp1 = MLP1(vlm.vit_proj_in_dim, vlm.llm.hidden_size, pd, cd,
                          device)
         self.embed_tokens = Embed(vlm.llm.vocab_size, vlm.llm.hidden_size,
                                   pd, cd, device)
-        self.joint = JointModel(vlm.llm, expert, pd, cd, device)
+        self.joint = JointModel(vlm.llm, expert, pd, cd, device,
+                                remat=remat, attn_impl=attn_impl)
         self.proprio_encoder = Dense(
             cfg.cond_steps * cfg.proprio_dim // cfg.num_proprio_tokens,
             expert.hidden_size, True, (), pd, cd, device)
@@ -82,7 +88,14 @@ class PiZeroVLA(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return next(self.buffers()).device
+        return next(itertools.chain(self.parameters(),
+                                    self.buffers())).device
+
+    def set_attn_impl(self, impl: str) -> None:
+        """Route the ViT's and the joint stack's attention ("auto" |
+        "kernel" | "reference"), as the constructor flag does."""
+        self.vision_model.encoder.attn_impl = impl
+        self.joint.attn_impl = impl
 
     # -- embeddings ------------------------------------------------------
     def vit_embed(self, pixel_values):
@@ -145,6 +158,34 @@ class PiZeroVLA(nn.Module):
         return self.proprio_encoder(
             proprios.reshape(b, cfg.num_proprio_tokens, -1)
             .to(self.compute_dtype))
+
+    # -- flow-matching training forward -----------------------------------
+    def forward(self, input_ids, pixel_values, text_mask, proprios, actions,
+                t, x0):
+        """ids [B, S_it], pixels [T, H, W, 3], text_mask [B, S_it] (1 =
+        valid), proprios [B, cond_steps, proprio_dim], actions / x0 [B,
+        num_action_tokens, action_dim], t [B] -> scalar fp32 loss."""
+        cfg = self.cfg
+        b, dev = input_ids.shape[0], input_ids.device
+        x1 = actions
+        tt = t[:, None, None]
+        psi_t = (1.0 - (1.0 - cfg.flow_sig_min) * tt) * x0 + tt * x1
+        with layer_slices(self):
+            embeds_vlm = self._image_text_embeds(input_ids, pixel_values)
+            action_embeds = self.action_encoder(psi_t.to(self.compute_dtype),
+                                                self._time_embed(t))
+            x_pa = torch.cat([self._proprio(proprios), action_embeds], dim=1)
+            vlm_pos, p_pos, a_pos = self._positions(b, dev)
+            cos_v, sin_v = self._rope(vlm_pos, cfg.vlm.llm.rope_theta)
+            cos_pa, sin_pa = self._rope(torch.cat([p_pos, a_pos], dim=1),
+                                        cfg.expert.rope_theta)
+            seg, lev = self._meta(text_mask, include_action=True)
+            _, pa_out = self.joint("train", embeds_vlm, x_pa, cos_v, sin_v,
+                                   cos_pa, sin_pa, seg, lev)
+            v_psi = self.action_decoder(
+                pa_out[:, cfg.num_proprio_tokens:]).float()
+        d_psi = (x1 - (1.0 - cfg.flow_sig_min) * x0).float()
+        return ((v_psi - d_psi) ** 2).mean()
 
     # -- cached inference --------------------------------------------------
     def prefix_forward_from_embeds(self, embeds_vlm, text_mask, proprios):

@@ -16,8 +16,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from vlaser_tpu.image.tiling import normalize_uint8
-
+from ..image.tiling import normalize_uint8
 from ..models.layers import load_state
 
 
