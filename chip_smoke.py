@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
-all started together, sm_90a), then drives the port's two paths at the full
+all started together, sm_90a), then drives the port's paths at the full
 width and depth of Vlaser-2B-VLA with random weights from seeded
 generators:
 
-Serving (bf16 weights N(0, 0.02^2), int8 weight-only quantization):
+Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
+quantize_for_serving(mode="int8")):
   1. each serving kernel at the control step's shapes against its plain
      twin on the same CUDA tensors (fused_vit_stack 1x1025x1024 L=24;
      fused_int8_stack R=5 ext=384 and R=4 ext=385), timed. The model's
@@ -21,9 +22,30 @@ Serving (bf16 weights N(0, 0.02^2), int8 weight-only quantization):
      before and read just after;
   3. the fused actions against the plain infer_action oracle (<= 2e-2 max
      abs, the bound of bench.py's policy_infer_b1 gate), and the control
-     step timed on both paths.
+     step timed on both paths; one fused step under torch.profiler.
+Serving, w8a8 (the default: quantize_for_serving(target="policy")):
+  4. quantize_rows and int8_gemm at the VLM prefix's 7 GEMM shapes (384
+     and 3,072 rows) against their plain versions: int8 rows bit-identical,
+     each y within one fp32 rounding; controls (half-away rounding on a row
+     of exact .5 ties, row scale dropped, column scale dropped) must break
+     the checks; timed against the plain versions and torch._int_mm;
+  5. fused_vit_stack in act_quant mode at batch 1 and batch 8 against its
+     twin, with phase 1's visible draws and bound; controls (input
+     unchanged, activation scale dropped, MLP dropped, and at batch 8 fc2
+     quantized as one group on weights whose fc1 halves differ 40x) must
+     break it; timed, with the bound at the int8 and bf16 peaks;
+  6. the two main paths, counters zeroed just before and read just after
+     each, held to the counts the code implies: the fused PolicyServer
+     (reset + 3 steps) and make_batched_infer_action at batch 8 (3 calls);
+  7. bench.py's parity gates: fused vs plain at batch 1 (2e-2), w8a8 vs
+     the unquantized bf16 model (2.5e-2), fused-ViT prefix K/V vs the plain
+     encoder's (0.2), batched vs plain at batch 8 with distinct pixels and
+     noise per row (2e-2);
+  8. the w8a8 control step at batch 1 (median of 10) and batch 8 (median
+     of 5), its stages, actions/s and peak device memory; one step of each
+     under torch.profiler (device time by kernel group, idle share).
 Training (fp32 parameters, bf16 compute, remat, batch 32):
-  4. flash attention forward and backward at the ViT shape (B 32, S 1025,
+  9. flash attention forward and backward at the ViT shape (B 32, S 1025,
      16/16 heads x 64, non-causal) and the joint shape (B 32, S 389, 12/2
      heads x 128, levels [0 x 384 | 1 | 2 x 4], a padded prompt tail of 60
      tokens), plus a causal block with q_offset > 0 at the joint widths,
@@ -31,10 +53,12 @@ Training (fp32 parameters, bf16 compute, remat, batch 32):
      unmasked, scale dropped, causal or q_offset dropped) must break the
      bounds. Timed against the plain version and PyTorch's
      scaled_dot_product_attention (a yardstick the port never calls);
-  5. RMSNorm forward and backward at 12,288 x 1536 bf16 against the plain
-     version; controls (w ignored, the x * sum term of dx dropped). Timed
-     against the plain version and torch.nn.functional.rms_norm;
-  6. the train step: a parity gate (one loss + backward on the kernel path
+  10. RMSNorm forward and backward at 12,288 x 1536 bf16 against the plain
+     version, and the forward again at the batch-8 serving prefix's 3,072 x
+     1536 under inference_mode; controls (w ignored, the x * sum term of dx
+     dropped). Timed against the plain version and
+     torch.nn.functional.rms_norm;
+  11. the train step: a parity gate (one loss + backward on the kernel path
      and one on the reference attention and RMSNorm, same weights, batch,
      t and x0: loss and each optimizer group's gradient norm), then 3
      VLATrainer.train_steps with VLATrainConfig() defaults, launch counters
@@ -76,6 +100,14 @@ LOSS_REL, GNORM_REL = 2e-3, 5e-3
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 without
 # tensor cores, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_INT8 = 1979e12  # int8 tensor cores, dense (operations/s)
+# w8a8 (bench.py's bounds): fused vs plain actions at batch 8, w8a8 vs the
+# unquantized bf16 model, fused-ViT prefix K/V vs the plain encoder's
+PARITY_B8_TOL, W8A8_VS_BF16_TOL, VIT_KV_TOL = 2e-2, 2.5e-2, 0.2
+# int8_gemm vs its plain version on the same int8 rows: the integer
+# products are exact on both sides, so each y within one fp32 rounding
+ONE_ROUNDING = 2.0 ** -23
+B8 = 8  # the multi-robot serving batch (bench.py's batch-8 step)
 
 
 def _card() -> str:
@@ -102,10 +134,100 @@ def _ms(torch, fn, iters, warmup=1):
     return statistics.median(times)
 
 
+SLEEP_CYCLES = 100_000_000  # ~50 ms of a device sleep at H100 clocks
+
+
+def _kernel_ms(torch, fn, iters):
+    """Device ms of one call of fn: after a warm-up call, a sleep kernel
+    holds the stream while the host queues `iters` calls, so the events
+    around them time the device, not the host's launch overhead (which
+    per-call events of a short kernel would measure instead). If the sleep
+    is still running once all are queued, there was no gap. Else (a long
+    call whose launches fill the launch queue, which blocks the host until
+    the device catches up, or a host slower than the device) the time is
+    taken again with a marker event after each call: before a call is
+    queued, the marker of the call before it (the start event, for the
+    first) must still be pending, or the device ran dry. After two such
+    tries (the second with a sleep 4x as long) that both saw a gap, the
+    last time is returned and a line says it holds host gaps. Markers cost
+    the device a few us a call, so short calls are timed without them."""
+    fn()
+    torch.cuda.synchronize()
+    ms, gap = _queued_ms(torch, fn, iters, SLEEP_CYCLES, markers=False)
+    for cycles in (SLEEP_CYCLES, 4 * SLEEP_CYCLES):
+        if not gap:
+            return ms
+        ms, gap = _queued_ms(torch, fn, iters, cycles, markers=True)
+    if gap:
+        print(f"  (the time taken at chip_smoke.py:"
+              f"{sys._getframe(1).f_lineno} holds host gaps: the host queues "
+              f"this call slower than the device runs it)", flush=True)
+    return ms
+
+
+def _queued_ms(torch, fn, iters, cycles, markers):
+    """-> (device ms a call over `iters` calls queued behind a sleep, whether
+    the device may have run dry while they were queued)."""
+    torch.cuda._sleep(cycles)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    mark, gap = s, False
+    for _ in range(iters):
+        if markers:
+            gap = gap or mark.query()
+        fn()
+        if markers:
+            mark = torch.cuda.Event()
+            mark.record()
+    if not markers:
+        gap = s.query()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters, gap
+
+
 def _bound(flops, nbytes, peak_flops):
     """-> (least ms for the work on an H100, what bounds it)."""
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return _bound_s(flops / peak_flops, nbytes)
+
+
+def _bound_s(ops_seconds, nbytes):
+    """As _bound, for work whose operations run at several peaks: the
+    seconds those operations need at their peaks, summed by the caller."""
+    t_ops, t_bytes = ops_seconds * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _counters():
+    """Every kernel wrapper's launch counter: name -> (module, attribute)."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import fused_decode, fused_vit, rmsnorm, w8a8
+
+    return {"fused_vit_stack": (fused_vit, "launch_count"),
+            "fused_vit_stack_w8a8": (fused_vit, "act_quant_launch_count"),
+            "fused_int8_stack": (fused_decode, "launch_count"),
+            "quantize_rows": (w8a8, "quant_launch_count"),
+            "int8_gemm": (w8a8, "gemm_launch_count"),
+            "flash_attention_fwd": (fa, "fwd_launch_count"),
+            "flash_attention_bwd": (fa, "bwd_launch_count"),
+            "_rms_fwd": (rmsnorm, "fwd_launch_count"),
+            "_rms_bwd": (rmsnorm, "bwd_launch_count")}
+
+
+def _zero_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def _read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def _gate(name, got, ref, x_in, controls):
@@ -234,8 +356,9 @@ def serving_phases(torch, np, dev, cfg, tag, report):
                         "attention dropped": plain(ls1=0 * vs["ls1"]),
                         "MLP dropped": plain(ls2=0 * vs["ls2"])})
         torch.cuda.synchronize()
-        ms = _ms(torch, lambda: fused_vit.fused_vit_stack(emb, **vs, **kw), 10)
-        plain_ms = _ms(torch, plain, 3)
+        ms = _kernel_ms(torch, lambda: fused_vit.fused_vit_stack(
+            emb, **vs, **kw), 10)
+        plain_ms = _kernel_ms(torch, plain, 3)
         print(f"fused_vit_stack time: kernel {ms:.3f} ms, plain twin "
               f"{plain_ms:.3f} ms {tag}", flush=True)
         S_v, L_v = emb.shape[0], vcfg.num_layers
@@ -307,8 +430,9 @@ def serving_phases(torch, np, dev, cfg, tag, report):
             if not ce > KV0_TOL * ref[1][0].float().abs().max().item():
                 raise RuntimeError(f"{tag_r}: the bound cannot see the rope")
             torch.cuda.synchronize()
-            ms = _ms(torch, lambda: run(fused_decode.fused_int8_stack), 20)
-            plain_ms = _ms(torch, plain, 3)
+            ms = _kernel_ms(torch, lambda: run(fused_decode.fused_int8_stack),
+                            20)
+            plain_ms = _kernel_ms(torch, plain, 3)
             print(f"fused_int8_stack R={rows} time: kernel {ms:.3f} ms, "
                   f"plain twin {plain_ms:.3f} ms {tag}", flush=True)
             dec[f"ms_r{rows}"], dec[f"plain_ms_r{rows}"] = ms, plain_ms
@@ -344,12 +468,10 @@ def serving_phases(torch, np, dev, cfg, tag, report):
     obs = {"agent": {"eef_pos": np.array([0.1, 0.0, 0.2, 1, 0, 0, 0, 0.5],
                                          np.float32)}}
     torch.cuda.synchronize()
-    fused_vit.launch_count = 0
-    fused_decode.launch_count = 0
+    _zero_counts()
     chunks = [server.step(obs, f) for f in frames]
     torch.cuda.synchronize()
-    launches = {"fused_vit_stack": fused_vit.launch_count,
-                "fused_int8_stack": fused_decode.launch_count}
+    launches = {k: v for k, v in _read_counts().items() if v}
     for i, c in enumerate(chunks):
         print(f"step {i}: env actions {c.shape} finite "
               f"{bool(np.isfinite(c).all())} first {np.round(c[0], 4).tolist()}",
@@ -387,6 +509,9 @@ def serving_phases(torch, np, dev, cfg, tag, report):
         embeds = model.fuse_vit_features(inputs[0], emb[None])
         prefix_ms = _ms(torch, lambda: model.vlm_prefix_from_embeds(
             embeds, inputs[2]), 10)
+        # the int8 step's device time and idle share, beside the w8a8 one's
+        _profile(torch, lambda: server._infer(*inputs), "int8 batch-1 step",
+                 tag)
     print(f"control step (batch 1, median, CUDA events): fused "
           f"{step_ms:.3f} ms, plain infer_action {plain_step_ms:.3f} ms "
           f"{tag}", flush=True)
@@ -405,7 +530,430 @@ def serving_phases(torch, np, dev, cfg, tag, report):
     return launches
 
 
-# -- training: phase 4, flash attention ----------------------------------------
+# -- serving w8a8: phases 4-8 ------------------------------------------------
+def _tie_row(torch, K, dev):
+    """127 at column 0 (so 127 / amax = 1), exact .5 ties elsewhere: half to
+    even and half away from zero round them differently."""
+    row = (torch.arange(K, device=dev) % 120 - 60 + 0.5).float()
+    row[0] = 127.0
+    return row
+
+
+def gemm_phase(torch, model, dev, tag, report):
+    """K1 (quantize_rows) and K2 (int8_gemm) at the prefix's 7 shapes per
+    layer (layer 0's int8 weights), at 384 rows (batch 1) and 3,072 (batch
+    8), against the plain versions, with controls; timed against the plain
+    versions and torch._int_mm."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    vlm = model.joint.layers.vlm
+    sites = (("q_proj", vlm.q_proj), ("k_proj", vlm.k_proj),
+             ("v_proj", vlm.v_proj), ("o_proj", vlm.o_proj),
+             ("gate_proj", vlm.mlp.gate_proj), ("up_proj", vlm.mlp.up_proj),
+             ("down_proj", vlm.mlp.down_proj))
+    S = model.cfg.max_image_text_tokens
+    out = {}
+    for rows in (S, B8 * S):
+        # sums over the 7 shapes; "by": bound ms per bounding resource
+        k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "by": {}, "library_ms": None}
+        k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "by": {}, "library_ms": 0.0, "torch_w8a8_ms": 0.0}
+        for name, d in sites:
+            kq, ks = d.kernel_q[0], d.kernel_scale[0]  # [K, N], [1, N]
+            K, N = kq.shape
+            x = torch.randn(rows, K, generator=g, device=dev)
+            x[0] = _tie_row(torch, K, dev)
+            x[1] = 0.0
+            x = x.to(torch.bfloat16)
+            what = f"w8a8 {name} {rows}x{K} -> {N}"
+            q, am = w8a8.quantize_rows(x)
+            y = w8a8.int8_gemm(q, am, kq, ks)
+            yb = w8a8.int8_gemm(q, am, kq, ks, torch.bfloat16)
+            torch.cuda.synchronize()
+            p_q, p_am = w8a8.quantize_rows_plain(x)
+            p_y = w8a8.int8_gemm_plain(p_q, p_am, kq, ks)
+            bad_q = int((q != p_q).sum())
+            excess = ((y - p_y).abs() - ONE_ROUNDING * p_y.abs()).max().item()
+            err = (y - p_y).abs().max().item()
+            print(f"{what}: int8 rows differing {bad_q}, am equal "
+                  f"{torch.equal(am, p_am)}; y max_abs_err {err:.3e} (each "
+                  f"within one fp32 rounding: {excess <= 0}); bf16 out = "
+                  f"fp32 out rounded: {torch.equal(yb, y.to(torch.bfloat16))}",
+                  flush=True)
+            if bad_q or not torch.equal(am, p_am) or excess > 0 or \
+                    not torch.equal(yb, y.to(torch.bfloat16)):
+                raise RuntimeError(f"{what}: kernel disagrees with plain")
+            # controls: each must break its check
+            v = x.float() * (torch.full_like(p_am, 127.0) / p_am)
+            away = (torch.sign(v) * torch.floor(v.abs() + 0.5)).to(torch.int8)
+            brk = {"half-away rounding": int((away != q).sum()),
+                   "row scale dropped": (w8a8.int8_gemm_plain(
+                       p_q, torch.full_like(p_am, 127.0), kq, ks) - y).abs(),
+                   "column scale dropped": (w8a8.int8_gemm_plain(
+                       p_q, p_am, kq, torch.ones_like(ks)) - y).abs()}
+            for c in ("row scale dropped", "column scale dropped"):
+                brk[c] = int((brk[c] > ONE_ROUNDING * p_y.abs()).sum())
+            if rows == S and name == "q_proj":
+                print(f"  controls, elements breaking the check (must be > "
+                      f"0): {brk}", flush=True)
+            if min(brk.values()) == 0:
+                raise RuntimeError(f"{what}: a control passes the check {brk}")
+            k1["max_abs_err"] = max(k1["max_abs_err"], float(bad_q))
+            k2["max_abs_err"] = max(k2["max_abs_err"], err)
+
+            # timing: the main path's call (bf16 out)
+            t1 = _kernel_ms(torch, lambda: w8a8.quantize_rows(x), 20)
+            t2 = _kernel_ms(torch, lambda: w8a8.int8_gemm(q, am, kq, ks,
+                                                   torch.bfloat16), 20)
+            p1 = _kernel_ms(torch, lambda: w8a8.quantize_rows_plain(x), 5)
+            p2 = _kernel_ms(torch, lambda: w8a8.int8_gemm_plain(
+                p_q, p_am, kq, ks, torch.bfloat16), 5)
+            kq_lib = kq
+            try:
+                torch._int_mm(q, kq_lib)
+            except RuntimeError:  # cuBLASLt's int8 GEMM wants B column-major
+                kq_lib = kq.t().contiguous().t()
+            lib = _kernel_ms(torch, lambda: torch._int_mm(q, kq_lib), 20)
+
+            def torch_w8a8():
+                xf = x.float()
+                a = xf.abs().amax(-1, keepdim=True).clamp_min(1e-9)
+                qa = torch.round(xf * (127.0 / a)).to(torch.int8)
+                return (torch._int_mm(qa, kq_lib).float() * (a * (1 / 127))
+                        * ks).to(torch.bfloat16)
+
+            tw = _kernel_ms(torch, torch_w8a8, 20)
+            b1_ms, b1_by = _bound_s(0, rows * K * 3 + rows * 4)
+            b2_ms, b2_by = _bound(2 * rows * K * N, rows * K + K * N + N * 4
+                                  + rows * 4 + rows * N * 2, PEAK_INT8)
+            for rep, t, pt, bd, by in ((k1, t1, p1, b1_ms, b1_by),
+                                       (k2, t2, p2, b2_ms, b2_by)):
+                rep["ms"] += t
+                rep["plain_ms"] += pt
+                rep["bound_ms"] += bd
+                rep["by"][by] = rep["by"].get(by, 0.0) + bd
+            k2["library_ms"] += lib
+            k2["torch_w8a8_ms"] += tw
+            print(f"  {what} time: quantize_rows {t1:.4f} ms (plain {p1:.4f},"
+                  f" bound {b1_ms:.4f}), int8_gemm {t2:.4f} ms (plain "
+                  f"{p2:.3f}, bound {b2_ms:.4f}, torch._int_mm {lib:.4f}; "
+                  f"torch w8a8 in eager ops {tw:.4f}) {tag}", flush=True)
+        for rep in (k1, k2):
+            by = rep.pop("by")
+            rep["bound_by"] = max(by, key=by.get)
+        print(f"w8a8 one layer's 7 prefix GEMMs at {rows} rows: quantize_rows "
+              f"{k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}), int8_gemm "
+              f"{k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, "
+              f"{k2['bound_by']}), torch._int_mm {k2['library_ms']:.4f} ms "
+              f"{tag}", flush=True)
+        out[rows] = (k1, k2)
+    (k1, k2), (k1b8, k2b8) = out[S], out[B8 * S]
+    k1["b8"], k2["b8"] = k1b8, k2b8
+    report["quantize_rows"], report["int8_gemm"] = k1, k2
+
+
+def vit_w8a8_phase(torch, model, dev, frames8, tag, report):
+    """fused_vit_stack act_quant vs its twin at batch 1 and batch 8 on the
+    model's int8 encoder weights, with the kernel phase's visible norms."""
+    from contextlib import contextmanager
+
+    from vlaser_tpu_torch.kernels import fused_vit, w8a8
+    from vlaser_tpu_torch.kernels.fused_vit import (fused_vit_stack,
+                                                    fused_vit_stack_plain,
+                                                    pack_vit_stack)
+
+    @contextmanager
+    def patched(**over):  # a wrong twin for a control
+        old = {k: getattr(fused_vit, k) for k in over}
+        for k, v in over.items():
+            setattr(fused_vit, k, v)
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                setattr(fused_vit, k, v)
+
+    def qdot_no_row_scale(a, w8, s):
+        q, _ = w8a8.quantize_rows_plain(a)
+        return w8a8.int_mm_exact(q, w8) * s.float()
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    vcfg = model.cfg.vlm.vision
+    C, L, inter = vcfg.hidden_size, vcfg.num_layers, vcfg.intermediate_size
+    vs = pack_vit_stack(model.vision_model)
+    if vs.pop("act_quant", False) is not True:
+        raise RuntimeError("the w8a8 encoder did not pack to act_quant")
+    vs["qkvs"] = vs["qkvs"].clone()
+    vs["qkvs"][:, :2 * C] *= 4
+    for k in ("ln1w", "ln2w", "qnw", "knw"):
+        vs[k] = 1 + 0.1 * rnd(*vs[k].shape)
+    for k in ("ln1b", "ln2b"):
+        vs[k] = 0.1 * rnd(*vs[k].shape)
+    for k in ("ls1", "ls2"):
+        vs[k] = 0.1 * (1 + 0.1 * rnd(*vs[k].shape))
+    kw = dict(num_heads=vcfg.num_heads, eps=vcfg.layer_norm_eps,
+              qk_norm=vcfg.qk_normalization, act_quant=True)
+    # fc2's groups matter when the two halves of the GELU output differ in
+    # size: fc1's second half x40 (int8 fc2 rows of that half / 40)
+    half = inter // 2
+    vg = dict(vs)
+    vg["fc1s"], vg["fc1b"] = vs["fc1s"].clone(), vs["fc1b"].clone()
+    vg["fc1s"][:, half:] *= 40
+    vg["fc1b"][:, half:] *= 40
+    vg["fc2w"] = vs["fc2w"].clone()
+    vg["fc2w"][:, half:] = (vs["fc2w"][:, half:].float() / 40).round().to(
+        torch.int8)
+    rep = {}
+    with torch.inference_mode():
+        for B in (1, B8):
+            emb = model.vit_embed(frames8[:B]).to(torch.bfloat16).contiguous()
+            x = emb[0] if B == 1 else emb
+            got = fused_vit_stack(x, **vs, **kw)
+            torch.cuda.synchronize()
+            plain = lambda v=vs, **o: fused_vit_stack_plain(x, **{**v, **o},
+                                                            **kw)
+            with patched(_qdot=qdot_no_row_scale):
+                no_row_scale = plain()
+            what = f"fused_vit_stack act_quant {tuple(x.shape)} L={L}"
+            err = _gate(what, got, plain(), x, {
+                "input unchanged": x,
+                "activation scale dropped": no_row_scale,
+                "MLP dropped": plain(ls2=0 * vs["ls2"])})
+            del no_row_scale
+            if B > 1:
+                got_g = fused_vit_stack(x, **vg, **kw)
+                with patched(_fc2_groups=lambda b: 1):
+                    one_group = plain(vg)
+                err = max(err, _gate(what + " fc1 halves x1/x40", got_g,
+                                     plain(vg), x,
+                                     {"fc2 quantized as one group":
+                                      one_group}))
+                del got_g, one_group
+            torch.cuda.synchronize()
+            ms = _kernel_ms(torch, lambda: fused_vit_stack(x, **vs, **kw),
+                     10 if B == 1 else 5)
+            plain_ms = _kernel_ms(torch, plain, 1)
+            S_v, M = emb.shape[1], B * emb.shape[1]
+            ops_s = (2 * M * L * (4 * C * C + 2 * C * inter) / PEAK_INT8
+                     + 4 * B * S_v * S_v * C * L / PEAK_BF16)
+            nbytes = (sum(v.numel() * v.element_size() for v in vs.values())
+                      + 2 * x.numel() * 2)
+            bound_ms, bound_by = _bound_s(ops_s, nbytes)
+            print(f"{what} time: kernel {ms:.3f} ms, plain twin "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+                  f"{tag}", flush=True)
+            rep[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+    rep[1]["b8"] = rep[B8]
+    report["fused_vit_stack_w8a8"] = rep[1]
+
+
+def w8a8_phases(torch, np, dev, cfg, tag, report):
+    """The w8a8 serving default: -> launches of the two main paths (the
+    batch-1 server and the batch-8 batched path)."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.envs.adapters import BridgeSimplerAdapter
+    from vlaser_tpu_torch.kernels.fused_vit import (fused_vit_stack,
+                                                    pack_vit_stack)
+    from vlaser_tpu_torch.models.layers import init_normal_
+    from vlaser_tpu_torch.policy.fused_infer import make_batched_infer_action
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.policy.processing import InternVLAProcessor
+    from vlaser_tpu_torch.serve.policy_server import PolicyServer
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    model = PiZeroVLA(cfg, param_dtype=bf, compute_dtype=bf, device=dev)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    init_normal_(model, gen, std=0.02)
+    S, img = cfg.max_image_text_tokens, cfg.vlm.vision.image_size
+    A = (cfg.num_action_tokens, cfg.action_dim)
+    proc = InternVLAProcessor(SmokeTokenizer(cfg.vlm),
+                              num_image_tokens=cfg.vlm.num_image_token,
+                              max_seq_len=S, pad_token_id=cfg.vlm.pad_token_id)
+    p = proc(["put the carrot on the plate"],
+             np.zeros((1, 1, img, img, 3), np.uint8))
+    ids1 = torch.from_numpy(p["input_ids"]).to(dev)
+    mask1 = torch.from_numpy(p["attention_mask"]).to(dev)
+    # bench.py's parity inputs: uniform pixels, normal noise, distinct for
+    # every row at batch 8; one prompt for all rows; zero proprio
+    g = torch.Generator(device=dev)
+    g.manual_seed(42)
+    px8 = torch.rand((B8, img, img, 3), generator=g, device=dev)
+    nz8 = torch.randn((B8, *A), generator=g, device=dev)
+    pr8 = torch.zeros((B8, cfg.cond_steps, cfg.proprio_dim), device=dev)
+    ids8, mask8 = ids1.expand(B8, -1).contiguous(), mask1.expand(
+        B8, -1).contiguous()
+    in1 = (ids1, px8[:1], mask1, pr8[:1], nz8[:1])
+    in8 = (ids8, px8, mask8, pr8, nz8)
+    with torch.inference_mode():
+        a_bf16 = model.infer_action(*in1)  # the unquantized model
+    quantize_for_serving(model, target="policy")  # w8a8, the default
+    torch.cuda.synchronize()
+    n_param = sum(t.numel() for t in model.state_dict().values())
+    print(f"w8a8 serving model: Vlaser-2B-VLA, {n_param / 1e9:.3f} G "
+          f"elements, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+          f"device, {time.perf_counter() - t0:.1f} s", flush=True)
+
+    gemm_phase(torch, model, dev, tag, report)
+    vit_w8a8_phase(torch, model, dev, px8, tag, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- main path 1: the fused PolicyServer at batch 1 ---------------------
+    L = cfg.vlm.llm.num_layers
+    per_step = {"fused_vit_stack_w8a8": 1,
+                "fused_int8_stack": cfg.num_inference_steps,
+                "quantize_rows": 7 * L, "int8_gemm": 7 * L}
+    stats = {"action": {"p01": [-0.05] * 6 + [0.0], "p99": [0.05] * 6 + [1.0],
+                        "mean": [0.0] * 7, "std": [1.0] * 7},
+             "proprio": {"p01": [-0.5] * 6 + [0.0], "p99": [0.5] * 6 + [1.0],
+                         "mean": [0.0] * 7, "std": [1.0] * 7}}
+    adapter = BridgeSimplerAdapter(dataset_statistics=stats,
+                                   image_size=(img, img))
+    server = PolicyServer(model, None, adapter, proc, act_steps=4, seed=0,
+                          fused=True, device=dev)
+    server.reset("put the carrot on the plate")
+    rng = np.random.default_rng(8)
+    frames = [rng.integers(0, 256, (img, img, 3), dtype=np.uint8)
+              for _ in range(STEPS)]
+    obs = {"agent": {"eef_pos": np.array([0.1, 0.0, 0.2, 1, 0, 0, 0, 0.5],
+                                         np.float32)}}
+    torch.cuda.synchronize()
+    _zero_counts()
+    chunks = [server.step(obs, f) for f in frames]
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _read_counts().items() if v}
+    want = {k: STEPS * v for k, v in per_step.items()}
+    print(f"w8a8 server: {STEPS} steps, actions finite "
+          f"{all(bool(np.isfinite(c).all()) for c in chunks)}, first "
+          f"{np.round(chunks[0][0], 4).tolist()}; launches {got} (derived "
+          f"{want})", flush=True)
+    if not all(c.shape == (4, 7) and np.isfinite(c).all() for c in chunks):
+        raise RuntimeError("w8a8 server returned bad action chunks")
+    if got != want:
+        raise RuntimeError(f"w8a8 server launches {got} != {want}")
+    launches = dict(got)
+
+    # -- main path 2: the batched path at batch 8 ---------------------------
+    batched = make_batched_infer_action(model)
+    per_step8 = {"fused_vit_stack_w8a8": 1, "quantize_rows": 7 * L,
+                 "int8_gemm": 7 * L}
+    if B8 * S >= 2048 and cfg.vlm.llm.hidden_size <= 2048:
+        per_step8["_rms_fwd"] = 2 * L  # the VLM mixture's two norms a layer
+    torch.cuda.synchronize()
+    _zero_counts()
+    with torch.inference_mode():
+        outs8 = [batched(*in8) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _read_counts().items() if v}
+    want = {k: STEPS * v for k, v in per_step8.items()}
+    print(f"w8a8 batched path: {STEPS} calls at batch {B8}, actions "
+          f"{tuple(outs8[0].shape)} finite "
+          f"{all(bool(o.isfinite().all()) for o in outs8)}; launches {got} "
+          f"(derived {want})", flush=True)
+    if not all(o.isfinite().all() and o.shape == (B8, cfg.horizon_steps,
+                                                  cfg.action_dim)
+               for o in outs8):
+        raise RuntimeError("batched path returned bad actions")
+    if got != want:
+        raise RuntimeError(f"batched path launches {got} != {want}")
+    _add(launches, got)
+
+    # -- parity at bench.py's bounds -----------------------------------------
+    with torch.inference_mode():
+        a_fused = server._infer(*in1)
+        a_plain = model.infer_action(*in1)
+        vit = pack_vit_stack(model.vision_model)
+        vcfg = cfg.vlm.vision
+        vkw = dict(num_heads=vcfg.num_heads, eps=vcfg.layer_norm_eps,
+                   qk_norm=vcfg.qk_normalization)
+        emb = model.vit_embed(in1[1])
+        hidden = fused_vit_stack(emb[0].to(bf).contiguous(), **vit, **vkw)
+        kv_f = model.vlm_prefix_from_embeds(
+            model.fuse_vit_features(ids1, hidden[None].to(emb.dtype)), mask1)
+        kv_p = model.vlm_prefix_from_embeds(
+            model._image_text_embeds(ids1, in1[1]), mask1)
+        a8_f = batched(*in8)
+        a8_p = model.infer_action(*in8)
+        torch.cuda.synchronize()
+    gates = (
+        ("fused vs plain, batch 1", (a_fused - a_plain).abs().max().item(),
+         PARITY_TOL),
+        ("w8a8 vs the bf16 model (plain)",
+         (a_plain - a_bf16).abs().max().item(), W8A8_VS_BF16_TOL),
+        ("fused-ViT prefix K/V vs plain", max(
+            (kv_f[i].float() - kv_p[i].float()).abs().max().item()
+            for i in (0, 1)), VIT_KV_TOL),
+        ("batched vs plain, batch 8", (a8_f - a8_p).abs().max().item(),
+         PARITY_B8_TOL))
+    for name, d, tol in gates:
+        print(f"w8a8 parity: {name}: max_abs_diff {d:.3e} (bound {tol})",
+              flush=True)
+    print(f"  |a| max: b1 {a_plain.abs().max().item():.3e}, b8 "
+          f"{a8_p.abs().max().item():.3e}; prefix |k| max "
+          f"{kv_p[0].float().abs().max().item():.3e}", flush=True)
+    finite = all(bool(t.isfinite().all()) for t in (a_fused, a8_f, *kv_f))
+    if not finite or any(not d <= tol for _, d, tol in gates):
+        raise RuntimeError("w8a8 parity gate failed")
+    del kv_f, kv_p, a8_p
+
+    # -- timing: control steps and their stages ------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        step_ms = _ms(torch, lambda: server._infer(*in1), 10)
+        step8_ms = _ms(torch, lambda: batched(*in8), 5)
+        emb8 = model.vit_embed(px8).to(bf).contiguous()
+        vit_ms = _ms(torch, lambda: fused_vit_stack(emb8[0], **vit, **vkw), 10)
+        vit8_ms = _ms(torch, lambda: fused_vit_stack(emb8, **vit, **vkw), 5)
+        hid8 = fused_vit_stack(emb8, **vit, **vkw)
+        embeds8 = model.fuse_vit_features(ids8, hid8)
+        prefix_ms = _ms(torch, lambda: model.vlm_prefix_from_embeds(
+            embeds8[:1], mask1), 10)
+        prefix8_ms = _ms(torch, lambda: model.prefix_forward_from_embeds(
+            embeds8, mask8, pr8), 5)
+        pre8 = model.prefix_forward_from_embeds(embeds8, mask8, pr8)
+
+        def denoise8():  # infer_action_from_embeds after its prefix
+            action, dt = nz8, 1.0 / cfg.num_inference_steps
+            for i in range(cfg.num_inference_steps):
+                t = torch.full((B8,), float(i), device=dev) * dt
+                action = action + dt * model.denoise_step(action, t, *pre8)
+            return action
+
+        denoise8_ms = _ms(torch, denoise8, 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dec, R = report["fused_int8_stack"], cfg.num_action_tokens
+    stacks_ms = (dec[f"ms_r{cfg.num_proprio_tokens + R}"]
+                 + (cfg.num_inference_steps - 1) * dec[f"ms_r{R}"])
+    n_a = cfg.horizon_steps
+    print(f"w8a8 control step (median, CUDA events): batch 1 {step_ms:.3f} "
+          f"ms ({1e3 * n_a / step_ms:.1f} actions/s), batch {B8} "
+          f"{step8_ms:.3f} ms ({1e3 * B8 * n_a / step8_ms:.1f} actions/s); "
+          f"peak device memory {peak:.2f} GiB {tag}", flush=True)
+    # each stage timed alone; host-bound stages vary from run to run, so
+    # the stages need not add up to the step
+    print(f"w8a8 stages, each timed alone: batch 1: vit stack {vit_ms:.3f} "
+          f"ms, vlm prefix {prefix_ms:.3f} ms, denoise "
+          f"{cfg.num_inference_steps} int8 stacks {stacks_ms:.3f} ms (phase "
+          f"1's kernel times); batch {B8}: vit stack {vit8_ms:.3f} ms, joint "
+          f"prefix {prefix8_ms:.3f} ms, denoise {cfg.num_inference_steps} "
+          f"plain steps {denoise8_ms:.3f} ms {tag}", flush=True)
+    with torch.inference_mode():
+        _profile(torch, lambda: server._infer(*in1), "w8a8 batch-1 step", tag)
+        _profile(torch, lambda: batched(*in8), f"w8a8 batch-{B8} step", tag)
+    return launches
+
+
+# -- training: phase 9, flash attention ---------------------------------------
 def _flash_inputs(torch, g, dev, B, Sq, Skv, H, KVH, D):
     bf = torch.bfloat16
     r = lambda *s: torch.randn(s, generator=g, device=dev).to(bf)
@@ -492,18 +1040,20 @@ def flash_phase(torch, dev, cfg, tag, report):
         io = (q.numel() + k.numel() + v.numel()) * 2
         meta = (qm.numel() + km.numel()) * 4
         lse_b = lse.numel() * 4
+        fwd_args = (q, k, v, qm, km, off)
+        bwd_args = (q, k, v, qm, km, off, out, lse, do, causal)
         t_fwd = {
-            "ms": _ms(torch, lambda: fa.flash_attention_fwd(
-                q, k, v, qm, km, off, causal), 10),
-            "plain_ms": _ms(torch, lambda: fa.flash_attention_fwd_plain(
-                q, k, v, qm, km, off, causal), 3)}
+            "ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd(
+                *fwd_args, causal), 10),
+            "plain_ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd_plain(
+                *fwd_args, causal), 3)}
         t_fwd["bound_ms"], t_fwd["bound_by"] = _bound(
             4 * D * H * pairs, io + q.numel() * 2 + lse_b + meta, PEAK_BF16)
         t_bwd = {
-            "ms": _ms(torch, lambda: fa.flash_attention_bwd(
-                q, k, v, qm, km, off, out, lse, do, causal), 10),
-            "plain_ms": _ms(torch, lambda: fa.flash_attention_bwd_plain(
-                q, k, v, qm, km, off, out, lse, do, causal), 3)}
+            "ms": _kernel_ms(torch, lambda: fa.flash_attention_bwd(
+                *bwd_args), 10),
+            "plain_ms": _kernel_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                *bwd_args), 3)}
         t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
             10 * D * H * pairs, 2 * io + 2 * q.numel() * 2 + lse_b + meta,
             PEAK_BF16)
@@ -518,9 +1068,9 @@ def flash_phase(torch, dev, cfg, tag, report):
             mask = fa._allowed(qm, km, off, causal)[:, None]
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask)
-        t_fwd["library_ms"] = _ms(torch, sdpa, 10)
+        t_fwd["library_ms"] = _kernel_ms(torch, sdpa, 10)
         o_lib = sdpa()
-        t_bwd["library_ms"] = _ms(torch, lambda: torch.autograd.grad(
+        t_bwd["library_ms"] = _kernel_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), dot, retain_graph=True), 10)
         del o_lib, qt, kt, vt, dot, mask
         for nm, t in (("fwd", t_fwd), ("bwd", t_bwd)):
@@ -537,7 +1087,7 @@ def flash_phase(torch, dev, cfg, tag, report):
     report["flash_attention_bwd"] = bwd_rep
 
 
-# -- training: phase 5, RMSNorm ------------------------------------------------
+# -- training: phase 10, RMSNorm ----------------------------------------------
 def rms_phase(torch, dev, cfg, tag, report):
     import torch.nn.functional as F
 
@@ -575,24 +1125,55 @@ def rms_phase(torch, dev, cfg, tag, report):
                                "dx": plain(drop_sum=True)["dx"]}})
     nb = x.numel() * 2
     f_rep = {"max_abs_err": max(errs["y"], errs["rrms"]),
-             "ms": _ms(torch, lambda: rmsnorm.rms_fwd(x, w, eps), 20),
-             "plain_ms": _ms(torch, lambda: rmsnorm.rms_fwd_plain(x, w, eps),
+             "ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd(x, w, eps), 20),
+             "plain_ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd_plain(
+                 x, w, eps),
                              5),
-             "library_ms": _ms(torch, lambda: F.rms_norm(x, (H,), w, eps),
+             "library_ms": _kernel_ms(torch, lambda: F.rms_norm(
+                 x, (H,), w, eps),
                                20)}
     f_rep["bound_ms"], f_rep["bound_by"] = _bound(
         4 * x.numel(), 2 * nb + H * 2 + n * 4, PEAK_FP32)
     b_rep = {"max_abs_err": max(errs["dx"], errs["dw"]),
-             "ms": _ms(torch, lambda: rmsnorm.rms_bwd(x, w, gy, rrms), 20),
-             "plain_ms": _ms(torch, lambda: rmsnorm.rms_bwd_plain(
+             "ms": _kernel_ms(torch, lambda: rmsnorm.rms_bwd(
+                 x, w, gy, rrms), 20),
+             "plain_ms": _kernel_ms(torch, lambda: rmsnorm.rms_bwd_plain(
                  x, w, gy, rrms), 5)}
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
     yl = F.rms_norm(xl, (H,), wl, eps)
-    b_rep["library_ms"] = _ms(torch, lambda: torch.autograd.grad(
+    b_rep["library_ms"] = _kernel_ms(torch, lambda: torch.autograd.grad(
         yl, (xl, wl), gy, retain_graph=True), 20)
     b_rep["bound_ms"], b_rep["bound_by"] = _bound(
         8 * x.numel(), 3 * nb + H * 2 + n * 4 + H * 4, PEAK_FP32)
-    for nm, t in (("fwd", f_rep), ("bwd", b_rep)):
+    # the forward at the batch-8 serving prefix's shape (8 x 384 rows, bf16
+    # weights, under inference_mode as make_batched_infer_action runs it)
+    ns = B8 * cfg.max_image_text_tokens
+    with torch.inference_mode():
+        xs, ws = r(ns, H).to(bf), (1 + 0.1 * r(H)).to(bf)
+        ys, rs = rmsnorm.rms_fwd(xs, ws, eps)
+        torch.cuda.synchronize()
+
+        def plain_s(w_=ws):
+            return dict(zip(("y", "rrms"), rmsnorm.rms_fwd_plain(xs, w_, eps)))
+
+        ref_s = plain_s()
+        errs_s = _check(f"rms_norm {ns}x{H} bf16 (serving, batch {B8})",
+                        {"y": ys, "rrms": rs}, ref_s,
+                        {k: rel[k] * ref_s[k].float().abs().max().item()
+                         for k in ref_s},
+                        {"w ignored": plain_s(torch.ones_like(ws))})
+        s_rep = {"max_abs_err": max(errs_s.values()),
+                 "ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd(xs, ws, eps),
+                                  20),
+                 "plain_ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd_plain(
+                     xs, ws, eps), 5),
+                 "library_ms": _kernel_ms(torch, lambda: F.rms_norm(
+                     xs, (H,), ws, eps), 20)}
+    s_rep["bound_ms"], s_rep["bound_by"] = _bound(
+        4 * xs.numel(), 2 * xs.numel() * 2 + H * 2 + ns * 4, PEAK_FP32)
+    f_rep["b8"] = s_rep
+    for nm, t in (("fwd", f_rep), ("bwd", b_rep),
+                  (f"fwd {ns} rows (serving)", s_rep)):
         print(f"rms_norm {nm} time: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, torch rms_norm "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
@@ -600,7 +1181,7 @@ def rms_phase(torch, dev, cfg, tag, report):
     report["_rms_fwd"], report["_rms_bwd"] = f_rep, b_rep
 
 
-# -- training: phase 6, the train step -----------------------------------------
+# -- training: phase 11, the train step ---------------------------------------
 def _train_init_(torch, model, gen):
     """N(0, 0.02^2) everywhere, then norm weights 1 + N(0, 0.1^2) and ViT
     layer scales ~0.1: at N(0, 0.02^2) norms every branch would vanish."""
@@ -721,8 +1302,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
     # -- the main path: 3 VLATrainer steps, counters around them -------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.fwd_launch_count = fa.bwd_launch_count = 0
-    rmsnorm.fwd_launch_count = rmsnorm.bwd_launch_count = 0
+    _zero_counts()
     times, losses, gnorms = [], [], []
     for _ in range(STEPS):
         s = torch.cuda.Event(enable_timing=True)
@@ -735,10 +1315,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
         losses.append(m["loss"].item())
         gnorms.append(m["grad_norm"].item())
     torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": fa.fwd_launch_count,
-                "flash_attention_bwd": fa.bwd_launch_count,
-                "_rms_fwd": rmsnorm.fwd_launch_count,
-                "_rms_bwd": rmsnorm.bwd_launch_count}
+    launches = {k: v for k, v in _read_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
     # derived from the code: every ViT layer and every joint layer runs one
     # flash forward, again in the remat recompute, and one flash backward;
@@ -784,20 +1361,27 @@ def train_phase(torch, np, dev, cfg, tag, report):
 
 
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
+                 ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
+                 ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
                  ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
                  ("AdamW", ("adam",)))
 
 
 def _profile_step(torch, trainer, batch, tag):
-    """One train step under torch.profiler: device time by kernel group
-    and the share of the step's wall time with no kernel running."""
+    _profile(torch, lambda: trainer.train_steps(iter([batch]), 1),
+             "train step", tag)
+
+
+def _profile(torch, fn, label, tag):
+    """One call of fn under torch.profiler: device time by kernel group
+    and the share of the call's wall time with no kernel running."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_steps(iter([batch]), 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, kernels = {}, []
@@ -813,7 +1397,7 @@ def _profile_step(torch, trainer, batch, tag):
         groups[group] = groups.get(group, 0.0) + us / 1e3
         kernels.append((us / 1e3, ev.count, ev.key[:90]))
     busy = sum(groups.values())
-    print(f"profiled train step: wall {wall_ms:.1f} ms, device busy "
+    print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}% {tag}",
           flush=True)
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -853,35 +1437,44 @@ def main() -> int:
     launches = serving_phases(torch, np, dev, cfg, tag, report)
     gc.collect()
     torch.cuda.empty_cache()
+    _add(launches, w8a8_phases(torch, np, dev, cfg, tag, report))
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_phase(torch, dev, cfg, tag, report)
     rms_phase(torch, dev, cfg, tag, report)
     gc.collect()
     torch.cuda.empty_cache()
-    launches.update(train_phase(torch, np, dev, cfg, tag, report))
+    _add(launches, train_phase(torch, np, dev, cfg, tag, report))
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]
     if bad:
         raise RuntimeError(f"the port imported {bad[:4]}")
 
     kernels = []
     for name, src, rep in (
-            ("fused_vit_stack", "fused_vit.cu", "fused_vit.py:455"),
-            ("fused_int8_stack", "fused_decode.cu", "fused_decode.py:303"),
+            ("fused_vit_stack", "fused_vit.cu", "kernels/fused_vit.py:455"),
+            ("fused_vit_stack_w8a8", "fused_vit.cu",
+             "kernels/fused_vit.py:455"),
+            ("quantize_rows", "w8a8.cu", "models/layers.py:49"),
+            ("int8_gemm", "w8a8.cu", "models/layers.py:49"),
+            ("fused_int8_stack", "fused_decode.cu",
+             "kernels/fused_decode.py:303"),
             ("flash_attention_fwd", "flash_attention.cu",
-             "flash_attention.py:159"),
+             "kernels/flash_attention.py:159"),
             ("flash_attention_bwd", "flash_attention.cu",
-             "flash_attention.py:416"),
-            ("_rms_fwd", "rmsnorm.cu", "rmsnorm.py:64"),
-            ("_rms_bwd", "rmsnorm.cu", "rmsnorm.py:89")):
+             "kernels/flash_attention.py:416"),
+            ("_rms_fwd", "rmsnorm.cu", "kernels/rmsnorm.py:64"),
+            ("_rms_bwd", "rmsnorm.cu", "kernels/rmsnorm.py:89")):
         r = report[name]
         entry = {"name": name, "route": "cuda",
                  "source": "vlaser_tpu_torch/csrc/" + src,
-                 "replaces": "vlaser_tpu/kernels/" + rep,
-                 "launches": launches[name]}
+                 "replaces": "vlaser_tpu/" + rep,
+                 "launches": launches.get(name, 0)}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")})
-        if "joint" in r:
-            entry["joint"] = r["joint"]
+        for extra in ("joint", "b8"):  # the same kernel at a second shape
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vlaser_tpu.core.config import VisionConfig
+from vlaser_tpu.core.quant import VIT_W8A8_PATTERNS, quantize_variables
 from vlaser_tpu.kernels.fused_vit import fused_vit_stack as jax_stack
 from vlaser_tpu.kernels.fused_vit import pack_vit_stack as jax_pack
 from vlaser_tpu.models.internvit import InternVisionModel as JaxViT
@@ -124,10 +125,108 @@ def test_batched_twin_matches_per_sample():
 
 
 def test_w8a8_mode_waits():
-    cfg, _, _, port, _ = _setup(False, "bfloat16", 6)
-    with pytest.raises(NotImplementedError):
-        fused_vit.fused_vit_stack(
-            torch.zeros(17, cfg.hidden_size, dtype=torch.bfloat16),
-            **fused_vit.pack_vit_stack(port), act_quant=True)
+    """The w8a8 mode no longer waits: an int8 encoder packs to act_quant
+    and its CPU twin runs; a partly quantized one packs to bf16."""
+    cfg, _, variables, port, _ = _setup(False, "bfloat16", 6)
+    stack = fused_vit.pack_vit_stack(port)
+    assert "act_quant" not in stack and stack["qkvw"].dtype == torch.bfloat16
+    q_port = InternVisionModel(cfg, param_dtype=torch.bfloat16,
+                               compute_dtype=torch.bfloat16)
+    load_state(q_port, _w8a8_state(variables))
+    stack = fused_vit.pack_vit_stack(q_port)
+    assert stack.pop("act_quant") is True
+    assert stack["qkvw"].dtype == torch.int8
+    assert stack["qkvs"].shape == (cfg.num_layers, 3 * cfg.hidden_size)
+    before = (fused_vit.launch_count, fused_vit.act_quant_launch_count)
+    out = fused_vit.fused_vit_stack(
+        torch.ones(17, cfg.hidden_size, dtype=torch.bfloat16), **stack,
+        act_quant=True)
+    assert out.shape == (17, cfg.hidden_size) and torch.isfinite(
+        out.float()).all()
+    assert (fused_vit.launch_count, fused_vit.act_quant_launch_count) == before
     assert fused_vit.supports_fused_vit(replace(cfg, qkv_bias=True))
     assert not fused_vit.supports_fused_vit(replace(cfg, norm_type="rms_norm"))
+
+
+def _w8a8_state(variables):
+    """The JAX w8a8 serving quantization of the encoder (min_size 1: the
+    tiny kernels would fall under the 4096 floor) as the port's state."""
+    return from_jax_variables(jax.tree_util.tree_map(np.asarray,
+                                                     _w8a8_vars(variables)))
+
+
+def _w8a8_vars(variables):
+    return quantize_variables(variables, VIT_W8A8_PATTERNS,
+                              act_quant_patterns=VIT_W8A8_PATTERNS,
+                              min_size=1)
+
+
+@pytest.mark.parametrize("B,spread", [(1, 1.0), (2, 40.0)])
+def test_act_quant_twin_matches_jax_pallas_kernel(B, spread):
+    """The act_quant stack: the port's twin vs the JAX kernel (interpret
+    mode) on the same int8 weights. bf16 level as above, atol 3e-2. At
+    B = 2 fc2 quantizes its input in two halves of `inter`: the fc1
+    columns of the second half are scaled up 40x (fc2's rows down 40x) so
+    that one group for the whole row (the B = 1 rule) would crush the first
+    half; that control must miss JAX by more than the tolerance. (At B = 1
+    both sides use one group, and such a spread would let a last-bit
+    difference upstream flip the crushed first half: B = 1 runs without
+    it.)"""
+    cfg, model, variables, _, _ = _setup(False, "bfloat16", 8)
+    half = cfg.intermediate_size // 2
+    mlp = variables["params"]["encoder"]["mlp"]
+    for name in ("kernel", "bias"):
+        mlp["fc1"][name] = mlp["fc1"][name].at[..., half:].multiply(spread)
+    mlp["fc2"]["kernel"] = mlp["fc2"]["kernel"].at[:, half:].multiply(
+        1 / spread)  # the MLP's output keeps its size
+    qvars = _w8a8_vars(variables)
+    px = np.random.default_rng(9).standard_normal(
+        (B, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    emb = model.apply(variables, jnp.asarray(px), method=model.embed)
+    jstack = jax_pack(qvars)
+    assert jstack.get("act_quant") is True
+    kw = dict(num_heads=cfg.num_heads, eps=cfg.layer_norm_eps, qk_norm=False)
+    x = emb.astype(jnp.bfloat16)
+    want = np.asarray(jax_stack(x if B > 1 else x[0], **jstack, **kw,
+                                interpret=True), np.float32)
+    port = InternVisionModel(cfg, param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16)
+    load_state(port, _w8a8_state(variables))
+    stack = fused_vit.pack_vit_stack(port)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    xt = xt if B > 1 else xt[0]
+    got = fused_vit.fused_vit_stack(xt, **stack, **kw).float().numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_ATOL)
+    assert np.abs(want - np.asarray(x if B > 1 else x[0],
+                                    np.float32)).max() > 10 * BF16_ATOL
+    if B > 1:
+        groups = fused_vit._fc2_groups
+        fused_vit._fc2_groups = lambda b: 1
+        try:
+            one_group = fused_vit.fused_vit_stack(xt, **stack, **kw)
+        finally:
+            fused_vit._fc2_groups = groups
+        assert np.abs(one_group.float().numpy() - want).max() > BF16_ATOL
+
+
+def test_plain_encoder_w8a8_matches_jax():
+    """The plain encoder (the oracle of the act_quant stack) on the w8a8
+    tree at 8 x 17 = 136 rows, past the 128-row threshold, so each of its
+    Dense calls runs w8a8_dot; fp32 on both sides. An int8 activation that
+    rounds the other way after a last-bit difference upstream moves an
+    output by ~1/127 of one term: atol 2e-3."""
+    cfg, model, variables, _, _ = _setup(False, "float32", 10)
+    qvars = _w8a8_vars(variables)
+    px = np.random.default_rng(11).standard_normal(
+        (8, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    want = np.asarray(model.apply(qvars, jnp.asarray(px)))
+    port = InternVisionModel(cfg, compute_dtype=torch.float32)
+    load_state(port, _w8a8_state(variables))
+    assert "kernel_aq" in port.encoder.mlp.fc1._buffers
+    with torch.no_grad():
+        got = port(torch.from_numpy(px)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+    weight_only = np.asarray(model.apply(
+        quantize_variables(variables, VIT_W8A8_PATTERNS, min_size=1),
+        jnp.asarray(px)))
+    assert np.abs(want - weight_only).max() > 5 * 2e-3  # w8a8 ran

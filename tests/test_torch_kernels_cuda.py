@@ -198,3 +198,88 @@ def test_autograd_functions_launch_their_backward_kernels(cuda):
     assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
     assert torch.isfinite(x.grad.float()).all() and torch.isfinite(
         q.grad.float()).all()
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [(130, 192, 48, torch.bfloat16),
+                                         (384, 1536, 256, torch.bfloat16),
+                                         (77, 256, 96, torch.float32)])
+def test_w8a8_kernels_match_plain(cuda, M, K, N, dtype):
+    """quantize_rows: int8 rows bit-identical to the plain version (row 0
+    holds exact .5 ties, row 1 is all zero); int8_gemm: the same integer
+    products and rescale order, so y within one fp32 rounding."""
+    from vlaser_tpu_torch.core.quant import quantize_int8
+    from vlaser_tpu_torch.kernels import w8a8
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    x[0] = (torch.arange(K, device=cuda) % 120 - 60 + 0.5).float()
+    x[0, 0] = 127.0
+    x[1] = 0.0
+    x = x.to(dtype)
+    kq, ks = quantize_int8(torch.randn(K, N, generator=g, device=cuda) * 0.05,
+                           -2)
+    nq, ng = w8a8.quant_launch_count, w8a8.gemm_launch_count
+    q, am = w8a8.quantize_rows(x)
+    y = w8a8.int8_gemm(q, am, kq, ks)
+    yb = w8a8.int8_gemm(q, am, kq, ks, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (w8a8.quant_launch_count, w8a8.gemm_launch_count) == (nq + 1,
+                                                                ng + 2)
+    p_q, p_am = w8a8.quantize_rows_plain(x)
+    assert torch.equal(q, p_q) and torch.equal(am, p_am)
+    p_y = w8a8.int8_gemm_plain(p_q, p_am, kq, ks)
+    assert ((y - p_y).abs() <= 2.0 ** -23 * p_y.abs()).all()
+    assert torch.equal(yb, y.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,S", [(1, 100), (2, 77)])
+def test_fused_vit_act_quant_kernel_matches_twin(cuda, B, S):
+    from vlaser_tpu_torch.core.quant import quantize_int8
+    from vlaser_tpu_torch.kernels import fused_vit
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    L, C, inter, heads = 2, 128, 256, 2
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=cuda) * sc
+    vecs = dict(ln1w=1 + r(L, C, sc=0.1), ln1b=r(L, C, sc=0.1),
+                ln2w=1 + r(L, C, sc=0.1), ln2b=r(L, C, sc=0.1),
+                ls1=r(L, C, sc=0.1), ls2=r(L, C, sc=0.1),
+                qnw=torch.ones(L, C, device=cuda),
+                knw=torch.ones(L, C, device=cuda),
+                qkvb=r(L, 3 * C, sc=0.02), projb=r(L, C, sc=0.02),
+                fc1b=r(L, inter, sc=0.02), fc2b=r(L, C, sc=0.02))
+    mats = {}
+    for w, s, k, n in (("qkvw", "qkvs", C, 3 * C), ("projw", "projs", C, C),
+                       ("fc1w", "fc1s", C, inter), ("fc2w", "fc2s", inter, C)):
+        q8, sc = quantize_int8(r(L, k, n, sc=0.05), -2)
+        mats[w], mats[s] = q8, sc[:, 0].contiguous()
+    x = r(B, S, C).to(torch.bfloat16)
+    kw = dict(num_heads=heads, eps=1e-6, qk_norm=False, act_quant=True)
+    n = fused_vit.act_quant_launch_count
+    got = fused_vit.fused_vit_stack(x, **vecs, **mats, **kw)
+    torch.cuda.synchronize()
+    assert fused_vit.act_quant_launch_count == n + 1
+    _check(got, fused_vit.fused_vit_stack_plain(x, **vecs, **mats, **kw))
+
+
+def test_w8a8_dense_launches_both_kernels(cuda):
+    """A kernel_aq Dense at >= 128 rows takes quantize_rows + int8_gemm on
+    the card (below 128 rows neither), and its STE backward runs."""
+    from vlaser_tpu_torch.core.quant import quantize_module
+    from vlaser_tpu_torch.kernels import w8a8
+    from vlaser_tpu_torch.models.layers import Dense
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    d = Dense(256, 512, device=cuda)
+    with torch.no_grad():
+        d.kernel.normal_(generator=g)
+        d.bias.zero_()
+    quantize_module(d, (r"kernel$",), (r"kernel$",))
+    x = torch.randn(2, 64, 256, generator=g, device=cuda).requires_grad_()
+    counts = lambda: (w8a8.quant_launch_count, w8a8.gemm_launch_count)
+    before = counts()
+    y = d(x)
+    d(x[:1])
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1]
+    assert y.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()

@@ -3,7 +3,10 @@
   module of the JAX package (vlaser_tpu);
 - on CPU tensors the kernel wrappers run their plain twins and launch
   nothing, also when the kernel route is forced; a tensor on a device with
-  no route raises;
+  no route raises; on a CUDA tensor a kernel library that cannot be built
+  raises (no CPU carry-on);
+- the entry points run on the card unless the caller asks for the CPU: a
+  box without one raises;
 - chip_smoke.py refuses to run without a CUDA device."""
 
 import ast
@@ -26,6 +29,7 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.kernels.fused_decode",
     "vlaser_tpu_torch.kernels.flash_attention",
     "vlaser_tpu_torch.kernels.rmsnorm",
+    "vlaser_tpu_torch.kernels.w8a8",
     "vlaser_tpu_torch.core.config",
     "vlaser_tpu_torch.core.quant",
     "vlaser_tpu_torch.image.tiling",
@@ -90,7 +94,7 @@ def test_cpu_wrappers_take_the_twin_and_launch_nothing():
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
 
     cfg = tiny_vla(max_image_text_tokens=8)
-    model = PiZeroVLA(cfg, compute_dtype=torch.float32)
+    model = PiZeroVLA(cfg, compute_dtype=torch.float32, device="cpu")
     init_normal_(model, torch.Generator().manual_seed(0), std=0.1)
     quantize_for_serving(model, target="policy", mode="int8", min_size=1)
     g = torch.Generator().manual_seed(1)
@@ -154,14 +158,83 @@ def test_forced_kernel_route_on_cpu_launches_nothing():
     assert q.grad is not None and w.grad is not None
 
 
-@pytest.mark.parametrize("which", ["flash_attention_fwd", "rms_fwd"])
+@pytest.mark.parametrize("which", ["flash_attention_fwd", "rms_fwd",
+                                   "quantize_rows", "int8_gemm"])
 def test_new_kernels_have_no_route_for_other_devices(which):
     from vlaser_tpu_torch.kernels import flash_attention as fa
-    from vlaser_tpu_torch.kernels import rmsnorm
+    from vlaser_tpu_torch.kernels import rmsnorm, w8a8
 
     x = torch.empty(1, 8, 2, 64, device="meta")
     with pytest.raises(RuntimeError, match="no route"):
         if which == "rms_fwd":
             rmsnorm.rms_fwd(x[0, :, 0], x[0, 0, 0], 1e-6)
+        elif which == "quantize_rows":
+            w8a8.quantize_rows(x[0, :, 0])
+        elif which == "int8_gemm":
+            w8a8.int8_gemm(x[0, :, 0], None, None, None)
         else:
             fa.flash_attention_fwd(x, x, x, None, None)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it reaches a wrapper's CUDA
+    route on a box without a card (the route must then build the kernel
+    library, or raise)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+@pytest.mark.parametrize("which", ["quantize_rows", "int8_gemm",
+                                   "fused_vit_stack_act_quant"])
+def test_new_wrappers_raise_when_the_library_cannot_load(monkeypatch, which):
+    from vlaser_tpu_torch.kernels import _build, fused_vit, w8a8
+
+    def no_library():
+        raise RuntimeError("cannot build the kernel library: nvcc not found")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(w8a8, "_fns", {})
+    monkeypatch.setattr(fused_vit, "_fns", {})
+    card = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt).as_subclass(
+        _OnCard)
+    i8 = torch.int8
+    counts = (w8a8.quant_launch_count, w8a8.gemm_launch_count,
+              fused_vit.act_quant_launch_count)
+    with pytest.raises(RuntimeError, match="cannot build"):
+        if which == "quantize_rows":
+            w8a8.quantize_rows(card(4, 32, dt=torch.bfloat16))
+        elif which == "int8_gemm":
+            w8a8.int8_gemm(card(4, 32, dt=i8), card(4, 1), card(32, 16, dt=i8),
+                           card(16))
+        else:
+            L, C, inter = 1, 128, 256
+            vecs = [card(L, n) for n in (C,) * 8 + (3 * C, C, inter, C)]
+            mats = [card(L, k, n, dt=i8) for k, n in (
+                (C, 3 * C), (C, C), (C, inter), (inter, C))]
+            scales = [card(L, n) for n in (3 * C, C, inter, C)]
+            fused_vit.fused_vit_stack(card(5, C, dt=torch.bfloat16), *vecs,
+                                      *mats, *scales, num_heads=2,
+                                      act_quant=True)
+    assert (w8a8.quant_launch_count, w8a8.gemm_launch_count,
+            fused_vit.act_quant_launch_count) == counts
+
+
+def test_entry_points_default_to_the_card():
+    """PiZeroVLA and PolicyServer with no device take the card; without
+    one they raise instead of building on the CPU."""
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.serve.policy_server import PolicyServer
+
+    cfg = tiny_vla(max_image_text_tokens=8)
+    if torch.cuda.is_available():
+        assert PiZeroVLA(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PiZeroVLA(cfg)
+    model = PiZeroVLA(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):
+        PolicyServer(model)
+    assert PolicyServer(model, device="cpu").device.type == "cpu"

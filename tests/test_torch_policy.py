@@ -69,7 +69,7 @@ def setup():
     variables = jax.tree_util.tree_map_with_path(draw, shapes)
     qvars = quantize_variables(variables, POLICY_PATTERNS)
     state = from_jax_variables(jax.tree_util.tree_map(np.asarray, qvars))
-    tmodel = TorchVLA(cfg, compute_dtype=torch.float32)
+    tmodel = TorchVLA(cfg, compute_dtype=torch.float32, device="cpu")
     load_state(tmodel, state)
     return dict(cfg=cfg, jmodel=jmodel, variables=variables, qvars=qvars,
                 tmodel=tmodel, state=state, x=x)
@@ -112,7 +112,8 @@ def test_port_quantize_matches_jax_quantize(setup):
     """quantize_for_serving(policy, int8) on the port's float weights gives
     the same int8 tree as the JAX POLICY_PATTERNS quantization."""
     variables = setup["variables"]
-    plain = TorchVLA(setup["cfg"], compute_dtype=torch.float32)
+    plain = TorchVLA(setup["cfg"], compute_dtype=torch.float32,
+                     device="cpu")
     load_state(plain, from_jax_variables(
         jax.tree_util.tree_map(np.asarray, variables)))
     quantize_for_serving(plain, target="policy", mode="int8")
@@ -183,7 +184,7 @@ def test_fused_infer_raises_outside_the_slice(setup):
     with pytest.raises(NotImplementedError):
         torch_fused(tmodel)(*_targs(x, px=two_tiles))
     cut = TorchVLA(replace(cfg, vlm=replace(cfg.vlm, select_layer=1)),
-                   compute_dtype=torch.float32)
+                   compute_dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
         torch_fused(cut)
 
@@ -243,7 +244,8 @@ def test_policy_server_step_matches_jax_server(setup, fused):
     _, sub = jax.random.split(jax.random.PRNGKey(seed))
     noise = np.asarray(jax.random.normal(
         sub, (1, cfg.num_action_tokens, cfg.action_dim), jnp.float32))
-    tserver = TorchServer(TorchVLA(cfg, compute_dtype=torch.float32), state,
+    tserver = TorchServer(TorchVLA(cfg, compute_dtype=torch.float32,
+                                   device="cpu"), state,
                           mk(), proc, act_steps=4, seed=seed, fused=fused,
                           device="cpu")
     tserver.draw_noise = lambda: torch.from_numpy(noise.copy())

@@ -31,18 +31,29 @@ def test_quantize_int8_bit_exact(kind, shape, axis, dtype):
 
 
 def test_quantize_for_serving_modes():
+    """w8a8 is the default mode (as in the JAX package): the joint
+    mixtures, the embedding and the ViT encoder go int8, the mixtures and
+    the encoder with the kernel_aq flag; "int8" is weight-only with no
+    flags; unknown modes and targets raise, "vlm" waits for the chat
+    slice."""
     from vlaser_tpu.core.config import tiny_vla
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
 
-    model = PiZeroVLA(tiny_vla(), compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        quantize_for_serving(model, target="policy", mode="w8a8")
+    def fresh():
+        model = PiZeroVLA(tiny_vla(), compute_dtype=torch.float32,
+                          device="cpu")
+        g = torch.Generator().manual_seed(0)
+        for t in model.state_dict().values():
+            t.normal_(generator=g)
+        return model
+
+    model = fresh()
     with pytest.raises(ValueError):
         quantize_for_serving(model, target="policy", mode="int4")
+    with pytest.raises(ValueError):
+        quantize_for_serving(model, target="robot")
     with pytest.raises(NotImplementedError):  # waits for the chat slice
         quantize_for_serving(model, target="vlm", mode="int8")
-    for t in model.state_dict().values():
-        t.normal_(generator=torch.Generator().manual_seed(0))
     quantize_for_serving(model, target="policy", mode="int8")
     names = set(model.state_dict())
     # the vlm mixture's kernels and the embedding pass the 4096 floor;
@@ -50,9 +61,20 @@ def test_quantize_for_serving_modes():
     assert "joint.layers.vlm.mlp.gate_proj.kernel_q" in names
     assert "embed_tokens.embedding_q" in names
     assert "vision_model.encoder.attn.qkv.kernel" in names
+    assert not any(n.endswith("kernel_aq") for n in names)
     # tiny expert kernels fall under the floor and stay float
     assert "joint.layers.expert.k_proj.kernel" in names
     # already quantized: passes through unchanged
     before = model.state_dict()
-    quantize_for_serving(model, target="policy", mode="int8")
+    quantize_for_serving(model, target="policy")
     assert model.state_dict().keys() == before.keys()
+
+    model = quantize_for_serving(fresh(), target="policy", min_size=1)
+    names = set(model.state_dict())
+    for site in ("joint.layers.vlm.q_proj", "joint.layers.expert.k_proj",
+                 "vision_model.encoder.attn.qkv",
+                 "vision_model.encoder.mlp.fc2"):
+        assert {f"{site}.kernel_q", f"{site}.kernel_aq"} <= names, site
+    assert "embed_tokens.embedding_q" in names
+    assert "mlp1.fc1.kernel" in names  # the ViT projector stays float
+    assert model.joint.layers.vlm.q_proj.kernel_aq.shape == (2, 1)

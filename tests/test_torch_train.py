@@ -88,7 +88,8 @@ def jax_loss_grads(setup):
 
 
 def _port(setup, **kw):
-    model = TorchVLA(setup["cfg"], compute_dtype=torch.float32, **kw)
+    model = TorchVLA(setup["cfg"], compute_dtype=torch.float32,
+                     device="cpu", **kw)
     return load_state(model, setup["state"])
 
 

@@ -1,19 +1,22 @@
-"""Int8 weight-only quantization of the port's modules (the twin of
-vlaser_tpu/core/quant.py, `mode="int8"`).
+"""Serving quantization of the port's modules (the twin of
+vlaser_tpu/core/quant.py).
 
 Matched kernels `[..., in, out]` get per-output-channel scales `[..., 1, out]`
 (reduce over `in`); embeddings `[V, H]` get per-row scales `[V, 1]`. Leaves
 under `min_size` elements stay as they are. The quantized tensors replace
 the float parameter in place: `kernel` -> `kernel_q` (int8) + `kernel_scale`
 (fp32), frozen buffers that `models.layers.Dense` / `Embed` dequantize
-inline. The w8a8
-mode (int8 activations through an int8 tensor-core GEMM) is not ported yet.
+inline. A quantized kernel that also matches `act_quant_patterns` gets the
+`kernel_aq` flag (int8 zeros shaped `[..., 1]`, `[L, 1]` for a stacked
+kernel): Dense then runs w8a8 (int8 activations through the int8 GEMM) at
+call sites of >= 128 rows, and the fused ViT packer switches the encoder
+stack to its act_quant mode when its four kernels are int8.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +28,16 @@ POLICY_PATTERNS: Tuple[str, ...] = (
     r"(^|/)joint/layers/.*kernel$",
     r"embed_tokens/embedding$",
 )
+# the ViT encoder's four kernels, int8 for the w8a8 fused stack
+VIT_W8A8_PATTERNS: Tuple[str, ...] = (
+    r"(^|/)encoder/(attn/(qkv|proj)|mlp/(fc1|fc2))/kernel$",
+)
+POLICY_W8A8_PATTERNS: Tuple[str, ...] = POLICY_PATTERNS + VIT_W8A8_PATTERNS
+# kernels that also get the w8a8 flag: the joint mixtures (their prefix
+# pass) and the ViT encoder
+POLICY_W8A8_ACT_PATTERNS: Tuple[str, ...] = (
+    r"(^|/)joint/layers/.*kernel$",
+) + VIT_W8A8_PATTERNS
 
 
 def quantize_int8(w: torch.Tensor, reduce_axis: int):
@@ -44,23 +57,14 @@ def is_quantized(model: nn.Module) -> bool:
 
 
 @torch.no_grad()
-def quantize_for_serving(model: nn.Module, target: str = "policy",
-                         mode: str = "int8", min_size: int = 4096) -> nn.Module:
-    """Serving quantization in place: every `kernel` / `embedding` parameter
-    that matches POLICY_PATTERNS becomes int8: the joint mixtures and the
-    token embedding. Only target "policy" is ported. Already-quantized
-    models pass through."""
-    if mode == "w8a8":
-        raise NotImplementedError(
-            "w8a8 needs the int8 tensor-core GEMM, which is not ported yet"
-        )
-    if mode != "int8":
-        raise ValueError(f"unknown quantization mode {mode!r}")
-    if target != "policy":
-        raise NotImplementedError(f"target {target!r}: only 'policy' is ported")
-    if is_quantized(model):
-        return model
-    regs = [re.compile(p) for p in POLICY_PATTERNS]
+def quantize_module(model: nn.Module, patterns: Sequence[str],
+                    act_quant_patterns: Sequence[str] = (),
+                    min_size: int = 4096) -> nn.Module:
+    """In place: every `kernel` / `embedding` parameter whose path matches
+    `patterns` becomes int8 + scale buffers; a matched kernel that also
+    matches `act_quant_patterns` gets the `kernel_aq` flag."""
+    regs = [re.compile(p) for p in patterns]
+    act_regs = [re.compile(p) for p in act_quant_patterns]
     for mod_name, mod in list(model.named_modules()):
         for leaf in ("kernel", "embedding"):
             val = mod._parameters.get(leaf)
@@ -74,4 +78,31 @@ def quantize_for_serving(model: nn.Module, target: str = "policy",
             del mod._parameters[leaf]
             mod.register_buffer(leaf + "_q", q)
             mod.register_buffer(leaf + "_scale", s)
+            if leaf == "kernel" and any(r.search(path) for r in act_regs):
+                mod.register_buffer("kernel_aq", torch.zeros(
+                    (*val.shape[:-2], 1), dtype=torch.int8,
+                    device=val.device))
     return model
+
+
+def quantize_for_serving(model: nn.Module, target: str = "policy",
+                         mode: str = "w8a8",
+                         min_size: int = 4096) -> nn.Module:
+    """Serving quantization in place, as the JAX package's for target
+    "policy": mode "w8a8" (the default) makes the joint mixtures, the token
+    embedding and the ViT encoder int8 and flags the mixtures and the
+    encoder for w8a8; mode "int8" is weight-only on the mixtures and the
+    embedding. Target "vlm" waits for the chat slice. Already-quantized
+    models pass through."""
+    if target == "vlm":
+        raise NotImplementedError("target 'vlm': only 'policy' is ported")
+    if target != "policy":
+        raise ValueError(f"unknown serving target {target!r}")
+    if mode not in ("w8a8", "int8"):
+        raise ValueError(f"unknown quantization mode {mode!r}")
+    if is_quantized(model):
+        return model
+    if mode == "int8":
+        return quantize_module(model, POLICY_PATTERNS, min_size=min_size)
+    return quantize_module(model, POLICY_W8A8_PATTERNS,
+                           POLICY_W8A8_ACT_PATTERNS, min_size)

@@ -26,9 +26,21 @@
 // bound and erff replaces its polynomial erf. The host loops over layers in
 // C (one ctypes call per stack). Simple first: no TMA / wgmma / warp
 // specialisation yet, and attention loads its K/V tiles synchronously.
+//
+// act_quant (w8a8) mode, vit_stack_forward_w8a8: the same layer loop with
+// int8 weights. Each of qkv / proj / fc1 / fc2 quantizes its activation
+// rows to int8 (w8a8.cu's quantizer; LayerNorm fused in fp32 for qkv and
+// fc1, the fp32 GELU output for fc2, the bf16 attention output for proj)
+// and runs w8a8.cu's int8 tensor-core GEMM, whose epilogue rescales by
+// (row amax / 127) * column scale and then adds the bias, applies GELU or
+// the layer-scale residual as above. Attention stays bf16. At B > 1 the TPU
+// kernel runs the MLP in two halves of `inter` and quantizes fc2's input
+// per half; here fc2 is two GEMMs, the first writing fc2b + half 0 in fp32,
+// the second adding half 1 before the residual: the same groups and order.
 #include <mma.h>
 
 #include "common.cuh"
+#include "w8a8.cuh"
 
 using namespace nvcuda;
 
@@ -425,6 +437,85 @@ extern "C" int vit_stack_forward(
                                           inter, fc2b + lc, ls2 + lc, nullptr, x,
                                           st)))
       return err;
+  }
+  return 0;
+}
+
+// The act_quant stack: x bf16 [B*S, C] updated in place. Weights int8
+// [L, K, N] with fp32 per-output-channel scales [L, N]. Scratch: aq int8
+// [M, max(C, inter)] and am fp32 [M, 2] (the quantized activation of each
+// GEMM in turn), qkv f32 [M, 3C], qb/kb/vb/attn bf16 [M, C], mid f32
+// [M, inter], part f32 [M, C] (B > 1 only).
+extern "C" int vit_stack_forward_w8a8(
+    void* x_, const void* ln1w_, const void* ln1b_, const void* ln2w_,
+    const void* ln2b_, const void* ls1_, const void* ls2_, const void* qnw_,
+    const void* knw_, const void* qkvb_, const void* projb_, const void* fc1b_,
+    const void* fc2b_, const void* qkvs_, const void* projs_, const void* fc1s_,
+    const void* fc2s_, const void* qkvw_, const void* projw_, const void* fc1w_,
+    const void* fc2w_, void* aq_, void* am_, void* qkv_, void* qb_, void* kb_,
+    void* vb_, void* attn_, void* mid_, void* part_, int B, int S, int C,
+    int inter, int heads, int L, float eps, int qk_norm, float qscale,
+    void* stream) {
+  using namespace vit;
+  const int G = B == 1 ? 1 : 2;  // fc2's quantization groups (TPU n_chunks)
+  if (C != heads * AT_D || C % 16 || inter % (16 * G))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  bf16* x = (bf16*)x_;
+  int8_t* aq = (int8_t*)aq_;
+  float *am = (float*)am_, *qkv = (float*)qkv_, *mid = (float*)mid_;
+  float* part = (float*)part_;
+  bf16 *qb = (bf16*)qb_, *kb = (bf16*)kb_, *vb = (bf16*)vb_;
+  bf16* attn = (bf16*)attn_;
+  const float *ln1w = (const float*)ln1w_, *ln1b = (const float*)ln1b_;
+  const float *ln2w = (const float*)ln2w_, *ln2b = (const float*)ln2b_;
+  const float *ls1 = (const float*)ls1_, *ls2 = (const float*)ls2_;
+  const float *qnw = (const float*)qnw_, *knw = (const float*)knw_;
+  const float *qkvb = (const float*)qkvb_, *projb = (const float*)projb_;
+  const float *fc1b = (const float*)fc1b_, *fc2b = (const float*)fc2b_;
+  const float *qkvs = (const float*)qkvs_, *projs = (const float*)projs_;
+  const float *fc1s = (const float*)fc1s_, *fc2s = (const float*)fc2s_;
+  const int8_t *qkvw = (const int8_t*)qkvw_, *projw = (const int8_t*)projw_;
+  const int8_t *fc1w = (const int8_t*)fc1w_, *fc2w = (const int8_t*)fc2w_;
+  const int M = B * S, half = inter / G;
+  const dim3 agrid((S + AT_T - 1) / AT_T, heads, B);
+  int err;
+  for (int l = 0; l < L; ++l) {
+    const size_t lc = (size_t)l * C, li = (size_t)l * inter;
+    const int8_t* w2 = fc2w + (size_t)l * inter * C;
+    if ((err = w8a8::quantize(x, 1, M, C, 1, ln1w + lc, ln1b + lc, eps, aq, am, st)) ||
+        (err = w8a8::gemm(w8a8::EPI_BIAS_F32, 0, aq, C, am, 1,
+                    qkvw + (size_t)l * C * 3 * C, qkvs + 3 * lc, M, 3 * C, C,
+                    qkvb + 3 * lc, nullptr, nullptr, qkv, nullptr, st)))
+      return err;
+    qkv_prep_kernel<<<M, 256, 0, st>>>(qkv, qnw + lc, knw + lc, qb, kb, vb, C,
+                                       eps, qk_norm, qscale);
+    RETURN_IF_ERR();
+    attention_kernel<<<agrid, 128, 0, st>>>(qb, kb, vb, attn, S, C);
+    RETURN_IF_ERR();
+    if ((err = w8a8::quantize(attn, 1, M, C, 1, nullptr, nullptr, 0.f, aq, am, st)) ||
+        (err = w8a8::gemm(w8a8::EPI_BIAS_LS_RESIDUAL, 0, aq, C, am, 1,
+                    projw + (size_t)l * C * C, projs + lc, M, C, C, projb + lc,
+                    nullptr, ls1 + lc, nullptr, x, st)) ||
+        (err = w8a8::quantize(x, 1, M, C, 1, ln2w + lc, ln2b + lc, eps, aq, am, st)) ||
+        (err = w8a8::gemm(w8a8::EPI_BIAS_GELU_F32, 0, aq, C, am, 1,
+                    fc1w + (size_t)l * C * inter, fc1s + li, M, inter, C,
+                    fc1b + li, nullptr, nullptr, mid, nullptr, st)) ||
+        (err = w8a8::quantize(mid, 0, M, inter, G, nullptr, nullptr, 0.f, aq, am, st)))
+      return err;
+    if (G == 1) {
+      err = w8a8::gemm(w8a8::EPI_BIAS_LS_RESIDUAL, 0, aq, inter, am, 1, w2,
+                 fc2s + lc, M, C, inter, fc2b + lc, nullptr, ls2 + lc, nullptr,
+                 x, st);
+    } else {  // part = fc2b + half 0; x += bf16(part + half 1) * ls2
+      err = w8a8::gemm(w8a8::EPI_BIAS_F32, 0, aq, inter, am, 2, w2, fc2s + lc, M,
+                 C, half, fc2b + lc, nullptr, nullptr, part, nullptr, st);
+      if (!err)
+        err = w8a8::gemm(w8a8::EPI_BIAS_LS_RESIDUAL, 0, aq + half, inter, am + 1, 2,
+                   w2 + (size_t)half * C, fc2s + lc, M, C, half, nullptr, part,
+                   ls2 + lc, nullptr, x, st);
+    }
+    if (err) return err;
   }
   return 0;
 }

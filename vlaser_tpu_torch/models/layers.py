@@ -4,8 +4,11 @@
 Float weights are `nn.Parameter`s (trainable); a `Dense` or `Embed` whose
 weight was quantized (core/quant.py) holds `kernel_q` / `embedding_q` int8
 plus a scale as buffers instead, frozen, and dequantizes inline in the
-compute dtype, as the JAX Dense does. A block built for a scanned stack
-holds every layer's weights stacked on a leading `[L]` axis, as the fused
+compute dtype, as the JAX Dense does. A Dense that also holds the
+`kernel_aq` flag (w8a8) runs `w8a8_dot` instead at call sites of at least
+ACT_QUANT_MIN_ROWS rows (counted over the leading dims). A block built
+for a scanned stack holds every layer's weights stacked on a leading `[L]`
+axis, as the fused
 kernels consume them; `forward(x, layer)` picks one slice. Inside
 `layer_slices(model)` each stacked parameter is cut into its L slices once
 for the whole pass, so the backward stacks the L slice gradients in one op
@@ -16,12 +19,44 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..kernels import ops, rmsnorm
+from ..kernels import ops, rmsnorm, w8a8
+
+# Minimum row count (product of the leading dims) for a kernel_aq-flagged
+# Dense to take w8a8_dot; below it the weight-only path runs (the JAX
+# package's threshold: decode/denoise GEMVs stay weight-only).
+ACT_QUANT_MIN_ROWS = 128
+
+
+class W8A8Dot(torch.autograd.Function):
+    """y = w8a8_dot(x, kq, ks) in `out_dtype`: per-row int8 activations,
+    int8 x int8 product, (am / 127) * ks rescale (kernels/w8a8.py). The
+    backward is the straight-through estimator of the JAX custom VJP: dx =
+    g @ (kq * ks)^T in x's dtype, a plain matmul; the frozen int8 weight
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kq, ks, out_dtype):
+        ctx.save_for_backward(kq, ks)
+        ctx.x_dtype = x.dtype
+        return w8a8.w8a8_dot(x, kq, ks, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        kq, ks = ctx.saved_tensors
+        dt = ctx.x_dtype
+        w = kq.to(dt) * ks.to(dt)  # [in, out]
+        return g.to(dt) @ w.t(), None, None, None
+
+
+def w8a8_dot(x, kq, ks, out_dtype=torch.float32):
+    """x [..., in] @ int8 kq [in, out] with per-row int8 activations."""
+    return W8A8Dot.apply(x, kq, ks, out_dtype)
 
 
 class Block(nn.Module):
@@ -124,7 +159,13 @@ class Dense(Block):
         return self.leaf("kernel", layer).to(cd)
 
     def forward(self, x, layer: Optional[int] = None):
-        y = torch.matmul(x.to(self.compute_dtype), self.weight(layer))
+        cd = self.compute_dtype
+        if ("kernel_aq" in self._buffers
+                and math.prod(x.shape[:-1]) >= ACT_QUANT_MIN_ROWS):
+            y = w8a8_dot(x.to(cd), self.leaf("kernel_q", layer),
+                         self.leaf("kernel_scale", layer), out_dtype=cd)
+        else:
+            y = torch.matmul(x.to(cd), self.weight(layer))
         if self.use_bias:
             y = y + self.leaf("bias", layer).to(y.dtype)
         return y
@@ -167,6 +208,7 @@ def init_normal_(model: nn.Module, generator: torch.Generator,
 
 
 _QUANT_OF = {"kernel_q": "kernel", "kernel_scale": "kernel",
+             "kernel_aq": "kernel",
              "embedding_q": "embedding", "embedding_scale": "embedding"}
 
 
@@ -174,8 +216,9 @@ _QUANT_OF = {"kernel_q": "kernel", "kernel_scale": "kernel",
 def load_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
     """Load a flat {dotted name: tensor} state (utils/convert.py) into the
     model. Float leaves are copied into the model's parameters (their dtype
-    and identity kept); int8 leaves and their scales become buffers that
-    replace the float parameter they quantize. Every parameter and buffer
+    and identity kept); int8 leaves, their scales and w8a8 flags
+    (`kernel_aq`) become buffers that replace the float parameter they
+    quantize. Every parameter and buffer
     must be covered and every key must name one."""
     seen = set()
     for key, val in state.items():

@@ -1,16 +1,21 @@
-"""Fused batch-1 serving path of the control step (port of
+"""Fused serving paths of the control step (port of
 vlaser_tpu/policy/fused_infer.py).
 
-The ViT encoder runs through `kernels.fused_vit.fused_vit_stack`, the VLM
-half of the prefix through the plain joint stack, and the proprio token
-plus every Euler step through `kernels.fused_decode.fused_int8_stack`: step 0
-merges the proprio row with the action rows (R = 1 + 4) against the vlm-only
-cache, steps 1..N-1 run the action rows (R = 4) against the
-[vlm | proprio] cache. Semantics match `PiZeroVLA.infer_action`; only how
-the stacks execute differs. The slice is one 448 px tile through the fused
-ViT: multi-tile input, a cut encoder (select_layer) or an RMSNorm ViT raise
-NotImplementedError (the JAX path runs XLA there). `make_batched_infer_action`
-is not ported yet.
+`make_fused_infer_action` (batch 1): the ViT encoder runs through
+`kernels.fused_vit.fused_vit_stack` (its act_quant mode on a w8a8 tree,
+chosen by the packer), the VLM half of the prefix through the plain joint
+stack (w8a8 Dense on a w8a8 tree), and the proprio token plus every Euler
+step through `kernels.fused_decode.fused_int8_stack`: step 0 merges the
+proprio row with the action rows (R = 1 + 4) against the vlm-only cache,
+steps 1..N-1 run the action rows (R = 4) against the [vlm | proprio]
+cache. `make_batched_infer_action` (any batch, one tile per sample): the
+fused ViT stack at batch B, then `PiZeroVLA.infer_action_from_embeds`
+(the joint prefix and the denoise loop in plain PyTorch). Semantics match
+`PiZeroVLA.infer_action`; only how the stacks execute differs. The fused
+ViT takes one 448 px tile per sample and the full LayerNorm encoder:
+anything else raises NotImplementedError on both paths (the JAX batched
+path falls back to its compiled plain `infer_action` there; a caller of
+the port that wants the plain encoder calls `model.infer_action`).
 """
 
 from __future__ import annotations
@@ -165,5 +170,36 @@ def make_fused_infer_action(model):
             c = cfg.final_action_clip_value
             action = action.clamp(-c, c)
         return action[:, -cfg.horizon_steps:]
+
+    return infer
+
+
+def make_batched_infer_action(model):
+    """-> fn(input_ids, pixel_values, text_mask, proprios, noise) with
+    `PiZeroVLA.infer_action` semantics for B samples, one tile each: the
+    ViT through the batched fused stack, then the joint prefix and the
+    Euler steps in plain PyTorch. A config the fused ViT does not run (a
+    cut encoder, RMSNorm or bias-free ViT) raises NotImplementedError.
+    The stack is packed from the model's weights now."""
+    cfg = model.cfg
+    vcfg = cfg.vlm.vision
+    if (cfg.vlm.select_layer not in (-1, vcfg.num_layers)
+            or not supports_fused_vit(vcfg)):
+        raise NotImplementedError(
+            "batched path needs the full LayerNorm ViT (fused_vit_stack)")
+    vit_stack = pack_vit_stack(model.vision_model)
+    bf = torch.bfloat16
+
+    @torch.no_grad()
+    def infer(input_ids, pixel_values, text_mask, proprios, noise):
+        if pixel_values.shape[0] != input_ids.shape[0]:
+            raise NotImplementedError("batched path takes one tile per sample")
+        emb = model.vit_embed(pixel_values)  # [B, 1+S_vit, C]
+        hidden = fused_vit_stack(
+            emb.to(bf).contiguous(), **vit_stack, num_heads=vcfg.num_heads,
+            eps=vcfg.layer_norm_eps, qk_norm=vcfg.qk_normalization)
+        embeds = model.fuse_vit_features(input_ids, hidden.to(emb.dtype))
+        return model.infer_action_from_embeds(embeds, text_mask, proprios,
+                                              noise)
 
     return infer

@@ -57,10 +57,19 @@ class ActionEncoder(nn.Module):
 
 
 class PiZeroVLA(nn.Module):
+    """`device` None means the CUDA card; the CPU only when asked for
+    (device="cpu"). A box without a card raises rather than build there."""
+
     def __init__(self, cfg, param_dtype=torch.float32,
                  compute_dtype=torch.bfloat16, device=None,
                  remat: bool = False, attn_impl: str = "auto"):
         super().__init__()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "PiZeroVLA: no CUDA device; pass device='cpu' to build "
+                    "on the CPU")
+            device = torch.device("cuda")
         if cfg.backbone != "internvl":
             raise NotImplementedError("only the internvl backbone is ported")
         if cfg.vision_in_expert or cfg.adaptive_mode or cfg.use_lm_head:

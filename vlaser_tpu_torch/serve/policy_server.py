@@ -4,9 +4,10 @@ Per control step: host camera preprocess (adapter) -> one device call
 (ViT + VLM prefix + 10-step denoise) -> host postprocess. `fused=True` is
 the serving path (policy/fused_infer.py, batch 1 through the Hopper
 kernels); `fused=False` runs the plain `PiZeroVLA.infer_action`, the
-oracle. Noise comes from a seeded `torch.Generator` on the model's device,
-drawn by `draw_noise` (one method, so a test can feed other noise). Mesh /
-tensor-parallel serving is not ported yet.
+oracle. The server runs on the CUDA card unless it is given another
+device (device="cpu"). Noise comes from a seeded `torch.Generator` on that
+device, drawn by `draw_noise` (one method, so a test can feed other noise).
+Mesh / tensor-parallel serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,12 +27,18 @@ class PolicyServer:
                  fused: bool = False, device=None):
         """params: optional flat state (utils/convert.from_jax_variables or
         another port state) loaded into `model`; None keeps its weights.
-        The model should already be quantized for serving
-        (core/quant.quantize_for_serving) when fused."""
+        The model should already be quantized for serving when fused:
+        `core.quant.quantize_for_serving(model, target="policy")`, whose
+        default mode "w8a8" is the serving default (int8 weights streamed
+        by the denoise stacks, int8 activations through the int8 GEMM in
+        the ViT stack and the VLM prefix), as in the JAX package; mode
+        "int8" keeps every matmul weight-only. On an H100 the batch-1 w8a8
+        step is for now slower than the int8 one (PERF.md, "Where the time
+        goes"): a latency-bound batch-1 caller may prefer mode "int8".
+        device: None is the CUDA card."""
         if params is not None:
             load_state(model, params)
-        self.device = torch.device(device) if device is not None \
-            else model.device
+        self.device = torch.device(device if device is not None else "cuda")
         self.model = model.to(self.device)
         self.adapter = adapter
         self.processor = processor

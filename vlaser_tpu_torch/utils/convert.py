@@ -1,6 +1,7 @@
 """JAX variables -> the port's flat state.
 
-`from_jax_variables` takes the `params` (and optional `quant`) collections
+`from_jax_variables` takes the `params` (and optional `quant`: int8
+weights, their scales and the w8a8 `kernel_aq` flags) collections
 of a vlaser_tpu `PiZeroVLA` as nested dicts of numpy arrays (for example
 `jax.tree_util.tree_map(np.asarray, variables)`) and returns
 {dotted name: torch tensor} for `models.layers.load_state`. Names mirror the
