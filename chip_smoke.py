@@ -5,8 +5,8 @@
 
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
-width and depth of Vlaser-2B-VLA with random weights from seeded
-generators:
+width and depth of Vlaser-2B-VLA (phases 1-11) and of the Vlaser-2B chat
+model (phases 12-16) with random weights from seeded generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -66,6 +66,36 @@ Training (fp32 parameters, bf16 compute, remat, batch 32):
      code implies; losses, step time, its stage split and peak memory;
      then one more step under torch.profiler: device time per kernel group
      and the device's idle share.
+Chat (Vlaser-2B: InternViT-300M + Qwen2.5-1.5B, bf16 weights N(0, 0.02^2),
+quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
+  12. fused_int8_stack in the decode configuration (R = 1, C = 1536, L = 28,
+     fp32 rope tables) over caches of 384, the 13-tile chat's and 32,768
+     slots, int8 and bf16-weight (dequantized weights, unit scales) modes,
+     with visible norms and K/V ~N(0, 2^2), against its twin; controls
+     (input unchanged, attention dropped, MLP dropped, cache mask ignored,
+     rope dropped on k_self, and past 12,288 slots, where q is doubled so
+     that a few keys carry each head, the keys whose scores lie past the
+     default 48 KB of shared memory dropped) must break the bounds; timed,
+     with one call's device busy time and the attention kernel's share of
+     it from the profiler;
+  13. the other kernels at the chat shapes against their plain versions,
+     with controls: act_quant fused_vit_stack on the chat's own tiles at
+     B = 1, 8 and 13 (each bound no less than VIT_WITNESS_K x the distance
+     of a witness twin that rounds its LayerNorm in another order; the
+     13-tile output bit-equal to the kernel's at B = 8 and 5 on the same
+     tiles; layer 0's differing int8 fc2 inputs counted), quantize_rows +
+     int8_gemm at the prefill's rows, the causal flash prefill over the
+     cache buffer (padded and future slots segment 0), _rms_fwd at the
+     prefill's rows;
+  14. VlaserChat.chat with 13 tiles, 8 new tokens, bench.py's stub
+     tokenizer: a warm-up, then 3 calls with the launch counters zeroed just
+     before and read just after, held to the counts the code implies; the
+     stage times (ViT, prefill, decode per token, lm_head per token);
+  15. one 13-tile chat call under torch.profiler;
+  16. bench.py's decode configuration (1 tile, a 320-token prompt, 64 new
+     tokens, mode "int8"): vlm_decode_tok_mismatches of the fused vs the
+     plain generator, the fused decoder held to the plain one teacher-forced
+     (DECODE_REL) with an ln1-ignored control, tok/s and ms per token.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -78,9 +108,16 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 CHANGE_TOL = 0.1  # x_out: max abs err <= 0.1 * max|twin - x_in|; k/v_self
                   # of every layer: <= 0.1 * max|twin| (they ride on x)
+# act_quant ViT stack on the chat's uint8-noise tiles, where int8 rounding
+# flips through 24 layers outgrow CHANGE_TOL: the bound is no less than this
+# many times the distance of the witness twin (its LayerNorm rounded in
+# another order) from the twin; the kernel lay 0.90-1.14x that distance on
+# an H100 (_vit_bound)
+VIT_WITNESS_K = 2.0
 KV0_TOL = 2e-2    # k/v_self of layer 0 (no trajectory behind them):
                   # <= 2e-2 * max|twin[0]|
 PARITY_TOL = 2e-2  # fused vs plain actions, max abs (bench.py:89)
@@ -230,10 +267,47 @@ def _add(total, launches):
     return total
 
 
-def _gate(name, got, ref, x_in, controls):
-    """Kernel x_out vs twin; each control (a wrong answer) must fail."""
+def _stack_gate(torch, what, run, x, cos, sin, controls):
+    """fused_int8_stack vs its twin: run(fn, cs=cos, sn=sin, **over) calls
+    fn on one case. x_out within CHANGE_TOL of what the stack changes; the
+    self K/V of every layer within CHANGE_TOL and layer 0's within KV0_TOL;
+    each control (keyword overrides of the twin's arguments), the input
+    itself and the rope dropped on k_self must break its bound."""
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    got = run(fused_decode.fused_int8_stack)
+    torch.cuda.synchronize()
+    plain = lambda **o: run(fused_decode.fused_int8_stack_plain, **o)
+    ref = plain()
+    err = _gate(f"{what} x_out {tuple(x.shape)}", got[0], ref[0], x, {
+        "input unchanged": x,
+        **{k: plain(**o)[0] for k, o in controls.items()}})
+    no_rope = plain(cs=torch.ones_like(cos), sn=torch.zeros_like(sin))
+    for name, i in (("k_self", 1), ("v_self", 2)):
+        a, b = got[i].float(), ref[i].float()
+        for part, diff, bound in (
+                ("all layers", a - b, CHANGE_TOL * b.abs().max().item()),
+                ("layer 0", a[0] - b[0], KV0_TOL * b[0].abs().max().item())):
+            e = diff.abs().max().item()
+            print(f"{what} {name} {tuple(a.shape)} {part}: max_abs_err "
+                  f"{e:.3e} (bound {bound:.3e})", flush=True)
+            if not (e <= bound and a.isfinite().all()):
+                raise RuntimeError(f"{what} {name} disagrees")
+            err = max(err, e)
+    ce = (no_rope[1][0].float() - ref[1][0].float()).abs().max().item()
+    print(f"  control 'rope dropped' on k_self layer 0: {ce:.3e} (must "
+          f"exceed the bound)", flush=True)
+    if not ce > KV0_TOL * ref[1][0].float().abs().max().item():
+        raise RuntimeError(f"{what}: the bound cannot see the rope")
+    return err
+
+
+def _gate(name, got, ref, x_in, controls, bound=None):
+    """Kernel x_out vs twin within `bound` (default: CHANGE_TOL of what the
+    twin changes); each control (a wrong answer) must break it."""
     ref = ref.float()
-    bound = CHANGE_TOL * (ref - x_in.float()).abs().max().item()
+    if bound is None:
+        bound = CHANGE_TOL * (ref - x_in.float()).abs().max().item()
     err = (got.float() - ref).abs().max().item()
     print(f"{name}: max_abs_err {err:.3e} (bound {bound:.3e}), finite "
           f"{bool(got.float().isfinite().all())}", flush=True)
@@ -399,36 +473,12 @@ def serving_phases(torch, np, dev, cfg, tag, report):
                 return fn(x, cs, sn, selfm, extm, *[w[k] for k in names],
                           k_e, v_e, eps=eps)
 
-            got = run(fused_decode.fused_int8_stack)
-            torch.cuda.synchronize()
-            plain = lambda **o: run(fused_decode.fused_int8_stack_plain, **o)
-            ref = plain()
             tag_r = f"fused_int8_stack R={rows} ext={ext}"
-            e = _gate(f"{tag_r} x_out {tuple(x.shape)}", got[0], ref[0], x, {
-                "input unchanged": x,
-                "attention dropped": plain(so=0 * stack["so"])[0],
-                "MLP dropped": plain(sd=0 * stack["sd"])[0]})
+            e = _stack_gate(torch, tag_r, run, x, cos, sin, {
+                "attention dropped": dict(so=0 * stack["so"]),
+                "MLP dropped": dict(sd=0 * stack["sd"])})
             dec["max_abs_err"] = max(dec["max_abs_err"], e)
-            no_rope = plain(cs=torch.ones_like(cos), sn=torch.zeros_like(sin))
-            for name, i in (("k_self", 1), ("v_self", 2)):
-                a, b = got[i].float(), ref[i].float()
-                for what, diff, bound in (
-                        ("all layers", a - b,
-                         CHANGE_TOL * b.abs().max().item()),
-                        ("layer 0", a[0] - b[0],
-                         KV0_TOL * b[0].abs().max().item())):
-                    e = diff.abs().max().item()
-                    print(f"{tag_r} {name} {tuple(a.shape)} {what}: "
-                          f"max_abs_err {e:.3e} (bound {bound:.3e})",
-                          flush=True)
-                    if not (e <= bound and a.isfinite().all()):
-                        raise RuntimeError(f"{tag_r} {name} disagrees")
-                    dec["max_abs_err"] = max(dec["max_abs_err"], e)
-            ce = (no_rope[1][0].float() - ref[1][0].float()).abs().max().item()
-            print(f"  control 'rope dropped' on k_self layer 0: {ce:.3e} "
-                  f"(must exceed the bound)", flush=True)
-            if not ce > KV0_TOL * ref[1][0].float().abs().max().item():
-                raise RuntimeError(f"{tag_r}: the bound cannot see the rope")
+            plain = lambda: run(fused_decode.fused_int8_stack_plain)
             torch.cuda.synchronize()
             ms = _kernel_ms(torch, lambda: run(fused_decode.fused_int8_stack),
                             20)
@@ -539,23 +589,25 @@ def _tie_row(torch, K, dev):
     return row
 
 
-def gemm_phase(torch, model, dev, tag, report):
-    """K1 (quantize_rows) and K2 (int8_gemm) at the prefix's 7 shapes per
-    layer (layer 0's int8 weights), at 384 rows (batch 1) and 3,072 (batch
-    8), against the plain versions, with controls; timed against the plain
-    versions and torch._int_mm."""
+def _gemm_sites(att, mlp):
+    """The 7 w8a8 Dense sites of a Qwen2 layer stack."""
+    return (("q_proj", att.q_proj), ("k_proj", att.k_proj),
+            ("v_proj", att.v_proj), ("o_proj", att.o_proj),
+            ("gate_proj", mlp.gate_proj), ("up_proj", mlp.up_proj),
+            ("down_proj", mlp.down_proj))
+
+
+def gemm_phase(torch, sites, rows_list, dev, tag):
+    """K1 (quantize_rows) and K2 (int8_gemm) at one layer's 7 GEMM shapes
+    (layer 0's int8 weights of `sites`) for each row count, against the
+    plain versions, with controls; timed against the plain versions and
+    torch._int_mm. -> {rows: (K1 report, K2 report)}."""
     from vlaser_tpu_torch.kernels import w8a8
 
     g = torch.Generator(device=dev)
     g.manual_seed(6)
-    vlm = model.joint.layers.vlm
-    sites = (("q_proj", vlm.q_proj), ("k_proj", vlm.k_proj),
-             ("v_proj", vlm.v_proj), ("o_proj", vlm.o_proj),
-             ("gate_proj", vlm.mlp.gate_proj), ("up_proj", vlm.mlp.up_proj),
-             ("down_proj", vlm.mlp.down_proj))
-    S = model.cfg.max_image_text_tokens
     out = {}
-    for rows in (S, B8 * S):
+    for rows in rows_list:
         # sums over the 7 shapes; "by": bound ms per bounding resource
         k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": None}
@@ -596,7 +648,7 @@ def gemm_phase(torch, model, dev, tag, report):
                        p_q, p_am, kq, torch.ones_like(ks)) - y).abs()}
             for c in ("row scale dropped", "column scale dropped"):
                 brk[c] = int((brk[c] > ONE_ROUNDING * p_y.abs()).sum())
-            if rows == S and name == "q_proj":
+            if rows == rows_list[0] and name == "q_proj":
                 print(f"  controls, elements breaking the check (must be > "
                       f"0): {brk}", flush=True)
             if min(brk.values()) == 0:
@@ -650,42 +702,35 @@ def gemm_phase(torch, model, dev, tag, report):
               f"{k2['bound_by']}), torch._int_mm {k2['library_ms']:.4f} ms "
               f"{tag}", flush=True)
         out[rows] = (k1, k2)
-    (k1, k2), (k1b8, k2b8) = out[S], out[B8 * S]
-    k1["b8"], k2["b8"] = k1b8, k2b8
-    report["quantize_rows"], report["int8_gemm"] = k1, k2
+    return out
 
 
-def vit_w8a8_phase(torch, model, dev, frames8, tag, report):
-    """fused_vit_stack act_quant vs its twin at batch 1 and batch 8 on the
-    model's int8 encoder weights, with the kernel phase's visible norms."""
-    from contextlib import contextmanager
+@contextmanager
+def _vit_patched(**over):
+    """kernels.fused_vit with some of its helpers replaced: a twin that is
+    wrong (a control) or rounds at other points (a witness)."""
+    from vlaser_tpu_torch.kernels import fused_vit
 
-    from vlaser_tpu_torch.kernels import fused_vit, w8a8
-    from vlaser_tpu_torch.kernels.fused_vit import (fused_vit_stack,
-                                                    fused_vit_stack_plain,
-                                                    pack_vit_stack)
-
-    @contextmanager
-    def patched(**over):  # a wrong twin for a control
-        old = {k: getattr(fused_vit, k) for k in over}
-        for k, v in over.items():
+    old = {k: getattr(fused_vit, k) for k in over}
+    for k, v in over.items():
+        setattr(fused_vit, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
             setattr(fused_vit, k, v)
-        try:
-            yield
-        finally:
-            for k, v in old.items():
-                setattr(fused_vit, k, v)
 
-    def qdot_no_row_scale(a, w8, s):
-        q, _ = w8a8.quantize_rows_plain(a)
-        return w8a8.int_mm_exact(q, w8) * s.float()
+
+def _vit_w8a8_stacks(torch, vision_model, vcfg, dev):
+    """The model's int8 encoder weights with the kernel phase's visible
+    norms: -> (stack, the same with fc1's halves 40x apart, kwargs)."""
+    from vlaser_tpu_torch.kernels.fused_vit import pack_vit_stack
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)
-    vcfg = model.cfg.vlm.vision
     C, L, inter = vcfg.hidden_size, vcfg.num_layers, vcfg.intermediate_size
-    vs = pack_vit_stack(model.vision_model)
+    vs = pack_vit_stack(vision_model)
     if vs.pop("act_quant", False) is not True:
         raise RuntimeError("the w8a8 encoder did not pack to act_quant")
     vs["qkvs"] = vs["qkvs"].clone()
@@ -708,32 +753,197 @@ def vit_w8a8_phase(torch, model, dev, frames8, tag, report):
     vg["fc2w"] = vs["fc2w"].clone()
     vg["fc2w"][:, half:] = (vs["fc2w"][:, half:].float() / 40).round().to(
         torch.int8)
+    return vs, vg, kw
+
+
+def _qdot_no_row_scale(a, w8, s):
+    """The act_quant dot with the activation's row scale dropped."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    q, _ = w8a8.quantize_rows_plain(a)
+    return w8a8.int_mm_exact(q, w8) * s.float()
+
+
+def _vit_ln_two_pass(x, w, b, eps):
+    """fused_vit._ln with its variance summed as mean((x - mean)^2): the same
+    LayerNorm, rounded in another order (the witness twin's one change)."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    return xc * (xc * xc).mean(-1, keepdim=True).add(eps).rsqrt() * w.float() \
+        + b.float()
+
+
+def _vit_bound(what, got, ref, x, plain, v):
+    """The act_quant stack's bound where int8 rounding flips, amplified
+    through 24 layers, outgrow CHANGE_TOL: no less than VIT_WITNESS_K x the
+    distance of the witness twin (the twin with its LayerNorm variance
+    summed in another order, no other change) from the twin. Prints the
+    readings: the error per tile, where the largest lies and how many bf16
+    steps of the twin's value it spans."""
+    with _vit_patched(_ln=_vit_ln_two_pass):
+        wit = plain(v).float()
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    w = (wit - ref).abs().max().item()
+    change = CHANGE_TOL * (ref - x.float()).abs().max().item()
+    err = diff.max().item()
+    at = [int(i) for i in _unravel(int(diff.argmax()), diff.shape)]
+    val = ref[tuple(at)].item()
+    step = 2.0 ** (math.floor(math.log2(max(abs(val), 1e-30))) - 7)
+    tiles = ([round(t, 4) for t in diff.amax((1, 2)).tolist()]
+             if diff.dim() == 3 else [round(err, 4)])
+    print(f"{what}: kernel vs twin {err:.3e}, {err / change:.2f} x CHANGE_TOL"
+          f"'s bound {change:.3e}; witness twin vs twin {w:.3e}, the kernel "
+          f"{err / max(w, 1e-30):.2f} x that; per tile {tiles}; largest at {at}, twin "
+          f"{val:.4f}, {err / step:.0f} bf16 steps there", flush=True)
+    return max(change, VIT_WITNESS_K * w)
+
+
+def _unravel(flat, shape):
+    """A flat index -> its index along each of `shape`'s dimensions."""
+    out = []
+    for n in reversed(shape):
+        flat, r = divmod(flat, n)
+        out.append(r)
+    return out[::-1]
+
+
+def _vit_layer0_flips(torch, x, vs, kw):
+    """Layer 0 of the act_quant stack on x: the int8 activations fc2 takes
+    (the kernel's scratch after an L = 1 launch, laid out as
+    fused_vit._launch lays it out) against the twin's, and the witness
+    twin's against the twin's. -> {pair: (int8 values that differ, of how
+    many, the largest difference in int8 steps)}."""
+    from vlaser_tpu_torch.kernels import _build, fused_vit
+    from vlaser_tpu_torch.kernels.fused_vit import fused_vit_stack_plain
+    from vlaser_tpu_torch.kernels.w8a8 import quantize_rows_plain
+
+    v1 = {k: t[:1].contiguous() for k, t in vs.items()}
+    xb = x if x.dim() == 3 else x[None]
+    B, S, C = xb.shape
+    inter, M, G = v1["fc1w"].shape[-1], B * S, fused_vit._fc2_groups(B)
+    vecs = [v1[k] for k in ("ln1w", "ln1b", "ln2w", "ln2b", "ls1", "ls2",
+                            "qnw", "knw", "qkvb", "projb", "fc1b", "fc2b")]
+    scales = [v1[k] for k in ("qkvs", "projs", "fc1s", "fc2s")]
+    mats = [v1[k] for k in ("qkvw", "projw", "fc1w", "fc2w")]
+    fused_vit._check_args(x, vecs, mats, scales, kw["num_heads"])
+    e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=x.device)
+    f32 = torch.float32
+    aq, am = e(M, max(C, inter), dt=torch.int8), e(M, 2, dt=f32)
+    ptrs = [xb.reshape(M, C).clone(), *vecs, *scales, *mats, aq, am,
+            e(M, 3 * C, dt=f32), e(M, C), e(M, C), e(M, C), e(M, C),
+            e(M, inter, dt=f32), e(M if B > 1 else 1, C, dt=f32)]
+    heads = kw["num_heads"]
+    code = fused_vit._kernel("vit_stack_forward_w8a8")(
+        *[t.data_ptr() for t in ptrs], B, S, C, inter, heads, 1, kw["eps"],
+        int(kw["qk_norm"]), (C // heads) ** -0.5 * fused_vit.LOG2E,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "vit_stack_forward_w8a8")
+    torch.cuda.synchronize()
+    kernel_q = aq[:, :inter]
+
+    def fc2_input(**over):  # the int8 fc2 input of the twin's layer 0
+        seen, dot = [], fused_vit._qdot
+
+        def record(a, w8, s):
+            seen.append(a)
+            return dot(a, w8, s)
+
+        with _vit_patched(_qdot=record, **over):
+            fused_vit_stack_plain(x, **v1, **kw)
+        return torch.cat([quantize_rows_plain(a)[0] for a in seen[3:]], 1)
+
+    twin_q = fc2_input()
+    out = {}
+    for pair, q in (("kernel vs twin", kernel_q),
+                    ("witness vs twin", fc2_input(_ln=_vit_ln_two_pass))):
+        d = (q.int() - twin_q.int()).abs()
+        out[pair] = (int((d > 0).sum()), d.numel(), int(d.max()))
+    return out
+
+
+def vit_chat_phase(torch, vision_model, vcfg, dev, tiles, tag):
+    """Phase 13 (part): the act_quant ViT stack on the chat's own tiles
+    (uint8 noise, normalized as chat() gets it), at B = 1, 8 and 13 against
+    its twin with controls, each bound no less than VIT_WITNESS_K x the
+    witness twin's distance (_vit_bound); the 13-tile kernel output bit-equal
+    to a second 13-tile run and to the kernel's at B = 8 and B = 5 on the
+    same tiles; the int8 fc2 inputs of layer 0 that differ, kernel vs twin
+    and witness twin vs twin, at each batch. -> the 13-tile report."""
+    from vlaser_tpu_torch.kernels.fused_vit import fused_vit_stack
+
+    B = tiles.shape[0]
+    rep = vit_w8a8_phase(torch, vision_model, vcfg, dev, tiles, (1, B8, B),
+                         tag, witness=True)[B]
+    vs, _, kw = _vit_w8a8_stacks(torch, vision_model, vcfg, dev)
+    with torch.inference_mode():
+        x = vision_model.embed(tiles).to(torch.bfloat16).contiguous()
+        run = lambda t: fused_vit_stack(t.contiguous(), **vs, **kw)
+        a = run(x)
+        same = {"a second run": torch.equal(a, run(x)),
+                f"B = {B8}, tiles 0-{B8 - 1}": torch.equal(a[:B8], run(x[:B8])),
+                f"B = {B - B8}, tiles {B8}-{B - 1}": torch.equal(
+                    a[B8:], run(x[B8:]))}
+        print(f"fused_vit_stack act_quant, {B} chat tiles: the kernel's "
+              f"output bit-equal to {same}", flush=True)
+        if not all(same.values()):
+            raise RuntimeError("the 13-tile ViT stack differs from the same "
+                               "kernel at other batches or on a second run")
+        for Bf in (1, B8, B):
+            flips = _vit_layer0_flips(torch, x[0] if Bf == 1 else x[:Bf], vs,
+                                      kw)
+            print(f"fused_vit_stack act_quant B={Bf} layer 0, int8 fc2 "
+                  f"inputs that differ (count, of, largest step): {flips}",
+                  flush=True)
+        del a, x
+    return rep
+
+
+def vit_w8a8_phase(torch, vision_model, vcfg, dev, frames, batches, tag,
+                   witness=False):
+    """fused_vit_stack act_quant vs its twin at each batch (the first B
+    frames) on the model's int8 encoder weights, with the kernel phase's
+    visible norms. With `witness`, each bound is also no less than
+    VIT_WITNESS_K x the witness twin's distance from the twin (_vit_bound).
+    -> {B: report}."""
+    from vlaser_tpu_torch.kernels.fused_vit import (fused_vit_stack,
+                                                    fused_vit_stack_plain)
+
+    C, L, inter = vcfg.hidden_size, vcfg.num_layers, vcfg.intermediate_size
+    vs, vg, kw = _vit_w8a8_stacks(torch, vision_model, vcfg, dev)
     rep = {}
     with torch.inference_mode():
-        for B in (1, B8):
-            emb = model.vit_embed(frames8[:B]).to(torch.bfloat16).contiguous()
+        for B in batches:
+            emb = vision_model.embed(frames[:B]).to(
+                torch.bfloat16).contiguous()
             x = emb[0] if B == 1 else emb
             got = fused_vit_stack(x, **vs, **kw)
             torch.cuda.synchronize()
             plain = lambda v=vs, **o: fused_vit_stack_plain(x, **{**v, **o},
                                                             **kw)
-            with patched(_qdot=qdot_no_row_scale):
+            with _vit_patched(_qdot=_qdot_no_row_scale):
                 no_row_scale = plain()
             what = f"fused_vit_stack act_quant {tuple(x.shape)} L={L}"
-            err = _gate(what, got, plain(), x, {
+            ref = plain()
+            bound = _vit_bound(what, got, ref, x, plain, vs) if witness \
+                else None
+            err = _gate(what, got, ref, x, {
                 "input unchanged": x,
                 "activation scale dropped": no_row_scale,
-                "MLP dropped": plain(ls2=0 * vs["ls2"])})
-            del no_row_scale
+                "MLP dropped": plain(ls2=0 * vs["ls2"])}, bound)
+            del no_row_scale, ref
             if B > 1:
                 got_g = fused_vit_stack(x, **vg, **kw)
-                with patched(_fc2_groups=lambda b: 1):
+                with _vit_patched(_fc2_groups=lambda b: 1):
                     one_group = plain(vg)
+                ref = plain(vg)
+                bound = _vit_bound(what + " fc1 halves x1/x40", got_g, ref, x,
+                                   plain, vg) if witness else None
                 err = max(err, _gate(what + " fc1 halves x1/x40", got_g,
-                                     plain(vg), x,
+                                     ref, x,
                                      {"fc2 quantized as one group":
-                                      one_group}))
-                del got_g, one_group
+                                      one_group}, bound))
+                del got_g, one_group, ref
             torch.cuda.synchronize()
             ms = _kernel_ms(torch, lambda: fused_vit_stack(x, **vs, **kw),
                      10 if B == 1 else 5)
@@ -750,8 +960,10 @@ def vit_w8a8_phase(torch, model, dev, frames8, tag, report):
             rep[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None)
-    rep[1]["b8"] = rep[B8]
-    report["fused_vit_stack_w8a8"] = rep[1]
+            del got, emb, x
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rep
 
 
 def w8a8_phases(torch, np, dev, cfg, tag, report):
@@ -803,8 +1015,16 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
           f"elements, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
           f"device, {time.perf_counter() - t0:.1f} s", flush=True)
 
-    gemm_phase(torch, model, dev, tag, report)
-    vit_w8a8_phase(torch, model, dev, px8, tag, report)
+    vlm = model.joint.layers.vlm
+    out = gemm_phase(torch, _gemm_sites(vlm, vlm.mlp),
+                     (S, B8 * S), dev, tag)
+    (k1, k2), (k1b8, k2b8) = out[S], out[B8 * S]
+    k1["b8"], k2["b8"] = k1b8, k2b8
+    report["quantize_rows"], report["int8_gemm"] = k1, k2
+    rep = vit_w8a8_phase(torch, model.vision_model, cfg.vlm.vision, dev, px8,
+                         (1, B8), tag)
+    rep[1]["b8"] = rep[B8]
+    report["fused_vit_stack_w8a8"] = rep[1]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1087,6 +1307,48 @@ def flash_phase(torch, dev, cfg, tag, report):
     report["flash_attention_bwd"] = bwd_rep
 
 
+def rms_serving(torch, g, dev, ns, H, eps, label, tag):
+    """_rms_fwd at a serving shape (ns x H bf16, bf16 weights, under
+    inference_mode) against the plain version, with the w-ignored control;
+    timed against the plain version and F.rms_norm. -> report."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    bf = torch.bfloat16
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    rel = {"y": RMS_REL, "rrms": RRMS_REL}
+    with torch.inference_mode():
+        xs, ws = r(ns, H).to(bf), (1 + 0.1 * r(H)).to(bf)
+        ys, rs = rmsnorm.rms_fwd(xs, ws, eps)
+        torch.cuda.synchronize()
+
+        def plain_s(w_=ws):
+            return dict(zip(("y", "rrms"), rmsnorm.rms_fwd_plain(xs, w_, eps)))
+
+        ref_s = plain_s()
+        errs_s = _check(f"rms_norm {ns}x{H} bf16 (serving, {label})",
+                        {"y": ys, "rrms": rs}, ref_s,
+                        {k: rel[k] * ref_s[k].float().abs().max().item()
+                         for k in ref_s},
+                        {"w ignored": plain_s(torch.ones_like(ws))})
+        s_rep = {"max_abs_err": max(errs_s.values()),
+                 "ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd(xs, ws, eps),
+                                  20),
+                 "plain_ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd_plain(
+                     xs, ws, eps), 5),
+                 "library_ms": _kernel_ms(torch, lambda: F.rms_norm(
+                     xs, (H,), ws, eps), 20)}
+    s_rep["bound_ms"], s_rep["bound_by"] = _bound(
+        4 * xs.numel(), 2 * xs.numel() * 2 + H * 2 + ns * 4, PEAK_FP32)
+    print(f"rms_norm fwd {ns} rows (serving, {label}) time: kernel "
+          f"{s_rep['ms']:.4f} ms, plain {s_rep['plain_ms']:.4f} ms, torch "
+          f"rms_norm {s_rep['library_ms']:.4f} ms, bound "
+          f"{s_rep['bound_ms']:.4f} ms ({s_rep['bound_by']}) {tag}",
+          flush=True)
+    return s_rep
+
+
 # -- training: phase 10, RMSNorm ----------------------------------------------
 def rms_phase(torch, dev, cfg, tag, report):
     import torch.nn.functional as F
@@ -1147,33 +1409,10 @@ def rms_phase(torch, dev, cfg, tag, report):
         8 * x.numel(), 3 * nb + H * 2 + n * 4 + H * 4, PEAK_FP32)
     # the forward at the batch-8 serving prefix's shape (8 x 384 rows, bf16
     # weights, under inference_mode as make_batched_infer_action runs it)
-    ns = B8 * cfg.max_image_text_tokens
-    with torch.inference_mode():
-        xs, ws = r(ns, H).to(bf), (1 + 0.1 * r(H)).to(bf)
-        ys, rs = rmsnorm.rms_fwd(xs, ws, eps)
-        torch.cuda.synchronize()
-
-        def plain_s(w_=ws):
-            return dict(zip(("y", "rrms"), rmsnorm.rms_fwd_plain(xs, w_, eps)))
-
-        ref_s = plain_s()
-        errs_s = _check(f"rms_norm {ns}x{H} bf16 (serving, batch {B8})",
-                        {"y": ys, "rrms": rs}, ref_s,
-                        {k: rel[k] * ref_s[k].float().abs().max().item()
-                         for k in ref_s},
-                        {"w ignored": plain_s(torch.ones_like(ws))})
-        s_rep = {"max_abs_err": max(errs_s.values()),
-                 "ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd(xs, ws, eps),
-                                  20),
-                 "plain_ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd_plain(
-                     xs, ws, eps), 5),
-                 "library_ms": _kernel_ms(torch, lambda: F.rms_norm(
-                     xs, (H,), ws, eps), 20)}
-    s_rep["bound_ms"], s_rep["bound_by"] = _bound(
-        4 * xs.numel(), 2 * xs.numel() * 2 + H * 2 + ns * 4, PEAK_FP32)
+    s_rep = rms_serving(torch, g, dev, B8 * cfg.max_image_text_tokens, H,
+                        eps, f"batch {B8}", tag)
     f_rep["b8"] = s_rep
-    for nm, t in (("fwd", f_rep), ("bwd", b_rep),
-                  (f"fwd {ns} rows (serving)", s_rep)):
+    for nm, t in (("fwd", f_rep), ("bwd", b_rep)):
         print(f"rms_norm {nm} time: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, torch rms_norm "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
@@ -1360,6 +1599,450 @@ def train_phase(torch, np, dev, cfg, tag, report):
     return launches
 
 
+# -- chat: phases 12-16 ------------------------------------------------------
+CHAT_TILES, CHAT_NEW = 13, 8  # bench.py's 13-tile chat prefill, 8 tokens
+DECODE_PROMPT, DECODE_NEW = 320, 64  # bench.py's decode: 1 tile, 320 tokens
+# decode parity, fused vs plain decoder teacher-forced on the plain stream:
+# every step's logits within DECODE_REL x max |plain logits| (both round to
+# bf16 at other points through 28 layers); greedy tokens equal wherever the
+# plain top-2 margin exceeds that bound
+DECODE_REL = 2e-2
+LONG_CACHE = 32768  # Qwen2.5-1.5B's max_position_embeddings
+SMEM_48K_KEYS = 48 * 1024 // 4  # fp32 scores in the default shared memory
+
+
+class ChatStubTokenizer:
+    """bench.py's offline stand-in for the HF tokenizer (no model files on
+    disk): <IMG_CONTEXT> maps to the config's image token id, everything
+    else hashes per character into the normal-token range; EOS is id 2."""
+
+    IC = "<IMG_CONTEXT>"
+
+    def __init__(self, img_context_token_id: int):
+        self._img_id = int(img_context_token_id)
+
+    def __call__(self, text, add_special_tokens=False):
+        ids, i = [], 0
+        while i < len(text):
+            if text.startswith(self.IC, i):
+                ids.append(self._img_id)
+                i += len(self.IC)
+            else:
+                ids.append(7 + (ord(text[i]) % 89))
+                i += 1
+        return {"input_ids": ids}
+
+    def convert_tokens_to_ids(self, tok):
+        return 2
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def _chat_model(torch, dev, cfg, seed):
+    """Vlaser-2B (or `cfg`) with bf16 weights N(0, 0.02^2) from a seeded
+    generator, as bench.py draws them; float, not yet quantized."""
+    from vlaser_tpu_torch.models.layers import init_normal_
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+
+    bf = torch.bfloat16
+    model = InternVLChatModel(cfg, param_dtype=bf, compute_dtype=bf,
+                              device=dev)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_normal_(model, gen, std=0.02)
+
+
+def decode_kernel_phase(torch, model, dev, cache_lens, tag):
+    """Phase 12: fused_int8_stack in the decode configuration (R = 1, the
+    model's LLM stack, fp32 rope tables) over caches of each length, int8
+    and bf16-weight modes, against its twin with controls; timed, with the
+    attention kernel's share of a call from the profiler."""
+    from vlaser_tpu_torch.inference.fused_runner import (STACK_ARGS,
+                                                         pack_qwen2_stack)
+    from vlaser_tpu_torch.kernels import fused_decode, ops
+
+    llm = model.cfg.llm
+    L, D, KVH = llm.num_layers, llm.head_dim, llm.num_kv_heads
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    stack = pack_qwen2_stack(model.language_model)
+    stack["ln1"] = 1 + 0.1 * rnd(*stack["ln1"].shape)
+    stack["ln2"] = 1 + 0.1 * rnd(*stack["ln2"].shape)
+    stacks = {"int8": stack, "bf16": dict(stack)}
+    for k in STACK_ARGS:  # the same weights dequantized, unit scales
+        if k[0] == "w":
+            w, sname = stack[k], "s" + k[1:]
+            stacks["bf16"][k] = (w.float() * stack[sname]).to(bf)
+            stacks["bf16"][sname] = torch.ones_like(stack[sname])
+    out = {"int8": {}, "bf16": {}}
+    for E in cache_lens:
+        x = rnd(1, llm.hidden_size).to(bf)
+        pos = torch.tensor([E - 40.0], device=dev)
+        cos, sin = ops.rope_cos_sin(pos, D, llm.rope_theta)  # fp32 tables
+        selfm = torch.zeros(1, 1, device=dev)
+        extm = torch.zeros(1, E, device=dev)
+        # a bucket's padded prompt slots and the empty future slots
+        extm[0, int(0.85 * E):int(0.9 * E)] = fused_decode.NEG_INF
+        extm[0, int(0.98 * E):] = fused_decode.NEG_INF
+        k_e, v_e = (2 * rnd(L, E, KVH, D)).to(bf), (2 * rnd(L, E, KVH, D)).to(bf)
+        past = extm.clone()  # every score past the default shared memory
+        past[0, SMEM_48K_KEYS:] = fused_decode.NEG_INF
+        for mode, st in stacks.items():
+            if E > SMEM_48K_KEYS:
+                # over this many keys a softmax of the draws' scores (std
+                # ~1.6) is near uniform and attention adds ~0: q x2 (exact
+                # in both modes) leaves a few keys to carry each head
+                st = dict(st)
+                w = "sq" if mode == "int8" else "wq"
+                st[w], st["bq"] = 2 * st[w], 2 * st["bq"]
+
+            def run(fn, cs=cos, sn=sin, em=extm, st=st, **over):
+                w = {**st, **over}
+                return fn(x, cs, sn, selfm, em, *[w[k] for k in STACK_ARGS],
+                          k_e, v_e, eps=llm.rms_norm_eps)
+
+            what = f"fused_int8_stack decode {mode} R=1 C={llm.hidden_size} E={E}"
+            controls = {"attention dropped": dict(so=0 * st["so"]),
+                        "MLP dropped": dict(sd=0 * st["sd"]),
+                        "cache mask ignored": dict(em=torch.zeros_like(extm))}
+            if E > SMEM_48K_KEYS:
+                controls[f"keys from slot {SMEM_48K_KEYS} on dropped"] = \
+                    dict(em=past)
+            err = _stack_gate(torch, what, run, x, cos, sin, controls)
+            torch.cuda.synchronize()
+            ms = _kernel_ms(torch, lambda: run(fused_decode.fused_int8_stack),
+                            20 if E < LONG_CACHE else 5)
+            plain_ms = _kernel_ms(torch, lambda: run(
+                fused_decode.fused_int8_stack_plain), 3)
+            w_bytes = sum(st[k].numel() * st[k].element_size()
+                          for k in STACK_ARGS)
+            nbytes = (w_bytes + 2 * k_e.numel() * 2 + extm.numel() * 4
+                      + x.numel() * 2 * 2 + 2 * L * KVH * D * 2)
+            flops = (2 * sum(st[k].numel() for k in STACK_ARGS if k[0] == "w")
+                     + 4 * L * llm.num_heads * D * (E + 1))
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_FP32)
+            attn = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
+                            what, tag, quiet=True)
+            share = attn["kernels"].get("attention_kernel", 0.0) / max(
+                attn["busy"], 1e-9)
+            print(f"{what} time: kernel {ms:.3f} ms, plain twin "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                  f"one call under the profiler: device busy "
+                  f"{attn['busy']:.3f} ms, attention kernel "
+                  f"{100 * share:.1f}% of it {tag}", flush=True)
+            out[mode][E] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None, attention_share=share,
+                                profiled_busy_ms=attn["busy"])
+        del k_e, v_e, past
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag):
+    """Phase 13 (part): flash_attention_fwd as the chat prefill calls it:
+    causal, q_offset 0, K/V the cache buffer (Skv = Sq + new tokens) whose
+    bucket padding and future slots are segment 0. Padded query rows have
+    no allowed key (out 0 on both sides). Controls: causal dropped, padded
+    queries unmasked, scale dropped (causality alone hides the padded keys
+    from every valid query). -> report."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    H, KVH, D = llm.num_heads, llm.num_kv_heads, llm.head_dim
+    q, k, v, _ = _flash_inputs(torch, g, dev, 1, Sq, Skv, H, KVH, D)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q_seg = torch.zeros(1, Sq, **i32)
+    q_seg[:, :n_valid] = 1
+    kv_seg = torch.zeros(1, Skv, **i32)
+    kv_seg[:, :n_valid] = 1
+    qm, km = fa.pack_meta(q_seg), fa.pack_meta(kv_seg)
+    what = f"flash chat prefill Sq={Sq} Skv={Skv} H={H}/{KVH} D={D} causal"
+    with torch.inference_mode():
+        out, lse = fa.flash_attention_fwd(q, k, v, qm, km, 0, True)
+        torch.cuda.synchronize()
+
+        def plain(qm_=qm, causal=True, scale=None):
+            o, l = fa.flash_attention_fwd_plain(q, k, v, qm_, km, 0, causal,
+                                                scale)
+            return {"out": o, "lse": l}
+
+        ref = plain()
+        valid = q_seg[0] == 1  # padded query rows: lse is -1e30 on both
+        pick = lambda d: {"out": d["out"], "lse": d["lse"][..., valid]}
+        ones = fa.pack_meta(torch.ones_like(q_seg))
+        errs = _check(what, pick({"out": out, "lse": lse}), pick(ref),
+                      {"out": FLASH_REL * ref["out"].float().abs().max().item(),
+                       "lse": LSE_ABS},
+                      {"causal dropped": pick(plain(causal=False)),
+                       "padded queries unmasked": pick(plain(qm_=ones)),
+                       "scale dropped": pick(plain(scale=1.0))})
+        if not (out[0, ~valid] == 0).all():
+            raise RuntimeError(f"{what}: padded query rows must give zeros")
+        del ref
+        rep = {"max_abs_err": errs["out"],
+               "ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd(
+                   q, k, v, qm, km, 0, True), 10),
+               "plain_ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd_plain(
+                   q, k, v, qm, km, 0, True), 2)}
+        pairs = fa._allowed(qm, km, 0, True).sum().item()
+        io = (q.numel() * 2 + k.numel() + v.numel()) * 2
+        rep["bound_ms"], rep["bound_by"] = _bound(
+            4 * D * H * pairs, io + lse.numel() * 4 + (Sq + Skv) * 4,
+            PEAK_BF16)
+        rep_ = lambda t: t.repeat_interleave(H // KVH, dim=2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, rep_(k),
+                                                              rep_(v)))
+        mask = fa._allowed(qm, km, 0, True)[:, None]
+        rep["library_ms"] = _kernel_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask), 10)
+    print(f"{what} time: kernel {rep['ms']:.3f} ms, plain "
+          f"{rep['plain_ms']:.3f} ms, sdpa {rep['library_ms']:.3f} ms, bound "
+          f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}) {tag}", flush=True)
+    return rep
+
+
+def chat_phases(torch, np, dev, cfg, tag, report):
+    """Phases 12-16, the Vlaser-2B chat path: -> launches of the main path
+    (3 timed 13-tile VlaserChat.chat calls)."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.image.tiling import normalize_uint8
+    from vlaser_tpu_torch.inference import fused_runner as fr
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+    from vlaser_tpu_torch.tokenizer.conversation import build_chat_query
+
+    t0 = time.perf_counter()
+    llm, vcfg = cfg.llm, cfg.vision
+    L = llm.num_layers
+    model = quantize_for_serving(_chat_model(torch, dev, cfg, 9))  # defaults
+    torch.cuda.synchronize()
+    n_param = sum(t.numel() for t in model.state_dict().values())
+    print(f"chat model: Vlaser-2B, quantize_for_serving defaults (vlm, "
+          f"w8a8), {n_param / 1e9:.3f} G elements, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    tok = ChatStubTokenizer(cfg.img_context_token_id)
+    chat = VlaserChat(model, tok, max_new_tokens=CHAT_NEW)
+    if chat._fused_gen is None:
+        raise RuntimeError("VlaserChat did not route to the fused runner")
+    question = "What is shown in this image?"
+    rng = np.random.default_rng(12)
+    img = vcfg.image_size
+    tiles = torch.from_numpy(normalize_uint8(rng.integers(
+        0, 256, (CHAT_TILES, img, img, 3), dtype=np.uint8))).to(dev)
+    query = build_chat_query(cfg.template, "<image>\n" + question,
+                             [CHAT_TILES], cfg.num_image_token)
+    ids, seg = chat._encode([query])
+    n, n_valid = ids.shape[1], int(seg.sum())
+    E = n + CHAT_NEW
+
+    # -- phase 12: the decode kernel, int8 and bf16-weight modes ------------
+    dec = decode_kernel_phase(torch, model, dev,
+                              (DECODE_PROMPT + DECODE_NEW, E, LONG_CACHE),
+                              tag)
+    # -- phase 13: the other kernels at the chat shapes ---------------------
+    vit = vit_chat_phase(torch, model.vision_model, vcfg, dev, tiles, tag)
+    lay = model.language_model.model.layers
+    (k1, k2), = gemm_phase(torch, _gemm_sites(lay.self_attn, lay.mlp), (n,),
+                           dev, tag).values()
+    flash = flash_prefill_phase(torch, dev, llm, n_valid, n, E, tag)
+    rms = rms_serving(torch, torch.Generator(device=dev).manual_seed(13), dev,
+                      n, llm.hidden_size, llm.rms_norm_eps, "chat prefill",
+                      tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 14: VlaserChat.chat, 13 tiles, counters around 3 calls -------
+    resp = chat.chat(question, tiles)  # warm-up
+    torch.cuda.synchronize()
+    # derived from the code: one act_quant ViT stack; 7 w8a8 Dense a layer
+    # in the prefill (>= 128 rows); the prefill's attention and its 2 norms a
+    # layer plus the final norm take their kernels at the JAX dispatch's row
+    # thresholds; one fused stack per decoded token after the first
+    per_call = {"fused_vit_stack_w8a8": 1, "quantize_rows": 7 * L,
+                "int8_gemm": 7 * L, "fused_int8_stack": CHAT_NEW - 1}
+    if n >= fa.SQ_MIN:
+        per_call["flash_attention_fwd"] = L
+    if n >= rmsnorm.MIN_ROWS and llm.hidden_size <= rmsnorm.MAX_HIDDEN:
+        per_call["_rms_fwd"] = 2 * L + 1
+    _zero_counts()
+    times = []
+    for _ in range(STEPS):
+        t1 = time.perf_counter()
+        r = chat.chat(question, tiles)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    got = {k: v for k, v in _read_counts().items() if v}
+    want = {k: STEPS * v for k, v in per_call.items()}
+    print(f"chat: {CHAT_TILES} tiles, prompt {n_valid} tokens in a bucket of "
+          f"{n}, {CHAT_NEW} new tokens; {STEPS} calls "
+          f"{[round(t, 1) for t in times]} ms (median "
+          f"{statistics.median(times):.1f} ms, host clock around "
+          f"synchronize); response {r[:60]!r}; launches {got} (derived "
+          f"{want}) {tag}", flush=True)
+    if got != want:
+        raise RuntimeError(f"chat launches {got} != {want}")
+    if not (isinstance(r, str) and r == resp):
+        raise RuntimeError("chat answered differently to the same request")
+    with torch.inference_mode():
+        tokens, num = chat._fused_gen(ids, seg, tiles)
+        vit_stack = fr.pack_vit_stack(model.vision_model)
+        feats = fr.fused_visual_features(model, tiles, vit_stack)
+        cache = KVCache.create(L, 1, E, llm.num_kv_heads, llm.head_dim,
+                               torch.bfloat16, dev)
+        logits, _, cache = model.prefill(ids, None, seg, cache,
+                                         visual_features=feats)
+        torch.cuda.synchronize()
+        if not (tokens.shape == (1, CHAT_NEW) and bool(logits.isfinite().all())
+                and logits.shape == (1, n, llm.vocab_size)
+                and 0 <= int(tokens.min()) and int(tokens.max())
+                < llm.vocab_size and int(num[0]) >= 1):
+            raise RuntimeError("chat generate gave bad tokens or logits")
+        # stage times, each alone (CUDA events around the call)
+        stack = fr.pack_qwen2_stack(model.language_model)
+        head = fr.head_of(model.language_model)
+        lengths = seg.sum(1)
+        token = logits[0, n_valid - 1].argmax(-1)[None]
+        del logits
+        vit_ms = _ms(torch, lambda: fr.fused_visual_features(
+            model, tiles, vit_stack), 5)
+        prefill_ms = _ms(torch, lambda: model.prefill(
+            ids, None, seg, KVCache.create(L, 1, E, llm.num_kv_heads,
+                                           llm.head_dim, torch.bfloat16, dev),
+            visual_features=feats), 3)
+        step_ms = _ms(torch, lambda: fr.fused_decode_step(
+            stack, model.language_model.embed_tokens, head, llm, token, cache,
+            lengths), 10)
+        hidden = torch.randn(1, llm.hidden_size, device=dev).to(torch.bfloat16)
+        head_ms = _kernel_ms(torch, lambda: fr._head_logits(head, hidden), 10)
+    print(f"chat stages, each timed alone (CUDA events): ViT "
+          f"({CHAT_TILES} tiles, fused act_quant) {vit_ms:.3f} ms, prefill "
+          f"({n} rows) {prefill_ms:.3f} ms, decode {step_ms:.3f} ms per "
+          f"token (fused stack {dec['int8'][E]['ms']:.3f} ms of it on the "
+          f"device, int8 lm_head {head_ms:.3f} ms) {tag}", flush=True)
+    del cache
+    # -- phase 15: one chat call under the profiler -------------------------
+    with torch.inference_mode():
+        _profile(torch, lambda: chat.chat(question, tiles),
+                 f"{CHAT_TILES}-tile chat call", tag)
+    launches = dict(got)
+    del chat, model, tiles, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 16: bench.py's decode configuration (int8, 1 tile) -----------
+    decode_parity_phase(torch, dev, cfg, tag)
+    # the kernels at the chat shapes, beside the earlier phases' entries
+    st = report["fused_int8_stack"]
+    for Ek, r in dec["int8"].items():
+        st[f"decode_e{Ek}"] = r
+    report["fused_int8_stack_bf16"] = {**dec["bf16"][E], **{
+        f"decode_e{Ek}": r for Ek, r in dec["bf16"].items() if Ek != E}}
+    for name, r in (("fused_vit_stack_w8a8", vit), ("quantize_rows", k1),
+                    ("int8_gemm", k2), ("flash_attention_fwd", flash),
+                    ("_rms_fwd", rms)):
+        report[name]["chat"] = r
+    return launches
+
+
+def decode_parity_phase(torch, dev, cfg, tag):
+    """Phase 16, bench.py's decode configuration: 1 tile, a 320-token prompt
+    with 256 image tokens, 64 new tokens, quantize_for_serving(target="vlm",
+    mode="int8"); the fused generator and the plain make_generate_fn on the
+    same weights. Prints vlm_decode_tok_mismatches (bench.py's bound is 0),
+    then holds the fused decoder to the plain one teacher-forced on the
+    plain stream (DECODE_REL); a stack whose ln1 is ignored must break it.
+    Times the fused generate (tok/s as bench.py counts it) and a step."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.inference import fused_runner as fr
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.inference.sampling import make_generate_fn
+
+    llm, L = cfg.llm, cfg.llm.num_layers
+    model = quantize_for_serving(_chat_model(torch, dev, cfg, 14),
+                                 target="vlm", mode="int8")
+    N, NEW, img = DECODE_PROMPT, DECODE_NEW, cfg.vision.image_size
+    ids = torch.full((1, N), 7, dtype=torch.int64, device=dev)
+    ids[:, 1:1 + cfg.num_image_token] = cfg.img_context_token_id
+    seg = torch.ones((1, N), dtype=torch.int32, device=dev)
+    px = torch.full((1, img, img, 3), 0.5, device=dev)
+    kw = dict(max_new_tokens=NEW, eos_token_ids=[2], pad_token_id=0)
+    fused = fr.make_fused_generate_fn(model, **kw)
+    plain = make_generate_fn(model, **kw)
+    tok_f, num_f = fused(ids, seg, px)
+    tok_p, num_p = plain(ids, seg, px)
+    torch.cuda.synchronize()
+    mismatches = int((tok_f != tok_p).sum())
+    print(f"vlm_decode_tok_mismatches {mismatches} (fused vs plain "
+          f"generator, {NEW} greedy tokens, bench.py's bound 0; emitted "
+          f"{int(num_f[0])} / {int(num_p[0])})", flush=True)
+
+    # teacher forcing on the plain stream, from one prefilled cache
+    stack = fr.pack_qwen2_stack(model.language_model)
+    head = fr.head_of(model.language_model)
+    embed = model.language_model.embed_tokens
+    with torch.inference_mode():
+        cache = KVCache.create(L, 1, N + NEW, llm.num_kv_heads, llm.head_dim,
+                               torch.bfloat16, dev)
+        _, _, cache = model.prefill(ids, px, seg, cache)
+        lengths = seg.sum(1)
+        c_p, c_f, c_x = cache, cache.clone(), cache.clone()
+        bad = {**stack, "ln1": torch.ones_like(stack["ln1"])}
+        worst, checked, flips, ctrl, ctrl_flips = 0.0, 0, 0, 0.0, 0
+        for t in range(NEW - 1):
+            tk = tok_p[:, t]
+            lp, _, c_p = model.decode_step(tk[:, None], c_p,
+                                           (lengths + t)[:, None])
+            lp = lp[:, 0]
+            lf, c_f = fr.fused_decode_step(stack, embed, head, llm, tk, c_f,
+                                           lengths + t)
+            bound = DECODE_REL * lp.abs().max().item()
+            worst = max(worst, (lf - lp).abs().max().item() / bound)
+            lx, c_x = fr.fused_decode_step(bad, embed, head, llm, tk, c_x,
+                                           lengths + t)  # ln1 ignored
+            ctrl = max(ctrl, (lx - lp).abs().max().item() / bound)
+            top2 = lp[0].topk(2).values
+            if (top2[0] - top2[1]).item() > bound:
+                checked += 1
+                flips += int(lf[0].argmax() != lp[0].argmax())
+                ctrl_flips += int(lx[0].argmax() != lp[0].argmax())
+        torch.cuda.synchronize()
+    print(f"decode parity, teacher-forced on the plain stream: worst step "
+          f"{worst:.3f} x the bound (DECODE_REL {DECODE_REL} x max |plain "
+          f"logits|), greedy tokens compared at {checked} of {NEW - 1} "
+          f"steps (top-2 margin above the bound), {flips} differ; control "
+          f"'ln1 ignored': {ctrl:.1f} x the bound, {ctrl_flips} tokens "
+          f"differ (must break the gate)", flush=True)
+    if not (worst <= 1 and flips == 0 and (ctrl > 1 or ctrl_flips > 0)):
+        raise RuntimeError("fused decode disagrees with the plain decoder")
+
+    ms = _ms(torch, lambda: fused(ids, seg, px), 3)
+    plain_ms = _ms(torch, lambda: plain(ids, seg, px), 1)
+    with torch.inference_mode():
+        cache = KVCache.create(L, 1, N + NEW, llm.num_kv_heads, llm.head_dim,
+                               torch.bfloat16, dev)
+        _, _, cache = model.prefill(ids, px, seg, cache)
+        step_ms = _ms(torch, lambda: fr.fused_decode_step(
+            stack, embed, head, llm, tok_p[:, 0], cache, lengths), 20)
+    print(f"decode (bench.py's configuration): fused generate {ms:.1f} ms "
+          f"-> {1e3 * NEW / ms:.1f} tok/s ({NEW} / the whole generate), "
+          f"plain generate {plain_ms:.1f} ms; fused decode step "
+          f"{step_ms:.3f} ms per token (CUDA events) {tag}", flush=True)
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -1372,9 +2055,11 @@ def _profile_step(torch, trainer, batch, tag):
              "train step", tag)
 
 
-def _profile(torch, fn, label, tag):
+def _profile(torch, fn, label, tag, quiet=False):
     """One call of fn under torch.profiler: device time by kernel group
-    and the share of the call's wall time with no kernel running."""
+    and the share of the call's wall time with no kernel running. -> {"busy":
+    device ms, "groups": ms by group, "kernels": ms by kernel name (its
+    name before any template or argument list)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1384,7 +2069,7 @@ def _profile(torch, fn, label, tag):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, []
+    groups, kernels, by_name = {}, [], {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0)
         if (ev.device_type != torch.autograd.DeviceType.CUDA or not us
@@ -1396,14 +2081,18 @@ def _profile(torch, fn, label, tag):
                       if any(k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
         kernels.append((us / 1e3, ev.count, ev.key[:90]))
+        short = ev.key.split("(")[0].split("<")[0].split("::")[-1]
+        by_name[short] = by_name.get(short, 0.0) + us / 1e3
     busy = sum(groups.values())
-    print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy "
-          f"{busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}% {tag}",
-          flush=True)
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {g}: {ms:.1f} ms ({100 * ms / busy:.1f}%)", flush=True)
-    for ms, n, key in sorted(kernels, reverse=True)[:12]:
-        print(f"  {ms:9.2f} ms {n:5d}x {key}", flush=True)
+    if not quiet:
+        print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy "
+              f"{busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}% {tag}",
+              flush=True)
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"  {g}: {ms:.1f} ms ({100 * ms / busy:.1f}%)", flush=True)
+        for ms, n, key in sorted(kernels, reverse=True)[:12]:
+            print(f"  {ms:9.2f} ms {n:5d}x {key}", flush=True)
+    return {"busy": busy, "groups": groups, "kernels": by_name}
 
 
 def main() -> int:
@@ -1414,7 +2103,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from vlaser_tpu_torch.core.config import vlaser_2b_vla
+    from vlaser_tpu_torch.core.config import vlaser_2b, vlaser_2b_vla
     from vlaser_tpu_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1445,6 +2134,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _add(launches, train_phase(torch, np, dev, cfg, tag, report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, chat_phases(torch, np, dev, vlaser_2b(), tag, report))
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]
     if bad:
         raise RuntimeError(f"the port imported {bad[:4]}")
@@ -1457,6 +2149,8 @@ def main() -> int:
             ("quantize_rows", "w8a8.cu", "models/layers.py:49"),
             ("int8_gemm", "w8a8.cu", "models/layers.py:49"),
             ("fused_int8_stack", "fused_decode.cu",
+             "kernels/fused_decode.py:303"),
+            ("fused_int8_stack_bf16", "fused_decode.cu",
              "kernels/fused_decode.py:303"),
             ("flash_attention_fwd", "flash_attention.cu",
              "kernels/flash_attention.py:159"),
@@ -1472,9 +2166,9 @@ def main() -> int:
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")})
-        for extra in ("joint", "b8"):  # the same kernel at a second shape
-            if extra in r:
-                entry[extra] = r[extra]
+        for extra, v in r.items():  # the same kernel at other shapes
+            if isinstance(v, dict):
+                entry[extra] = v
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

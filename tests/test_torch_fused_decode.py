@@ -1,5 +1,8 @@
-"""vlaser_tpu_torch fused int8 decoder stack (CPU twin) vs the JAX Pallas
-kernel (interpret mode) on the same int8 weights and inputs.
+"""vlaser_tpu_torch fused decoder stack (CPU twin) vs the JAX Pallas
+kernel (interpret mode) on the same weights and inputs: int8 weights with
+their scales, and the bf16-weight mode (unit scales); the VLA suffix's
+configurations (R = 4 / 5) and the VLM decode's (R = 1 over a cache whose
+padded and empty slots are masked, fp32 rope tables).
 
 Both sides keep the same rounding points (bf16 norms, q/k/v rounded around
 rope, fp32 softmax, bf16 residual stream); they differ in summation order
@@ -24,7 +27,8 @@ def _quant(w):
     return q, s.astype(np.float32)
 
 
-def _case(R, ext_len, step0, rope_dtype, seed=0):
+def _case(R, ext_len, step0, rope_dtype, seed=0, wdtype="int8",
+          decode=False):
     rng = np.random.default_rng(seed)
     L, hidden, inter = 2, 256, 640
     heads, kv_heads, head_dim = 4, 2, 64
@@ -36,6 +40,9 @@ def _case(R, ext_len, step0, rope_dtype, seed=0):
                        ("d", inter, hidden)):
         W["w" + name], W["s" + name] = _quant(
             rng.standard_normal((L, k, n)).astype(np.float32) * 0.05)
+        if wdtype == "bf16":  # the same weights dequantized, unit scales
+            W["w" + name] = W["w" + name] * W["s" + name]
+            W["s" + name] = np.ones_like(W["s" + name])
     pos = np.arange(R) + 7.0
     freq = 1.0 / (10_000.0 ** (np.arange(0, head_dim, 2) / head_dim))
     ang = pos[:, None] * freq[None, :]
@@ -43,6 +50,8 @@ def _case(R, ext_len, step0, rope_dtype, seed=0):
     sin = np.concatenate([np.sin(ang)] * 2, -1).astype(np.float32)
     ext_mask = np.zeros((1, ext_len), np.float32)
     ext_mask[0, -3:] = fused_decode.NEG_INF  # padded external keys
+    if decode:  # the prompt's bucket padding, then the empty future slots
+        ext_mask[0, ext_len // 2:ext_len // 2 + 5] = fused_decode.NEG_INF
     self_mask = np.zeros((R, R), np.float32)
     if step0:  # [proprio | action]: the proprio row is blind to the actions
         self_mask[0, 1:] = fused_decode.NEG_INF
@@ -59,7 +68,7 @@ def _case(R, ext_len, step0, rope_dtype, seed=0):
         .astype(np.float32) * 0.3,
         v_ext=rng.standard_normal((L, ext_len, kv_heads, head_dim))
         .astype(np.float32) * 0.3,
-    ), rope_dtype
+    ), rope_dtype, wdtype
 
 
 ORDER = ("x", "cos", "sin", "self_mask", "ext_mask", "ln1", "ln2", "bq", "bk",
@@ -69,11 +78,12 @@ BF16_KEYS = ("x", "k_ext", "v_ext")
 
 
 def _run_both(case):
-    d, rope_dtype = case
+    d, rope_dtype, wdtype = case
     jargs, targs = [], []
     for k in ORDER:
         a = d[k]
-        if k in BF16_KEYS or (k in ("cos", "sin") and rope_dtype == "bf16"):
+        if k in BF16_KEYS or (k in ("cos", "sin") and rope_dtype == "bf16") \
+                or (k[0] == "w" and wdtype == "bf16"):
             jargs.append(jnp.asarray(a, jnp.bfloat16))
             targs.append(torch.from_numpy(a).to(torch.bfloat16))
         else:
@@ -86,14 +96,18 @@ def _run_both(case):
     return got, want
 
 
-@pytest.mark.parametrize("R,ext_len,step0,rope_dtype", [
-    (4, 24, False, "bf16"),   # denoise steps 1..N-1: R=4 actions
-    (5, 21, True, "bf16"),    # step 0: [proprio | 4 actions], self mask
-    (4, 24, False, "f32"),    # fp32 rope tables (the JAX kernel test's form)
+@pytest.mark.parametrize("R,ext_len,step0,rope_dtype,wdtype,decode", [
+    (4, 24, False, "bf16", "int8", False),  # denoise steps 1..N-1: 4 actions
+    (5, 21, True, "bf16", "int8", False),   # step 0: [proprio | 4 actions]
+    (4, 24, False, "f32", "int8", False),   # fp32 rope tables
+    (1, 40, False, "f32", "int8", True),    # VLM decode: 1 token, the cache
+    (4, 24, False, "bf16", "bf16", False),  # bf16 weights, unit scales
+    (1, 40, False, "f32", "bf16", True),    # bf16 weights at decode
 ])
-def test_twin_matches_jax_kernel(R, ext_len, step0, rope_dtype):
-    (gx, gk, gv), (wx, wk, wv) = _run_both(_case(R, ext_len, step0,
-                                                 rope_dtype))
+def test_twin_matches_jax_kernel(R, ext_len, step0, rope_dtype, wdtype,
+                                 decode):
+    (gx, gk, gv), (wx, wk, wv) = _run_both(_case(
+        R, ext_len, step0, rope_dtype, wdtype=wdtype, decode=decode))
     assert gx.dtype == torch.bfloat16 and gx.shape == (R, 256)
     assert gk.shape == gv.shape == (2, R, 2, 64)
     for g, w in ((gx, wx), (gk, wk), (gv, wv)):
@@ -103,13 +117,13 @@ def test_twin_matches_jax_kernel(R, ext_len, step0, rope_dtype):
 
 def test_neg_inf_matches_and_masked_keys_are_ignored():
     assert fused_decode.NEG_INF == JAX_NEG_INF
-    d, rd = _case(4, 24, False, "bf16", seed=1)
-    base, _ = _run_both((d, rd))
+    d, rd, wd = _case(4, 24, False, "bf16", seed=1)
+    base, _ = _run_both((d, rd, wd))
     d2 = dict(d)
     d2["k_ext"] = d["k_ext"].copy()
     d2["v_ext"] = d["v_ext"].copy()
     d2["k_ext"][:, -3:] = 9.0  # the masked (padded) external keys
     d2["v_ext"][:, -3:] = -9.0
-    moved, _ = _run_both((d2, rd))
+    moved, _ = _run_both((d2, rd, wd))
     for a, b in zip(base, moved):
         assert torch.equal(a, b)

@@ -57,27 +57,39 @@ def test_fused_vit_kernel_matches_twin(cuda, B, S, qk_norm):
     _check(got, fused_vit.fused_vit_stack_plain(x, **vecs, **mats, **kw))
 
 
-@pytest.mark.parametrize("R,E,step0", [(4, 37, False), (5, 33, True)])
-def test_fused_int8_kernel_matches_twin(cuda, R, E, step0):
+@pytest.mark.parametrize("R,E,step0,wdtype,rope", [
+    (4, 37, False, "int8", "bf16"), (5, 33, True, "int8", "bf16"),
+    # the VLM decode: one row over a cache with masked slots, fp32 rope;
+    # 20,000 slots take the kernel past 48 KB of shared memory
+    (1, 3000, False, "int8", "f32"), (1, 20000, False, "int8", "f32"),
+    # the bf16-weight mode (unit scales)
+    (4, 37, False, "bf16", "bf16"), (1, 300, False, "bf16", "f32")])
+def test_fused_int8_kernel_matches_twin(cuda, R, E, step0, wdtype, rope):
     from vlaser_tpu_torch.core.quant import quantize_int8
     from vlaser_tpu_torch.kernels import fused_decode, ops
 
     g = torch.Generator(device=cuda).manual_seed(1)
     L, C, inter, H, KVH, D = 2, 256, 640, 4, 2, 128
     r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=cuda) * sc
+    bf = torch.bfloat16
     ws = {}
     for name, k, n in (("q", C, H * D), ("k", C, KVH * D), ("v", C, KVH * D),
                        ("o", H * D, C), ("g", C, inter), ("u", C, inter),
                        ("d", inter, C)):
         ws["w" + name], ws["s" + name] = quantize_int8(r(L, k, n, sc=0.05), -2)
-    bf = torch.bfloat16
+        if wdtype == "bf16":
+            ws["w" + name] = (ws["w" + name] * ws["s" + name]).to(bf)
+            ws["s" + name] = torch.ones_like(ws["s" + name])
     cos, sin = ops.rope_cos_sin(torch.arange(R, device=cuda) + 3.0, D, 1e4)
+    if rope == "bf16":
+        cos, sin = cos.to(bf), sin.to(bf)
     selfm = torch.zeros(R, R, device=cuda)
     if step0:
         selfm[0, 1:] = fused_decode.NEG_INF
     extm = torch.zeros(1, E, device=cuda)
     extm[0, -5:] = fused_decode.NEG_INF
-    args = (r(R, C, sc=0.3).to(bf), cos.to(bf), sin.to(bf), selfm, extm,
+    extm[0, E // 2:E // 2 + 7] = fused_decode.NEG_INF
+    args = (r(R, C, sc=0.3).to(bf), cos, sin, selfm, extm,
             1 + r(L, C, sc=0.1), 1 + r(L, C, sc=0.1), r(L, H * D, sc=0.02),
             r(L, KVH * D, sc=0.02), r(L, KVH * D, sc=0.02),
             ws["wq"], ws["sq"], ws["wk"], ws["sk"], ws["wv"], ws["sv"],
@@ -91,6 +103,27 @@ def test_fused_int8_kernel_matches_twin(cuda, R, E, step0):
     ref = fused_decode.fused_int8_stack_plain(*args)
     for a, b in zip(got, ref):
         _check(a, b)
+
+
+def test_fused_int8_refuses_a_cache_beyond_shared_memory(cuda):
+    """More external slots than the attention's shared memory holds: a
+    clear ValueError before any launch, not a refused launch."""
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    L, C, inter, H, KVH, D, E = 1, 256, 512, 2, 1, 128, 70000
+    bf, i8 = torch.bfloat16, torch.int8
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=cuda)
+    mats = []
+    for k, n in ((C, H * D), (C, KVH * D), (C, KVH * D), (H * D, C),
+                 (C, inter), (C, inter), (inter, C)):
+        mats += [z(L, k, n, dt=i8), z(L, 1, n)]
+    n = fused_decode.launch_count
+    with pytest.raises(ValueError, match="shared"):
+        fused_decode.fused_int8_stack(
+            z(1, C, dt=bf), z(1, D), z(1, D), z(1, 1), z(1, E), z(L, C),
+            z(L, C), z(L, H * D), z(L, KVH * D), z(L, KVH * D), *mats,
+            z(L, E, KVH, D, dt=bf), z(L, E, KVH, D, dt=bf))
+    assert fused_decode.launch_count == n
 
 
 def test_cuda_wrappers_refuse_wrong_dtypes(cuda):

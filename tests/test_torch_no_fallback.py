@@ -48,6 +48,12 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.train.train_step",
     "vlaser_tpu_torch.train.trainer",
     "vlaser_tpu_torch.serve.policy_server",
+    "vlaser_tpu_torch.tokenizer.conversation",
+    "vlaser_tpu_torch.models.qwen2",
+    "vlaser_tpu_torch.inference.kv_cache",
+    "vlaser_tpu_torch.inference.sampling",
+    "vlaser_tpu_torch.inference.fused_runner",
+    "vlaser_tpu_torch.inference.chat",
 )
 
 
@@ -187,9 +193,11 @@ class _OnCard(torch.Tensor):
 
 
 @pytest.mark.parametrize("which", ["quantize_rows", "int8_gemm",
-                                   "fused_vit_stack_act_quant"])
+                                   "fused_vit_stack_act_quant",
+                                   "fused_int8_stack_decode",
+                                   "fused_int8_stack_bf16"])
 def test_new_wrappers_raise_when_the_library_cannot_load(monkeypatch, which):
-    from vlaser_tpu_torch.kernels import _build, fused_vit, w8a8
+    from vlaser_tpu_torch.kernels import _build, fused_decode, fused_vit, w8a8
 
     def no_library():
         raise RuntimeError("cannot build the kernel library: nvcc not found")
@@ -197,13 +205,28 @@ def test_new_wrappers_raise_when_the_library_cannot_load(monkeypatch, which):
     monkeypatch.setattr(_build, "library", no_library)
     monkeypatch.setattr(w8a8, "_fns", {})
     monkeypatch.setattr(fused_vit, "_fns", {})
+    monkeypatch.setattr(fused_decode, "_fns", {})
     card = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt).as_subclass(
         _OnCard)
-    i8 = torch.int8
+    i8, bf = torch.int8, torch.bfloat16
     counts = (w8a8.quant_launch_count, w8a8.gemm_launch_count,
-              fused_vit.act_quant_launch_count)
+              fused_vit.act_quant_launch_count, fused_decode.launch_count)
     with pytest.raises(RuntimeError, match="cannot build"):
-        if which == "quantize_rows":
+        if which.startswith("fused_int8_stack"):
+            # the decode configuration: 1 row, fp32 rope tables, a cache of
+            # 40 slots; int8 weights with scales or bf16 with unit scales
+            L, C, H, KVH, D, I, E = 1, 256, 2, 1, 128, 512, 40
+            wdt = bf if which.endswith("bf16") else i8
+            mats = []
+            for k, n in ((C, H * D), (C, KVH * D), (C, KVH * D), (H * D, C),
+                         (C, I), (C, I), (I, C)):
+                mats += [card(L, k, n, dt=wdt), card(L, 1, n)]
+            fused_decode.fused_int8_stack(
+                card(1, C, dt=bf), card(1, D), card(1, D), card(1, 1),
+                card(1, E), card(L, C), card(L, C), card(L, H * D),
+                card(L, KVH * D), card(L, KVH * D), *mats,
+                card(L, E, KVH, D, dt=bf), card(L, E, KVH, D, dt=bf))
+        elif which == "quantize_rows":
             w8a8.quantize_rows(card(4, 32, dt=torch.bfloat16))
         elif which == "int8_gemm":
             w8a8.int8_gemm(card(4, 32, dt=i8), card(4, 1), card(32, 16, dt=i8),
@@ -218,7 +241,8 @@ def test_new_wrappers_raise_when_the_library_cannot_load(monkeypatch, which):
                                       *mats, *scales, num_heads=2,
                                       act_quant=True)
     assert (w8a8.quant_launch_count, w8a8.gemm_launch_count,
-            fused_vit.act_quant_launch_count) == counts
+            fused_vit.act_quant_launch_count,
+            fused_decode.launch_count) == counts
 
 
 def test_entry_points_default_to_the_card():
@@ -238,3 +262,30 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((RuntimeError, AssertionError)):
         PolicyServer(model)
     assert PolicyServer(model, device="cpu").device.type == "cpu"
+
+
+def test_chat_entry_points_default_to_the_card():
+    """InternVLChatModel and VlaserChat with no device take the card;
+    without one the model raises instead of building on the CPU, and a chat
+    over a CPU model routes "auto" to the plain generator."""
+    from vlaser_tpu_torch.core.config import tiny_vlm
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+
+    class Tok:
+        def convert_tokens_to_ids(self, tok):
+            return 2
+
+    cfg = tiny_vlm()
+    if torch.cuda.is_available():
+        model = quantize_for_serving(InternVLChatModel(cfg), min_size=1)
+        assert model.device.type == "cuda"
+        assert VlaserChat(model, Tok())._fused_gen is not None
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InternVLChatModel(cfg)
+    model = quantize_for_serving(InternVLChatModel(cfg, device="cpu"),
+                                 min_size=1)
+    chat = VlaserChat(model, Tok())
+    assert chat.device.type == "cpu" and chat._fused_gen is None

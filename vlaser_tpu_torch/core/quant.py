@@ -21,9 +21,16 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-# The policy patterns of vlaser_tpu/core/quant.py, matched against
-# "/"-joined module paths (the port keeps the JAX package's module names).
-# The VLM-only patterns (target "vlm") wait for the chat slice.
+# The patterns of vlaser_tpu/core/quant.py, matched against "/"-joined
+# module paths (the port keeps the JAX package's module names).
+# Streamed decode weights of the chat model: every scanned LLM layer kernel
+# (the ViT stack is scoped "encoder", not "layers"), the token embedding and
+# the untied lm_head.
+DEFAULT_PATTERNS: Tuple[str, ...] = (
+    r"(^|/)layers/.*kernel$",
+    r"embed_tokens/embedding$",
+    r"lm_head/kernel$",
+)
 POLICY_PATTERNS: Tuple[str, ...] = (
     r"(^|/)joint/layers/.*kernel$",
     r"embed_tokens/embedding$",
@@ -38,6 +45,12 @@ POLICY_W8A8_PATTERNS: Tuple[str, ...] = POLICY_PATTERNS + VIT_W8A8_PATTERNS
 POLICY_W8A8_ACT_PATTERNS: Tuple[str, ...] = (
     r"(^|/)joint/layers/.*kernel$",
 ) + VIT_W8A8_PATTERNS
+# chat serving: the LLM layers run w8a8 at prefill row counts, the decode
+# GEMVs stay weight-only; the ViT encoder as for the policy
+VLM_W8A8_ACT_PATTERNS: Tuple[str, ...] = (r"(^|/)layers/.*kernel$",)
+VLM_W8A8_PATTERNS: Tuple[str, ...] = DEFAULT_PATTERNS + VIT_W8A8_PATTERNS
+VLM_W8A8_SERVING_ACT_PATTERNS: Tuple[str, ...] = (
+    VLM_W8A8_ACT_PATTERNS + VIT_W8A8_PATTERNS)
 
 
 def quantize_int8(w: torch.Tensor, reduce_axis: int):
@@ -85,24 +98,29 @@ def quantize_module(model: nn.Module, patterns: Sequence[str],
     return model
 
 
-def quantize_for_serving(model: nn.Module, target: str = "policy",
+def quantize_for_serving(model: nn.Module, target: str = "vlm",
                          mode: str = "w8a8",
                          min_size: int = 4096) -> nn.Module:
-    """Serving quantization in place, as the JAX package's for target
-    "policy": mode "w8a8" (the default) makes the joint mixtures, the token
-    embedding and the ViT encoder int8 and flags the mixtures and the
-    encoder for w8a8; mode "int8" is weight-only on the mixtures and the
-    embedding. Target "vlm" waits for the chat slice. Already-quantized
-    models pass through."""
-    if target == "vlm":
-        raise NotImplementedError("target 'vlm': only 'policy' is ported")
-    if target != "policy":
+    """Serving quantization in place, as the JAX package's. target "vlm"
+    (the chat model, the default): mode "w8a8" makes every LLM layer kernel,
+    the token embedding, the lm_head and the ViT encoder int8 and flags the
+    LLM layers and the encoder for w8a8; mode "int8" is weight-only on the
+    LLM layers, the embedding and the lm_head. target "policy" (the VLA):
+    mode "w8a8" makes the joint mixtures, the token embedding and the ViT
+    encoder int8 and flags the mixtures and the encoder; mode "int8" is
+    weight-only on the mixtures and the embedding. Already-quantized models
+    pass through."""
+    sets = {("vlm", "w8a8"): (VLM_W8A8_PATTERNS,
+                              VLM_W8A8_SERVING_ACT_PATTERNS),
+            ("vlm", "int8"): (DEFAULT_PATTERNS, ()),
+            ("policy", "w8a8"): (POLICY_W8A8_PATTERNS,
+                                 POLICY_W8A8_ACT_PATTERNS),
+            ("policy", "int8"): (POLICY_PATTERNS, ())}
+    if target not in ("vlm", "policy"):
         raise ValueError(f"unknown serving target {target!r}")
     if mode not in ("w8a8", "int8"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     if is_quantized(model):
         return model
-    if mode == "int8":
-        return quantize_module(model, POLICY_PATTERNS, min_size=min_size)
-    return quantize_module(model, POLICY_W8A8_PATTERNS,
-                           POLICY_W8A8_ACT_PATTERNS, min_size)
+    pats, acts = sets[target, mode]
+    return quantize_module(model, pats, acts, min_size)

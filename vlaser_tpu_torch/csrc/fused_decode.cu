@@ -1,24 +1,32 @@
-// Fused int8 decoder stack (Qwen2-family layers, R rows) for Hopper.
+// Fused decoder stack (Qwen2-family layers, R rows) for Hopper.
 //
 // Replaces: vlaser_tpu/kernels/fused_decode.py :: fused_int8_stack (the
 // Pallas kernel built by _make_kernel; pallas_call at fused_decode.py:337),
-// int8-weight mode.
+// both weight modes: int8 weights with per-output-channel fp32 scales, and
+// bf16 weights with unit scales.
 //
-// What bounds it on the H100: R is 4 or 5 rows (the VLA denoise suffix), so
-// every layer is a chain of GEMVs over int8 weights: ~23 MB per layer of the
-// 768-wide, 28-layer action expert (q/k/v/o + the 8960-wide gated MLP), i.e.
-// ~0.66 GB per call against ~2*R FLOP per weight byte. Device-memory
-// bandwidth (3.35 TB/s) bounds the weight stream; at ~23 MB per layer each
-// GEMV is only a few microseconds of traffic, so launch latency and the
-// serial steps between the GEMVs (reductions, norms, attention) weigh as
-// much as the stream itself.
+// Two callers, both R-row GEMV chains against an external K/V:
+//  - the VLA denoise suffix (policy/fused_infer.py): R = 4 or 5 action rows
+//    of the 768-wide, 28-layer action expert over the prompt's K/V;
+//  - the VLM decode (inference/fused_runner.py): R = 1 token of the
+//    1536-wide, 28-layer Qwen2.5-1.5B over the whole growing KV cache
+//    (E = prompt bucket + new tokens, up to max_position_embeddings).
 //
-// What the design does about it: weights stay int8 in device memory and are
-// read exactly once per call, 8 bytes per thread with neighbouring threads on
-// neighbouring columns (coalesced 256-byte rows per warp, 8 rows in flight
-// per warp, the next 8 loading while these are used); the activation rows
-// sit in shared memory as fp32 and the int8 -> fp32 convert is a register
-// op; the per-output-channel scale is applied to the [R, N] output
+// What bounds it on the H100: every layer streams its weights once for R
+// rows, ~2*R FLOP per weight element: device-memory bandwidth (3.35 TB/s).
+// Int8 weights are ~23 MB per expert layer (0.66 GB a call) and ~47 MB per
+// VLM layer (1.31 GB a token); bf16 weights twice that. At a few
+// microseconds of traffic per GEMV, launch latency and the serial steps
+// between the GEMVs (reductions, norms, attention) weigh as much as the
+// stream itself; at decode the attention reads the cache too (2 x E x 512
+// bytes a layer).
+//
+// What the design does about it: weights are read exactly once per call, 8
+// columns per thread (8 bytes of int8 or 16 bytes of bf16), neighbouring
+// threads on neighbouring columns (coalesced rows per warp, 8 rows in
+// flight per warp, the next 8 loading while these are used); the activation
+// rows sit in shared memory as fp32 and the weight -> fp32 convert is a
+// register op; the per-output-channel scale is applied to the [R, N] output
 // (fused_decode.py:159-167), never to the weight. K is split across blocks
 // (one wave of two blocks per SM) so even the 256-column k/v projections
 // fill the 132 SMs; the partial sums go through a small fp32 scratch and are
@@ -27,18 +35,21 @@
 // no extra pass over the weights ever exists. (Reducing in the last block of
 // each tile instead, to save those launches, was measured slower: one block
 // then sums up to 70 partials per column serially.) A rope kernel rounds
-// q/k/v and writes the self K/V; one attention kernel per (q head, row)
-// keeps the additive masks in fp32 (NEG_INF = -1e30 would overflow half
-// precision), scores one key per thread (16-byte loads), and splits P.V
-// over 16 warps. R is a runtime argument (5 at denoise step 0, 4 after it),
-// up to 8. The host loops over layers in C: one ctypes call per stack.
-// Simple first: no TMA prefetch of the next layer's weights yet.
+// q/k/v (bf16 or fp32 rope tables, as the caller passes them) and writes
+// the self K/V; one attention kernel per (q head, row) keeps the additive
+// masks in fp32 (NEG_INF = -1e30 would overflow half precision), scores one
+// key per thread (16-byte loads) into shared memory -- above 48 KB it opts
+// into the SM's larger dynamic shared memory, so a 32,768-slot cache fits
+// -- and splits P.V over 16 warps. R is a runtime argument, up to 8. The
+// host loops over layers in C: one ctypes call per stack. Simple first: no
+// TMA prefetch of the next layer's weights yet, and the decode's attention
+// runs H x R = 12 blocks.
 #include "common.cuh"
 
 namespace dec {
 
 constexpr int RMAX = 8;
-constexpr int HEAD_DIM = 128;  // the action expert's, the one caller
+constexpr int HEAD_DIM = 128;  // the action expert's and Qwen2.5-1.5B's
 constexpr int GV_THREADS = 256;  // 8 warps split K inside the block
 constexpr int GV_WARPS = GV_THREADS / 32;
 constexpr int GV_COLS = 256;     // 32 lanes x 8 int8 columns
@@ -49,7 +60,7 @@ constexpr int AT_THREADS = 512;
 constexpr int AT_WARPS = AT_THREADS / 32;
 
 struct Seg {
-  const int8_t* w;  // [K, N] int8
+  const void* w;    // [K, N] int8 or bf16
   float* part;      // [ksplit, R, N] fp32 partial sums
   int N;
 };
@@ -57,19 +68,40 @@ struct Segs {
   Seg s[3];
 };
 
-__device__ __forceinline__ void unpack8(uint2 w, float* f) {
+// Eight weight columns as one load: 8 bytes of int8, 16 bytes of bf16.
+template <typename W>
+struct Lane8;
+template <>
+struct Lane8<int8_t> {
+  typedef uint2 T;
+  static __device__ __forceinline__ void unpack(const T& w, float* f) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = (float)(int8_t)((w.x >> (8 * i)) & 0xffu);
-    f[4 + i] = (float)(int8_t)((w.y >> (8 * i)) & 0xffu);
+    for (int i = 0; i < 4; ++i) {
+      f[i] = (float)(int8_t)((w.x >> (8 * i)) & 0xffu);
+      f[4 + i] = (float)(int8_t)((w.y >> (8 * i)) & 0xffu);
+    }
   }
-}
+};
+template <>
+struct Lane8<bf16> {
+  typedef uint4 T;
+  static __device__ __forceinline__ void unpack(const T& w, float* f) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(p[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+};
 
 // part[split, r, n] = sum_{k in split} a[r, k] * w[k, n]; blockIdx.z picks
-// the weight (q/k/v or gate/up share one launch). RM >= R rows. Each warp
-// keeps GV_UNROLL independent 8-byte weight loads in flight; the 8 warps'
-// sums meet in shared memory in a fixed order (deterministic).
-template <int RM>
+// the weight (q/k/v or gate/up share one launch). RM >= R rows; W is the
+// weight element type. Each warp keeps GV_UNROLL independent 8-column
+// weight loads in flight; the 8 warps' sums meet in shared memory in a
+// fixed order (deterministic).
+template <int RM, typename W>
 __global__ void __launch_bounds__(GV_THREADS)
 gemv_partial_kernel(const bf16* __restrict__ a, int R, int K, int kchunk,
                     Segs segs) {
@@ -95,15 +127,16 @@ gemv_partial_kernel(const bf16* __restrict__ a, int R, int K, int kchunk,
     for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
   if (n0 < N) {
     // software pipeline: the next batch of rows loads while this one is used
-    const int8_t* wcol = sg.w + (size_t)k0 * N + n0;
+    typedef typename Lane8<W>::T LT;
+    const W* wcol = static_cast<const W*>(sg.w) + (size_t)k0 * N + n0;
     constexpr int stride = GV_WARPS * GV_UNROLL;
-    uint2 cur[GV_UNROLL], nxt[GV_UNROLL];
-    auto load = [&](uint2* dst, int kb) {
+    LT cur[GV_UNROLL], nxt[GV_UNROLL];
+    auto load = [&](LT* dst, int kb) {
 #pragma unroll
       for (int u = 0; u < GV_UNROLL; ++u)
         dst[u] = kb + u < kn
-                     ? *reinterpret_cast<const uint2*>(wcol + (size_t)(kb + u) * N)
-                     : make_uint2(0, 0);
+                     ? *reinterpret_cast<const LT*>(wcol + (size_t)(kb + u) * N)
+                     : LT{};
     };
     int kb = warp * GV_UNROLL;
     if (kb < kn) load(cur, kb);
@@ -113,7 +146,7 @@ gemv_partial_kernel(const bf16* __restrict__ a, int R, int K, int kchunk,
       for (int u = 0; u < GV_UNROLL; ++u) {
         if (kb + u < kn) {
           float wf[8];
-          unpack8(cur[u], wf);
+          Lane8<W>::unpack(cur[u], wf);
 #pragma unroll
           for (int r = 0; r < RM; ++r) {
             if (r < R) {
@@ -174,10 +207,27 @@ __device__ __forceinline__ float reduce_parts(const float* part, int ksplit,
   return v;
 }
 
-// q/k/v = parts * scale + bias (fp32) -> bf16 -> rotate-half rope with bf16
-// cos/sin, each product and the sum rounded to bf16 (fused_decode.py:176-180).
-// Writes roped q [R, H*D] and this layer's k/v self rows [R, KVH, D].
-// Grid (ceil(((H + KVH) * D/2 + KVH * D) / blockDim), R).
+// Rotate-half rope of the bf16-rounded pair (a, b) in the dtype of the
+// tables (fused_decode.py:176-180): with bf16 cos/sin each product and the
+// sum round to bf16; with fp32 ones (the VLM decode) the products and the
+// sum are fp32, rounded once.
+__device__ __forceinline__ float rope_half(float a, float b, float c, float s,
+                                           const bf16*) {
+  return bf(a * c) + bf(b * s);
+}
+__device__ __forceinline__ float rope_half(float a, float b, float c, float s,
+                                           const float*) {
+  return __fadd_rn(__fmul_rn(a, c), __fmul_rn(b, s));
+}
+__device__ __forceinline__ float ld(const bf16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float ld(const float* p, int i) { return p[i]; }
+
+// q/k/v = parts * scale + bias (fp32) -> bf16 -> rotate-half rope (CT: the
+// tables' type). Writes roped q [R, H*D] and this layer's k/v self rows [R,
+// KVH, D]. Grid (ceil(((H + KVH) * D/2 + KVH * D) / blockDim), R).
+template <typename CT>
 __global__ void qkv_post_kernel(const float* __restrict__ pq,
                                 const float* __restrict__ pk,
                                 const float* __restrict__ pv, int ksplit, int R,
@@ -185,7 +235,7 @@ __global__ void qkv_post_kernel(const float* __restrict__ pq,
                                 const float* __restrict__ sq, const float* __restrict__ bq,
                                 const float* __restrict__ sk, const float* __restrict__ bk,
                                 const float* __restrict__ sv, const float* __restrict__ bv,
-                                const bf16* __restrict__ cos, const bf16* __restrict__ sin,
+                                const CT* __restrict__ cos, const CT* __restrict__ sin,
                                 bf16* __restrict__ qr, bf16* __restrict__ kself,
                                 bf16* __restrict__ vself) {
   const int r = blockIdx.y, half = D / 2;
@@ -211,13 +261,11 @@ __global__ void qkv_post_kernel(const float* __restrict__ pq,
   const float v2 =
       reduce_parts(part, ksplit, R, N, r, col + half) * sc[col + half] + bi[col + half];
   const float a = bf(v1), b = bf(v2);
-  const float c1 = __bfloat162float(cos[r * D + d]);
-  const float s1 = __bfloat162float(sin[r * D + d]);
-  const float c2 = __bfloat162float(cos[r * D + d + half]);
-  const float s2 = __bfloat162float(sin[r * D + d + half]);
+  const float c1 = ld(cos, r * D + d), s1 = ld(sin, r * D + d);
+  const float c2 = ld(cos, r * D + d + half), s2 = ld(sin, r * D + d + half);
   bf16* dst = isq ? qr + (size_t)r * QD : kself + (size_t)r * KD;
-  dst[col] = __float2bfloat16(bf(a * c1) + bf(-b * s1));
-  dst[col + half] = __float2bfloat16(bf(b * c2) + bf(a * s2));
+  dst[col] = __float2bfloat16(rope_half(a, -b, c1, s1, cos));
+  dst[col + half] = __float2bfloat16(rope_half(b, a, c2, s2, cos));
 }
 
 // One (q head, row): fp32 softmax over [external keys | self keys] with the
@@ -306,6 +354,14 @@ static int attention(dim3 grid, size_t smem, cudaStream_t st, const bf16* qr,
                      const bf16* kext, const bf16* vext, const bf16* kself,
                      const bf16* vself, const float* extm, const float* selfm,
                      bf16* out, int R, int H, int KVH, int E, float scale) {
+  // above the default 48 KB of dynamic shared memory a kernel must opt in
+  static size_t opted = 48 * 1024;
+  if (smem > opted) {
+    cudaFuncSetAttribute(attention_kernel<HEAD_DIM>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    RETURN_IF_ERR();
+    opted = smem;
+  }
   attention_kernel<HEAD_DIM><<<grid, AT_THREADS, smem, st>>>(
       qr, kext, vext, kself, vself, extm, selfm, out, R, H, KVH, E, scale);
   RETURN_IF_ERR();
@@ -382,15 +438,27 @@ static Plan plan(int C, int QD, int KD, int I) {
   return p;
 }
 
-static int gemv(const bf16* a, int R, int K, int kchunk, int ksplit, int ntiles,
-                int nseg, const Segs& segs, cudaStream_t st) {
+template <typename W>
+static int gemv_t(const bf16* a, int R, int K, int kchunk, int ksplit,
+                  int ntiles, int nseg, const Segs& segs, cudaStream_t st) {
   const dim3 grid(ntiles, ksplit, nseg);
   if (R <= 4)
-    gemv_partial_kernel<4><<<grid, GV_THREADS, 0, st>>>(a, R, K, kchunk, segs);
+    gemv_partial_kernel<4, W><<<grid, GV_THREADS, 0, st>>>(a, R, K, kchunk, segs);
   else
-    gemv_partial_kernel<8><<<grid, GV_THREADS, 0, st>>>(a, R, K, kchunk, segs);
+    gemv_partial_kernel<8, W><<<grid, GV_THREADS, 0, st>>>(a, R, K, kchunk, segs);
   RETURN_IF_ERR();
   return 0;
+}
+
+static int gemv(bool wbf16, const bf16* a, int R, int K, int kchunk, int ksplit,
+                int ntiles, int nseg, const Segs& segs, cudaStream_t st) {
+  return wbf16 ? gemv_t<bf16>(a, R, K, kchunk, ksplit, ntiles, nseg, segs, st)
+               : gemv_t<int8_t>(a, R, K, kchunk, ksplit, ntiles, nseg, segs, st);
+}
+
+// Dynamic shared memory of the attention kernel for E external keys.
+static size_t attn_smem_bytes(int R, int D, int E) {
+  return (size_t)((1 + AT_WARPS) * D + E + R) * sizeof(float);
 }
 
 }  // namespace dec
@@ -409,12 +477,29 @@ extern "C" long long int8_stack_scratch_floats(int R, int C, int QD, int KD,
   return m;
 }
 
-// The whole stack. Weights int8 [L, K, N]; scales fp32 [L, 1, N]; ln/bias
-// fp32 [L, n]; cos/sin bf16 [R, D]; self_mask fp32 [R, R]; ext_mask fp32
+// The largest external K/V length the attention kernel takes for R rows on
+// the current device (its scores stay in shared memory).
+extern "C" long long int8_stack_max_ext(int R) {
+  using namespace dec;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, attention_kernel<HEAD_DIM>) != cudaSuccess)
+    return -1;
+  const long long avail = (long long)optin - (long long)fa.sharedSizeBytes;
+  return avail / (long long)sizeof(float) - (1 + AT_WARPS) * HEAD_DIM - R;
+}
+
+// The whole stack. Weights int8 (wbf16 = 0) or bf16 (wbf16 = 1) [L, K, N];
+// scales fp32 [L, 1, N] (ones with bf16 weights); ln/bias fp32 [L, n];
+// cos/sin [R, D] bf16 (rope_f32 = 0) or fp32; self_mask fp32 [R, R]; ext_mask fp32
 // [1, E]; k_ext/v_ext bf16 [L, E, KVH, D]. Outputs: x_out bf16 [R, C],
 // k_self/v_self bf16 [L, R, KVH, D]. Scratch: h bf16 [R, max(C, QD, I)],
 // xn bf16 [R, C], qr bf16 [R, QD], part fp32 (int8_stack_scratch_floats).
-// Every N is a multiple of 8 (8-byte weight loads); head_dim is HEAD_DIM.
+// Every N is a multiple of 8 (8-column weight loads); head_dim is HEAD_DIM;
+// E <= int8_stack_max_ext(R).
 extern "C" int int8_stack_forward(
     const void* x_, const void* cos_, const void* sin_, const void* selfm_,
     const void* extm_, const void* ln1_, const void* ln2_, const void* bq_,
@@ -424,22 +509,23 @@ extern "C" int int8_stack_forward(
     const void* wu_, const void* su_, const void* wd_, const void* sd_,
     const void* kext_, const void* vext_, void* xout_, void* kself_,
     void* vself_, void* h_, void* xn_, void* qr_, void* part_, int L, int R,
-    int C, int H, int KVH, int D, int I, int E, float eps, void* stream) {
+    int C, int H, int KVH, int D, int I, int E, int wbf16, int rope_f32,
+    float eps, void* stream) {
   using namespace dec;
   const int QD = H * D, KD = KVH * D;
-  const size_t attn_smem = (size_t)((1 + AT_WARPS) * D + E + R) * sizeof(float);
-  if (R < 1 || R > RMAX || D != HEAD_DIM || H % KVH ||
-      C % 8 || QD % 8 || KD % 8 || I % 8 || attn_smem > 48 * 1024)
+  const size_t attn_smem = attn_smem_bytes(R, D, E);
+  if (R < 1 || R > RMAX || D != HEAD_DIM || H % KVH || C % 8 || QD % 8 ||
+      KD % 8 || I % 8 || E > int8_stack_max_ext(R))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* x = (const bf16*)x_;
-  const bf16 *cs = (const bf16*)cos_, *sn = (const bf16*)sin_;
   const float *selfm = (const float*)selfm_, *extm = (const float*)extm_;
   const float *ln1 = (const float*)ln1_, *ln2 = (const float*)ln2_;
   const float *bq = (const float*)bq_, *bk = (const float*)bk_, *bv = (const float*)bv_;
-  const int8_t *wq = (const int8_t*)wq_, *wk = (const int8_t*)wk_, *wv = (const int8_t*)wv_;
-  const int8_t *wo = (const int8_t*)wo_, *wg = (const int8_t*)wg_, *wu = (const int8_t*)wu_;
-  const int8_t* wd = (const int8_t*)wd_;
+  const char *wq = (const char*)wq_, *wk = (const char*)wk_, *wv = (const char*)wv_;
+  const char *wo = (const char*)wo_, *wg = (const char*)wg_, *wu = (const char*)wu_;
+  const char* wd = (const char*)wd_;
+  const size_t wb = wbf16 ? sizeof(bf16) : 1;  // bytes per weight element
   const float *sq = (const float*)sq_, *sk = (const float*)sk_, *sv = (const float*)sv_;
   const float *so = (const float*)so_, *sg = (const float*)sg_, *su = (const float*)su_;
   const float* sd = (const float*)sd_;
@@ -461,36 +547,50 @@ extern "C" int int8_stack_forward(
   for (int l = 0; l < L; ++l) {
     float *pq = part, *pk = part + (size_t)p.ks_qkv * R * QD,
           *pv = part + (size_t)p.ks_qkv * R * (QD + KD);
-    Segs s3 = {{{wq + (size_t)l * C * QD, pq, QD},
-                {wk + (size_t)l * C * KD, pk, KD},
-                {wv + (size_t)l * C * KD, pv, KD}}};
-    if ((err = gemv(h, R, C, p.kc_qkv, p.ks_qkv, tiles(QD), 3, s3, st))) return err;
+    Segs s3 = {{{wq + (size_t)l * C * QD * wb, pq, QD},
+                {wk + (size_t)l * C * KD * wb, pk, KD},
+                {wv + (size_t)l * C * KD * wb, pv, KD}}};
+    if ((err = gemv(wbf16, h, R, C, p.kc_qkv, p.ks_qkv, tiles(QD), 3, s3, st)))
+      return err;
     bf16* ks_l = kself + (size_t)l * R * KD;
     bf16* vs_l = vself + (size_t)l * R * KD;
-    qkv_post_kernel<<<dim3(post_blocks, R), 128, 0, st>>>(
-        pq, pk, pv, p.ks_qkv, R, H, KVH, D, sq + (size_t)l * QD, bq + (size_t)l * QD,
-        sk + (size_t)l * KD, bk + (size_t)l * KD, sv + (size_t)l * KD,
-        bv + (size_t)l * KD, cs, sn, qr, ks_l, vs_l);
+    const dim3 pgrid(post_blocks, R);
+    if (rope_f32)
+      qkv_post_kernel<float><<<pgrid, 128, 0, st>>>(
+          pq, pk, pv, p.ks_qkv, R, H, KVH, D, sq + (size_t)l * QD,
+          bq + (size_t)l * QD, sk + (size_t)l * KD, bk + (size_t)l * KD,
+          sv + (size_t)l * KD, bv + (size_t)l * KD, (const float*)cos_,
+          (const float*)sin_, qr, ks_l, vs_l);
+    else
+      qkv_post_kernel<bf16><<<pgrid, 128, 0, st>>>(
+          pq, pk, pv, p.ks_qkv, R, H, KVH, D, sq + (size_t)l * QD,
+          bq + (size_t)l * QD, sk + (size_t)l * KD, bk + (size_t)l * KD,
+          sv + (size_t)l * KD, bv + (size_t)l * KD, (const bf16*)cos_,
+          (const bf16*)sin_, qr, ks_l, vs_l);
     RETURN_IF_ERR();
     if ((err = attention(dim3(H, R), attn_smem, st, qr, kext + (size_t)l * E * KD,
                          vext + (size_t)l * E * KD, ks_l, vs_l, extm, selfm, h, R,
                          H, KVH, E, scale)))
       return err;
-    Segs so1 = {{{wo + (size_t)l * QD * C, part, C}}};
-    if ((err = gemv(h, R, QD, p.kc_o, p.ks_o, tiles(C), 1, so1, st))) return err;
+    Segs so1 = {{{wo + (size_t)l * QD * C * wb, part, C}}};
+    if ((err = gemv(wbf16, h, R, QD, p.kc_o, p.ks_o, tiles(C), 1, so1, st)))
+      return err;
     residual_kernel<<<rc_blocks, 256, 0, st>>>(part, p.ks_o, R, C, so + (size_t)l * C,
                                                xout, xn);
     RETURN_IF_ERR();
     rms_kernel<<<R, 256, 0, st>>>(xn, ln2 + (size_t)l * C, h, C, eps);
     RETURN_IF_ERR();
     float *pg = part, *pu = part + (size_t)p.ks_gu * R * I;
-    Segs s2 = {{{wg + (size_t)l * C * I, pg, I}, {wu + (size_t)l * C * I, pu, I}}};
-    if ((err = gemv(h, R, C, p.kc_gu, p.ks_gu, tiles(I), 2, s2, st))) return err;
+    Segs s2 = {{{wg + (size_t)l * C * I * wb, pg, I},
+                {wu + (size_t)l * C * I * wb, pu, I}}};
+    if ((err = gemv(wbf16, h, R, C, p.kc_gu, p.ks_gu, tiles(I), 2, s2, st)))
+      return err;
     gate_up_kernel<<<(R * I + 255) / 256, 256, 0, st>>>(
         pg, pu, p.ks_gu, R, I, sg + (size_t)l * I, su + (size_t)l * I, h);
     RETURN_IF_ERR();
-    Segs sd1 = {{{wd + (size_t)l * I * C, part, C}}};
-    if ((err = gemv(h, R, I, p.kc_d, p.ks_d, tiles(C), 1, sd1, st))) return err;
+    Segs sd1 = {{{wd + (size_t)l * I * C * wb, part, C}}};
+    if ((err = gemv(wbf16, h, R, I, p.kc_d, p.ks_d, tiles(C), 1, sd1, st)))
+      return err;
     residual_kernel<<<rc_blocks, 256, 0, st>>>(part, p.ks_d, R, C, sd + (size_t)l * C,
                                                xn, xout);
     RETURN_IF_ERR();

@@ -33,7 +33,8 @@ from . import _build, ops
 LEVEL_BITS = 2
 LEVEL_MASK = (1 << LEVEL_BITS) - 1
 NEG_INF = -1e30
-LOGITS_BYTES_MIN = 128 * 2**20  # the JAX dispatch's threshold
+LOGITS_BYTES_MIN = 128 * 2**20  # the JAX dispatch's thresholds: logits
+SQ_MIN = 2048                   # bytes, query rows
 fwd_launch_count = 0  # flash_attention_fwd launches through the CUDA route
 bwd_launch_count = 0  # flash_attention_bwd launches (dq + dkv kernels)
 
@@ -261,7 +262,7 @@ def attention_fn(b: int, sq: int, skv: int, h: int, device, *,
     if impl == "auto":
         logits_bytes = b * h * sq * skv * 4
         impl = ("kernel" if torch.device(device).type == "cuda" and (
-            sq >= 2048 or logits_bytes > LOGITS_BYTES_MIN) else "reference")
+            sq >= SQ_MIN or logits_bytes > LOGITS_BYTES_MIN) else "reference")
     if impl == "kernel":
         if softcap is not None or window is not None:
             raise NotImplementedError(

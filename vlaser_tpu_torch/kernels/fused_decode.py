@@ -1,18 +1,21 @@
-"""Fused int8 decoder stack: the port of vlaser_tpu/kernels/fused_decode.py.
+"""Fused decoder stack: the port of vlaser_tpu/kernels/fused_decode.py.
 
 `fused_int8_stack` runs L Qwen2-family layers for R rows against per-layer
-external K/V (the VLA denoise suffix: R action rows over the prefix cache).
-On a CUDA tensor it launches the Hopper kernels of `csrc/fused_decode.cu`
-(built on first use); on a CPU tensor it runs `fused_int8_stack_plain`, the
-eager twin with the TPU kernel's rounding points. A tensor on any other
-device raises, and a failed build or launch raises.
+external K/V: the VLA denoise suffix (R action rows over the prefix cache)
+and the VLM decode (R = 1 token over the whole KV cache, its empty and
+padded slots masked). Weights are int8 with per-output-channel fp32 scales,
+or bf16 with unit scales (the TPU kernel's two modes). On a CUDA tensor it
+launches the Hopper kernels of `csrc/fused_decode.cu` (built on first use);
+on a CPU tensor it runs `fused_int8_stack_plain`, the eager twin with the
+TPU kernel's rounding points. A tensor on any other device raises, and a
+failed build or launch raises.
 
 Rounding points (both versions): RMSNorm out bf16; q/k/v in fp32 (scale on
 the output, then bias), rounded to bf16 before and after rope (each rope
-product and the sum in the dtype of cos/sin); fp32 softmax with additive
-fp32 masks; attention out bf16; x_new = bf16(x + o); gate/up in fp32,
-silu(g)*u staged in fp32 and rounded to bf16 for the down GEMV; x = bf16(
-x_new + down). The bf16-weight mode (unit scales) is not ported yet.
+product and the sum in the dtype of cos/sin: bf16 tables round each, fp32
+ones round once); fp32 softmax with additive fp32 masks; attention out
+bf16; x_new = bf16(x + o); gate/up in fp32, silu(g)*u staged in fp32 and
+rounded to bf16 for the down GEMV; x = bf16(x_new + down).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ launch_count = 0  # kernel launches through the CUDA route
 
 
 def _dq(a, w8, s):
-    """bf16 activations x int8 weights, fp32 accumulation, scale on out."""
+    """bf16 activations x int8 (or bf16) weights, fp32 accumulation, scale
+    on out."""
     return (a.to(torch.bfloat16).float() @ w8.float()) * s.float()
 
 
@@ -93,21 +97,21 @@ def fused_int8_stack_plain(x, cos, sin, self_mask, ext_mask, ln1, ln2,
     return xs, torch.stack(k_out), torch.stack(v_out)
 
 
-_fn = None
-_scratch_fn = None
+_fns = {}
 
 
 def _kernel():
-    global _fn, _scratch_fn
-    if _fn is None:
-        _fn = _build.bind(
+    """-> (the stack, its scratch size, its longest external K/V)."""
+    if not _fns:
+        lib = _build.library()
+        scratch, max_ext = lib.int8_stack_scratch_floats, lib.int8_stack_max_ext
+        scratch.argtypes, scratch.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+        max_ext.argtypes, max_ext.restype = [ctypes.c_int], ctypes.c_longlong
+        _fns["stack"] = _build.bind(
             "int8_stack_forward", 33,
-            (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_void_p),
-        )
-        _scratch_fn = _build.library().int8_stack_scratch_floats
-        _scratch_fn.argtypes = [ctypes.c_int] * 5
-        _scratch_fn.restype = ctypes.c_longlong
-    return _fn, _scratch_fn
+            (ctypes.c_int,) * 10 + (ctypes.c_float, ctypes.c_void_p))
+        _fns["scratch"], _fns["max_ext"] = scratch, max_ext
+    return _fns["stack"], _fns["scratch"], _fns["max_ext"]
 
 
 def _need(t, dtype, shape, dev, name):
@@ -129,10 +133,14 @@ def _launch(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
     D = cos.shape[-1]
     _, E, KVH, _ = k_ext.shape
     H = QD // D
-    f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
+    f32, bf = torch.float32, torch.bfloat16
+    wdt, cdt = wq.dtype, cos.dtype
+    if wdt not in (torch.int8, bf) or cdt not in (f32, bf):
+        raise TypeError("fused_int8_stack: weights must be int8 or bf16, "
+                        "cos/sin bf16 or fp32")
     _need(x, bf, (R, C), dev, "x")
-    _need(cos, bf, (R, D), dev, "cos")
-    _need(sin, bf, (R, D), dev, "sin")
+    _need(cos, cdt, (R, D), dev, "cos")
+    _need(sin, cdt, (R, D), dev, "sin")
     _need(self_mask, f32, (R, R), dev, "self_mask")
     _need(ext_mask, f32, (1, E), dev, "ext_mask")
     for t, n, nm in ((ln1, C, "ln1"), (ln2, C, "ln2"), (bq, QD, "bq"),
@@ -142,24 +150,34 @@ def _launch(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
                            (wv, sv, C, KD, "wv"), (wo, so, QD, C, "wo"),
                            (wg, sg, C, I, "wg"), (wu, su, C, I, "wu"),
                            (wd, sd, I, C, "wd")):
-        _need(w, i8, (L, k, n), dev, nm)
+        _need(w, wdt, (L, k, n), dev, nm)
         _need(s, f32, (L, 1, n), dev, nm + " scale")
     if D != 128 or H % KVH or R > 8 or any(n % 8 for n in (C, QD, KD, I)):
         raise ValueError("fused_int8_stack CUDA kernel needs head_dim 128, "
                          "R <= 8, widths % 8 == 0")
     _need(k_ext, bf, (L, E, KVH, D), dev, "k_ext")
     _need(v_ext, bf, (L, E, KVH, D), dev, "v_ext")
-    fn, scratch = _kernel()
+    fn, scratch, max_ext = _kernel()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    shape = (idx, R, C, QD, KD, I)
+    if shape not in _fns:  # host queries that depend on the device and shape
+        with torch.cuda.device(idx):
+            _fns[shape] = (max_ext(R), int(scratch(R, C, QD, KD, I)))
+    limit, n_part = _fns[shape]
+    if E > limit:
+        raise ValueError(
+            f"fused_int8_stack: an external K/V of {E} slots exceeds the "
+            f"{limit} whose scores the CUDA attention keeps in shared memory")
     e = lambda *s, dt=bf: torch.empty(s, dtype=dt, device=dev)
     x_out, k_self, v_self = e(R, C), e(L, R, KVH, D), e(L, R, KVH, D)
     h, xn, qr = e(R, max(C, QD, I)), e(R, C), e(R, QD)
-    part = e(int(scratch(R, C, QD, KD, I)), dt=f32)
+    part = e(n_part, dt=f32)
     ptrs = [x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
             wq, sq, wk, sk, wv, sv, wo, so, wg, sg, wu, su, wd, sd,
             k_ext, v_ext, x_out, k_self, v_self, h, xn, qr, part]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(*[t.data_ptr() for t in ptrs], L, R, C, H, KVH, D, I, E, eps,
-              stream)
+    code = fn(*[t.data_ptr() for t in ptrs], L, R, C, H, KVH, D, I, E,
+              int(wdt == bf), int(cdt == f32), eps, stream)
     _build.check(code, "int8_stack_forward")
     launch_count += 1
     return x_out, k_self, v_self
@@ -171,10 +189,10 @@ def fused_int8_stack(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
                      k_ext, v_ext, eps: float = 1e-6):
     """-> (x_out [R, hidden] bf16, k_self [L, R, KVH, D], v_self [...]).
 
-    Weights w* int8 [L, K, N] with fp32 per-output-channel scales [L, 1, N];
-    ln/bias fp32 [L, n]; k_ext/v_ext bf16 [L, ext_len, KVH, D]; masks are
-    additive fp32 (0 = attend, NEG_INF = blocked; a self row always sees
-    itself)."""
+    Weights w* int8 [L, K, N] with fp32 per-output-channel scales [L, 1, N],
+    or bf16 with unit scales; ln/bias fp32 [L, n]; cos/sin [R, D] bf16 or
+    fp32; k_ext/v_ext bf16 [L, ext_len, KVH, D]; masks are additive fp32 (0
+    = attend, NEG_INF = blocked; a self row always sees itself)."""
     args = (x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
             wq, sq, wk, sk, wv, sv, wo, so, wg, sg, wu, su, wd, sd,
             k_ext, v_ext)

@@ -172,7 +172,8 @@ class Dense(Block):
 
 
 class Embed(Block):
-    """Token embedding ('embedding' [V, H]) or its per-row int8 form."""
+    """Token embedding ('embedding' [V, H]) or its per-row int8 form;
+    `attend` is the tied logits head."""
 
     def __init__(self, num_embeddings: int, features: int,
                  param_dtype=torch.float32, dtype=torch.bfloat16, device=None):
@@ -185,6 +186,15 @@ class Embed(Block):
             rows = self.embedding_q[ids].to(self.dtype)
             return rows * self.embedding_scale[ids].to(self.dtype)
         return self.embedding[ids].to(self.dtype)
+
+    def attend(self, hidden):
+        """Tied logits head: hidden @ table^T, operands in the embedding
+        dtype, fp32 out (per-row scales on the output for the int8 table)."""
+        h = hidden.to(self.dtype).float()
+        if "embedding_q" in self._buffers:
+            y = h @ self.embedding_q.to(self.dtype).float().T
+            return y * self.embedding_scale[:, 0].float()
+        return h @ self.embedding.to(self.dtype).float().T
 
 
 def _leaves(mod: nn.Module):

@@ -1,16 +1,26 @@
-"""InternVL-chat pieces used by the VLA (port of vlaser_tpu/models/vlm.py):
-the mlp1 projector and the static-shape IMG_CONTEXT scatter.
-`InternVLChatModel` is not ported yet."""
+"""InternVL-chat-style VLM (port of vlaser_tpu/models/vlm.py): the mlp1
+projector, the static-shape IMG_CONTEXT scatter, and `InternVLChatModel`
+(InternViT features fused into the Qwen2 LLM; the Vlaser-2B chat model).
+
+Module names are the JAX parameter tree's (`vision_model`, `mlp1`,
+`language_model/{embed_tokens,model,lm_head}`), so
+`utils.convert.from_jax_variables` loads a JAX tree as it is. Padding tiles
+(`image_flags`) are not ported.
+"""
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import ops
+from .internvit import InternVisionModel
 from .layers import Dense, LayerNorm
+from .qwen2 import Qwen2ForCausalLM
 
 
 class MLP1(nn.Module):
@@ -47,3 +57,88 @@ def scatter_image_embeds(input_ids: torch.Tensor, tok_embeds: torch.Tensor,
     flat = tok_embeds.reshape(b * n, c)
     out = torch.where(sel[:, None], gathered.to(flat.dtype), flat)
     return out.reshape(b, n, c)
+
+
+class InternVLChatModel(nn.Module):
+    """Vision + projector + LLM. `device` None means the CUDA card; the CPU
+    only when asked for (device="cpu"). A box without a card raises rather
+    than build there. `attn_impl` routes the ViT's and the LLM's attention
+    ("auto" | "kernel" | "reference"), as the JAX constructor flag does.
+    Inference only: the JAX flag `remat` (training) is not ported."""
+
+    def __init__(self, cfg, param_dtype=torch.float32,
+                 compute_dtype=torch.bfloat16, device=None,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "InternVLChatModel: no CUDA device; pass device='cpu' to "
+                    "build on the CPU")
+            device = torch.device("cuda")
+        self.cfg, self.attn_impl = cfg, attn_impl
+        self.vision_model = InternVisionModel(cfg.vision, param_dtype,
+                                              compute_dtype, device,
+                                              attn_impl=attn_impl)
+        self.language_model = Qwen2ForCausalLM(cfg.llm, param_dtype,
+                                               compute_dtype, device)
+        self.mlp1 = MLP1(cfg.vit_proj_in_dim, cfg.llm.hidden_size,
+                         param_dtype, compute_dtype, device)
+
+    @property
+    def device(self) -> torch.device:
+        return next(itertools.chain(self.parameters(),
+                                    self.buffers())).device
+
+    def extract_feature(self, pixel_values):
+        """[T, H, W, 3] -> [T, num_image_token, llm_hidden]."""
+        vit = self.vision_model(pixel_values,
+                                select_layer=self.cfg.select_layer)
+        return self.project_features(vit)
+
+    def vit_embed(self, pixel_values):
+        """Patch conv + CLS + pos-emb: the fused ViT stack's input."""
+        return self.vision_model.embed(pixel_values)
+
+    def project_features(self, vit_hidden):
+        """CLS drop, pixel-shuffle x0.5, mlp1."""
+        cfg = self.cfg
+        vit = vit_hidden[:, 1:, :]
+        t, s, c = vit.shape
+        side = int(s ** 0.5)
+        vit = ops.pixel_shuffle(vit.reshape(t, side, side, c),
+                                cfg.downsample_ratio, cfg.ps_version)
+        return self.mlp1(vit.reshape(t, -1, vit.shape[-1]))
+
+    def fuse_embeddings(self, input_ids, pixel_values, image_flags=None,
+                        visual_features=None):
+        tok = self.language_model.embed(input_ids)
+        if pixel_values is None and visual_features is None:
+            return tok
+        vit = visual_features
+        if vit is None:
+            vit = self.extract_feature(pixel_values)
+        return scatter_image_embeds(input_ids, tok, vit, image_flags,
+                                    self.cfg.img_context_token_id)
+
+    def forward(self, input_ids, pixel_values, image_flags=None,
+                seg_ids=None, positions=None, cache=None,
+                return_logits: bool = True):
+        """-> (logits, hidden, new cache)."""
+        embeds = self.fuse_embeddings(input_ids, pixel_values, image_flags)
+        return self.language_model(
+            inputs_embeds=embeds, positions=positions, seg_ids=seg_ids,
+            cache=cache, attn_impl=self.attn_impl,
+            return_logits=return_logits)
+
+    def prefill(self, input_ids, pixel_values, seg_ids, cache,
+                visual_features=None, image_flags=None):
+        embeds = self.fuse_embeddings(input_ids, pixel_values, image_flags,
+                                      visual_features)
+        return self.language_model(inputs_embeds=embeds, seg_ids=seg_ids,
+                                   cache=cache, attn_impl=self.attn_impl)
+
+    def decode_step(self, token, cache, positions=None, seg_ids=None):
+        return self.language_model(input_ids=token, positions=positions,
+                                   seg_ids=seg_ids, cache=cache,
+                                   attn_impl=self.attn_impl)
