@@ -5,8 +5,9 @@
 
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
-width and depth of Vlaser-2B-VLA (phases 1-11) and of the Vlaser-2B chat
-model (phases 12-16) with random weights from seeded generators:
+width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
+model (phases 12-16) and of the PaliGemma VLA (phases 17-19) with random
+weights from seeded generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -85,7 +86,8 @@ quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
      13-tile output bit-equal to the kernel's at B = 8 and 5 on the same
      tiles; layer 0's differing int8 fc2 inputs counted), quantize_rows +
      int8_gemm at the prefill's rows, the causal flash prefill over the
-     cache buffer (padded and future slots segment 0), _rms_fwd at the
+     cache buffer (padded and future slots segment 0), again under a
+     sliding window of 1,024 (control: window ignored), _rms_fwd at the
      prefill's rows;
   14. VlaserChat.chat with 13 tiles, 8 new tokens, bench.py's stub
      tokenizer: a warm-up, then 3 calls with the launch counters zeroed just
@@ -96,6 +98,25 @@ quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
      tokens, mode "int8"): vlm_decode_tok_mismatches of the fused vs the
      plain generator, the fused decoder held to the plain one teacher-forced
      (DECODE_REL) with an ln1-ignored control, tok/s and ms per token.
+PaliGemma VLA (pizero_paligemma: SigLIP-So400m, the Gemma-2B mixture and
+the 1024-wide Gemma expert; attn_impl "kernel"):
+  17. flash attention forward and backward at its shapes against the plain
+     version: the joint train pass (B 32, S 281, 8/1 heads x 256, softcap
+     50, levels, a padded prompt tail), the serving suffix (B 1, 4 rows over
+     281 keys) and SigLIP (B 32, S 256, 16/16 heads x 72), q and k drawn so
+     that the logits' std is ~50; controls (softcap dropped, its 1 - t^2
+     factor dropped, scale dropped, levels ignored, padding keys unmasked,
+     at D 72 the last 8 dims of k zeroed) must break the bounds; timed
+     against the plain version and, for SigLIP, SDPA;
+  18. infer_action at batch 1 (276 prompt tokens, 10 Euler steps), bf16
+     weights, the kernel route against the reference route on the same
+     weights and inputs (<= PARITY_TOL), launch counters zeroed just before
+     one call and read just after, held to the count the code implies; both
+     routes timed; one call under torch.profiler;
+  19. the flow-matching train step at batch 32 (or the largest batch that
+     fits): a parity gate of loss and group gradient norms against the
+     reference attention (LOSS_REL, GNORM_REL), 3 VLATrainer steps with
+     derived launch counts, step time, peak memory, one step profiled.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -1174,23 +1195,152 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
 
 
 # -- training: phase 9, flash attention ---------------------------------------
-def _flash_inputs(torch, g, dev, B, Sq, Skv, H, KVH, D):
+def _flash_inputs(torch, g, dev, B, Sq, Skv, H, KVH, D, gain=1.0):
+    """q, k, v, dout ~ N(0, 1) in bf16; q and k x gain."""
     bf = torch.bfloat16
-    r = lambda *s: torch.randn(s, generator=g, device=dev).to(bf)
-    return r(B, Sq, H, D), r(B, Skv, KVH, D), r(B, Skv, KVH, D), r(B, Sq, H, D)
+    r = lambda *s, m=1.0: (torch.randn(s, generator=g, device=dev) * m).to(bf)
+    return (r(B, Sq, H, D, m=gain), r(B, Skv, KVH, D, m=gain),
+            r(B, Skv, KVH, D), r(B, Sq, H, D))
 
 
-def flash_phase(torch, dev, cfg, tag, report):
+def _bwd_plain_no_cap_factor(fa, *args, **kw):
+    """flash_attention_bwd_plain with the cap's derivative 1 - t^2 dropped
+    (a control: the logits stay capped)."""
+    capped = fa._capped
+    fa._capped = lambda s, cap: (capped(s, cap)[0], None)
+    try:
+        return fa.flash_attention_bwd_plain(*args, **kw)
+    finally:
+        fa._capped = capped
+
+
+def _flash_case(torch, dev, g, tag, name, B, Sq, Skv, H, KVH, D, q_seg,
+                q_lev, seg, lev, causal=False, off=0, cap=None, gain=1.0,
+                timed=True):
+    """flash_attention_fwd / _bwd at one shape against the plain versions on
+    the same CUDA tensors. Controls, where they apply: scale dropped, levels
+    ignored, padding keys unmasked, causal and q_offset dropped, softcap
+    and its 1 - t^2 factor dropped, and at D = 72 the last 8 dims of k
+    zeroed. Fully masked rows must give zeros. When `timed`: times against
+    the plain version and, without a softcap (which no PyTorch call
+    computes), scaled_dot_product_attention, with bounds from this data's
+    mask. -> (fwd report, bwd report)."""
     import torch.nn.functional as F
 
     from vlaser_tpu_torch.kernels import flash_attention as fa
 
+    q, k, v, do = _flash_inputs(torch, g, dev, B, Sq, Skv, H, KVH, D, gain)
+    qm, km = fa.pack_meta(q_seg, q_lev), fa.pack_meta(seg, lev)
+    what = (f"flash {name} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} D={D}"
+            + (f" causal q_offset={off}" if causal else "")
+            + (f" softcap={cap}" if cap else ""))
+    out, lse = fa.flash_attention_fwd(q, k, v, qm, km, off, causal,
+                                      softcap=cap)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, qm, km, off, out, lse, do,
+                                        causal, softcap=cap)
+    torch.cuda.synchronize()
+    keys = ("out", "lse", "dq", "dk", "dv")
+
+    def plain(qm_=qm, km_=km, off_=off, causal_=causal, scale=None, cap_=cap,
+              k_=k, factor=True):
+        o, l = fa.flash_attention_fwd_plain(q, k_, v, qm_, km_, off_, causal_,
+                                            scale, cap_)
+        bwd = (fa.flash_attention_bwd_plain if factor else
+               lambda *a: _bwd_plain_no_cap_factor(fa, *a))
+        grads = bwd(q, k_, v, qm_, km_, off_, out, lse, do, causal_, scale,
+                    cap_)
+        return dict(zip(keys, (o, l, *grads)))
+
+    got, ref = dict(zip(keys, (out, lse, dq, dk, dv))), plain()
+    bounds = {kk: FLASH_REL * ref[kk].float().abs().max().item()
+              for kk in ("out", "dq", "dk", "dv")}
+    bounds["lse"] = LSE_ABS
+    controls = {"scale dropped": plain(scale=1.0)}
+    if lev is not None and Sq == Skv:
+        controls["levels ignored"] = plain(fa.pack_meta(q_seg),
+                                           fa.pack_meta(seg))
+    if not bool(seg.all()):
+        controls["padding keys unmasked"] = plain(
+            km_=fa.pack_meta(torch.ones_like(seg), lev))
+    if causal:
+        controls["causal dropped"] = plain(causal_=False)
+        controls["q_offset dropped"] = plain(off_=0)
+    if cap:
+        controls["softcap dropped"] = plain(cap_=None)
+        controls["(1 - t^2) dropped"] = {
+            kk: plain(factor=False)[kk] for kk in ("dq", "dk")}
+    if D % 16:  # D = 72: the 8 dims past the last full 16-wide step
+        k0 = k.clone()
+        k0[..., D - 8:] = 0
+        controls["last 8 dims of k zeroed"] = plain(k_=k0)
+    live = q_seg != 0  # fully masked rows: lse -1e30 on both sides
+    pick = lambda d: {**d, "lse": d["lse"].transpose(1, 2)[live]} \
+        if "lse" in d else d
+    errs = _check(what, pick(got), pick(ref), bounds,
+                  {c: pick(d) for c, d in controls.items()})
+    if not ((out[~live] == 0).all() and (dq[~live] == 0).all()):
+        raise RuntimeError(f"{what}: fully masked rows must give zeros")
+    del ref, controls
+    t_fwd = {"max_abs_err": errs["out"]}
+    t_bwd = {"max_abs_err": max(errs["dq"], errs["dk"], errs["dv"])}
+    if not timed:
+        return t_fwd, t_bwd
+
+    pairs = fa._allowed(qm, km, off, causal).sum().item()
+    io = (q.numel() + k.numel() + v.numel()) * 2
+    meta = (qm.numel() + km.numel()) * 4
+    lse_b = lse.numel() * 4
+    fwd_args = (q, k, v, qm, km, off, causal)
+    bwd_args = (q, k, v, qm, km, off, out, lse, do, causal)
+    t_fwd.update(
+        ms=_kernel_ms(torch, lambda: fa.flash_attention_fwd(
+            *fwd_args, softcap=cap), 10),
+        plain_ms=_kernel_ms(torch, lambda: fa.flash_attention_fwd_plain(
+            *fwd_args, softcap=cap), 3), library_ms=None)
+    t_fwd["bound_ms"], t_fwd["bound_by"] = _bound(
+        4 * D * H * pairs, io + q.numel() * 2 + lse_b + meta, PEAK_BF16)
+    t_bwd.update(
+        ms=_kernel_ms(torch, lambda: fa.flash_attention_bwd(
+            *bwd_args, softcap=cap), 10),
+        plain_ms=_kernel_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            *bwd_args, softcap=cap), 3), library_ms=None)
+    t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
+        10 * D * H * pairs, 2 * io + 2 * q.numel() * 2 + lse_b + meta,
+        PEAK_BF16)
+    if not cap:
+        # the yardstick: one PyTorch call on the same inputs, [B, H, S, D],
+        # K/V repeated over each group's q heads
+        rep = lambda t: t.repeat_interleave(H // KVH, dim=2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, rep(k), rep(v)))
+        dot = do.transpose(1, 2).contiguous()
+        mask = None
+        if lev is not None or not bool(seg.all()):
+            mask = fa._allowed(qm, km, off, causal)[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        t_fwd["library_ms"] = _kernel_ms(torch, sdpa, 10)
+        o_lib = sdpa()
+        t_bwd["library_ms"] = _kernel_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True), 10)
+        del o_lib, qt, kt, vt, dot, mask
+    for nm, t in (("fwd", t_fwd), ("bwd", t_bwd)):
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.3f} ms")
+        print(f"flash {nm} {name} time: kernel {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, sdpa {lib}, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}", flush=True)
+    return t_fwd, t_bwd
+
+
+def flash_phase(torch, dev, cfg, tag, report):
+    """Phase 9: the train step's shapes (the ViT and the joint) and a causal
+    block with q_offset > 0 at the joint widths (_flash_case)."""
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     vcfg, llm, ecfg = cfg.vlm.vision, cfg.vlm.llm, cfg.expert
     S_it = cfg.max_image_text_tokens
     S_j = cfg.total_tokens
-    n_pa = S_j - S_it
     i32 = dict(dtype=torch.int32, device=dev)
     fwd_rep, bwd_rep = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
 
@@ -1202,7 +1352,6 @@ def flash_phase(torch, dev, cfg, tag, report):
              ("causal block", 4, 128, S_j, ecfg.num_heads, ecfg.num_kv_heads,
               ecfg.head_dim, 0, False, True, S_j - 128)]
     for name, B, Sq, Skv, H, KVH, D, pad, levels, causal, off in cases:
-        q, k, v, do = _flash_inputs(torch, g, dev, B, Sq, Skv, H, KVH, D)
         seg = torch.ones(B, Skv, **i32)
         lev = None
         if levels:  # [img/text 0 | proprio 1 | action 2]
@@ -1213,95 +1362,17 @@ def flash_phase(torch, dev, cfg, tag, report):
             seg[:, S_it - pad:S_it] = 0
         q_seg = seg if Sq == Skv else torch.ones(B, Sq, **i32)
         q_lev = lev if Sq == Skv else None
-        qm, km = fa.pack_meta(q_seg, q_lev), fa.pack_meta(seg, lev)
-        what = (f"flash {name} B={B} Sq={Sq} Skv={Skv} H={H}/{KVH} D={D}"
-                + (f" causal q_offset={off}" if causal else ""))
-
-        def plain(qm_=qm, km_=km, off_=off, causal_=causal, scale=None):
-            o, l = fa.flash_attention_fwd_plain(q, k, v, qm_, km_, off_,
-                                                causal_, scale)
-            dq, dk, dv = fa.flash_attention_bwd_plain(
-                q, k, v, qm_, km_, off_, out, lse, do, causal_, scale)
-            return {"out": o, "lse": l, "dq": dq, "dk": dk, "dv": dv}
-
-        out, lse = fa.flash_attention_fwd(q, k, v, qm, km, off, causal)
-        dq, dk, dv = fa.flash_attention_bwd(q, k, v, qm, km, off, out, lse, do,
-                                            causal)
-        torch.cuda.synchronize()
-        got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
-        ref = plain()
-        bounds = {kk: FLASH_REL * ref[kk].float().abs().max().item()
-                  for kk in ("out", "dq", "dk", "dv")}
-        bounds["lse"] = LSE_ABS
-        controls = {"scale dropped": plain(scale=1.0)}
-        if levels:
-            controls["levels ignored"] = plain(fa.pack_meta(q_seg),
-                                               fa.pack_meta(seg))
-        if pad:
-            ones = torch.ones_like(seg)
-            controls["padding keys unmasked"] = plain(fa.pack_meta(ones, lev),
-                                                      fa.pack_meta(ones, lev))
-        if causal:
-            controls["causal dropped"] = plain(causal_=False)
-            controls["q_offset dropped"] = plain(off_=0)
-        errs = _check(what, got, ref, bounds, controls)
-        dead = (q_seg == 0)
-        if not ((out[dead] == 0).all() and (dq[dead] == 0).all()):
-            raise RuntimeError(f"{what}: fully masked rows must give zeros")
-        del ref, controls
-        fwd_rep["max_abs_err"] = max(fwd_rep["max_abs_err"], errs["out"])
-        bwd_rep["max_abs_err"] = max(bwd_rep["max_abs_err"], errs["dq"],
-                                     errs["dk"], errs["dv"])
-        if causal:
-            continue
-
-        # timing at the train step's shapes, bounds from this data's mask
-        pairs = fa._allowed(qm, km, off, causal).sum().item()
-        io = (q.numel() + k.numel() + v.numel()) * 2
-        meta = (qm.numel() + km.numel()) * 4
-        lse_b = lse.numel() * 4
-        fwd_args = (q, k, v, qm, km, off)
-        bwd_args = (q, k, v, qm, km, off, out, lse, do, causal)
-        t_fwd = {
-            "ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd(
-                *fwd_args, causal), 10),
-            "plain_ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd_plain(
-                *fwd_args, causal), 3)}
-        t_fwd["bound_ms"], t_fwd["bound_by"] = _bound(
-            4 * D * H * pairs, io + q.numel() * 2 + lse_b + meta, PEAK_BF16)
-        t_bwd = {
-            "ms": _kernel_ms(torch, lambda: fa.flash_attention_bwd(
-                *bwd_args), 10),
-            "plain_ms": _kernel_ms(torch, lambda: fa.flash_attention_bwd_plain(
-                *bwd_args), 3)}
-        t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
-            10 * D * H * pairs, 2 * io + 2 * q.numel() * 2 + lse_b + meta,
-            PEAK_BF16)
-        # the yardstick: one PyTorch call on the same inputs, [B, H, S, D],
-        # K/V repeated over each group's q heads
-        rep = lambda t: t.repeat_interleave(H // KVH, dim=2)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, rep(k), rep(v)))
-        dot = do.transpose(1, 2).contiguous()
-        mask = None
-        if pad or levels:
-            mask = fa._allowed(qm, km, off, causal)[:, None]
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=mask)
-        t_fwd["library_ms"] = _kernel_ms(torch, sdpa, 10)
-        o_lib = sdpa()
-        t_bwd["library_ms"] = _kernel_ms(torch, lambda: torch.autograd.grad(
-            o_lib, (qt, kt, vt), dot, retain_graph=True), 10)
-        del o_lib, qt, kt, vt, dot, mask
-        for nm, t in (("fwd", t_fwd), ("bwd", t_bwd)):
-            print(f"flash {nm} {name} time: kernel {t['ms']:.3f} ms, plain "
-                  f"{t['plain_ms']:.3f} ms, sdpa {t['library_ms']:.3f} ms, "
-                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}",
-                  flush=True)
+        t_fwd, t_bwd = _flash_case(torch, dev, g, tag, name, B, Sq, Skv, H,
+                                   KVH, D, q_seg, q_lev, seg, lev, causal,
+                                   off, timed=not causal)
+        fwd_rep["max_abs_err"] = max(fwd_rep["max_abs_err"],
+                                     t_fwd.pop("max_abs_err"))
+        bwd_rep["max_abs_err"] = max(bwd_rep["max_abs_err"],
+                                     t_bwd.pop("max_abs_err"))
         if name == "vit":
             fwd_rep.update(t_fwd)
             bwd_rep.update(t_bwd)
-        else:
+        elif name == "joint":
             fwd_rep["joint"], bwd_rep["joint"] = t_fwd, t_bwd
     report["flash_attention_fwd"] = fwd_rep
     report["flash_attention_bwd"] = bwd_rep
@@ -1609,6 +1680,7 @@ DECODE_PROMPT, DECODE_NEW = 320, 64  # bench.py's decode: 1 tile, 320 tokens
 DECODE_REL = 2e-2
 LONG_CACHE = 32768  # Qwen2.5-1.5B's max_position_embeddings
 SMEM_48K_KEYS = 48 * 1024 // 4  # fp32 scores in the default shared memory
+CHAT_WINDOW = 1024  # the windowed prefill case: keys at most 1,024 back
 
 
 class ChatStubTokenizer:
@@ -1744,13 +1816,14 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
     return out
 
 
-def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag):
+def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag, window=None):
     """Phase 13 (part): flash_attention_fwd as the chat prefill calls it:
     causal, q_offset 0, K/V the cache buffer (Skv = Sq + new tokens) whose
-    bucket padding and future slots are segment 0. Padded query rows have
+    bucket padding and future slots are segment 0; with `window`, the
+    sliding window of a Qwen2 config that sets one. Padded query rows have
     no allowed key (out 0 on both sides). Controls: causal dropped, padded
     queries unmasked, scale dropped (causality alone hides the padded keys
-    from every valid query). -> report."""
+    from every valid query), window ignored. -> report."""
     import torch.nn.functional as F
 
     from vlaser_tpu_torch.kernels import flash_attention as fa
@@ -1765,35 +1838,40 @@ def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag):
     kv_seg = torch.zeros(1, Skv, **i32)
     kv_seg[:, :n_valid] = 1
     qm, km = fa.pack_meta(q_seg), fa.pack_meta(kv_seg)
-    what = f"flash chat prefill Sq={Sq} Skv={Skv} H={H}/{KVH} D={D} causal"
+    what = (f"flash chat prefill Sq={Sq} Skv={Skv} H={H}/{KVH} D={D} causal"
+            + (f" window={window}" if window is not None else ""))
     with torch.inference_mode():
-        out, lse = fa.flash_attention_fwd(q, k, v, qm, km, 0, True)
+        out, lse = fa.flash_attention_fwd(q, k, v, qm, km, 0, True,
+                                          window=window)
         torch.cuda.synchronize()
 
-        def plain(qm_=qm, causal=True, scale=None):
+        def plain(qm_=qm, causal=True, scale=None, window_=window):
             o, l = fa.flash_attention_fwd_plain(q, k, v, qm_, km, 0, causal,
-                                                scale)
+                                                scale, window=window_)
             return {"out": o, "lse": l}
 
         ref = plain()
         valid = q_seg[0] == 1  # padded query rows: lse is -1e30 on both
         pick = lambda d: {"out": d["out"], "lse": d["lse"][..., valid]}
         ones = fa.pack_meta(torch.ones_like(q_seg))
+        controls = {"causal dropped": pick(plain(causal=False)),
+                    "padded queries unmasked": pick(plain(qm_=ones)),
+                    "scale dropped": pick(plain(scale=1.0))}
+        if window is not None:
+            controls["window ignored"] = pick(plain(window_=None))
         errs = _check(what, pick({"out": out, "lse": lse}), pick(ref),
                       {"out": FLASH_REL * ref["out"].float().abs().max().item(),
-                       "lse": LSE_ABS},
-                      {"causal dropped": pick(plain(causal=False)),
-                       "padded queries unmasked": pick(plain(qm_=ones)),
-                       "scale dropped": pick(plain(scale=1.0))})
+                       "lse": LSE_ABS}, controls)
         if not (out[0, ~valid] == 0).all():
             raise RuntimeError(f"{what}: padded query rows must give zeros")
-        del ref
+        del ref, controls
         rep = {"max_abs_err": errs["out"],
                "ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd(
-                   q, k, v, qm, km, 0, True), 10),
+                   q, k, v, qm, km, 0, True, window=window), 10),
                "plain_ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd_plain(
-                   q, k, v, qm, km, 0, True), 2)}
-        pairs = fa._allowed(qm, km, 0, True).sum().item()
+                   q, k, v, qm, km, 0, True, window=window), 2)}
+        allowed = fa._allowed(qm, km, 0, True, window)
+        pairs = allowed.sum().item()
         io = (q.numel() * 2 + k.numel() + v.numel()) * 2
         rep["bound_ms"], rep["bound_by"] = _bound(
             4 * D * H * pairs, io + lse.numel() * 4 + (Sq + Skv) * 4,
@@ -1801,7 +1879,7 @@ def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag):
         rep_ = lambda t: t.repeat_interleave(H // KVH, dim=2)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, rep_(k),
                                                               rep_(v)))
-        mask = fa._allowed(qm, km, 0, True)[:, None]
+        mask = allowed[:, None]
         rep["library_ms"] = _kernel_ms(
             torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                           attn_mask=mask), 10)
@@ -1859,6 +1937,10 @@ def chat_phases(torch, np, dev, cfg, tag, report):
     (k1, k2), = gemm_phase(torch, _gemm_sites(lay.self_attn, lay.mlp), (n,),
                            dev, tag).values()
     flash = flash_prefill_phase(torch, dev, llm, n_valid, n, E, tag)
+    # the same prefill under a sliding window short enough to bite (a Qwen2
+    # config's sliding_window; Vlaser-2B ships without one)
+    flash_w = flash_prefill_phase(torch, dev, llm, n_valid, n, E, tag,
+                                  window=CHAT_WINDOW)
     rms = rms_serving(torch, torch.Generator(device=dev).manual_seed(13), dev,
                       n, llm.hidden_size, llm.rms_norm_eps, "chat prefill",
                       tag)
@@ -1955,6 +2037,7 @@ def chat_phases(torch, np, dev, cfg, tag, report):
                     ("int8_gemm", k2), ("flash_attention_fwd", flash),
                     ("_rms_fwd", rms)):
         report[name]["chat"] = r
+    report["flash_attention_fwd"]["chat_window"] = flash_w
     return launches
 
 
@@ -2043,6 +2126,297 @@ def decode_parity_phase(torch, dev, cfg, tag):
           f"{step_ms:.3f} ms per token (CUDA events) {tag}", flush=True)
 
 
+# -- PaliGemma: phases 17-19 -------------------------------------------------
+# q and k x this in the kernel phase: the logits' std near 50, where Gemma's
+# cap of 50 bites (at N(0, 0.02^2) weights it never does)
+PALI_GAIN = 50.0 ** 0.5
+PALI_PAD = 8  # the padded prompt tail of the kernel phase's joint shape
+INFER_REPS = 10
+
+
+def pali_flash_phase(torch, dev, cfg, tag):
+    """Phase 17: flash_attention_fwd / _bwd at the PaliGemma VLA's shapes
+    (_flash_case): the joint train pass (B 32, S 281, 8/1 heads x 256,
+    softcap 50, levels [0 x 276 | 1 | 2 x 4], a padded prompt tail), the
+    serving suffix (B 1, 4 action rows over the 281 keys) and SigLIP (B 32,
+    S 256, 16/16 heads x 72, non-causal). q and k are drawn x PALI_GAIN so
+    that the cap bites. -> {shape: (fwd report, bwd report)}."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    llm, sc = cfg.vlm.llm, cfg.siglip
+    S_it, S_j, n_a = (cfg.max_image_text_tokens, cfg.total_tokens,
+                      cfg.num_action_tokens)
+    i32 = dict(dtype=torch.int32, device=dev)
+    joint = (llm.num_heads, llm.num_kv_heads, llm.head_dim, llm.attn_softcap)
+    out_rep = {}
+    # (name, B, Sq, Skv, (H, KVH, D, softcap))
+    for name, B, Sq, Skv, (H, KVH, D, cap) in (
+            ("pali_joint", 32, S_j, S_j, joint),
+            ("pali_suffix", 1, n_a, S_j, joint),
+            ("siglip", 32, sc.num_tokens, sc.num_tokens,
+             (sc.num_heads, sc.num_heads, sc.head_dim, None))):
+        seg, lev = torch.ones(B, Skv, **i32), None
+        q_seg, q_lev = torch.ones(B, Sq, **i32), None
+        if cap:  # [img/text 0 | proprio 1 | action 2], a padded prompt tail
+            seg[:, S_it - PALI_PAD:S_it] = 0
+            lev = torch.zeros(B, Skv, **i32)
+            lev[:, S_it] = 1
+            lev[:, S_it + 1:] = 2
+            q_seg, q_lev = ((seg, lev) if Sq == Skv
+                            else (q_seg, torch.full((B, Sq), 2, **i32)))
+        out_rep[name] = _flash_case(
+            torch, dev, g, tag, name, B, Sq, Skv, H, KVH, D, q_seg, q_lev,
+            seg, lev, cap=cap, gain=PALI_GAIN if cap else 1.0)
+    return out_rep
+
+
+def _pali_init_(torch, model, gen):
+    """N(0, 0.02^2) everywhere, then LayerNorm and plain RMSNorm weights
+    1 + N(0, 0.1^2) and Gemma's plus-one RMSNorm weights N(0, 0.1^2)
+    (scale 1 + w)."""
+    from vlaser_tpu_torch.models.layers import LayerNorm, RMSNorm, init_normal_
+
+    init_normal_(model, gen, std=0.02)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (LayerNorm, RMSNorm)):
+                w = 0.1 * torch.randn(m.weight.shape, generator=gen,
+                                      device=m.weight.device)
+                m.weight.copy_(w if getattr(m, "plus_one", False) else 1 + w)
+
+
+def _pali_batch(torch, np, dev, cfg, B, seed):
+    """B PaliGemma prompts (256 image tokens first, then 5-20 text tokens
+    and padding up to 276), 224 px frames, proprio, actions, noise."""
+    rng = np.random.default_rng(seed)
+    S, n_img, img = (cfg.max_image_text_tokens, cfg.siglip.num_tokens,
+                     cfg.siglip.image_size)
+    ids = np.zeros((B, S), np.int64)
+    mask = np.zeros((B, S), np.int32)
+    for i in range(B):
+        n = n_img + int(rng.integers(5, S - n_img + 1))
+        ids[i, :n] = rng.integers(1, cfg.vlm.img_context_token_id, n)
+        ids[i, :n_img] = cfg.vlm.img_context_token_id
+        mask[i, :n] = 1
+    A = (B, cfg.num_action_tokens, cfg.action_dim)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"input_ids": t(ids), "text_mask": t(mask),
+            "pixel_values": t(rng.uniform(-1, 1, (B, img, img, 3)).astype(
+                np.float32)),
+            "proprios": t(rng.uniform(-1, 1, (B, cfg.cond_steps,
+                                              cfg.proprio_dim)).astype(
+                np.float32)),
+            "actions": t(rng.uniform(-1, 1, A).astype(np.float32)),
+            "noise": t(rng.standard_normal(A).astype(np.float32))}
+
+
+def pali_infer_phase(torch, np, dev, cfg, tag):
+    """Phase 18: PiZeroVLA.infer_action at batch 1, full width (SigLIP
+    So400m, the Gemma-2B mixture, the 1024-wide expert; 276 prompt tokens,
+    10 Euler steps), bf16 weights N(0, 0.02^2), attn_impl "kernel" against
+    "reference" on the same weights and inputs (<= PARITY_TOL), launch
+    counters zeroed just before one kernel-route call and read just after,
+    held to the count the code implies; both routes timed (median of
+    INFER_REPS, CUDA events). -> launches."""
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+
+    t0 = time.perf_counter()
+    model = PiZeroVLA(cfg, param_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, device=dev,
+                      attn_impl="kernel")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    _pali_init_(torch, model, gen)
+    b = _pali_batch(torch, np, dev, cfg, 1, 18)
+    args = [b[k] for k in ("input_ids", "pixel_values", "text_mask",
+                           "proprios", "noise")]
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in model.parameters())
+    print(f"pali serving model: PaliGemma VLA (pizero_paligemma), bf16 "
+          f"weights and compute, {n_param / 1e9:.3f} G parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s; prompt "
+          f"{int(b['text_mask'].sum())} of {cfg.max_image_text_tokens} "
+          f"tokens", flush=True)
+    # derived from the code: one flash forward per SigLIP layer, per joint
+    # layer of the prefix and per joint layer of each Euler step's suffix;
+    # the plus-one norms take ops.rms_norm, the prefix never runs the final
+    # vlm norm and the suffix's expert norm has 4 rows (reference)
+    L, steps = cfg.vlm.llm.num_layers, cfg.num_inference_steps
+    want = {"flash_attention_fwd": cfg.siglip.num_layers + L + steps * L}
+    model.infer_action(*args)  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = model.infer_action(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts().items() if v}
+    model.set_attn_impl("reference")
+    ref = model.infer_action(*args)
+    ref_ms = _ms(torch, lambda: model.infer_action(*args), INFER_REPS)
+    model.set_attn_impl("kernel")
+    ms = _ms(torch, lambda: model.infer_action(*args), INFER_REPS)
+    err = (got - ref).abs().max().item()
+    shape = (1, cfg.horizon_steps, cfg.action_dim)
+    print(f"pali infer_action: kernel vs reference route max abs diff "
+          f"{err:.3e} (bound {PARITY_TOL}), shape {tuple(got.shape)}, "
+          f"launches {launches} (derived {want}); median of {INFER_REPS}: "
+          f"kernel route {ms:.2f} ms, reference route {ref_ms:.2f} ms "
+          f"(CUDA events) {tag}", flush=True)
+    if not (tuple(got.shape) == shape and bool(got.isfinite().all())
+            and err <= PARITY_TOL and got.abs().max().item() <= 1.0):
+        raise RuntimeError("pali infer_action: kernel route disagrees")
+    if launches != want:
+        raise RuntimeError(f"pali infer launches {launches} != {want}")
+    with torch.inference_mode():
+        _profile(torch, lambda: model.infer_action(*args),
+                 "pali batch-1 infer_action", tag)
+    return launches
+
+
+def pali_train_phase(torch, np, dev, cfg, tag):
+    """Phase 19: the flow-matching train step of the PaliGemma VLA at batch
+    32 (fp32 parameters, bf16 compute, remat, two-group AdamW,
+    attn_impl "kernel"), or the largest batch of 32, 16, 8 that fits the
+    card. -> launches of its 3 VLATrainer steps."""
+    for B in (32, 16, 8):
+        try:
+            return _pali_train(torch, np, dev, cfg, B, tag)
+        except torch.cuda.OutOfMemoryError as e:
+            msg = str(e).splitlines()[0]
+        print(f"pali train at batch {B} does not fit the card: {msg}",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise RuntimeError("pali train does not fit the card at batch 8")
+
+
+def _pali_train(torch, np, dev, cfg, B, tag):
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+    from vlaser_tpu_torch.models.layers import set_rms_impl
+    from vlaser_tpu_torch.policy.flow import sample_fm_time
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.train.train_step import group_grad_norms
+    from vlaser_tpu_torch.train.trainer import VLATrainConfig, VLATrainer
+
+    t0 = time.perf_counter()
+    model = PiZeroVLA(cfg, param_dtype=torch.float32,
+                      compute_dtype=torch.bfloat16, device=dev, remat=True,
+                      attn_impl="kernel")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    _pali_init_(torch, model, gen)
+    batch = _pali_batch(torch, np, dev, cfg, B, 19)
+    batch.pop("noise")
+    trainer = VLATrainer(model, VLATrainConfig(), generator=gen)
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in model.parameters())
+    print(f"pali train model: PaliGemma VLA, remat, fp32 params / bf16 "
+          f"compute, {n_param / 1e9:.3f} G parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s; batch {B}", flush=True)
+
+    # -- parity gate: kernel attention vs reference attention ---------------
+    t = sample_fm_time(gen, B, trainer.cfg.flow_sampling, cfg.flow_alpha,
+                       cfg.flow_beta, cfg.flow_t_max, device=dev)
+    x0 = torch.randn((B, cfg.num_action_tokens, cfg.action_dim),
+                     generator=gen, device=dev)
+    args = [batch[k] for k in ("input_ids", "pixel_values", "text_mask",
+                               "proprios", "actions")] + [t, x0]
+    gate = {}
+    for impl in ("kernel", "reference"):
+        model.set_attn_impl(impl)
+        set_rms_impl(model, "auto" if impl == "kernel" else "reference")
+        model.zero_grad(set_to_none=True)
+        n0 = fa.fwd_launch_count
+        loss = model(*args)
+        loss.backward()
+        torch.cuda.synchronize()
+        norms = {k: v.item() for k, v in group_grad_norms(
+            trainer.groups).items()}
+        finite = all(bool(p.grad.isfinite().all()) for p in model.parameters()
+                     if p.grad is not None)
+        gate[impl] = (loss.item(), norms)
+        used = fa.fwd_launch_count - n0
+        print(f"pali parity gate, {impl} attention: loss {loss.item():.6f}, "
+              f"group grad norms {norms}, all grads finite {finite}, flash "
+              f"forward launches {used}", flush=True)
+        if not (finite and math.isfinite(loss.item())):
+            raise RuntimeError(f"pali parity gate: {impl} path not finite")
+        if (impl == "reference") != (used == 0):
+            raise RuntimeError(f"pali parity gate: {impl} launches {used}")
+        del loss
+    model.set_attn_impl("kernel")
+    set_rms_impl(model, "auto")
+    model.zero_grad(set_to_none=True)
+    (lk, nk), (lr, nr) = gate["kernel"], gate["reference"]
+    loss_rel = abs(lk - lr) / abs(lr)
+    norm_rel = {k: abs(nk[k] - nr[k]) / nr[k] for k in nr}
+    print(f"pali parity gate: loss rel diff {loss_rel:.3e} (bound "
+          f"{LOSS_REL}), group grad norm rel diffs "
+          f"{ {k: f'{v:.3e}' for k, v in norm_rel.items()} } (bound "
+          f"{GNORM_REL})", flush=True)
+    if not (loss_rel <= LOSS_REL and max(norm_rel.values()) <= GNORM_REL):
+        raise RuntimeError("pali train: kernel path disagrees with reference")
+    gc.collect()
+
+    # -- the main path: 3 VLATrainer steps, counters around them -------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times, losses = [], []
+    for _ in range(STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        m = trainer.train_steps(iter([batch]), 1)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # derived from the code: every SigLIP and joint layer runs one flash
+    # forward, again in the remat recompute, and one flash backward; the
+    # final vlm_norm (B x 276 rows x 2048, a plain RMSNorm) takes the
+    # kernel once a step and never reaches the loss (no backward); the
+    # layers' plus-one norms take ops.rms_norm, the expert's final norm has
+    # B x 5 rows (reference)
+    n_att = cfg.siglip.num_layers + cfg.vlm.llm.num_layers
+    want = {"flash_attention_fwd": STEPS * 2 * n_att,
+            "flash_attention_bwd": STEPS * n_att}
+    if (B * cfg.max_image_text_tokens >= rmsnorm.MIN_ROWS
+            and cfg.vlm.llm.hidden_size <= rmsnorm.MAX_HIDDEN):
+        want["_rms_fwd"] = STEPS
+    print(f"pali train: batch {B}, {STEPS} VLATrainer steps, losses "
+          f"{[round(v, 6) for v in losses]}, step ms "
+          f"{[round(v, 3) for v in times]} (median "
+          f"{statistics.median(times):.3f} ms, CUDA events), peak device "
+          f"memory {peak:.2f} GiB; launches {launches} (derived {want}) "
+          f"{tag}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError("pali train step gave a non-finite loss")
+    if launches != want:
+        raise RuntimeError(f"pali train launches {launches} != {want}")
+    _profile_step(torch, trainer, batch, tag)
+    return launches
+
+
+def pali_phases(torch, np, dev, cfg, tag, report):
+    """Phases 17-19, the PaliGemma VLA: -> launches of its main paths."""
+    flash = pali_flash_phase(torch, dev, cfg, tag)
+    for name, (f, b) in flash.items():
+        report["flash_attention_fwd"][name] = f
+        report["flash_attention_bwd"][name] = b
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = pali_infer_phase(torch, np, dev, cfg, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _add(launches, pali_train_phase(torch, np, dev, cfg, tag))
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -2103,7 +2477,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from vlaser_tpu_torch.core.config import vlaser_2b, vlaser_2b_vla
+    from vlaser_tpu_torch.core.config import (pizero_paligemma, vlaser_2b,
+                                              vlaser_2b_vla)
     from vlaser_tpu_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2137,6 +2512,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _add(launches, chat_phases(torch, np, dev, vlaser_2b(), tag, report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, pali_phases(torch, np, dev, pizero_paligemma(), tag,
+                               report))
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]
     if bad:
         raise RuntimeError(f"the port imported {bad[:4]}")

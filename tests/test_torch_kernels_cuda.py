@@ -150,33 +150,50 @@ def _meta_case(B, S, pad, levels, device):
     return seg, lev
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,pad,levels,causal,off", [
-    (2, 77, 77, 4, 4, 64, 9, False, False, 0),
-    (2, 100, 100, 6, 2, 128, 13, True, False, 0),
-    (2, 40, 100, 6, 2, 128, 0, False, True, 60),
-    (1, 130, 130, 2, 1, 64, 0, False, True, 0),
-])
+# gain multiplies q and k: 7 puts the logits' std near 50, where a cap of
+# 50 bites
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,KVH,D,pad,levels,causal,off,cap,win,gain", [
+        (2, 77, 77, 4, 4, 64, 9, False, False, 0, None, None, 1.0),
+        (2, 100, 100, 6, 2, 128, 13, True, False, 0, None, None, 1.0),
+        (2, 40, 100, 6, 2, 128, 0, False, True, 60, None, None, 1.0),
+        (1, 130, 130, 2, 1, 64, 0, False, True, 0, None, None, 1.0),
+        # SigLIP's head dim, Gemma's (softcap, GQA 8:1, the serving suffix)
+        (2, 77, 77, 4, 4, 72, 9, False, False, 0, None, None, 1.0),
+        (2, 90, 90, 8, 1, 256, 7, True, False, 0, 50.0, None, 7.0),
+        (1, 4, 90, 8, 1, 256, 0, False, False, 0, 50.0, None, 7.0),
+        (2, 70, 70, 4, 2, 64, 5, True, False, 0, 50.0, None, 7.0),
+        # sliding windows, with q_offset and at D = 256
+        (1, 200, 200, 4, 2, 128, 0, False, True, 0, None, 50, 1.0),
+        (1, 60, 200, 4, 2, 128, 0, False, True, 140, None, 33, 1.0),
+        (1, 100, 100, 2, 1, 256, 0, False, True, 0, 50.0, 40, 3.0),
+    ])
 def test_flash_attention_kernels_match_plain(cuda, B, Sq, Skv, H, KVH, D, pad,
-                                             levels, causal, off):
+                                             levels, causal, off, cap, win,
+                                             gain):
     from vlaser_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=cuda).manual_seed(2)
     bf = torch.bfloat16
-    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(bf)
-    q, k, v, do = r(B, Sq, H, D), r(B, Skv, KVH, D), r(B, Skv, KVH, D), \
-        r(B, Sq, H, D)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device=cuda)
+                            * sc).to(bf)
+    q, k, v, do = r(B, Sq, H, D, sc=gain), r(B, Skv, KVH, D, sc=gain), \
+        r(B, Skv, KVH, D), r(B, Sq, H, D)
     kv_seg, kv_lev = _meta_case(B, Skv, pad, levels, cuda)
     q_seg, q_lev = (kv_seg, kv_lev) if Sq == Skv else _meta_case(
         B, Sq, 0, False, cuda)
     qm, km = fa.pack_meta(q_seg, q_lev), fa.pack_meta(kv_seg, kv_lev)
+    kw = dict(softcap=cap, window=win)
     nf, nb = fa.fwd_launch_count, fa.bwd_launch_count
-    out, lse = fa.flash_attention_fwd(q, k, v, qm, km, off, causal)
-    grads = fa.flash_attention_bwd(q, k, v, qm, km, off, out, lse, do, causal)
+    out, lse = fa.flash_attention_fwd(q, k, v, qm, km, off, causal, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, qm, km, off, out, lse, do, causal,
+                                   **kw)
     torch.cuda.synchronize()
     assert (fa.fwd_launch_count, fa.bwd_launch_count) == (nf + 1, nb + 1)
-    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, qm, km, off, causal)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, qm, km, off, causal,
+                                                **kw)
     p_grads = fa.flash_attention_bwd_plain(q, k, v, qm, km, off, out, lse, do,
-                                           causal)
+                                           causal, **kw)
     _check(out, p_out)
     for a, b in zip(grads, p_grads):
         _check(a, b)
@@ -185,6 +202,17 @@ def test_flash_attention_kernels_match_plain(cuda, B, Sq, Skv, H, KVH, D, pad,
     assert (lse[live] - p_lse[live]).abs().max().item() <= 1e-2
     dead = (q_seg == 0)
     assert (out[dead] == 0).all() and (grads[0][dead] == 0).all()
+
+
+def test_flash_attention_refuses_other_head_dims(cuda):
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16, device=cuda)
+    m = torch.ones(1, 8, dtype=torch.int32, device=cuda)
+    n = fa.fwd_launch_count
+    with pytest.raises(ValueError, match="96"):
+        fa.flash_attention_fwd(q, q, q, m, m)
+    assert fa.fwd_launch_count == n
 
 
 @pytest.mark.parametrize("n,H,dtype", [(300, 1536, torch.bfloat16),

@@ -17,7 +17,7 @@ import sys
 import pytest
 import torch
 
-from vlaser_tpu_torch.core.config import tiny_vla
+from vlaser_tpu_torch.core.config import tiny_paligemma_vla, tiny_vla
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,6 +37,7 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.envs.adapters",
     "vlaser_tpu_torch.models.layers",
     "vlaser_tpu_torch.models.internvit",
+    "vlaser_tpu_torch.models.siglip",
     "vlaser_tpu_torch.models.vlm",
     "vlaser_tpu_torch.utils.convert",
     "vlaser_tpu_torch.policy.joint",
@@ -245,18 +246,51 @@ def test_new_wrappers_raise_when_the_library_cannot_load(monkeypatch, which):
             fused_decode.launch_count) == counts
 
 
+@pytest.mark.parametrize("D", [32, 96, 80])
+def test_flash_cuda_route_refuses_other_head_dims(monkeypatch, D):
+    """On a CUDA tensor a head dim without a kernel (the kernels take 64,
+    72, 128 and 256) raises ValueError naming it, before any build or
+    launch; the CPU route takes any head dim."""
+    from vlaser_tpu_torch.kernels import _build
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    def no_library():
+        raise AssertionError("the library must not be needed")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(fa, "_fns", {})
+    q = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
+    m = torch.ones(1, 8, dtype=torch.int32)
+    card = lambda t: t.as_subclass(_OnCard)
+    counts = (fa.fwd_launch_count, fa.bwd_launch_count)
+    with pytest.raises(ValueError, match=str(D)):
+        fa.flash_attention_fwd(card(q), card(q), card(q), card(m), card(m))
+    with pytest.raises(ValueError, match=str(D)):
+        fa.flash_attention_bwd(card(q), card(q), card(q), card(m), card(m), 0,
+                               card(q), card(torch.zeros(1, 2, 8)), card(q))
+    assert (fa.fwd_launch_count, fa.bwd_launch_count) == counts
+    out, lse = fa.flash_attention_fwd(q.float(), q.float(), q.float(), m, m)
+    assert out.shape == q.shape and lse.shape == (1, 2, 8)
+
+
 def test_entry_points_default_to_the_card():
-    """PiZeroVLA and PolicyServer with no device take the card; without
-    one they raise instead of building on the CPU."""
+    """PiZeroVLA (the internvl and the paligemma backbone) and PolicyServer
+    with no device take the card; without one they raise instead of
+    building on the CPU."""
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
     from vlaser_tpu_torch.serve.policy_server import PolicyServer
 
     cfg = tiny_vla(max_image_text_tokens=8)
+    pali = tiny_paligemma_vla()
     if torch.cuda.is_available():
         assert PiZeroVLA(cfg).device.type == "cuda"
+        assert PiZeroVLA(pali).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PiZeroVLA(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PiZeroVLA(pali)
+    assert PiZeroVLA(pali, device="cpu").device.type == "cpu"
     model = PiZeroVLA(cfg, device="cpu")
     assert model.device.type == "cpu"
     with pytest.raises((RuntimeError, AssertionError)):

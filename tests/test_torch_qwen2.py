@@ -1,6 +1,6 @@
 """vlaser_tpu_torch/models/qwen2.py vs vlaser_tpu/models/qwen2.py on the
 same weights (tiny_llm, fp32 compute, `highest` matmul precision from
-conftest): a cached prefill of right-padded prompts into a bucket larger
+conftest), also with a sliding window: a cached prefill of right-padded prompts into a bucket larger
 than the prompt, then three decode steps. Logits, the cache's K/V, segment
 ids and fill length agree after every step within 1e-5 (fp32, summation
 order only)."""
@@ -27,6 +27,9 @@ VARIANTS = {
     "qwen2": {},
     "qwen3_tied": dict(qk_norm=True, tie_word_embeddings=True,
                        attention_bias=False),
+    # a window shorter than the prompts: the prefill and the decode steps
+    # both mask keys more than 4 slots back
+    "qwen2_window": dict(sliding_window=4),
 }
 
 
@@ -118,8 +121,7 @@ def test_unported_variants_raise():
     for over in (dict(num_experts=4), dict(rms_plus_one=True),
                  dict(rope_short_factor=(1.0,) * 8,
                       rope_long_factor=(1.0,) * 8),
-                 dict(attn_softcap=50.0), dict(sliding_window=8),
-                 dict(mlp_act="gelu_tanh")):
+                 dict(attn_softcap=50.0), dict(mlp_act="gelu_tanh")):
         cfg = dataclasses.replace(tiny_llm(), **over)
         with pytest.raises(NotImplementedError):
             Qwen2ForCausalLM(cfg, device="cpu")

@@ -1,7 +1,6 @@
-"""Model configurations of the port: the four dataclasses and the named
+"""Model configurations of the port: the dataclasses and the named
 factories it uses, copied from vlaser_tpu/core/config.py (fields and
-defaults unchanged; the PaliGemma/SigLIP, 6B/8B and larger configs are not
-copied).
+defaults unchanged; the 6B/8B and larger configs are not copied).
 
 The port's modules read a config only through attribute access, so they
 take the JAX package's config objects as well as these: a test may build a
@@ -141,8 +140,8 @@ class VLAConfig:
     final_action_clip_value: Optional[float] = 1.0
     time_max_period: float = 10_000.0
     causal_image_text: bool = False
-    backbone: str = "internvl"  # the port has the internvl backbone only
-    siglip: Optional[object] = None
+    backbone: str = "internvl"  # 'internvl' | 'paligemma'
+    siglip: Optional["SiglipConfig"] = None
     use_lm_head: bool = False
     adaptive_mode: Optional[str] = None
     time_hidden_size: int = 256
@@ -193,6 +192,86 @@ def vlaser_2b_vla(vocab_size: int = 151674 + 256) -> VLAConfig:
     """Vlaser-2B-VLA: VLM mixture + 768-wide expert (256 action tokens
     appended to the vocab)."""
     return VLAConfig(vlm=vlaser_2b(vocab_size), expert=action_expert_2b())
+
+
+def gemma_2b() -> LLMConfig:
+    """Gemma-2B as used by PaliGemma: softcap 50 on the joint's logits."""
+    return LLMConfig(vocab_size=257216, hidden_size=2048,
+                     intermediate_size=16384, num_layers=18, num_heads=8,
+                     num_kv_heads=1, head_dim=256, rope_theta=10_000.0,
+                     attention_bias=False, tie_word_embeddings=True,
+                     mlp_act="gelu_tanh", rms_plus_one=True, embed_scale=True,
+                     attn_softcap=50.0)
+
+
+def gemma_action_expert() -> LLMConfig:
+    """open-pi-zero action expert: a 1024-wide Gemma-style mixture."""
+    return LLMConfig(vocab_size=0, hidden_size=1024, intermediate_size=4096,
+                     num_layers=18, num_heads=8, num_kv_heads=1, head_dim=256,
+                     rope_theta=10_000.0, attention_bias=False,
+                     has_embed=False, has_lm_head=False, mlp_act="gelu_tanh",
+                     rms_plus_one=True)
+
+
+@dataclass(frozen=True)
+class SiglipConfig:
+    """SigLIP-So400m/14-224 vision tower."""
+
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_layers: int = 27
+    num_heads: int = 16
+    patch_size: int = 14
+    image_size: int = 224
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_tokens(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+def pizero_paligemma() -> VLAConfig:
+    """open-pi-zero PaliGemma VLA: SigLIP-So400m + Gemma-2B mixture +
+    1024-wide Gemma expert; image token 257152."""
+    return VLAConfig(
+        vlm=VLMConfig(vision=internvit_300m(),  # unused by paligemma
+                      llm=gemma_2b(), img_context_token_id=257152,
+                      pad_token_id=0),
+        expert=gemma_action_expert(),
+        max_image_text_tokens=276,  # 256 image + 20 text (VLAProcessor)
+        backbone="paligemma", siglip=SiglipConfig())
+
+
+def tiny_siglip() -> SiglipConfig:
+    return SiglipConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                        num_heads=4, patch_size=14, image_size=28)
+
+
+def tiny_gemma_llm() -> LLMConfig:
+    return LLMConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                     num_layers=2, num_heads=4, num_kv_heads=1, head_dim=16,
+                     rope_theta=10_000.0, attention_bias=False,
+                     tie_word_embeddings=True, mlp_act="gelu_tanh",
+                     rms_plus_one=True, embed_scale=True, attn_softcap=50.0)
+
+
+def tiny_paligemma_vla(max_image_text_tokens: int = 12) -> VLAConfig:
+    return VLAConfig(
+        vlm=VLMConfig(vision=tiny_vision(), llm=tiny_gemma_llm(),
+                      img_context_token_id=500, pad_token_id=0),
+        expert=LLMConfig(vocab_size=0, hidden_size=32, intermediate_size=64,
+                         num_layers=2, num_heads=4, num_kv_heads=1,
+                         head_dim=16, rope_theta=10_000.0,
+                         attention_bias=False, has_embed=False,
+                         has_lm_head=False, mlp_act="gelu_tanh",
+                         rms_plus_one=True),
+        max_image_text_tokens=max_image_text_tokens,
+        horizon_steps=4, cond_steps=1, num_inference_steps=4,
+        backbone="paligemma", siglip=tiny_siglip())
 
 
 def tiny_vision(image_size: int = 28) -> VisionConfig:

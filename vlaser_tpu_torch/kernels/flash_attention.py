@@ -5,19 +5,21 @@ head h reads kv head h // (H // KVH)), lse [B, H, Sq] fp32. Per-token
 metadata packs (segment, level) into one int32 (`pack_meta`); a key is
 allowed iff q_seg == k_seg, k_seg != 0 and k_lev <= q_lev, and, when causal,
 q_offset + q_idx >= k_idx. A row with no allowed key gives out = 0 and
-lse = -1e30 + log(1).
+lse = -1e30 + log(1). `window` (causal callers only, as in JAX) further
+allows a key iff q_offset + q_idx - k_idx <= window (flash-attn's left
+window); `softcap` replaces each logit z = scale * q.k by
+softcap * tanh(z / softcap) before the mask (Gemma).
 
 `flash_attention_fwd` / `flash_attention_bwd` launch the Hopper kernels of
-`csrc/flash_attention.cu` on CUDA tensors (bf16, head_dim 64 or 128) and run
-their plain versions (`*_plain`, fp32 math) on CPU tensors; any other device
-raises. `attention` is the differentiable entry point (`attention_fn`
-builds it once for a layer stack): `impl="auto"` takes the kernel
-(`FlashAttention`, whose backward is `flash_attention_bwd`) on a CUDA
-tensor exactly where the JAX dispatch takes Pallas on the TPU (Sq >= 2048
-or fp32 logits over 128 MiB) and the eager reference (kernels.ops)
-elsewhere, as the JAX package leaves those shapes to XLA.
-`softcap` and `window` have no kernel: with the kernel they raise
-NotImplementedError. A per-row q_offset always takes the reference.
+`csrc/flash_attention.cu` on CUDA tensors (bf16, head_dim in HEAD_DIMS) and
+run their plain versions (`*_plain`, fp32 math, any head_dim) on CPU
+tensors; any other device raises. `attention` is the differentiable entry
+point (`attention_fn` builds it once for a layer stack): `impl="auto"`
+takes the kernel (`FlashAttention`, whose backward is
+`flash_attention_bwd`) on a CUDA tensor exactly where the JAX dispatch
+takes Pallas on the TPU (Sq >= 2048 or fp32 logits over 128 MiB) and the
+eager reference (kernels.ops) elsewhere, as the JAX package leaves those
+shapes to XLA. A per-row q_offset always takes the reference.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ LEVEL_MASK = (1 << LEVEL_BITS) - 1
 NEG_INF = -1e30
 LOGITS_BYTES_MIN = 128 * 2**20  # the JAX dispatch's thresholds: logits
 SQ_MIN = 2048                   # bytes, query rows
+HEAD_DIMS = (64, 72, 128, 256)  # the CUDA kernels' head dims
 fwd_launch_count = 0  # flash_attention_fwd launches through the CUDA route
 bwd_launch_count = 0  # flash_attention_bwd launches (dq + dkv kernels)
 
@@ -48,15 +51,20 @@ def pack_meta(segment_ids: torch.Tensor,
     return meta
 
 
-def _allowed(q_meta, kv_meta, q_offset: int, causal: bool):
+def _allowed(q_meta, kv_meta, q_offset: int, causal: bool,
+             window: Optional[int] = None):
     """[B, Sq, Skv] bool: the kernels' mask rule."""
     qs, ks = (q_meta >> LEVEL_BITS)[:, :, None], (kv_meta >> LEVEL_BITS)[:, None]
     ql, kl = (q_meta & LEVEL_MASK)[:, :, None], (kv_meta & LEVEL_MASK)[:, None]
     ok = (qs == ks) & (ks != 0) & (kl <= ql)
-    if causal:
+    if causal or window is not None:
         sq, skv = q_meta.shape[1], kv_meta.shape[1]
         rows = q_offset + torch.arange(sq, device=q_meta.device)[:, None]
-        ok = ok & (rows >= torch.arange(skv, device=q_meta.device))[None]
+        cols = torch.arange(skv, device=q_meta.device)
+        if causal:
+            ok = ok & (rows >= cols)[None]
+        if window is not None:
+            ok = ok & (rows - cols <= window)[None]
     return ok
 
 
@@ -64,16 +72,26 @@ def _scale(scale, d):
     return scale if scale is not None else 1.0 / math.sqrt(d)
 
 
+def _capped(s, softcap):
+    """-> (logits, tanh(s / softcap) or None): the Gemma soft clamp."""
+    if softcap is None:
+        return s, None
+    t = torch.tanh(s / softcap)
+    return softcap * t, t
+
+
 def flash_attention_fwd_plain(q, k, v, q_meta, kv_meta, q_offset: int = 0,
                               causal: bool = False,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              softcap: Optional[float] = None,
+                              window: Optional[int] = None):
     """-> (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
     qf = q.float().reshape(b, sq, kvh, g, d) * _scale(scale, d)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
-    ok = _allowed(q_meta, kv_meta, q_offset, causal)[:, None, None]
+    s, _ = _capped(torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()), softcap)
+    ok = _allowed(q_meta, kv_meta, q_offset, causal, window)[:, None, None]
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(torch.where(ok, s - m, -math.inf))
@@ -90,15 +108,15 @@ def _delta(out, dout):
 
 
 def _bwd_math(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout, causal,
-              scale):
+              scale, softcap=None, window=None):
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
     scale = _scale(scale, d)
     qf = q.float().reshape(b, sq, kvh, g, d)
     kf, vf = k.float(), v.float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf * scale, kf)
-    ok = _allowed(q_meta, kv_meta, q_offset, causal)[:, None, None]
+    s, t = _capped(torch.einsum("bqkgd,bskd->bkgqs", qf * scale, kf), softcap)
+    ok = _allowed(q_meta, kv_meta, q_offset, causal, window)[:, None, None]
     lse5 = lse.reshape(b, kvh, g, sq, 1)
     # masked entries are zeroed before exp: a fully masked row has
     # lse = -1e30, and exp(s - lse) there is inf
@@ -106,6 +124,8 @@ def _bwd_math(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout, causal,
     do = dout.float().reshape(b, sq, kvh, g, d)
     dp = torch.einsum("bqkgd,bskd->bkgqs", do, vf)
     ds = p * (dp - delta.reshape(b, kvh, g, sq, 1))
+    if t is not None:
+        ds = ds * (1.0 - t * t)  # d/dz of softcap * tanh(z / softcap)
     dq = scale * torch.einsum("bkgqs,bskd->bqkgd", ds, kf)
     dk = scale * torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
@@ -115,10 +135,12 @@ def _bwd_math(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout, causal,
 
 def flash_attention_bwd_plain(q, k, v, q_meta, kv_meta, q_offset, out, lse,
                               dout, causal: bool = False,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              softcap: Optional[float] = None,
+                              window: Optional[int] = None):
     """-> (dq, dk, dv), P recomputed from lse."""
     return _bwd_math(q, k, v, q_meta, kv_meta, q_offset, lse,
-                     _delta(out, dout), dout, causal, scale)
+                     _delta(out, dout), dout, causal, scale, softcap, window)
 
 
 _fns = {}
@@ -127,16 +149,29 @@ _fns = {}
 def _kernel(name, n_ptr):
     if name not in _fns:
         _fns[name] = _build.bind(
-            name, n_ptr, (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_void_p))
+            name, n_ptr, (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_float,
+                                                ctypes.c_int, ctypes.c_void_p))
     return _fns[name]
+
+
+def _opts(causal, q_offset, d, scale, softcap, window):
+    """The C entry's trailing scalars: softcap 0 and window -1 mean none."""
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    return (int(causal), int(q_offset), _scale(scale, d),
+            0.0 if softcap is None else float(softcap),
+            -1 if window is None else int(window))
 
 
 def _check(q, k, v, q_meta, kv_meta, what):
     b, sq, h, d = q.shape
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q/k/v must be bf16")
-    if d not in (64, 128):
-        raise ValueError(f"{what}: the CUDA kernel takes head_dim 64 or 128")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes head_dim in "
+                         f"{HEAD_DIMS}, not {d}")
     if (k.dim() != 4 or k.shape[0] != b or k.shape[3] != d
             or v.shape != k.shape or h % k.shape[2]):
         raise ValueError(f"{what}: k/v must be [B, Skv, KVH, D], H % KVH == 0")
@@ -148,7 +183,8 @@ def _check(q, k, v, q_meta, kv_meta, what):
             raise ValueError(f"{what}: all inputs must be on {q.device}")
 
 
-def _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale):
+def _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale, softcap,
+                window):
     global fwd_launch_count
     _check(q, k, v, q_meta, kv_meta, "flash_attention_fwd")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -160,15 +196,15 @@ def _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _kernel("flash_attention_fwd", 7)(
         *[t.data_ptr() for t in (q, k, v, q_meta, kv_meta, out, lse)],
-        b, sq, skv, h, kvh, d, int(causal), int(q_offset),
-        _scale(scale, d), stream)
+        b, sq, skv, h, kvh, d,
+        *_opts(causal, q_offset, d, scale, softcap, window), stream)
     _build.check(code, "flash_attention_fwd")
     fwd_launch_count += 1
     return out, lse
 
 
 def _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout, causal,
-                scale):
+                scale, softcap, window):
     global bwd_launch_count
     _check(q, k, v, q_meta, kv_meta, "flash_attention_bwd")
     b, sq, h, d = q.shape
@@ -184,8 +220,8 @@ def _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout, causal,
     code = _kernel("flash_attention_bwd", 11)(
         *[t.data_ptr() for t in (q, k, v, dout, q_meta, kv_meta, lse, delta,
                                  dq, dk, dv)],
-        b, sq, skv, h, kvh, d, int(causal), int(q_offset), _scale(scale, d),
-        stream)
+        b, sq, skv, h, kvh, d,
+        *_opts(causal, q_offset, d, scale, softcap, window), stream)
     _build.check(code, "flash_attention_bwd")
     bwd_launch_count += 1
     return dq, dk, dv
@@ -198,45 +234,50 @@ def _route(x, what):
 
 
 def flash_attention_fwd(q, k, v, q_meta, kv_meta, q_offset: int = 0,
-                        causal: bool = False, scale: Optional[float] = None):
+                        causal: bool = False, scale: Optional[float] = None,
+                        softcap: Optional[float] = None,
+                        window: Optional[int] = None):
     """-> (out [B, Sq, H, D], lse [B, H, Sq] fp32)."""
     if _route(q, "flash_attention_fwd") == "cpu":
         return flash_attention_fwd_plain(q, k, v, q_meta, kv_meta, q_offset,
-                                         causal, scale)
-    return _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale)
+                                         causal, scale, softcap, window)
+    return _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale,
+                       softcap, window)
 
 
 def flash_attention_bwd(q, k, v, q_meta, kv_meta, q_offset, out, lse, dout,
-                        causal: bool = False, scale: Optional[float] = None):
+                        causal: bool = False, scale: Optional[float] = None,
+                        softcap: Optional[float] = None,
+                        window: Optional[int] = None):
     """-> (dq, dk, dv). delta = rowsum(dO * O) is a plain torch op."""
     route = _route(q, "flash_attention_bwd")
     delta = _delta(out, dout)
     if route == "cpu":
         return _bwd_math(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout,
-                         causal, scale)
+                         causal, scale, softcap, window)
     return _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout,
-                       causal, scale)
+                       causal, scale, softcap, window)
 
 
 class FlashAttention(torch.autograd.Function):
     """out = flash(q, k, v); the backward is flash_attention_bwd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_meta, kv_meta, q_offset, causal, scale):
+    def forward(ctx, q, k, v, q_meta, kv_meta, q_offset, causal, scale,
+                softcap, window):
         out, lse = flash_attention_fwd(q, k, v, q_meta, kv_meta, q_offset,
-                                       causal, scale)
+                                       causal, scale, softcap, window)
         ctx.save_for_backward(q, k, v, q_meta, kv_meta, out, lse)
-        ctx.args = (q_offset, causal, scale)
+        ctx.args = (q_offset, causal, scale, softcap, window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, q_meta, kv_meta, out, lse = ctx.saved_tensors
-        q_offset, causal, scale = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, q_meta, kv_meta, q_offset,
-                                         out, lse, dout.contiguous(), causal,
-                                         scale)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_meta, kv_meta, ctx.args[0],
+                                         out, lse, dout.contiguous(),
+                                         *ctx.args[1:])
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def attention_fn(b: int, sq: int, skv: int, h: int, device, *,
@@ -264,13 +305,11 @@ def attention_fn(b: int, sq: int, skv: int, h: int, device, *,
         impl = ("kernel" if torch.device(device).type == "cuda" and (
             sq >= SQ_MIN or logits_bytes > LOGITS_BYTES_MIN) else "reference")
     if impl == "kernel":
-        if softcap is not None or window is not None:
-            raise NotImplementedError(
-                "softcap and window have no flash kernel in the port yet")
         q_meta, kv_meta = pack_meta(q_seg, q_levels), pack_meta(kv_seg,
                                                                 kv_levels)
         return lambda q, k, v: FlashAttention.apply(
-            q, k, v, q_meta, kv_meta, int(q_offset), causal, scale)
+            q, k, v, q_meta, kv_meta, int(q_offset), causal, scale, softcap,
+            window)
     if impl != "reference":
         raise ValueError(f"unknown attention impl {impl!r}")
     mask = ops.make_attention_mask(

@@ -23,6 +23,7 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops, rmsnorm, w8a8
@@ -101,18 +102,30 @@ def layer_slices(model: nn.Module):
 class RMSNorm(Block):
     """`impl` picks the route of kernels.rmsnorm.rms_norm ("auto": the
     kernel for a CUDA tensor of >= 2048 rows x <= 2048, as the JAX dispatch
-    takes Pallas; "reference": the eager twin)."""
+    takes Pallas; "reference": the eager twin). `plus_one` (Gemma) scales
+    by (1 + weight), the weight starting at zero, and always takes
+    ops.rms_norm, as the JAX RMSNorm does."""
 
     def __init__(self, dim: int, eps: float = 1e-6, stack: Sequence[int] = (),
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 plus_one: bool = False):
         super().__init__(param_dtype, device, bool(stack))
-        self.eps = eps
+        self.eps, self.plus_one = eps, plus_one
         self.impl = "auto"
         self._alloc("weight", (*stack, dim))
+        if plus_one:
+            nn.init.zeros_(self.weight)
 
     def forward(self, x, layer: Optional[int] = None):
         w = self.leaf("weight", layer).to(x.dtype)
+        if self.plus_one:
+            return ops.rms_norm(x, w, self.eps, plus_one=True)
         return rmsnorm.rms_norm(x, w, self.eps, impl=self.impl)
+
+
+def gelu_tanh(x):
+    """GELU's tanh approximation (JAX nn.gelu(approximate=True))."""
+    return F.gelu(x, approximate="tanh")
 
 
 def set_rms_impl(model: nn.Module, impl: str) -> nn.Module:

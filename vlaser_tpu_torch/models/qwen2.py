@@ -13,11 +13,13 @@ reference takes the rest (decode steps, short prompts). RMSNorm takes its
 kernel at >= 2048 rows in the same way (`models.layers.RMSNorm`).
 
 Ported: Qwen2 (q/k/v bias, GQA, rope, SiLU MLP), Qwen3's per-head q/k
-RMSNorm, tied or untied heads. Not ported (they raise NotImplementedError):
-MoE layers, context parallelism, Phi3 longrope (`rope_cos_sin_su`), the
-Gemma family's options (plus-one RMSNorm, tanh-GELU MLP, embedding scale,
-softcap, query pre-attention scale), sliding windows, per-row cache
-offsets and remat.
+RMSNorm, tied or untied heads, the sliding window (`sliding_window`: on
+the causal path every layer's attention sees keys at most that many
+slots back, flash-attn's left window, as in JAX). Not ported (they raise
+NotImplementedError): MoE layers, context parallelism, Phi3 longrope
+(`rope_cos_sin_su`), the Gemma family's options (plus-one RMSNorm,
+tanh-GELU MLP, embedding scale, softcap, query pre-attention scale),
+per-row cache offsets and remat.
 """
 
 from __future__ import annotations
@@ -106,11 +108,9 @@ class Qwen2Model(nn.Module):
         if (cfg.rope_short_factor is not None or cfg.rms_plus_one
                 or cfg.mlp_act != "silu" or cfg.embed_scale
                 or cfg.attn_softcap is not None
-                or cfg.query_pre_attn_scalar is not None
-                or cfg.sliding_window is not None):
+                or cfg.query_pre_attn_scalar is not None):
             raise NotImplementedError(
-                "Phi3 longrope, the Gemma options and sliding windows are "
-                "not ported yet")
+                "Phi3 longrope and the Gemma options are not ported yet")
         self.cfg, self.compute_dtype = cfg, compute_dtype
         self.layers = Qwen2Layers(cfg, param_dtype, compute_dtype, device)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, (),
@@ -126,7 +126,8 @@ class Qwen2Model(nn.Module):
         if seg_ids is None:
             seg_ids = torch.ones((b, s), dtype=torch.int32, device=dev)
         cos, sin = ops.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        kw = dict(causal=causal, impl=attn_impl)
+        kw = dict(causal=causal, impl=attn_impl,
+                  window=cfg.sliding_window if causal else None)
         q_offset = 0
         if cache is not None:
             if not isinstance(cache.length, int):

@@ -12,8 +12,9 @@ cache. `make_batched_infer_action` (any batch, one tile per sample): the
 fused ViT stack at batch B, then `PiZeroVLA.infer_action_from_embeds`
 (the joint prefix and the denoise loop in plain PyTorch). Semantics match
 `PiZeroVLA.infer_action`; only how the stacks execute differs. The fused
-ViT takes one 448 px tile per sample and the full LayerNorm encoder:
-anything else raises NotImplementedError on both paths (the JAX batched
+ViT takes one 448 px tile per sample and the full LayerNorm InternViT
+encoder: anything else (the paligemma backbone's SigLIP included) raises
+NotImplementedError on both paths (the JAX batched
 path falls back to its compiled plain `infer_action` there; a caller of
 the port that wants the plain encoder calls `model.infer_action`).
 """
@@ -83,10 +84,12 @@ def make_fused_infer_action(model):
     the model's weights now: reload weights -> make a new fn."""
     cfg = model.cfg
     expert, vcfg = cfg.expert, cfg.vlm.vision
-    if not (cfg.vlm.select_layer in (-1, vcfg.num_layers)
+    if not (cfg.backbone == "internvl"
+            and cfg.vlm.select_layer in (-1, vcfg.num_layers)
             and supports_fused_vit(vcfg)):
         raise NotImplementedError(
-            "fused path needs the full LayerNorm ViT (fused_vit_stack)")
+            "fused path needs the internvl backbone's full LayerNorm ViT "
+            "(fused_vit_stack)")
     n_p, R = cfg.num_proprio_tokens, cfg.num_action_tokens
     steps = cfg.num_inference_steps
     delta_t = 1.0 / steps
@@ -183,10 +186,12 @@ def make_batched_infer_action(model):
     The stack is packed from the model's weights now."""
     cfg = model.cfg
     vcfg = cfg.vlm.vision
-    if (cfg.vlm.select_layer not in (-1, vcfg.num_layers)
+    if (cfg.backbone != "internvl"
+            or cfg.vlm.select_layer not in (-1, vcfg.num_layers)
             or not supports_fused_vit(vcfg)):
         raise NotImplementedError(
-            "batched path needs the full LayerNorm ViT (fused_vit_stack)")
+            "batched path needs the internvl backbone's full LayerNorm ViT "
+            "(fused_vit_stack)")
     vit_stack = pack_vit_stack(model.vision_model)
     bf = torch.bfloat16
 

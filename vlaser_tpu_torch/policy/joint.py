@@ -4,9 +4,11 @@ mixture and the action expert attend in one shared attention per layer.
 Both mixtures hold their layer weights stacked [L, ...] under
 `layers.vlm` / `layers.expert` (the JAX scan layout); the expert stack is
 what `policy.fused_infer.pack_expert_stack` hands to the fused kernel.
-Modes ported: `train`, `vlm_prefix`, `prefix`, `suffix`, for Qwen2
-mixtures. The other modes (`vlm_only`, `vlm_cached`), adaLN, and the Qwen3
-(qk-norm) and Gemma mixtures are not ported yet.
+Modes ported: `train`, `vlm_prefix`, `prefix`, `suffix`, for Qwen2 and
+Gemma mixtures (the PaliGemma VLA: tanh-GELU MLPs, plus-one RMSNorms in the
+layers, the VLM's attention softcap on every mode; the final per-mixture
+norms are plain RMSNorms, as in JAX). The other modes (`vlm_only`,
+`vlm_cached`), adaLN and Qwen3's qk-norm are not ported yet.
 Attention applies the VLA block mask (equal nonzero segments, kv_level <=
 q_level) through `kernels.flash_attention.attention_fn(impl=attn_impl)`,
 routed once per call: with "auto" the flash kernel takes a CUDA tensor
@@ -24,19 +26,22 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..kernels.flash_attention import attention_fn
-from ..models.layers import Dense, RMSNorm
+from ..models.layers import Dense, RMSNorm, gelu_tanh
+
+_ACT = {"silu": F.silu, "gelu_tanh": gelu_tanh}
 
 
 class MixtureMLP(nn.Module):
     def __init__(self, cfg, L, pd, cd, device):
         super().__init__()
         C, I = cfg.hidden_size, cfg.intermediate_size
+        self.act = _ACT[cfg.mlp_act]
         self.gate_proj = Dense(C, I, False, (L,), pd, cd, device)
         self.up_proj = Dense(C, I, False, (L,), pd, cd, device)
         self.down_proj = Dense(I, C, False, (L,), pd, cd, device)
 
     def forward(self, x, l):
-        return self.down_proj(F.silu(self.gate_proj(x, l))
+        return self.down_proj(self.act(self.gate_proj(x, l))
                               * self.up_proj(x, l), l)
 
 
@@ -46,13 +51,13 @@ class MixtureBlock(nn.Module):
     def __init__(self, cfg, L, pd=torch.float32, cd=torch.bfloat16,
                  device=None):
         super().__init__()
-        if cfg.qk_norm or cfg.mlp_act != "silu" or cfg.rms_plus_one:
+        if cfg.qk_norm or cfg.mlp_act not in _ACT:
             raise NotImplementedError(
-                "Qwen3 qk-norm and Gemma mixtures are not ported yet")
+                "Qwen3 qk-norm mixtures are not ported yet")
         self.cfg = cfg
-        C, eps = cfg.hidden_size, cfg.rms_norm_eps
-        self.input_layernorm = RMSNorm(C, eps, (L,), pd, device)
-        self.post_attention_layernorm = RMSNorm(C, eps, (L,), pd, device)
+        C, eps, one = cfg.hidden_size, cfg.rms_norm_eps, cfg.rms_plus_one
+        self.input_layernorm = RMSNorm(C, eps, (L,), pd, device, one)
+        self.post_attention_layernorm = RMSNorm(C, eps, (L,), pd, device, one)
         bias = cfg.attention_bias
         self.q_proj = Dense(C, cfg.q_dim, bias, (L,), pd, cd, device)
         self.k_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)

@@ -1,14 +1,19 @@
-"""PiZero-style flow-matching VLA, internvl backbone (port of
-vlaser_tpu/policy/pizero.py).
+"""PiZero-style flow-matching VLA, internvl and paligemma backbones (port
+of vlaser_tpu/policy/pizero.py).
 
 `forward` is the flow-matching training loss: psi_t = (1 - (1 - sig_min)
 t) x0 + t x1 through the joint `train` pass, then the mean of
 (v_psi - (x1 - (1 - sig_min) x0))^2. `infer_action` is the plain oracle of
 the serving path: one joint vlm+proprio prefix pass producing per-layer
 K/V, then num_inference_steps Euler steps over the action suffix.
-`attn_impl` and `remat` are the JAX constructor flags: they reach the ViT
-and the joint stack. Not ported yet: the PaliGemma backbone,
-vision-in-expert, adaLN and the text head (`infer_text`, `forward_vlm`).
+`attn_impl` and `remat` are the JAX constructor flags: they reach the
+vision tower and the joint stack. The paligemma backbone (open-pi-zero's
+pi0) runs SigLIP and a biased linear projector in place of InternViT and
+mlp1, divides the image features by sqrt(hidden) before the scatter and
+multiplies the fused embeddings by sqrt(hidden) after it, and multiplies
+the proprio and action tokens by sqrt(expert hidden) (`_scale_pa`). Not
+ported yet: vision-in-expert, adaLN and the text head (`infer_text`,
+`forward_vlm`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch import nn
 from ..kernels import ops
 from ..models.internvit import InternVisionModel
 from ..models.layers import Dense, Embed, layer_slices
+from ..models.siglip import SiglipVisionModel
 from ..models.vlm import MLP1, scatter_image_embeds
 from .joint import JointModel
 
@@ -70,8 +76,8 @@ class PiZeroVLA(nn.Module):
                     "PiZeroVLA: no CUDA device; pass device='cpu' to build "
                     "on the CPU")
             device = torch.device("cuda")
-        if cfg.backbone != "internvl":
-            raise NotImplementedError("only the internvl backbone is ported")
+        if cfg.backbone not in ("internvl", "paligemma"):
+            raise NotImplementedError(f"backbone {cfg.backbone!r}")
         if cfg.vision_in_expert or cfg.adaptive_mode or cfg.use_lm_head:
             raise NotImplementedError(
                 "vision-in-expert, adaLN and the lm head are not ported yet")
@@ -79,10 +85,17 @@ class PiZeroVLA(nn.Module):
         self.compute_dtype = compute_dtype
         vlm, expert = cfg.vlm, cfg.expert
         pd, cd = param_dtype, compute_dtype
-        self.vision_model = InternVisionModel(vlm.vision, pd, cd, device,
-                                              remat, attn_impl)
-        self.mlp1 = MLP1(vlm.vit_proj_in_dim, vlm.llm.hidden_size, pd, cd,
-                         device)
+        if cfg.backbone == "paligemma":
+            self.vision_model = SiglipVisionModel(cfg.siglip, pd, cd, device,
+                                                  remat, attn_impl)
+            self.multi_modal_projector = Dense(
+                cfg.siglip.hidden_size, vlm.llm.hidden_size, True, (), pd, cd,
+                device)
+        else:
+            self.vision_model = InternVisionModel(vlm.vision, pd, cd, device,
+                                                  remat, attn_impl)
+            self.mlp1 = MLP1(vlm.vit_proj_in_dim, vlm.llm.hidden_size, pd,
+                             cd, device)
         self.embed_tokens = Embed(vlm.llm.vocab_size, vlm.llm.hidden_size,
                                   pd, cd, device)
         self.joint = JointModel(vlm.llm, expert, pd, cd, device,
@@ -126,9 +139,28 @@ class PiZeroVLA(nn.Module):
                                     cfg.img_context_token_id)
 
     def _image_text_embeds(self, input_ids, pixel_values):
-        vit = self.vision_model(pixel_values,
-                                select_layer=self.cfg.vlm.select_layer)
+        cfg = self.cfg.vlm
+        if self.cfg.backbone == "paligemma":
+            tok = self.embed_tokens(input_ids)
+            vit = self.multi_modal_projector(self.vision_model(pixel_values))
+            vit = vit / self._const(cfg.llm.hidden_size ** 0.5, vit)
+            fused = scatter_image_embeds(input_ids, tok, vit, None,
+                                         cfg.img_context_token_id)
+            return fused * self._const(cfg.llm.hidden_size ** 0.5, fused)
+        vit = self.vision_model(pixel_values, select_layer=cfg.select_layer)
         return self.fuse_vit_features(input_ids, vit)
+
+    @staticmethod
+    def _const(value: float, like: torch.Tensor) -> float:
+        """`value` rounded to like's dtype, as jnp.asarray(value, dtype)
+        (a host scalar: no device tensor per call)."""
+        return torch.tensor(value, dtype=like.dtype).item()
+
+    def _scale_pa(self, x):
+        """PaliGemma: proprio/action tokens x sqrt(expert hidden)."""
+        if self.cfg.backbone == "paligemma":
+            return x * self._const(self.cfg.expert.hidden_size ** 0.5, x)
+        return x
 
     def _positions(self, batch: int, device):
         cfg = self.cfg
@@ -183,7 +215,8 @@ class PiZeroVLA(nn.Module):
             embeds_vlm = self._image_text_embeds(input_ids, pixel_values)
             action_embeds = self.action_encoder(psi_t.to(self.compute_dtype),
                                                 self._time_embed(t))
-            x_pa = torch.cat([self._proprio(proprios), action_embeds], dim=1)
+            x_pa = self._scale_pa(torch.cat([self._proprio(proprios),
+                                             action_embeds], dim=1))
             vlm_pos, p_pos, a_pos = self._positions(b, dev)
             cos_v, sin_v = self._rope(vlm_pos, cfg.vlm.llm.rope_theta)
             cos_pa, sin_pa = self._rope(torch.cat([p_pos, a_pos], dim=1),
@@ -206,8 +239,9 @@ class PiZeroVLA(nn.Module):
         cos_v, sin_v = self._rope(vlm_pos, cfg.vlm.llm.rope_theta)
         cos_p, sin_p = self._rope(p_pos, cfg.expert.rope_theta)
         seg, lev = self._meta(text_mask, include_action=False)
-        k, v = self.joint("prefix", embeds_vlm, self._proprio(proprios),
-                          cos_v, sin_v, cos_p, sin_p, seg, lev)
+        k, v = self.joint("prefix", embeds_vlm,
+                          self._scale_pa(self._proprio(proprios)), cos_v,
+                          sin_v, cos_p, sin_p, seg, lev)
         return k, v, seg, lev
 
     def prefix_forward(self, input_ids, pixel_values, text_mask, proprios):
@@ -227,8 +261,8 @@ class PiZeroVLA(nn.Module):
         """One velocity evaluation of the action suffix."""
         cfg = self.cfg
         b, dev = action.shape[0], action.device
-        x = self.action_encoder(action.to(self.compute_dtype),
-                                self._time_embed(t))
+        x = self._scale_pa(self.action_encoder(
+            action.to(self.compute_dtype), self._time_embed(t)))
         _, _, a_pos = self._positions(b, dev)
         cos_a, sin_a = self._rope(a_pos, cfg.expert.rope_theta)
         n_a = cfg.num_action_tokens

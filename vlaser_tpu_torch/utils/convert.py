@@ -6,7 +6,8 @@ of a vlaser_tpu `PiZeroVLA` as nested dicts of numpy arrays (for example
 `jax.tree_util.tree_map(np.asarray, variables)`) and returns
 {dotted name: torch tensor} for `models.layers.load_state`. Names mirror the
 JAX paths ("a/b/c" -> "a.b.c"); this is the only place where a layout
-changes: the patch-embedding conv kernel goes from HWIO to torch's OIHW.
+changes: the patch-embedding conv kernels (InternViT's and SigLIP's) go
+from HWIO to torch's OIHW.
 Nothing here imports jax.
 """
 
@@ -17,7 +18,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_PATCH = "embeddings.patch_embedding.kernel"
+# InternViT's (vision_model.embeddings.patch_embedding) and SigLIP's
+# (vision_model.patch_embedding) conv kernels
+_PATCH = ("embeddings.patch_embedding.kernel",
+          "vision_model.patch_embedding.kernel")
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
