@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vlaser_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--flash-ab PARENT_TREE]
+
+With --flash-ab, the flash kernels are also timed against those of another
+tree (a `git archive` of the parent commit unpacked into a git-ignored
+directory), in turns: parent, change, change, parent.
 
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
@@ -53,7 +57,8 @@ Training (fp32 parameters, bf16 compute, remat, batch 32):
      against the plain version; controls (levels ignored, padding keys
      unmasked, scale dropped, causal or q_offset dropped) must break the
      bounds. Timed against the plain version and PyTorch's
-     scaled_dot_product_attention (a yardstick the port never calls);
+     scaled_dot_product_attention (a yardstick the port never calls), with
+     the achieved TFLOP/s of both (the allowed pairs' flop over the time);
   10. RMSNorm forward and backward at 12,288 x 1536 bf16 against the plain
      version, and the forward again at the batch-8 serving prefix's 3,072 x
      1536 under inference_mode; controls (w ignored, the x * sum term of dx
@@ -97,7 +102,9 @@ quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
   16. bench.py's decode configuration (1 tile, a 320-token prompt, 64 new
      tokens, mode "int8"): vlm_decode_tok_mismatches of the fused vs the
      plain generator, the fused decoder held to the plain one teacher-forced
-     (DECODE_REL) with an ln1-ignored control, tok/s and ms per token.
+     (DECODE_REL) with an ln1-ignored control; where the greedy streams
+     first differ, the plain top-2 margin must be within the bound (a
+     near-tie); tok/s and ms per token.
 PaliGemma VLA (pizero_paligemma: SigLIP-So400m, the Gemma-2B mixture and
 the 1024-wide Gemma expert; attn_impl "kernel"):
   17. flash attention forward and backward at its shapes against the plain
@@ -1324,13 +1331,25 @@ def _flash_case(torch, dev, g, tag, name, B, Sq, Skv, H, KVH, D, q_seg,
         t_bwd["library_ms"] = _kernel_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), dot, retain_graph=True), 10)
         del o_lib, qt, kt, vt, dot, mask
-    for nm, t in (("fwd", t_fwd), ("bwd", t_bwd)):
+    for nm, t, flop in (("fwd", t_fwd, 4 * D * H * pairs),
+                        ("bwd", t_bwd, 10 * D * H * pairs)):
+        _flash_rate(t, flop)
         lib = ("none" if t["library_ms"] is None
-               else f"{t['library_ms']:.3f} ms")
-        print(f"flash {nm} {name} time: kernel {t['ms']:.3f} ms, plain "
-              f"{t['plain_ms']:.3f} ms, sdpa {lib}, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}", flush=True)
+               else f"{t['library_ms']:.3f} ms "
+                    f"({t['library_tflops']:.1f} TFLOP/s)")
+        print(f"flash {nm} {name} time: kernel {t['ms']:.3f} ms "
+              f"({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, "
+              f"sdpa {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+              f"{tag}", flush=True)
     return t_fwd, t_bwd
+
+
+def _flash_rate(rep, flop):
+    """Achieved TFLOP/s of the kernel (and of the library call, where there
+    is one): the flop the allowed pairs need over the measured time."""
+    rep["tflops"] = flop / rep["ms"] / 1e9
+    if rep.get("library_ms") is not None:
+        rep["library_tflops"] = flop / rep["library_ms"] / 1e9
 
 
 def flash_phase(torch, dev, cfg, tag, report):
@@ -1883,9 +1902,12 @@ def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag, window=None):
         rep["library_ms"] = _kernel_ms(
             torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                           attn_mask=mask), 10)
-    print(f"{what} time: kernel {rep['ms']:.3f} ms, plain "
-          f"{rep['plain_ms']:.3f} ms, sdpa {rep['library_ms']:.3f} ms, bound "
-          f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}) {tag}", flush=True)
+    _flash_rate(rep, 4 * D * H * pairs)
+    print(f"{what} time: kernel {rep['ms']:.3f} ms ({rep['tflops']:.1f} "
+          f"TFLOP/s), plain {rep['plain_ms']:.3f} ms, sdpa "
+          f"{rep['library_ms']:.3f} ms ({rep['library_tflops']:.1f} TFLOP/s), "
+          f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}) {tag}",
+          flush=True)
     return rep
 
 
@@ -2041,6 +2063,13 @@ def chat_phases(torch, np, dev, cfg, tag, report):
     return launches
 
 
+def _margin(logits):
+    """-> (top-2 margin of a [V] logits row, DECODE_REL x its max |logit|)."""
+    top2 = logits.float().topk(2).values
+    return ((top2[0] - top2[1]).item(),
+            DECODE_REL * logits.float().abs().max().item())
+
+
 def decode_parity_phase(torch, dev, cfg, tag):
     """Phase 16, bench.py's decode configuration: 1 tile, a 320-token prompt
     with 256 image tokens, 64 new tokens, quantize_for_serving(target="vlm",
@@ -2048,6 +2077,9 @@ def decode_parity_phase(torch, dev, cfg, tag):
     same weights. Prints vlm_decode_tok_mismatches (bench.py's bound is 0),
     then holds the fused decoder to the plain one teacher-forced on the
     plain stream (DECODE_REL); a stack whose ln1 is ignored must break it.
+    Where the two greedy streams first differ, the plain top-2 margin there
+    (token 0: the plain prefill's logits; token t: teacher-forced step t - 1)
+    must be within the bound: a near-tie, else the fused path is at fault.
     Times the fused generate (tok/s as bench.py counts it) and a step."""
     from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.inference import fused_runner as fr
@@ -2072,6 +2104,8 @@ def decode_parity_phase(torch, dev, cfg, tag):
     print(f"vlm_decode_tok_mismatches {mismatches} (fused vs plain "
           f"generator, {NEW} greedy tokens, bench.py's bound 0; emitted "
           f"{int(num_f[0])} / {int(num_p[0])})", flush=True)
+    diverge = (tok_f[0] != tok_p[0]).nonzero()
+    first = int(diverge[0]) if diverge.numel() else None
 
     # teacher forcing on the plain stream, from one prefilled cache
     stack = fr.pack_qwen2_stack(model.language_model)
@@ -2080,8 +2114,12 @@ def decode_parity_phase(torch, dev, cfg, tag):
     with torch.inference_mode():
         cache = KVCache.create(L, 1, N + NEW, llm.num_kv_heads, llm.head_dim,
                                torch.bfloat16, dev)
-        _, _, cache = model.prefill(ids, px, seg, cache)
+        logits, _, cache = model.prefill(ids, px, seg, cache)
         lengths = seg.sum(1)
+        # the plain top-2 margin and the bound of every pick: token 0 from
+        # the plain prefill's logits, token t > 0 from teacher-forced step
+        # t - 1
+        margins = [_margin(logits[0, lengths[0] - 1])]
         c_p, c_f, c_x = cache, cache.clone(), cache.clone()
         bad = {**stack, "ln1": torch.ones_like(stack["ln1"])}
         worst, checked, flips, ctrl, ctrl_flips = 0.0, 0, 0, 0.0, 0
@@ -2097,8 +2135,8 @@ def decode_parity_phase(torch, dev, cfg, tag):
             lx, c_x = fr.fused_decode_step(bad, embed, head, llm, tk, c_x,
                                            lengths + t)  # ln1 ignored
             ctrl = max(ctrl, (lx - lp).abs().max().item() / bound)
-            top2 = lp[0].topk(2).values
-            if (top2[0] - top2[1]).item() > bound:
+            margins.append(_margin(lp[0]))
+            if margins[-1][0] > bound:
                 checked += 1
                 flips += int(lf[0].argmax() != lp[0].argmax())
                 ctrl_flips += int(lx[0].argmax() != lp[0].argmax())
@@ -2111,6 +2149,22 @@ def decode_parity_phase(torch, dev, cfg, tag):
           f"differ (must break the gate)", flush=True)
     if not (worst <= 1 and flips == 0 and (ctrl > 1 or ctrl_flips > 0)):
         raise RuntimeError("fused decode disagrees with the plain decoder")
+    if first is None:
+        print("decode streams: the fused and plain greedy streams are "
+              "identical", flush=True)
+    else:
+        margin, bound = margins[first]
+        print(f"decode streams: first divergence at token {first} (fused "
+              f"{int(tok_f[0, first])}, plain {int(tok_p[0, first])}); the "
+              f"plain top-2 margin there {margin:.5g} vs the bound "
+              f"{bound:.5g} (DECODE_REL {DECODE_REL} x max |plain logits|): "
+              f"{'a near-tie' if margin <= bound else 'NOT a near-tie'}",
+              flush=True)
+        if margin > bound:
+            raise RuntimeError(
+                f"the fused decode's greedy stream diverges at token {first} "
+                f"where the plain top-2 margin {margin:.5g} exceeds the bound "
+                f"{bound:.5g}: a fault of the fused path")
 
     ms = _ms(torch, lambda: fused(ids, seg, px), 3)
     plain_ms = _ms(torch, lambda: plain(ids, seg, px), 1)
@@ -2417,6 +2471,151 @@ def pali_phases(torch, np, dev, cfg, tag, report):
     return _add(launches, pali_train_phase(torch, np, dev, cfg, tag))
 
 
+# -- the flash A/B against a parent tree's kernels (--flash-ab DIR) -------------
+# (name, B, Sq, Skv, H, KVH, D, causal, softcap, window, backward): the flash
+# shapes of PERF.md's kernel table (phases 9, 13 and 17)
+AB_SHAPES = (("vit", 32, 1025, 1025, 16, 16, 64, False, None, None, True),
+             ("joint", 32, 389, 389, 12, 2, 128, False, None, None, True),
+             ("chat prefill", 1, 3584, 3592, 12, 2, 128, True, None, None,
+              False),
+             ("chat prefill window", 1, 3584, 3592, 12, 2, 128, True, None,
+              CHAT_WINDOW, False),
+             ("pali_joint", 32, 281, 281, 8, 1, 256, False, 50.0, None, True),
+             ("pali_suffix", 1, 4, 281, 8, 1, 256, False, 50.0, None, True),
+             ("siglip", 32, 256, 256, 16, 16, 72, False, None, None, True))
+
+
+def _parent_flash(parent):
+    """Build a parent tree's csrc/flash_attention.cu (with its headers) into
+    its own library, as kernels/_build.py builds ours; -> (fwd, bwd) C
+    functions with the parent's signatures (bwd takes delta as an input)."""
+    import ctypes
+    import hashlib
+
+    from vlaser_tpu_torch.kernels import _build
+
+    src = os.path.join(os.path.abspath(parent), "vlaser_tpu_torch", "csrc")
+    h = hashlib.sha256()
+    for f in sorted(os.listdir(src)):
+        if f.startswith("flash_attention") or f.endswith(".cuh"):
+            h.update(open(os.path.join(src, f), "rb").read())
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = _build.BUILD_DIR / f"libparent_flash_{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(lib), os.path.join(src, "flash_attention.cu")],
+                       check=True, capture_output=True, text=True)
+    cdll = ctypes.CDLL(str(lib))
+    tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
+    fwd, bwd = cdll.flash_attention_fwd, cdll.flash_attention_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 7 + tail
+    bwd.argtypes = [ctypes.c_void_p] * 11 + tail
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _flash_build_report(build):
+    """ptxas's registers and spills of each flash kernel (the launch's
+    register count: the warp-specialized kernels then move registers from
+    the producer to the consumers), its dynamic shared memory, and any note
+    that ptxas serialized wgmma instructions."""
+    import ctypes
+    import re
+
+    smem = build.library().flash_attention_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    which = {"fwd_kernel": 0, "dq_kernel": 1, "dkv_kernel": 2}
+    for r in build.ptxas_report("flash_attention"):
+        if "warning" in r:
+            print(f"ptxas flash_attention: {r['warning']}", flush=True)
+            continue
+        m = re.search(r"fa\d+([a-z_]+?)(?:ILi(\d+)E(?:Lb([01])E)?)?E",
+                      r["kernel"])
+        if not m:
+            continue
+        name, d = m.group(1), m.group(2)
+        cap = "" if m.group(3) is None else f", softcap {m.group(3) == '1'}"
+        sm = (f", {smem(int(d), which[name])} bytes dynamic shared memory"
+              if name in which else "")
+        d = "" if d is None else f" D {d}"
+        print(f"ptxas flash_attention: {name}{d}{cap}: {r['registers']} "
+              f"registers, {r['spill_bytes']} spill bytes{sm}", flush=True)
+
+
+def flash_ab_phase(torch, dev, parent, tag):
+    """The flash kernels against a parent tree's, on the same inputs, timed
+    in turns (parent, change, change, parent) at AB_SHAPES; the parent's
+    backward includes its eager delta, as its wrapper ran it. Outputs are
+    compared too. -> {shape: {"fwd"/"bwd": [4 times]}}."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    pfwd, pbwd = _parent_flash(parent)
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    i32 = dict(dtype=torch.int32, device=dev)
+    res = {}
+    for name, B, Sq, Skv, H, KVH, D, causal, cap, win, bwd in AB_SHAPES:
+        gain = PALI_GAIN if cap else 1.0
+        q, k, v, do = _flash_inputs(torch, g, dev, B, Sq, Skv, H, KVH, D, gain)
+        qm = fa.pack_meta(torch.ones(B, Sq, **i32))
+        km = fa.pack_meta(torch.ones(B, Skv, **i32))
+        if causal:  # the prefill's cache: the new-token slots are empty
+            km[:, Sq:] = 0
+        opts = (int(causal), 0, 1.0 / math.sqrt(D), cap or 0.0,
+                -1 if win is None else win)
+        stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+        out, lse = fa.flash_attention_fwd(q, k, v, qm, km, 0, causal,
+                                          softcap=cap, window=win)
+
+        def parent_fwd():
+            o = torch.empty_like(q)
+            l = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+            code = pfwd(*[t.data_ptr() for t in (q, k, v, qm, km, o, l)],
+                        B, Sq, Skv, H, KVH, D, *opts, stream())
+            if code:
+                raise RuntimeError(f"parent flash fwd: CUDA error {code}")
+            return o, l
+
+        def parent_bwd():
+            delta = fa._delta(out, do)
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            code = pbwd(*[t.data_ptr() for t in (q, k, v, do, qm, km, lse,
+                                                 delta, *grads)],
+                        B, Sq, Skv, H, KVH, D, *opts, stream())
+            if code:
+                raise RuntimeError(f"parent flash bwd: CUDA error {code}")
+            return grads
+
+        change_fwd = lambda: fa.flash_attention_fwd(q, k, v, qm, km, 0, causal,
+                                                    softcap=cap, window=win)
+        change_bwd = lambda: fa.flash_attention_bwd(
+            q, k, v, qm, km, 0, out, lse, do, causal, softcap=cap, window=win)
+        pairs = [("fwd", parent_fwd, change_fwd)]
+        if bwd:
+            pairs.append(("bwd", parent_bwd, change_bwd))
+        res[name] = {}
+        for kind, par, chg in pairs:
+            a, b_ = par(), chg()
+            torch.cuda.synchronize()
+            diff = max((x.float() - y.float()).abs().max().item()
+                       for x, y in zip(a, b_))
+            ts = [_kernel_ms(torch, f, 10) for f in (par, chg, chg, par)]
+            res[name][kind] = ts
+            print(f"flash A/B {kind} {name}: parent {ts[0]:.4f} / change "
+                  f"{ts[1]:.4f} / change {ts[2]:.4f} / parent {ts[3]:.4f} ms "
+                  f"(parent / change {(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}x;"
+                  f" max |parent - change| {diff:.3g}) {tag}", flush=True)
+            if kind == "bwd":  # the change's two kernels, by device time
+                ks = _profile(torch, chg, "", tag, quiet=True)["kernels"]
+                print(f"  change bwd {name} by kernel: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in sorted(ks.items())),
+                    flush=True)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return res
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -2470,7 +2669,16 @@ def _profile(torch, fn, label, tag, quiet=False):
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--flash-ab", metavar="DIR",
+                    help="also time the flash kernels against those of the "
+                         "tree unpacked at DIR (parent, change, change, "
+                         "parent)")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2496,6 +2704,11 @@ def main() -> int:
           f"{_build.last_build_seconds:.1f} s) -> {_build.BUILD_DIR}",
           flush=True)
 
+    _flash_build_report(_build)
+    if args.flash_ab:  # first, so that a later phase's failure keeps it
+        flash_ab_phase(torch, dev, args.flash_ab, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
     cfg = vlaser_2b_vla()
     report = {}
     launches = serving_phases(torch, np, dev, cfg, tag, report)

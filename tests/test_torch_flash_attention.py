@@ -176,3 +176,119 @@ def test_kernel_route_refuses_what_it_lacks():
         out.sum().backward()
     assert (tfa.fwd_launch_count, tfa.bwd_launch_count) == before
     assert q.grad is not None and k.grad is not None
+
+
+# (Sq, Skv, H, KVH, D): the PaliGemma serving suffix (packed), a short GQA
+# pair (packed), the ViT, the joint, a windowed short block (packed), a
+# group of 3 (not packed: 3 does not divide 32)
+PLAN_SHAPES = [(4, 281, 8, 1, 256), (20, 20, 4, 2, 128),
+               (1025, 1025, 16, 16, 64), (389, 389, 12, 2, 128),
+               (60, 200, 4, 2, 128), (40, 100, 6, 2, 128)]
+
+
+@pytest.mark.parametrize("sq,skv,h,kvh,d", PLAN_SHAPES)
+def test_packed_tiles_cover_every_pair_once(sq, skv, h, kvh, d):
+    """The CUDA kernels' launch plan: the forward / dq grids' tiles, and the
+    q tiles each dk/dv block walks for its KV head, hold every (q head, q
+    row) pair exactly once."""
+    from collections import Counter
+
+    plan = tfa.launch_plan(2, sq, skv, h, kvh, d)
+    pack, g = plan["pack"], h // kvh
+    assert pack == (g if sq < 64 and g > 1 and 32 % g == 0 else 1)
+    every = Counter((hh, i) for hh in range(h) for i in range(sq))
+    for kern in ("fwd", "dq"):
+        gx, gy, gb = plan[kern]["grid"]
+        assert gb == 2 and gy * pack == h
+        got = Counter(p for x in range(gx) for y in range(gy)
+                      for p in tfa.tile_pairs(pack, plan[kern]["rows"], x,
+                                              y * pack, sq))
+        assert got == every
+    dkv = plan["dkv"]
+    assert dkv["grid"] == (-(-skv // dkv["keys"]), kvh, 2)
+    for kv in range(kvh):
+        got = Counter(p for jg in range(dkv["head_groups"])
+                      for qt in range(dkv["q_tiles"])
+                      for p in tfa.tile_pairs(pack, dkv["q_rows"], qt,
+                                              kv * g + jg * pack, sq))
+        assert got == Counter((hh, i) for hh in range(kv * g, kv * g + g)
+                              for i in range(sq))
+    if sq < 64 and pack > 1:  # one block holds the whole group's rows
+        assert plan["fwd"]["grid"][1] == kvh
+        assert plan["fwd"]["grid"][0] == -(-sq * pack // plan["fwd"]["rows"])
+
+
+@pytest.mark.parametrize("name", ["packed_suffix", "window_q_offset", "gqa"])
+def test_tile_by_tile_forward_matches_jax_reference(name):
+    """The forward computed one tile of the launch plan at a time (each
+    tile's packed rows gathered, attended over all keys of their KV head
+    with the kernels' mask, scattered back) equals JAX's _ref_attention."""
+    if name == "packed_suffix":  # 4 action rows of 4 q heads over 35 keys
+        q, k, v, _, qs, ks, ql, kl, off, causal, cap, win = _case("softcap")
+        q, qs, ql = q[:, 31:35], qs[:, 31:35], ql[:, 31:35]
+        q = np.repeat(q, 2, axis=2)[:, :, :4]  # 4 q heads, 2 kv heads
+    else:
+        q, k, v, _, qs, ks, ql, kl, off, causal, cap, win = _case(name)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(d)
+    tm = lambda seg, lev: tfa.pack_meta(
+        torch.from_numpy(seg), None if lev is None else torch.from_numpy(lev))
+    qm, km = tm(qs, ql), tm(ks, kl)
+    plan = tfa.launch_plan(b, sq, skv, h, kvh, d)
+    if name == "packed_suffix":
+        assert plan["pack"] == h // kvh
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    ok = tfa._allowed(qm, km, off, causal, win)  # [B, Sq, Skv]
+    out = torch.zeros_like(tq)
+    gx, gy, _ = plan["fwd"]["grid"]
+    for x in range(gx):
+        for y in range(gy):
+            pairs = tfa.tile_pairs(plan["pack"], plan["fwd"]["rows"], x,
+                                   y * plan["pack"], sq)
+            heads = torch.tensor([p[0] for p in pairs])
+            rows = torch.tensor([p[1] for p in pairs])
+            kv = heads // (h // kvh)
+            qt = tq[:, rows, heads]  # [B, R, D]
+            s, _ = tfa._capped(torch.einsum("brd,brsd->brs", qt * scale,
+                                            tk[:, :, kv].transpose(1, 2)),
+                               cap)
+            m = ok[:, rows]
+            p = torch.softmax(torch.where(m, s, -torch.inf), -1)
+            p = torch.where(m.any(-1, keepdim=True), p, 0.0)
+            out[:, rows, heads] = torch.einsum(
+                "brs,brsd->brd", p, tv[:, :, kv].transpose(1, 2))
+    jm = lambda seg, lev: jfa.pack_meta(
+        jnp.asarray(seg), None if lev is None else jnp.asarray(lev))
+    want = jfa._ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jm(qs, ql), jm(ks, kl), off, causal, scale,
+                              cap, win)
+    live = torch.from_numpy(qs != 0)  # the reference softmaxes dead rows
+    np.testing.assert_allclose(out[live].numpy(), np.asarray(want)[live.numpy()],
+                               rtol=RTOL, atol=ATOL)
+    assert (out[~live] == 0).all()
+
+
+def test_ptxas_report_reads_the_flash_kernels_of_a_build_log():
+    """The registers, spills and serialization notes chip_smoke.py prints
+    come from the -v lines of csrc/flash_attention.cu alone."""
+    from vlaser_tpu_torch.kernels import _build
+
+    log = "\n".join([
+        "/usr/bin/nvcc -gencode arch=compute_90a,code=sm_90a -c -o f.o "
+        "csrc/flash_attention.cu",
+        "ptxas info    : Compiling entry function '_ZN2fa10fwd_kernelILi64E"
+        "Lb0EEEv' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized",
+        "/usr/bin/nvcc -gencode arch=compute_90a,code=sm_90a -c -o r.o "
+        "csrc/rmsnorm.cu",
+        "ptxas info    : Compiling entry function 'rms' for 'sm_90a'",
+        "ptxas info    : Used 40 registers"])
+    got = _build.ptxas_report("flash_attention", log)
+    assert got[0] == {"kernel": "_ZN2fa10fwd_kernelILi64ELb0EEEv", "stack": 0,
+                      "spill_bytes": 12, "registers": 168}
+    assert len(got) == 2 and "C7514" in got[1]["warning"]
+    assert _build.ptxas_report("rmsnorm", log)[0]["registers"] == 40

@@ -167,6 +167,13 @@ def _meta_case(B, S, pad, levels, device):
         (1, 200, 200, 4, 2, 128, 0, False, True, 0, None, 50, 1.0),
         (1, 60, 200, 4, 2, 128, 0, False, True, 140, None, 33, 1.0),
         (1, 100, 100, 2, 1, 256, 0, False, True, 0, 50.0, 40, 3.0),
+        # more K/V tiles than the ring has stages; a shape shorter than one
+        # tile (a GQA pair packed into it); the packed serving suffix at D
+        # 256 with softcap over the joint's 281 keys; D = 72 at SigLIP's S
+        (1, 1025, 1025, 16, 16, 64, 0, False, False, 0, None, None, 1.0),
+        (1, 20, 20, 4, 2, 128, 3, False, False, 0, None, None, 1.0),
+        (1, 4, 281, 8, 1, 256, 0, False, False, 0, 50.0, None, 7.0),
+        (2, 256, 256, 16, 16, 72, 0, False, False, 0, None, None, 1.0),
     ])
 def test_flash_attention_kernels_match_plain(cuda, B, Sq, Skv, H, KVH, D, pad,
                                              levels, causal, off, cap, win,
@@ -202,6 +209,24 @@ def test_flash_attention_kernels_match_plain(cuda, B, Sq, Skv, H, KVH, D, pad,
     assert (lse[live] - p_lse[live]).abs().max().item() <= 1e-2
     dead = (q_seg == 0)
     assert (out[dead] == 0).all() and (grads[0][dead] == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 72, 128, 256])
+def test_wgmma_tma_probe_matches_matmul(cuda, D):
+    """The kernels' first product of each kind on one 64-row tile loaded by
+    TMA: S = Q K^T from shared memory against torch.matmul in fp32 (summation
+    order only), then O = bf16(S) V with A from registers and V MN-major."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(64, D, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    s, o = fa.wgmma_probe(q, k, v)
+    torch.cuda.synchronize()
+    ref_s = q.float() @ k.float().T
+    assert (s - ref_s).abs().max().item() <= 1e-4 * ref_s.abs().max().item()
+    ref_o = s.to(torch.bfloat16).float() @ v.float()
+    assert (o - ref_o).abs().max().item() <= 1e-4 * ref_o.abs().max().item()
 
 
 def test_flash_attention_refuses_other_head_dims(cuda):

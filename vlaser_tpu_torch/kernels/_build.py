@@ -95,6 +95,42 @@ def build() -> Path:
     return out
 
 
+def ptxas_report(stem: str, log_text: str | None = None) -> list[dict]:
+    """ptxas's -v lines for the kernels of csrc/<stem>.cu, from `log_text`
+    or the last build's nvcc.log ([] without one): [{"kernel": mangled
+    name, "registers": n, "spill_bytes": stores + loads, "stack": bytes}],
+    plus {"warning": line} for each ptxas warning of that source and each
+    note that it serialized wgmma instructions."""
+    import re
+
+    if log_text is None:
+        path = BUILD_DIR / "nvcc.log"
+        log_text = path.read_text() if path.exists() else ""
+    log = log_text.split("\n")
+    out, cur, inside = [], None, False
+    for line in log:
+        if line.startswith(("/", "nvcc")) or " -c -o " in line:
+            inside = f"{stem}.cu" in line
+            continue
+        if not inside:
+            continue
+        if "ptxas warning" in line or "Performance Loss" in line:
+            out.append({"warning": line.strip()})
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["stack"] = int(m.group(1))
+            cur["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def library() -> ctypes.CDLL:
     """Build on first use and load the kernel library once per process."""
     global _lib

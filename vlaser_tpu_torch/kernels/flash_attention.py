@@ -38,8 +38,49 @@ NEG_INF = -1e30
 LOGITS_BYTES_MIN = 128 * 2**20  # the JAX dispatch's thresholds: logits
 SQ_MIN = 2048                   # bytes, query rows
 HEAD_DIMS = (64, 72, 128, 256)  # the CUDA kernels' head dims
+NCW = 2  # consumer warpgroups of a CUDA block (64 rows or keys each)
 fwd_launch_count = 0  # flash_attention_fwd launches through the CUDA route
-bwd_launch_count = 0  # flash_attention_bwd launches (dq + dkv kernels)
+bwd_launch_count = 0  # flash_attention_bwd launches (delta, dq, dk/dv)
+
+
+def launch_plan(b: int, sq: int, skv: int, h: int, kvh: int, d: int):
+    """The CUDA kernels' launch plan (`csrc/flash_attention.cu`: pack_of,
+    the tile sizes of Dims<D>, the grids of fwd / bwd), kept here so that
+    the CPU tests can hold it.
+
+    `pack`: the rows of a q tile are (q row, head) pairs, row r = (q row
+    x * rows / pack + r // pack, head y * pack + r % pack) of block (x, y):
+    a group's heads share a tile when the queries are few (Sq < 64 and the
+    group G divides 32: pack = G), else one head fills it (pack = 1). The
+    dk/dv kernel walks, for each block of keys, the group's head groups and
+    q tiles of `q_rows` such pairs in the same order."""
+    g = h // kvh
+    pack = g if sq < 64 and g > 1 and 32 % g == 0 else 1
+    grid = lambda rows: (-(-sq // (rows // pack)), h // pack, b)
+    rows = 64 * (3 if d == 64 else NCW)  # three warpgroups at D 64
+    split = d > 128
+    bk, bq = (64, 32) if split else (64 * NCW, 64)
+    return {"pack": pack,
+            "fwd": {"grid": grid(rows), "rows": rows,
+                    "keys": 64 if d > 128 else 128},
+            "dq": {"grid": grid(rows), "rows": rows,
+                   "keys": 32 if d > 128 else 64},
+            "dkv": {"grid": (-(-skv // bk), kvh, b), "keys": bk,
+                    "q_rows": bq, "head_groups": g // pack,
+                    "q_tiles": -(-sq // (bq // pack)), "split": split}}
+
+
+def tile_pairs(pack: int, rows: int, tile: int, head0: int, sq: int):
+    """-> [(head, q row)] of a tile of `rows` packed rows: the tile-th tile
+    of q rows of the heads head0 .. head0 + pack - 1, in row order; rows past
+    sq (TMA's zero fill) are left out."""
+    nq = rows // pack
+    pairs = []
+    for r in range(rows):
+        i = tile * nq + r // pack
+        if i < sq:
+            pairs.append((head0 + r % pack, i))
+    return pairs
 
 
 def pack_meta(segment_ids: torch.Tensor,
@@ -103,7 +144,8 @@ def flash_attention_fwd_plain(q, k, v, q_meta, kv_meta, q_offset: int = 0,
 
 
 def _delta(out, dout):
-    """rowsum(dO * O) -> [B, H, Sq] fp32 (outside the kernels, as in JAX)."""
+    """rowsum(dO * O) -> [B, H, Sq] fp32 (the plain version's; on the card
+    a pre-pass kernel takes it)."""
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -154,6 +196,12 @@ def _kernel(name, n_ptr):
     return _fns[name]
 
 
+def _aligned(t):
+    """t contiguous at a 16-byte aligned address (TMA's rule)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _opts(causal, q_offset, d, scale, softcap, window):
     """The C entry's trailing scalars: softcap 0 and window -1 mean none."""
     if softcap is not None and not softcap > 0:
@@ -187,7 +235,7 @@ def _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale, softcap,
                 window):
     global fwd_launch_count
     _check(q, k, v, q_meta, kv_meta, "flash_attention_fwd")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     q_meta, kv_meta = q_meta.contiguous(), kv_meta.contiguous()
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -203,23 +251,26 @@ def _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale, softcap,
     return out, lse
 
 
-def _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout, causal,
+def _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, out, lse, dout, causal,
                 scale, softcap, window):
     global bwd_launch_count
     _check(q, k, v, q_meta, kv_meta, "flash_attention_bwd")
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise TypeError("flash_attention_bwd: dout must match q")
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"flash_attention_bwd: {name} must match q")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
         raise TypeError("flash_attention_bwd: lse must be fp32 [B, H, Sq]")
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
     q_meta, kv_meta, lse = (t.contiguous() for t in (q_meta, kv_meta, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # rowsum(dO * O): written by the delta kernel, read by dq and dk/dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _kernel("flash_attention_bwd", 11)(
-        *[t.data_ptr() for t in (q, k, v, dout, q_meta, kv_meta, lse, delta,
-                                 dq, dk, dv)],
+    code = _kernel("flash_attention_bwd", 12)(
+        *[t.data_ptr() for t in (q, k, v, out, dout, q_meta, kv_meta, lse,
+                                 delta, dq, dk, dv)],
         b, sq, skv, h, kvh, d,
         *_opts(causal, q_offset, d, scale, softcap, window), stream)
     _build.check(code, "flash_attention_bwd")
@@ -249,14 +300,37 @@ def flash_attention_bwd(q, k, v, q_meta, kv_meta, q_offset, out, lse, dout,
                         causal: bool = False, scale: Optional[float] = None,
                         softcap: Optional[float] = None,
                         window: Optional[int] = None):
-    """-> (dq, dk, dv). delta = rowsum(dO * O) is a plain torch op."""
-    route = _route(q, "flash_attention_bwd")
-    delta = _delta(out, dout)
-    if route == "cpu":
-        return _bwd_math(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout,
-                         causal, scale, softcap, window)
-    return _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, lse, delta, dout,
+    """-> (dq, dk, dv). On the card delta = rowsum(dO * O) is taken by a
+    pre-pass kernel; the CPU route takes it with `_delta`."""
+    if _route(q, "flash_attention_bwd") == "cpu":
+        return flash_attention_bwd_plain(q, k, v, q_meta, kv_meta, q_offset,
+                                         out, lse, dout, causal, scale,
+                                         softcap, window)
+    return _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, out, lse, dout,
                        causal, scale, softcap, window)
+
+
+def wgmma_probe(q, k, v):
+    """The kernels' first product of each kind on one tile, alone (the
+    probe_kernel of `csrc/flash_attention.cu`): q, k, v [64, D] bf16 on the
+    card -> (s = q k^T [64, 64] fp32, o = bf16(s) v [64, D] fp32)."""
+    d = q.shape[-1]
+    if q.shape != (64, d) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("wgmma_probe: q, k, v must be [64, D]")
+    if d not in HEAD_DIMS or q.dtype != torch.bfloat16:
+        raise ValueError(f"wgmma_probe: bf16 with D in {HEAD_DIMS}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    fn = _fns.get("flash_wgmma_probe")
+    if fn is None:
+        fn = _fns["flash_wgmma_probe"] = _build.bind(
+            "flash_wgmma_probe", 5, (ctypes.c_int, ctypes.c_void_p))
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+                    o.data_ptr(), d,
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "flash_wgmma_probe")
+    return s, o
 
 
 class FlashAttention(torch.autograd.Function):
