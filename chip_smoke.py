@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vlaser_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--flash-ab PARENT_TREE]
+    python3 chip_smoke.py [--ab PARENT_TREE]
 
-With --flash-ab, the flash kernels are also timed against those of another
-tree (a `git archive` of the parent commit unpacked into a git-ignored
-directory), in turns: parent, change, change, parent.
+With --ab (or its older name --flash-ab), the flash kernels, the int8 GEMM
+(one Qwen2.5-1.5B layer's 7 GEMMs at 384, 3,072 and 3,584 rows, the
+InternViT-300M stack's 4 products at 13,325 rows) and the RMSNorm backward
+(12,288 x 1536) are also timed against those of another tree (a `git
+archive` of the parent commit unpacked into a git-ignored directory), each
+built alone, in turns: parent, change, change, parent.
 
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
@@ -609,6 +612,59 @@ def serving_phases(torch, np, dev, cfg, tag, report):
 
 
 # -- serving w8a8: phases 4-8 ------------------------------------------------
+def _kmajor_gb(model):
+    """The device memory of the K-major int8 copies (the non-persistent
+    `kernel_qt` buffers that a w8a8 Dense derives on its first w8a8 call,
+    the act_quant ViT's packing included), by tower."""
+    by = {}
+    for name, buf in model.named_buffers():
+        if name.endswith("kernel_qt"):
+            k = ("ViT" if name.startswith("vision_model.") else
+                 "expert" if ".expert." in name else "LLM")
+            by[k] = by.get(k, 0) + buf.numel() * buf.element_size()
+    return "of which K-major int8 copies: " + (", ".join(
+        f"{k} {v / 1e9:.3f} GB" for k, v in sorted(by.items())) or "none")
+
+
+def tmap_cache_ab(torch, step, launch, tag):
+    """The tensor-map cache of csrc/sm90.cuh on and off, in turns (on, off,
+    off, on): the host time of one int8_gemm call (the least mean of 20
+    batches of 50 calls queued without a sync, so that neither the device
+    nor a busy moment of the shared host counts) and the step (median of
+    10, CUDA events). Then the maps one step asks for and how many the
+    cache served. The cache is left on."""
+    from vlaser_tpu_torch.kernels import _build
+
+    host, steps = {True: [], False: []}, {True: [], False: []}
+    for on in (True, False, False, True):
+        _build.tmap_cache(on)
+        step()  # fills the cache when it is on
+        torch.cuda.synchronize()
+        per_call = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            for _ in range(50):
+                launch()
+            per_call.append((time.perf_counter() - t0) / 50 * 1e6)
+            torch.cuda.synchronize()
+        host[on].append(min(per_call))
+        steps[on].append(_ms(torch, step, 10))
+    _build.tmap_cache(True)
+    before = _build.tmap_cache()
+    step()
+    torch.cuda.synchronize()
+    after = _build.tmap_cache()
+    hits = after["hits"] - before["hits"]
+    misses = after["misses"] - before["misses"]
+    fmt = lambda v: [round(x, 3) for x in v]
+    print(f"tensor-map cache A/B (on, off, off, on): host us a int8_gemm "
+          f"call: on {fmt(host[True])}, off {fmt(host[False])}; batch-1 "
+          f"w8a8 step ms: on {fmt(steps[True])}, off {fmt(steps[False])}; "
+          f"one step asks for {hits + misses} maps ({hits} from the cache, "
+          f"{misses} encoded), {after['maps']} maps held {tag}", flush=True)
+    return {"host_us": host, "step_ms": steps, "maps_a_step": hits + misses}
+
+
 def _tie_row(torch, K, dev):
     """127 at column 0 (so 127 / amax = 1), exact .5 ties elsewhere: half to
     even and half away from zero round them differently."""
@@ -642,8 +698,8 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
         k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": 0.0, "torch_w8a8_ms": 0.0}
         for name, d in sites:
-            kq, ks = d.kernel_q[0], d.kernel_scale[0]  # [K, N], [1, N]
-            K, N = kq.shape
+            kq, ks = d.kernel_kmajor(0), d.kernel_scale[0]  # [N, K], [1, N]
+            N, K = kq.shape
             x = torch.randn(rows, K, generator=g, device=dev)
             x[0] = _tie_row(torch, K, dev)
             x[1] = 0.0
@@ -691,11 +747,7 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
             p1 = _kernel_ms(torch, lambda: w8a8.quantize_rows_plain(x), 5)
             p2 = _kernel_ms(torch, lambda: w8a8.int8_gemm_plain(
                 p_q, p_am, kq, ks, torch.bfloat16), 5)
-            kq_lib = kq
-            try:
-                torch._int_mm(q, kq_lib)
-            except RuntimeError:  # cuBLASLt's int8 GEMM wants B column-major
-                kq_lib = kq.t().contiguous().t()
+            kq_lib = kq.t()  # [K, N] column-major, as cuBLASLt's int8 GEMM
             lib = _kernel_ms(torch, lambda: torch._int_mm(q, kq_lib), 20)
 
             def torch_w8a8():
@@ -778,9 +830,9 @@ def _vit_w8a8_stacks(torch, vision_model, vcfg, dev):
     vg["fc1s"], vg["fc1b"] = vs["fc1s"].clone(), vs["fc1b"].clone()
     vg["fc1s"][:, half:] *= 40
     vg["fc1b"][:, half:] *= 40
-    vg["fc2w"] = vs["fc2w"].clone()
-    vg["fc2w"][:, half:] = (vs["fc2w"][:, half:].float() / 40).round().to(
-        torch.int8)
+    vg["fc2w"] = vs["fc2w"].clone()  # K-major [L, C, inter]: K halves are
+    vg["fc2w"][:, :, half:] = (vs["fc2w"][:, :, half:].float()  # columns
+                               / 40).round().to(torch.int8)
     return vs, vg, kw
 
 
@@ -849,22 +901,19 @@ def _vit_layer0_flips(torch, x, vs, kw):
     v1 = {k: t[:1].contiguous() for k, t in vs.items()}
     xb = x if x.dim() == 3 else x[None]
     B, S, C = xb.shape
-    inter, M, G = v1["fc1w"].shape[-1], B * S, fused_vit._fc2_groups(B)
+    inter, M, G = v1["fc1w"].shape[1], B * S, fused_vit._fc2_groups(B)
     vecs = [v1[k] for k in ("ln1w", "ln1b", "ln2w", "ln2b", "ls1", "ls2",
                             "qnw", "knw", "qkvb", "projb", "fc1b", "fc2b")]
     scales = [v1[k] for k in ("qkvs", "projs", "fc1s", "fc2s")]
     mats = [v1[k] for k in ("qkvw", "projw", "fc1w", "fc2w")]
     fused_vit._check_args(x, vecs, mats, scales, kw["num_heads"])
-    e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=x.device)
-    f32 = torch.float32
-    aq, am = e(M, max(C, inter), dt=torch.int8), e(M, 2, dt=f32)
-    ptrs = [xb.reshape(M, C).clone(), *vecs, *scales, *mats, aq, am,
-            e(M, 3 * C, dt=f32), e(M, C), e(M, C), e(M, C), e(M, C),
-            e(M, inter, dt=f32), e(M if B > 1 else 1, C, dt=f32)]
+    scratch, n_ws = fused_vit.w8a8_scratch(B, S, C, inter, x.device)
+    aq = scratch[0]
+    ptrs = [xb.reshape(M, C).clone(), *vecs, *scales, *mats, *scratch]
     heads = kw["num_heads"]
     code = fused_vit._kernel("vit_stack_forward_w8a8")(
         *[t.data_ptr() for t in ptrs], B, S, C, inter, heads, 1, kw["eps"],
-        int(kw["qk_norm"]), (C // heads) ** -0.5 * fused_vit.LOG2E,
+        int(kw["qk_norm"]), (C // heads) ** -0.5 * fused_vit.LOG2E, n_ws,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "vit_stack_forward_w8a8")
     torch.cuda.synchronize()
@@ -999,6 +1048,7 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
     batch-1 server and the batch-8 batched path)."""
     from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.envs.adapters import BridgeSimplerAdapter
+    from vlaser_tpu_torch.kernels import w8a8
     from vlaser_tpu_torch.kernels.fused_vit import (fused_vit_stack,
                                                     pack_vit_stack)
     from vlaser_tpu_torch.models.layers import init_normal_
@@ -1115,6 +1165,9 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
     if got != want:
         raise RuntimeError(f"batched path launches {got} != {want}")
     _add(launches, got)
+    print(f"w8a8 serving model after both main paths: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device "
+          f"({_kmajor_gb(model)}) {tag}", flush=True)
 
     # -- parity at bench.py's bounds -----------------------------------------
     with torch.inference_mode():
@@ -1158,6 +1211,11 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         step_ms = _ms(torch, lambda: server._infer(*in1), 10)
+        q_s, am_s = w8a8.quantize_rows(torch.randn(
+            S, vlm.q_proj.kernel_q.shape[-2], device=dev).to(bf))
+        kt_s, ks_s = vlm.q_proj.kernel_kmajor(0), vlm.q_proj.kernel_scale[0]
+        tmap_cache_ab(torch, lambda: server._infer(*in1),
+                      lambda: w8a8.int8_gemm(q_s, am_s, kt_s, ks_s), tag)
         step8_ms = _ms(torch, lambda: batched(*in8), 5)
         emb8 = model.vit_embed(px8).to(bf).contiguous()
         vit_ms = _ms(torch, lambda: fused_vit_stack(emb8[0], **vit, **vkw), 10)
@@ -2001,6 +2059,9 @@ def chat_phases(torch, np, dev, cfg, tag, report):
         raise RuntimeError(f"chat launches {got} != {want}")
     if not (isinstance(r, str) and r == resp):
         raise RuntimeError("chat answered differently to the same request")
+    print(f"chat model after its main path: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device "
+          f"({_kmajor_gb(model)}) {tag}", flush=True)
     with torch.inference_mode():
         tokens, num = chat._fused_gen(ids, seg, tiles)
         vit_stack = fr.pack_vit_stack(model.vision_model)
@@ -2471,7 +2532,7 @@ def pali_phases(torch, np, dev, cfg, tag, report):
     return _add(launches, pali_train_phase(torch, np, dev, cfg, tag))
 
 
-# -- the flash A/B against a parent tree's kernels (--flash-ab DIR) -------------
+# -- the A/B against a parent tree's kernels (--ab DIR) ------------------------
 # (name, B, Sq, Skv, H, KVH, D, causal, softcap, window, backward): the flash
 # shapes of PERF.md's kernel table (phases 9, 13 and 17)
 AB_SHAPES = (("vit", 32, 1025, 1025, 16, 16, 64, False, None, None, True),
@@ -2485,10 +2546,14 @@ AB_SHAPES = (("vit", 32, 1025, 1025, 16, 16, 64, False, None, None, True),
              ("siglip", 32, 256, 256, 16, 16, 72, False, None, None, True))
 
 
-def _parent_flash(parent):
-    """Build a parent tree's csrc/flash_attention.cu (with its headers) into
-    its own library, as kernels/_build.py builds ours; -> (fwd, bwd) C
-    functions with the parent's signatures (bwd takes delta as an input)."""
+def _parent_lib(parent, stem):
+    """Build a parent tree's csrc/<stem>.cu (with its headers) into its own
+    library, as kernels/_build.py builds ours; -> (ctypes.CDLL, the
+    source's text). -fno-gnu-unique: g++ would otherwise export a template
+    function's local statics (a kernel's one-time shared-memory attribute,
+    a tensor-map cache) as process-wide unique symbols, and a parent kernel
+    of the same name as ours would then skip its own cudaFuncSetAttribute
+    and fail to launch."""
     import ctypes
     import hashlib
 
@@ -2497,56 +2562,89 @@ def _parent_flash(parent):
     src = os.path.join(os.path.abspath(parent), "vlaser_tpu_torch", "csrc")
     h = hashlib.sha256()
     for f in sorted(os.listdir(src)):
-        if f.startswith("flash_attention") or f.endswith(".cuh"):
+        if f.startswith(stem + ".") or f.endswith(".cuh"):
             h.update(open(os.path.join(src, f), "rb").read())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _build.BUILD_DIR / f"libparent_flash_{h.hexdigest()[:16]}.so"
+    lib = _build.BUILD_DIR / f"libparent_{stem}_{h.hexdigest()[:16]}.so"
     if not lib.exists():
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                        str(lib), os.path.join(src, "flash_attention.cu")],
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler",
+                        "-fno-gnu-unique", "-shared", "-o", str(lib),
+                        os.path.join(src, stem + ".cu")],
                        check=True, capture_output=True, text=True)
-    cdll = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib)), open(os.path.join(src, stem + ".cu")).read()
+
+
+def _parent_flash(parent):
+    """The parent's flash kernels -> (fwd, bwd) C functions with the
+    parent's signatures (bwd: 12 pointers, its delta kernel filling the
+    delta scratch)."""
+    import ctypes
+
+    cdll, _ = _parent_lib(parent, "flash_attention")
     tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p]
     fwd, bwd = cdll.flash_attention_fwd, cdll.flash_attention_bwd
     fwd.argtypes = [ctypes.c_void_p] * 7 + tail
-    bwd.argtypes = [ctypes.c_void_p] * 11 + tail
+    bwd.argtypes = [ctypes.c_void_p] * 12 + tail
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
-def _flash_build_report(build):
-    """ptxas's registers and spills of each flash kernel (the launch's
-    register count: the warp-specialized kernels then move registers from
-    the producer to the consumers), its dynamic shared memory, and any note
-    that ptxas serialized wgmma instructions."""
+def _build_report(build):
+    """ptxas's registers and spills of each kernel of the flash, int8 GEMM
+    and RMSNorm sources (the launch's register count: the warp-specialized
+    kernels then move registers from the producer to the consumers), the
+    dynamic shared memory of the flash and GEMM kernels, and every ptxas
+    warning of those sources, such as a note that it serialized wgmma
+    instructions."""
     import ctypes
     import re
 
-    smem = build.library().flash_attention_smem
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    lib = build.library()
+    fsmem, gsmem = lib.flash_attention_smem, lib.w8a8_gemm_smem
+    fsmem.argtypes, fsmem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    gsmem.argtypes, gsmem.restype = [ctypes.c_int], ctypes.c_int
     which = {"fwd_kernel": 0, "dq_kernel": 1, "dkv_kernel": 2}
-    for r in build.ptxas_report("flash_attention"):
-        if "warning" in r:
-            print(f"ptxas flash_attention: {r['warning']}", flush=True)
-            continue
-        m = re.search(r"fa\d+([a-z_]+?)(?:ILi(\d+)E(?:Lb([01])E)?)?E",
-                      r["kernel"])
-        if not m:
-            continue
-        name, d = m.group(1), m.group(2)
-        cap = "" if m.group(3) is None else f", softcap {m.group(3) == '1'}"
-        sm = (f", {smem(int(d), which[name])} bytes dynamic shared memory"
-              if name in which else "")
-        d = "" if d is None else f" D {d}"
-        print(f"ptxas flash_attention: {name}{d}{cap}: {r['registers']} "
-              f"registers, {r['spill_bytes']} spill bytes{sm}", flush=True)
+    for stem in ("flash_attention", "w8a8", "rmsnorm"):
+        for r in build.ptxas_report(stem):
+            if "warning" in r:
+                print(f"ptxas {stem}: {r['warning']}", flush=True)
+                continue
+            if stem == "flash_attention":
+                m = re.search(r"fa\d+([a-z_]+?)(?:ILi(\d+)E(?:Lb([01])E)?)?E",
+                              r["kernel"])
+                if not m:
+                    continue
+                name, d = m.group(1), m.group(2)
+                cap = ("" if m.group(3) is None
+                       else f", softcap {m.group(3) == '1'}")
+                sm = (f", {fsmem(int(d), which[name])} bytes dynamic shared "
+                      f"memory" if name in which else "")
+                label = f"{name}{'' if d is None else f' D {d}'}{cap}"
+            else:
+                m = re.search(r"\d([a-z][a-z_]*?_kernel)(?:I(\w*?)E)?[Ev]",
+                              r["kernel"])
+                if not m:
+                    continue
+                name, targs = m.group(1), m.group(2) or ""
+                ints = [int(v) for v in re.findall(r"Li(\d+)", targs)]
+                sm = ""
+                if name == "gemm_kernel" and len(ints) == 2:
+                    label = f"gemm_kernel epilogue {ints[0]}, BN {ints[1]}"
+                    sm = (f", {gsmem(ints[1])} bytes dynamic shared memory")
+                elif name == "bwd_kernel" and ints:
+                    dt = "bf16" if "bfloat16" in targs else "fp32"
+                    label = f"bwd_kernel {dt}, {ints[0]} chunks of 256"
+                    sm = f", {8 * 256 * ints[0] * 4} bytes shared memory"
+                else:
+                    label = f"{name}{f' <{targs}>' if targs else ''}"
+            print(f"ptxas {stem}: {label}: {r.get('registers')} registers, "
+                  f"{r.get('spill_bytes')} spill bytes{sm}", flush=True)
 
 
 def flash_ab_phase(torch, dev, parent, tag):
     """The flash kernels against a parent tree's, on the same inputs, timed
-    in turns (parent, change, change, parent) at AB_SHAPES; the parent's
-    backward includes its eager delta, as its wrapper ran it. Outputs are
+    in turns (parent, change, change, parent) at AB_SHAPES. Outputs are
     compared too. -> {shape: {"fwd"/"bwd": [4 times]}}."""
     from vlaser_tpu_torch.kernels import flash_attention as fa
 
@@ -2578,10 +2676,10 @@ def flash_ab_phase(torch, dev, parent, tag):
             return o, l
 
         def parent_bwd():
-            delta = fa._delta(out, do)
             grads = [torch.empty_like(t) for t in (q, k, v)]
-            code = pbwd(*[t.data_ptr() for t in (q, k, v, do, qm, km, lse,
-                                                 delta, *grads)],
+            ptrs = (q, k, v, out, do, qm, km, lse, torch.empty_like(lse),
+                    *grads)
+            code = pbwd(*[t.data_ptr() for t in ptrs],
                         B, Sq, Skv, H, KVH, D, *opts, stream())
             if code:
                 raise RuntimeError(f"parent flash bwd: CUDA error {code}")
@@ -2614,6 +2712,160 @@ def flash_ab_phase(torch, dev, parent, tag):
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return res
+
+
+# (name, rows, [(site, K, N)]): the int8 GEMM shapes of the A/B: one
+# Qwen2.5-1.5B layer's 7 GEMMs at the VLA prefix (384), its batch-8 prefix
+# (3,072) and the 13-tile chat prefill (3,584) rows; the InternViT-300M
+# stack's 4 products at 13 tiles (13 x 1025 rows)
+QWEN_GEMMS = (("q", 1536, 1536), ("k", 1536, 256), ("v", 1536, 256),
+              ("o", 1536, 1536), ("gate", 1536, 8960), ("up", 1536, 8960),
+              ("down", 8960, 1536))
+VIT_GEMMS = (("qkv", 1024, 3072), ("proj", 1024, 1024), ("fc1", 1024, 4096),
+             ("fc2", 4096, 1024))
+GEMM_AB = (("layer", 384, QWEN_GEMMS), ("layer", 3072, QWEN_GEMMS),
+           ("layer", 3584, QWEN_GEMMS), ("vit", 13 * 1025, VIT_GEMMS))
+
+
+def _parent_gemm(parent):
+    """The parent's int8 GEMM (w8a8_gemm_rows, bf16 out) -> fn(q, am, kq
+    [K, N], kt [N, K], ks) -> y, in the parent's own weight layout: K-major
+    with its int32 scratch where its source has w8a8_gemm_workspace, else
+    the JAX [K, N]."""
+    import ctypes
+
+    import torch
+
+    cdll, text = _parent_lib(parent, "w8a8")
+    fn, P, I = cdll.w8a8_gemm_rows, ctypes.c_void_p, ctypes.c_int
+    fn.restype = I
+    kmajor = "w8a8_gemm_workspace" in text
+    if kmajor:
+        ws_fn = cdll.w8a8_gemm_workspace
+        ws_fn.argtypes, ws_fn.restype = [I, I, I], ctypes.c_longlong
+        fn.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_longlong, P]
+    else:
+        fn.argtypes = [P] * 5 + [I] * 4 + [P]
+
+    def run(q, am, kq, kt, ks):
+        (M, K), N = q.shape, ks.numel()
+        y = torch.empty((M, N), dtype=torch.bfloat16, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kmajor:
+            n = int(ws_fn(M, N, K))
+            ws = torch.empty(max(n, 1), dtype=torch.int32, device=q.device)
+            code = fn(q.data_ptr(), am.data_ptr(), kt.data_ptr(),
+                      ks.data_ptr(), y.data_ptr(), ws.data_ptr(), M, N, K, 1,
+                      n, stream)
+        else:
+            code = fn(q.data_ptr(), am.data_ptr(), kq.data_ptr(),
+                      ks.data_ptr(), y.data_ptr(), M, N, K, 1, stream)
+        if code:
+            raise RuntimeError(f"parent w8a8_gemm_rows: CUDA error {code}")
+        return y
+    return run
+
+
+def gemm_ab_phase(torch, dev, parent, tag):
+    """The int8 GEMM against a parent tree's, on the same int8 rows, each
+    in its own weight layout, bf16 out (the w8a8 Dense's call), timed in
+    turns (parent, change, change, parent) at GEMM_AB; the outputs are
+    compared. -> {(name, rows): [4 summed times]}."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    pgemm = _parent_gemm(parent)
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    res = {}
+    for name, rows, sites in GEMM_AB:
+        turns, diff = [0.0] * 4, 0.0
+        for site, K, N in sites:
+            q = torch.randint(-127, 128, (rows, K), generator=g, device=dev,
+                              dtype=torch.int8)
+            am = torch.rand((rows, 1), generator=g, device=dev) + 0.5
+            kq = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                               dtype=torch.int8)
+            kt = kq.t().contiguous()
+            ks = torch.rand(N, generator=g, device=dev) * 1e-3
+            par = lambda: pgemm(q, am, kq, kt, ks)
+            chg = lambda: w8a8.int8_gemm(q, am, kt, ks, torch.bfloat16)
+            a, b_ = par(), chg()
+            torch.cuda.synchronize()
+            d = (a.float() - b_.float()).abs().max().item()
+            diff = max(diff, d)
+            ts = [_kernel_ms(torch, f, 20) for f in (par, chg, chg, par)]
+            turns = [t + u for t, u in zip(turns, ts)]
+            print(f"  int8 GEMM A/B {name} {site} {rows}x{K} -> {N}: parent "
+                  f"{ts[0]:.4f} / change {ts[1]:.4f} / change {ts[2]:.4f} / "
+                  f"parent {ts[3]:.4f} ms (max |parent - change| {d:.3g}) "
+                  f"{tag}", flush=True)
+            del q, kq, kt
+        res[name, rows] = turns
+        print(f"int8 GEMM A/B, {name}'s {len(sites)} GEMMs at {rows} rows: "
+              f"parent {turns[0]:.4f} / change {turns[1]:.4f} / change "
+              f"{turns[2]:.4f} / parent {turns[3]:.4f} ms (parent / change "
+              f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x; max "
+              f"|parent - change| {diff:.3g}) {tag}", flush=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def rms_ab_phase(torch, dev, cfg, parent, tag):
+    """_rms_bwd against a parent tree's at the training shape (12,288 x
+    1536 bf16), on the same inputs, in turns (parent, change, change,
+    parent), with F.rms_norm's backward timed in the same run; dx and dw
+    compared. The parent's rows per block: its wrapper's ROWS_PER_BLOCK,
+    or, where it has none, this tree's rows_per_block."""
+    import ctypes
+    import re
+
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    cdll, _ = _parent_lib(parent, "rmsnorm")
+    fn = cdll.rms_norm_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    src = open(os.path.join(parent, "vlaser_tpu_torch", "kernels",
+                            "rmsnorm.py")).read()
+    m = re.search(r"^ROWS_PER_BLOCK = (\d+)", src, re.M)
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    bf = torch.bfloat16
+    n, H = 32 * cfg.max_image_text_tokens, cfg.vlm.llm.hidden_size
+    R = int(m.group(1)) if m else rmsnorm.rows_per_block(n)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    x, w, gy = r(n, H).to(bf), (1 + 0.1 * r(H)).to(bf), r(n, H).to(bf)
+    rrms = rmsnorm.rms_fwd(x, w, cfg.vlm.llm.rms_norm_eps)[1]
+
+    def par():
+        dx = torch.empty_like(x)
+        part = torch.empty((-(-n // R), H), dtype=torch.float32, device=dev)
+        dw = torch.empty(H, dtype=torch.float32, device=dev)
+        code = fn(*[t.data_ptr() for t in (x, w, gy, rrms, dx, part, dw)], n,
+                  H, R, 1, torch.cuda.current_stream(dev).cuda_stream)
+        if code:
+            raise RuntimeError(f"parent rms_norm_bwd: CUDA error {code}")
+        return dx, dw
+
+    chg = lambda: rmsnorm.rms_bwd(x, w, gy, rrms)
+    a, b_ = par(), chg()
+    torch.cuda.synchronize()
+    diff = {k: (u.float() - v.float()).abs().max().item()
+            for k, u, v in zip(("dx", "dw"), a, b_)}
+    ts = [_kernel_ms(torch, f, 20) for f in (par, chg, chg, par)]
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yl = F.rms_norm(xl, (H,), wl, cfg.vlm.llm.rms_norm_eps)
+    lib = _kernel_ms(torch, lambda: torch.autograd.grad(
+        yl, (xl, wl), gy, retain_graph=True), 20)
+    print(f"_rms_bwd A/B {n}x{H} bf16: parent {ts[0]:.4f} / change "
+          f"{ts[1]:.4f} / change {ts[2]:.4f} / parent {ts[3]:.4f} ms (parent "
+          f"/ change {(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}x); torch "
+          f"rms_norm backward {lib:.4f} ms in the same run; max |parent - "
+          f"change| {diff} {tag}", flush=True)
+    return ts, lib
 
 
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
@@ -2674,10 +2926,10 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--flash-ab", metavar="DIR",
-                    help="also time the flash kernels against those of the "
-                         "tree unpacked at DIR (parent, change, change, "
-                         "parent)")
+    ap.add_argument("--ab", "--flash-ab", dest="ab", metavar="DIR",
+                    help="also time the flash kernels, the int8 GEMM and "
+                         "the RMSNorm backward against those of the tree "
+                         "unpacked at DIR (parent, change, change, parent)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2704,9 +2956,13 @@ def main() -> int:
           f"{_build.last_build_seconds:.1f} s) -> {_build.BUILD_DIR}",
           flush=True)
 
-    _flash_build_report(_build)
-    if args.flash_ab:  # first, so that a later phase's failure keeps it
-        flash_ab_phase(torch, dev, args.flash_ab, tag)
+    _build_report(_build)
+    if args.ab:  # first, so that a later phase's failure keeps it
+        flash_ab_phase(torch, dev, args.ab, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gemm_ab_phase(torch, dev, args.ab, tag)
+        rms_ab_phase(torch, dev, vlaser_2b_vla(), args.ab, tag)
         gc.collect()
         torch.cuda.empty_cache()
     cfg = vlaser_2b_vla()

@@ -264,6 +264,145 @@ def test_rmsnorm_kernels_match_plain(cuda, n, H, dtype):
     _check(dw, p_dw)
 
 
+@pytest.mark.parametrize("n", [1, 300, 12289])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [1536, 200, 2560])
+def test_rms_bwd_one_pass_matches_plain(cuda, n, dtype, H):
+    """The one-pass backward at the training width (1536: 6 chunks of 256
+    columns a lane), a width that is not a multiple of 256 (200) and one
+    cut into two column slabs (2560): dx and dw against the plain version
+    within chip_smoke's RMS_REL and DW_REL of their largest value, and dw
+    bit-identical over two launches (fixed rows per block, no atomics)."""
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x, w, gy = r(n, H).to(dtype), (1 + 0.1 * r(H)).to(dtype), r(n, H).to(dtype)
+    rrms = rmsnorm.rms_fwd_plain(x, w, 1e-6)[1]
+    nb = rmsnorm.bwd_launch_count
+    dx, dw = rmsnorm.rms_bwd(x, w, gy, rrms)
+    dx2, dw2 = rmsnorm.rms_bwd(x, w, gy, rrms)
+    torch.cuda.synchronize()
+    assert rmsnorm.bwd_launch_count == nb + 2
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)
+    p_dx, p_dw = rmsnorm.rms_bwd_plain(x, w, gy, rrms)
+    for got, ref, rel in ((dx, p_dx, 1e-2), (dw, p_dw, 1e-3)):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= rel * ref.float().abs().max().item(), (err, rel)
+    # the control: dx without its - x * sum(g w x) rrms^3 / H term (a term
+    # ~H^-1/2 of dx: one row may hide it under the bound; 300 rows do not)
+    no_sum = (gy.float() * w.float() * rrms).to(dtype)
+    if n > 1:
+        assert (dx.float() - no_sum.float()).abs().max().item() > \
+            1e-2 * p_dx.float().abs().max().item()
+
+
+@pytest.mark.parametrize("N", [128, 256])
+def test_s8_wgmma_tma_probe_matches_exact_product(cuda, N):
+    """The int8 GEMM's product alone on one 64-row tile: a [64, 128] and b
+    [N, 128] int8 (K-major), each loaded by one TMA copy with the 128-byte
+    swizzle, four s8 wgmma k-steps into int32 registers: exactly a @ b^T."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device=cuda,
+                                  dtype=torch.int8)
+    a, b = i8(64, 128), i8(N, 128)
+    c = w8a8.s8_probe(a, b)
+    torch.cuda.synchronize()
+    # float64 sums of int8 products are exact (|sum| < 2^53)
+    assert torch.equal(c.double(), a.double() @ b.double().T)
+
+
+def test_tmap_cache_serves_repeats_and_off_changes_no_bit(cuda):
+    """The tensor-map cache shared by the TMA kernels (csrc/sm90.cuh): a
+    repeated int8_gemm is served from it (no encode), another shape at the
+    same pointers encodes anew, and with the cache off every map is
+    encoded and the product is bit-equal."""
+    from vlaser_tpu_torch.kernels import _build, w8a8
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randint(-127, 128, (256, 512), generator=g, device=cuda,
+                      dtype=torch.int8)
+    kt = torch.randint(-127, 128, (384, 512), generator=g, device=cuda,
+                       dtype=torch.int8)
+    am = torch.rand(256, 1, generator=g, device=cuda) + 0.5
+    ks = torch.rand(384, generator=g, device=cuda) * 1e-3
+    assert _build.tmap_cache(True)["on"]
+    try:
+        y = w8a8.int8_gemm(q, am, kt, ks)
+        before = _build.tmap_cache()
+        y2 = w8a8.int8_gemm(q, am, kt, ks)
+        after = _build.tmap_cache()
+        assert after["misses"] == before["misses"]
+        assert after["hits"] == before["hits"] + 2  # A and B
+        w8a8.int8_gemm(q[:128], am[:128], kt, ks)  # A's map has other rows
+        assert _build.tmap_cache()["misses"] == after["misses"] + 1
+        off = _build.tmap_cache(False)
+        assert off["maps"] == 0 and not off["on"]
+        y3 = w8a8.int8_gemm(q, am, kt, ks)
+        assert _build.tmap_cache()["misses"] == off["misses"] + 2
+    finally:
+        _build.tmap_cache(True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(y, y3)
+
+
+GEMM_MN = [(m, n) for m in (1, 130, 384, 1025) for n in (48, 256, 1536)] + [
+    (4100, 1536), (4100, 2048)]  # grids of > 1 wave: no K split; BN 256
+
+
+@pytest.mark.parametrize("M,N", GEMM_MN)
+def test_int8_gemm_epilogues_match_plain(cuda, M, N):
+    """w8a8::gemm with each of its five epilogues against the plain version
+    on the same int8 rows, once over a contiguous K of 1536 and once over
+    the second half of 4096-wide rows (lda = ldb = 4096, the row scales at
+    stride 2: fc2's second half in the act_quant ViT), at ragged M and N
+    (TMA's zero fill, the masked epilogue) and grids that split K or not.
+    The integer products are exact on both sides and the rescale runs in
+    the same order: fp32 outputs within one fp32 rounding, bf16 outputs
+    within one bf16 rounding, the in-place residual update bit-equal."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device=cuda,
+                                  dtype=torch.int8)
+    wide_a, wide_b = i8(M, 4096), i8(N, 4096)
+    am2 = r(M, 2).abs() + 0.5
+    cases = (("K 1536", i8(M, 1536), am2[:, 0].contiguous(), i8(N, 1536)),
+             ("K half of 4096", wide_a[:, 2048:], am2[:, 1], wide_b[:, 2048:]))
+    s_col, bias = r(N).abs() * 1e-3, r(N)
+    addm, ls = r(M, N), 0.1 * r(N)
+    x = r(M, N).to(torch.bfloat16)
+    for what, a, am, b in cases:
+        for epi in range(5):
+            for row_first in (False, True):
+                kw = dict(bias=bias, ls=ls, row_first=row_first)
+                if epi == w8a8.EPI_BIAS_LS_RESIDUAL:
+                    kw.update(out=x.clone(), addm=addm if row_first else None)
+                n = w8a8.gemm_launch_count
+                got = w8a8.int8_gemm_ex(a, am, b, s_col, epi, **kw)
+                ref = w8a8.int8_gemm_ex_plain(
+                    a, am, b, s_col, epi,
+                    **{**kw, "out": x if "out" in kw else None})
+                torch.cuda.synchronize()
+                assert w8a8.gemm_launch_count == n + 1
+                tag = (what, epi, row_first)
+                if epi == w8a8.EPI_BIAS_LS_RESIDUAL:
+                    assert torch.equal(got, ref), tag
+                    continue
+                step = 2.0 ** (-8 if epi == w8a8.EPI_BF16 else -23)
+                bad = (got.float() - ref.float()).abs() > \
+                    step * ref.float().abs()
+                assert not bad.any(), (tag, int(bad.sum()))
+                # the control: a dropped row scale breaks the bound
+                if epi == w8a8.EPI_F32 and not row_first:
+                    wrong = w8a8.int8_gemm_ex_plain(
+                        a, torch.full_like(am, 127.0), b, s_col, epi)
+                    assert ((got - wrong).abs() > step * wrong.abs()).any()
+
+
 def test_autograd_functions_launch_their_backward_kernels(cuda):
     from vlaser_tpu_torch.kernels import flash_attention as fa
     from vlaser_tpu_torch.kernels import rmsnorm
@@ -304,16 +443,17 @@ def test_w8a8_kernels_match_plain(cuda, M, K, N, dtype):
     x = x.to(dtype)
     kq, ks = quantize_int8(torch.randn(K, N, generator=g, device=cuda) * 0.05,
                            -2)
+    kt = kq.t().contiguous()  # the GEMM's K-major weight
     nq, ng = w8a8.quant_launch_count, w8a8.gemm_launch_count
     q, am = w8a8.quantize_rows(x)
-    y = w8a8.int8_gemm(q, am, kq, ks)
-    yb = w8a8.int8_gemm(q, am, kq, ks, torch.bfloat16)
+    y = w8a8.int8_gemm(q, am, kt, ks)
+    yb = w8a8.int8_gemm(q, am, kt, ks, torch.bfloat16)
     torch.cuda.synchronize()
     assert (w8a8.quant_launch_count, w8a8.gemm_launch_count) == (nq + 1,
                                                                 ng + 2)
     p_q, p_am = w8a8.quantize_rows_plain(x)
     assert torch.equal(q, p_q) and torch.equal(am, p_am)
-    p_y = w8a8.int8_gemm_plain(p_q, p_am, kq, ks)
+    p_y = w8a8.int8_gemm_plain(p_q, p_am, kt, ks)
     assert ((y - p_y).abs() <= 2.0 ** -23 * p_y.abs()).all()
     assert torch.equal(yb, y.to(torch.bfloat16))
 
@@ -337,7 +477,8 @@ def test_fused_vit_act_quant_kernel_matches_twin(cuda, B, S):
     for w, s, k, n in (("qkvw", "qkvs", C, 3 * C), ("projw", "projs", C, C),
                        ("fc1w", "fc1s", C, inter), ("fc2w", "fc2s", inter, C)):
         q8, sc = quantize_int8(r(L, k, n, sc=0.05), -2)
-        mats[w], mats[s] = q8, sc[:, 0].contiguous()
+        mats[w] = q8.transpose(1, 2).contiguous()  # K-major [L, N, K]
+        mats[s] = sc[:, 0].contiguous()
     x = r(B, S, C).to(torch.bfloat16)
     kw = dict(num_heads=heads, eps=1e-6, qk_norm=False, act_quant=True)
     n = fused_vit.act_quant_launch_count

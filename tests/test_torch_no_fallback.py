@@ -230,12 +230,13 @@ def test_new_wrappers_raise_when_the_library_cannot_load(monkeypatch, which):
         elif which == "quantize_rows":
             w8a8.quantize_rows(card(4, 32, dt=torch.bfloat16))
         elif which == "int8_gemm":
-            w8a8.int8_gemm(card(4, 32, dt=i8), card(4, 1), card(32, 16, dt=i8),
+            # the weight K-major [N, K]
+            w8a8.int8_gemm(card(4, 32, dt=i8), card(4, 1), card(16, 32, dt=i8),
                            card(16))
         else:
             L, C, inter = 1, 128, 256
             vecs = [card(L, n) for n in (C,) * 8 + (3 * C, C, inter, C)]
-            mats = [card(L, k, n, dt=i8) for k, n in (
+            mats = [card(L, n, k, dt=i8) for k, n in (  # K-major
                 (C, 3 * C), (C, C), (C, inter), (inter, C))]
             scales = [card(L, n) for n in (3 * C, C, inter, C)]
             fused_vit.fused_vit_stack(card(5, C, dt=torch.bfloat16), *vecs,

@@ -5,7 +5,9 @@ Tolerances: the int8 activation rows must be identical (a flipped rounding
 is a wrong kernel, not noise); the products are exact integers on both
 sides and the rescale runs in the same order, so y is held to one fp32
 rounding (rtol 2^-23). The weight-only Dense and the STE backward are fp32
-matmuls summed in another order: atol 1e-5, rtol 1e-5."""
+matmuls summed in another order: atol 1e-5, rtol 1e-5. The port's GEMM
+takes its weight K-major ([N, K], the JAX [K, N] kernel transposed); JAX is
+handed the [K, N] kernel."""
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ def _tie_rows(K):
 
 
 def _inputs(M, K, N, dtype, seed=0):
+    """-> (x, kq int8 [K, N] (the JAX layout), ks [1, N])."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((M, K)).astype(np.float32)
     x[0] = _tie_rows(K)
@@ -43,6 +46,10 @@ def _inputs(M, K, N, dtype, seed=0):
     kq, ks = quantize_int8(torch.from_numpy(w), reduce_axis=-2)
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
     return xt, kq, ks
+
+
+def _kmajor(kq):
+    return kq.t().contiguous()
 
 
 def _jax_rows(xt):
@@ -78,18 +85,19 @@ def test_w8a8_dot_matches_jax(dtype):
     jx = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
     want = np.asarray(jax.jit(jax_w8a8_dot)(jx, jnp.asarray(kq.numpy()),
                                             jnp.asarray(ks.numpy())))
+    kt = _kmajor(kq)
     before = (w8a8.quant_launch_count, w8a8.gemm_launch_count)
-    got = w8a8_dot(xt, kq, ks).numpy()
+    got = w8a8_dot(xt, kt, ks).numpy()
     assert (w8a8.quant_launch_count, w8a8.gemm_launch_count) == before
     np.testing.assert_allclose(got, want, rtol=ULP, atol=0)
-    assert torch.equal(w8a8.w8a8_dot_plain(xt, kq, ks), torch.from_numpy(got))
+    assert torch.equal(w8a8.w8a8_dot_plain(xt, kt, ks), torch.from_numpy(got))
     # the bf16 output is the fp32 one rounded once
-    got_bf = w8a8_dot(xt, kq, ks, out_dtype=torch.bfloat16)
+    got_bf = w8a8_dot(xt, kt, ks, out_dtype=torch.bfloat16)
     assert torch.equal(got_bf, torch.from_numpy(got).to(torch.bfloat16))
     # controls: a dropped row or column scale is far outside the bound
     q, am = w8a8.quantize_rows_plain(xt)
-    for wrong in (w8a8.int8_gemm_plain(q, torch.full_like(am, 127.0), kq, ks),
-                  w8a8.int8_gemm_plain(q, am, kq, torch.ones_like(ks))):
+    for wrong in (w8a8.int8_gemm_plain(q, torch.full_like(am, 127.0), kt, ks),
+                  w8a8.int8_gemm_plain(q, am, kt, torch.ones_like(ks))):
         assert np.abs(wrong.numpy() - want).max() > 1e3 * ULP * np.abs(
             want).max()
 
@@ -102,7 +110,7 @@ def test_w8a8_dot_ste_backward_matches_jax():
                      jnp.asarray(xt.numpy()))
     want = np.asarray(vjp(jnp.asarray(g))[0])
     x = xt.clone().requires_grad_()
-    w8a8_dot(x, kq, ks).backward(torch.from_numpy(g))
+    w8a8_dot(x, _kmajor(kq), ks).backward(torch.from_numpy(g))
     np.testing.assert_allclose(x.grad.numpy(), want, rtol=1e-5, atol=1e-6)
     assert np.abs(want).max() > 0.1  # the gradient is not cut
 

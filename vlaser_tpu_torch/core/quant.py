@@ -10,7 +10,10 @@ inline. A quantized kernel that also matches `act_quant_patterns` gets the
 `kernel_aq` flag (int8 zeros shaped `[..., 1]`, `[L, 1]` for a stacked
 kernel): Dense then runs w8a8 (int8 activations through the int8 GEMM) at
 call sites of >= 128 rows, and the fused ViT packer switches the encoder
-stack to its act_quant mode when its four kernels are int8.
+stack to its act_quant mode when its four kernels are int8. The int8 GEMM
+reads the kernel K-major ([..., out, in]): the Dense derives that copy on
+its first w8a8 call (models/layers.Dense.kernel_kmajor), outside the state
+dict, so the converters see only the JAX layout.
 """
 
 from __future__ import annotations

@@ -72,17 +72,13 @@
 //   allow, inside their position bounds, skips the per-element mask. Causal
 //   and window skip whole tiles that no pair of theirs may see. The softcap
 //   is a template flag (the kernels without it carry no tanh).
-// - Tensor maps are encoded on the host through the driver's
-//   cuTensorMapEncodeTiled and cached by (pointer, shape, box), so a launch
-//   costs a few microseconds of host time; they reach the kernels as
-//   __grid_constant__ parameters.
+// - Tensor maps are encoded on the host and cached by every argument of the
+//   encode (sm90.cuh, one cache for every TMA kernel); they reach the
+//   kernels as __grid_constant__ parameters.
 // Not done yet: a persistent grid (each block's Q load and prologue sit
 // unhidden), ping-pong scheduling of the consumer warpgroups, and the
 // backward at more than ~180 TFLOP/s (SDPA's reaches ~290 at the ViT shape).
 #include <climits>
-#include <mutex>
-
-#include <cudaTypedefs.h>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -1152,73 +1148,30 @@ __global__ void __launch_bounds__(2 * WG, 1)
 
 // -- host: tensor maps --------------------------------------------------------
 // A [B, S, heads, D] bf16 tensor, box (CW, nh, rows, 1), swizzled as the
-// kernels' tiles are. Encoded maps are cached by (pointer, shape, box).
-struct MapKey {
-  const void* ptr;
-  int d, heads, s, b, nh, rows;
-  bool operator==(const MapKey& k) const {
-    return ptr == k.ptr && d == k.d && heads == k.heads && s == k.s &&
-           b == k.b && nh == k.nh && rows == k.rows;
-  }
-};
-constexpr int MAP_CACHE = 64;
-
-static PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
+// kernels' tiles are (sm90.cuh encodes and caches it).
 template <int D>
 static int bshd_map(CUtensorMap* map, const void* ptr, int B, int S,
                     int heads, int nh, int rows) {
   using C = Dims<D>;
-  static std::mutex mu;
-  static MapKey keys[MAP_CACHE];
-  static CUtensorMap maps[MAP_CACHE];
-  static int used = 0, next = 0;
-  const MapKey key{ptr, D, heads, S, B, nh, rows};
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i)
-    if (keys[i] == key) {
-      *map = maps[i];
-      return 0;
-    }
-  auto encode = encode_fn();
-  if (!encode) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::CW, (cuuint32_t)nh,
-                             (cuuint32_t)rows, 1};
-  const cuuint32_t es[4] = {1, 1, 1, 1};
-  CUtensorMap m;
-  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             C::CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_32B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  const int slot = used < MAP_CACHE ? used++ : next++ % MAP_CACHE;
-  keys[slot] = key;
-  maps[slot] = m;
-  *map = m;
-  return 0;
-}
-
-template <typename K>
-static int set_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  TmapArgs a{};
+  a.ptr = ptr;
+  a.dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  a.rank = 4;
+  a.swizzle = C::CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  a.l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
+  a.dims[0] = D;
+  a.dims[1] = heads;
+  a.dims[2] = S;
+  a.dims[3] = B;
+  a.strides[0] = (cuuint64_t)D * 2;
+  a.strides[1] = (cuuint64_t)heads * D * 2;
+  a.strides[2] = (cuuint64_t)S * heads * D * 2;
+  a.box[0] = C::CW;
+  a.box[1] = nh;
+  a.box[2] = rows;
+  a.box[3] = 1;
+  return tmap_encode(map, a);
 }
 
 // Rows (q head, q row) pairs share a tile when the queries are few: pack =

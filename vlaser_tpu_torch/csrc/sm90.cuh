@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash kernels, in raw PTX:
-// mbarriers, TMA tile loads, warpgroup products (wgmma) with their shared-
+// Hopper (sm_90a) building blocks of the flash kernels and the int8 GEMM,
+// in raw PTX: mbarriers, TMA tile loads, warpgroup products (wgmma: bf16
+// with fp32 accumulators, s8 with int32 accumulators) with their shared-
 // memory descriptors, named barriers and register reallocation.
 //
 // Shared-memory tiles are kept in the layouts TMA writes with a swizzle and
@@ -9,9 +10,24 @@
 // aligned to 1024 bytes. An operand whose contraction dimension runs along
 // the columns (Q and K in Q.K^T) is "K-major"; one whose output dimension
 // runs along the columns (V in P.V) is "MN-major" (wgmma's transposed B).
+// int8 operands are K-major only (wgmma's transpose exists for 16-bit types
+// alone): a tile of R rows x 128 bytes of K, one 128-byte swizzle row each,
+// and a k-step of 32 values is 32 bytes, as a bf16 k-step of 16 is.
+//
+// On the host: tensor maps are encoded through the driver's
+// cuTensorMapEncodeTiled (reached through the runtime, so nothing links
+// libcuda) and kept in one cache that every TMA kernel shares, keyed by
+// every argument of the encode; kernels opt in to their dynamic shared
+// memory with set_smem.
 #pragma once
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <mutex>
+#include <string_view>
+#include <unordered_map>
 
 namespace sm90 {
 
@@ -61,6 +77,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a box of a 2-d tensor map (c0: the inner coordinate)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // -- named barriers, register reallocation ------------------------------------
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
@@ -107,6 +134,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -388,4 +420,187 @@ struct Mma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
+
+// m64nNk32, s8 inputs (both K-major), int32 accumulators in registers, in
+// the layout of the fp32 accumulators above: thread (warp w, lane 4g + t)
+// holds d[4j + e] at row 16w + g + 8 (e / 2), column 8j + 2t + (e % 2).
+template <int N>
+struct MmaS8;
+
+template <>
+struct MmaS8<128> {
+  // D (64 x 128, int32) (+)= A (smem, K-major) . B (smem, K-major), k 32
+  static __device__ __forceinline__ void ss(int32_t (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaS8<256> {
+  // D (64 x 256, int32) (+)= A (smem, K-major) . B (smem, K-major), k 32
+  static __device__ __forceinline__ void ss(int32_t (&d)[128], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, "
+        "%128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// -- host: tensor maps, shared-memory opt-in -----------------------------------
+// Every argument of one tiled encode: the key of the map cache, so a map
+// found there is the map an encode would give (a freed and reused address
+// with the same shape gets the same map). No padding bytes, so the bytes
+// hash and compare as the fields do.
+struct TmapArgs {
+  const void* ptr;
+  uint32_t dtype, rank, swizzle, l2;
+  uint32_t box[5];
+  uint32_t pad;
+  cuuint64_t dims[5];
+  cuuint64_t strides[4];  // bytes, of dims 1 .. rank - 1
+};
+static_assert(sizeof(TmapArgs) == 120, "TmapArgs must hold no padding");
+
+struct TmapHash {
+  size_t operator()(const TmapArgs& a) const {
+    return std::hash<std::string_view>()(
+        std::string_view(reinterpret_cast<const char*>(&a), sizeof a));
+  }
+};
+struct TmapEq {
+  bool operator()(const TmapArgs& a, const TmapArgs& b) const {
+    return std::memcmp(&a, &b, sizeof a) == 0;
+  }
+};
+
+// The maps one model pass encodes (weights, activations and scratch of every
+// TMA launch) fit many times over; the cache is emptied when it fills, so
+// a pass larger than it never cycles through evictions.
+constexpr size_t TMAP_CACHE_MAPS = 4096;
+
+struct TmapCache {
+  std::mutex mu;
+  std::unordered_map<TmapArgs, CUtensorMap, TmapHash, TmapEq> maps;
+  bool on = true;
+  long long hits = 0, misses = 0;
+};
+
+inline TmapCache& tmap_cache() {
+  static TmapCache c;
+  return c;
+}
+
+inline PFN_cuTensorMapEncodeTiled_v12000 tmap_encode_fn() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &q) == cudaSuccess &&
+                   q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// *map <- the tiled map of `a` (element strides 1, no interleave, no fill
+// of out-of-bounds floats: TMA zero-fills them), from the cache when it
+// holds one. -> 0 or a cudaError_t.
+inline int tmap_encode(CUtensorMap* map, const TmapArgs& a) {
+  TmapCache& c = tmap_cache();
+  std::lock_guard<std::mutex> lock(c.mu);
+  if (c.on) {
+    const auto it = c.maps.find(a);
+    if (it != c.maps.end()) {
+      ++c.hits;
+      *map = it->second;
+      return 0;
+    }
+  }
+  ++c.misses;
+  const auto encode = tmap_encode_fn();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint32_t es[5] = {1, 1, 1, 1, 1};
+  if (encode(map, (CUtensorMapDataType)a.dtype, a.rank,
+             const_cast<void*>(a.ptr), a.dims, a.strides, a.box, es,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, (CUtensorMapSwizzle)a.swizzle,
+             (CUtensorMapL2promotion)a.l2,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  if (c.on) {
+    if (c.maps.size() >= TMAP_CACHE_MAPS) c.maps.clear();
+    c.maps.emplace(a, *map);
+  }
+  return 0;
+}
+
+// The kernel's opt-in to `bytes` of dynamic shared memory (over 48 KiB).
+template <typename K>
+inline int set_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 }  // namespace sm90

@@ -149,6 +149,20 @@ def bind(name: str, n_ptr: int, tail: tuple) -> ctypes._CFuncPtr:
     return fn
 
 
+def tmap_cache(enable: bool | None = None) -> dict:
+    """The tensor-map cache that every TMA kernel shares (csrc/sm90.cuh):
+    turn it on or off (off also empties it) when `enable` is given. ->
+    {"hits", "misses", "maps", "on"}; hits and misses (encodes) count every
+    map since the library was loaded."""
+    fn = getattr(library(), "sm90_tmap_cache")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stats = (ctypes.c_longlong * 4)()
+    check(fn(-1 if enable is None else int(enable), stats), "sm90_tmap_cache")
+    return {"hits": stats[0], "misses": stats[1], "maps": stats[2],
+            "on": bool(stats[3])}
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")

@@ -15,15 +15,17 @@ rounded to bf16 before `x + out * ls` (fp32) -> bf16; fc1 -> exact-erf GELU
 -> bf16. The TPU kernel's Cauchy-Schwarz shift and polynomial erf are
 replaced by the row max and erf (same function, within bf16 rounding).
 
-act_quant (w8a8) mode: int8 weights [L, K, N] with fp32 scales [L, N]
-(qkvs, projs, fc1s, fc2s). qkv and fc1 quantize the fp32 LayerNorm output
-(not rounded to bf16), proj the bf16 attention output, fc2 the fp32 GELU
-output (kernels/w8a8.py: per-row amax, round half to even); each product is
-exact in integers and rescaled as float(acc) * ((amax / 127) * scale) + bias
-(fused_vit.py:150-168). At B > 1 fc2's input is quantized in two halves of
-`inter`, each with its own row amax, and the two rescaled products are
-added to fc2b in order: (fc2b + half 0) + half 1, as the TPU kernel's two
-MLP chunks.
+act_quant (w8a8) mode: int8 weights K-major [L, N, K] (the layout the int8
+tensor-core GEMM reads; `pack_vit_stack` packs them so) with fp32 scales
+[L, N] (qkvs, projs, fc1s, fc2s). qkv and fc1 quantize the fp32 LayerNorm
+output (not rounded to bf16), proj the bf16 attention output, fc2 the fp32
+GELU output (kernels/w8a8.py: per-row amax, round half to even); each
+product is exact in integers and rescaled as float(acc) * ((amax / 127) *
+scale) + bias (fused_vit.py:150-168). At B > 1 fc2's input is quantized in
+two halves of `inter`, each with its own row amax, and the two rescaled
+products are added to fc2b in order: (fc2b + half 0) + half 1, as the TPU
+kernel's two MLP chunks; each half's weight is a column slice of fc2's
+K-major [C, inter] rows.
 """
 
 from __future__ import annotations
@@ -59,8 +61,9 @@ def _mm(a, w):
 
 
 def _qdot(a, w8, s):
-    """The act_quant stack's dot: a [M, K] fp32/bf16, w8 int8 [K, N], s fp32
-    [N] -> float(int8(a) @ w8) * ((amax / 127) * s), fp32 [M, N]."""
+    """The act_quant stack's dot: a [M, K] fp32/bf16, w8 int8 [N, K]
+    (K-major), s fp32 [N] -> float(int8(a) @ w8^T) * ((amax / 127) * s),
+    fp32 [M, N]."""
     q, am = quantize_rows_plain(a)
     return int_mm_exact(q, w8) * ((am * INV127) * s.float())
 
@@ -90,7 +93,8 @@ def fused_vit_stack_plain(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
                           qkvs=None, projs=None, fc1s=None, fc2s=None,
                           num_heads: int = 16, eps: float = 1e-6,
                           qk_norm: bool = False, act_quant: bool = False):
-    """Eager twin of the CUDA stack: x [B, S, C] or [S, C] bf16 -> same."""
+    """Eager twin of the CUDA stack: x [B, S, C] or [S, C] bf16 -> same.
+    Weights [L, K, N] (bf16 mode) or K-major [L, N, K] (act_quant)."""
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
@@ -103,10 +107,12 @@ def fused_vit_stack_plain(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
     # the bf16 mode rounds it to bf16 (_mm); fc2's groups exist only in w8a8
     if act_quant:
         dot, G = _qdot, _fc2_groups(B)
+        k_rows = lambda w, ch: w[:, ch]  # K-major: K runs along the columns
     else:
         dot, G = (lambda a, w, s: _mm(a, w)), 1
+        k_rows = lambda w, ch: w[ch]
         qkvs = projs = fc1s = fc2s = (None,) * L
-    half = fc2w.shape[1] // G
+    half = fc2w.shape[2 if act_quant else 1] // G
     for l in range(L):
         h = _ln(x, ln1w[l], ln1b[l], eps)
         qkv = dot(h, qkvw[l], qkvs[l]) + qkvb[l].float()
@@ -124,7 +130,7 @@ def fused_vit_stack_plain(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
         m2 = fc2b[l].float()
         for g in range(G):  # fc2b + group 0, then + group 1 (w8a8 at B > 1)
             ch = slice(g * half, (g + 1) * half)
-            m2 = m2 + dot(m[:, ch], fc2w[l][ch], fc2s[l])
+            m2 = m2 + dot(m[:, ch], k_rows(fc2w[l], ch), fc2s[l])
         x = (x.float() + m2.to(bf).float() * ls2[l].float()).to(bf)
     x = x.reshape(B, S, C)
     return x[0] if squeeze else x
@@ -133,8 +139,9 @@ def fused_vit_stack_plain(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
 _SIGNATURES = {  # C name -> (pointer args, the types after them)
     "vit_stack_forward": (24, (ctypes.c_int,) * 6 + (
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)),
-    "vit_stack_forward_w8a8": (30, (ctypes.c_int,) * 6 + (
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)),
+    "vit_stack_forward_w8a8": (31, (ctypes.c_int,) * 6 + (
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+        ctypes.c_void_p)),
 }
 _fns = {}
 
@@ -150,13 +157,16 @@ def _check_args(x, vecs, mats, scales, num_heads):
     if x.dtype != torch.bfloat16 or x.dim() not in (2, 3):
         raise TypeError("fused_vit_stack: x must be bf16 [B, S, C] or [S, C]")
     if mats[2].dim() != 3:
-        raise TypeError("fused_vit_stack: weights must be stacked [L, K, N]")
+        raise TypeError("fused_vit_stack: weights must be stacked [L, K, N]"
+                        " (bf16) or [L, N, K] (act_quant)")
     B, S, C = x.shape if x.dim() == 3 else (1, *x.shape)
-    L, _, inter = mats[2].shape
+    L = mats[2].shape[0]
+    inter = mats[2].shape[2 if scales is None else 1]
     dev = x.device
     if C % num_heads or C // num_heads != 64:
         raise ValueError("fused_vit_stack CUDA kernel needs head_dim 64")
-    # cp.async rows: 16 bytes of bf16 (8) or int8 (16, and two fc2 halves)
+    # 16-byte rows: bf16 cp.async (8), int8 TMA strides (16; inter in two
+    # fc2 halves of 16)
     c_mult, i_mult = (8, 8) if scales is None else (16, 32)
     if C % c_mult or inter % i_mult:
         raise ValueError(f"fused_vit_stack CUDA kernel needs C % {c_mult} "
@@ -171,13 +181,33 @@ def _check_args(x, vecs, mats, scales, num_heads):
             raise TypeError("fused_vit_stack: vectors and scales must be "
                             f"contiguous fp32 [L, n] on {dev}")
     wdt = torch.bfloat16 if scales is None else torch.int8
-    for t, shape in zip(mats, ((L, C, 3 * C), (L, C, C), (L, C, inter),
-                               (L, inter, C))):
+    kn = ((C, 3 * C), (C, C), (C, inter), (inter, C))
+    if scales is not None:  # K-major
+        kn = tuple((n, k) for k, n in kn)
+    for t, shape in zip(mats, tuple((L, *d) for d in kn)):
         if (t.device != dev or t.dtype != wdt or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise TypeError(f"fused_vit_stack: weight must be contiguous "
                             f"{wdt} {shape} on {dev}")
     return B, S, C, L, inter
+
+
+def w8a8_scratch(B, S, C, inter, dev):
+    """The act_quant stack's scratch, in the C function's order: int8
+    activations and their row amax (two groups at B > 1), qkv fp32, q / k /
+    v / attention bf16, the fp32 GELU output fc2 quantizes, fc2's fp32
+    partial sum over the first half (B > 1) and the GEMM's int32 partials
+    (its K splits) -> (tensors, int32 elements of the last)."""
+    M, f32 = B * S, torch.float32
+    e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=dev)
+    fn = _build.library().vit_w8a8_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    n_ws = int(fn(B, S, C, inter))
+    return [e(M, max(C, inter), dt=torch.int8), e(M, 2, dt=f32),
+            e(M, 3 * C, dt=f32), e(M, C), e(M, C), e(M, C), e(M, C),
+            e(M, inter, dt=f32), e(M if B > 1 else 1, C, dt=f32),
+            e(max(n_ws, 1), dt=torch.int32)], n_ws
 
 
 def _launch(x, vecs, mats, scales, num_heads, eps, qk_norm):
@@ -189,24 +219,18 @@ def _launch(x, vecs, mats, scales, num_heads, eps, qk_norm):
     dev = x.device
     M = B * S
     out = x.reshape(M, C).contiguous().clone()
-    e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=dev)
-    qkv = e(M, 3 * C, dt=torch.float32)
-    qb, kb, vb, attn = e(M, C), e(M, C), e(M, C), e(M, C)
     tail = (B, S, C, inter, num_heads, L, eps, int(qk_norm),
-            (C // num_heads) ** -0.5 * LOG2E,
-            torch.cuda.current_stream(dev).cuda_stream)
+            (C // num_heads) ** -0.5 * LOG2E)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if scales is None:
-        ptrs = [out, *vecs, *mats, e(M, C), qkv, qb, kb, vb, attn,
-                e(M, inter)]
+        e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=dev)
+        ptrs = [out, *vecs, *mats, e(M, C), e(M, 3 * C, dt=torch.float32),
+                e(M, C), e(M, C), e(M, C), e(M, C), e(M, inter)]
+        tail = (*tail, stream)
     else:
-        # the w8a8 scratch: int8 activations and their row amax (two
-        # groups at B > 1), the fp32 GELU output fc2 quantizes, and fc2's
-        # fp32 partial sum over the first half (B > 1)
-        f32 = torch.float32
-        ptrs = [out, *vecs, *scales, *mats,
-                e(M, max(C, inter), dt=torch.int8), e(M, 2, dt=f32), qkv, qb,
-                kb, vb, attn, e(M, inter, dt=f32),
-                e(M if B > 1 else 1, C, dt=f32)]
+        scratch, n_ws = w8a8_scratch(B, S, C, inter, dev)
+        ptrs = [out, *vecs, *scales, *mats, *scratch]
+        tail = (*tail, n_ws, stream)
     code = fn(*[t.data_ptr() for t in ptrs], *tail)
     _build.check(code, name)
     if scales is None:
@@ -225,7 +249,7 @@ def fused_vit_stack(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
                     qk_norm: bool = False, act_quant: bool = False):
     """-> x_out (same leading shape as x) after the full L-layer stack.
     x [B, S, C] or [S, C] bf16; vectors fp32 [L, n]; weights bf16 [L, K, N],
-    or int8 with fp32 scales [L, N] when act_quant."""
+    or int8 K-major [L, N, K] with fp32 scales [L, N] when act_quant."""
     vecs = (ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw, qkvb, projb, fc1b,
             fc2b)
     mats = (qkvw, projw, fc1w, fc2w)
@@ -248,9 +272,10 @@ def supports_fused_vit(vision_cfg) -> bool:
 def pack_vit_stack(vision_model, dtype=torch.bfloat16) -> dict:
     """models.internvit.InternVisionModel -> the stack's keyword arguments.
     Per-layer weights are already stacked [L, ...]. An encoder whose four
-    kernels are all int8 packs its int8 weights with fp32 scales [L, N]
+    kernels are all int8 packs its int8 weights K-major [L, N, K] (the
+    Dense's `kernel_kmajor()`, one copy per model) with fp32 scales [L, N]
     and act_quant=True (the w8a8 stack); a partly quantized one is
-    dequantized to `dtype`, as the JAX packer does."""
+    dequantized to `dtype` [L, K, N], as the JAX packer does."""
     enc = vision_model.encoder
     att = enc.attn
     L, hidden = enc.norm1.weight.shape
@@ -270,7 +295,7 @@ def pack_vit_stack(vision_model, dtype=torch.bfloat16) -> dict:
              ("fc1w", "fc1s", enc.mlp.fc1), ("fc2w", "fc2s", enc.mlp.fc2))
     if all("kernel_q" in d._buffers for _, _, d in sites):
         for wk, sk, dense in sites:  # scales [L, 1, N] -> [L, N]
-            out[wk] = dense.kernel_q.contiguous()
+            out[wk] = dense.kernel_kmajor()
             out[sk] = dense.kernel_scale[:, 0].float().contiguous()
         out["act_quant"] = True
         return out

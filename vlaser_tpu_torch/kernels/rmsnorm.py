@@ -24,9 +24,9 @@ import torch
 from . import _build, ops
 
 MIN_ROWS, MAX_HIDDEN = 2048, 2048  # the JAX dispatch's thresholds
-ROWS_PER_BLOCK = 64  # rows whose dw the backward sums into one partial row
+BWD_WARPS, BWD_BLOCKS = 8, 2 * 132  # the backward's warps a block; its grid
 fwd_launch_count = 0  # rms_fwd launches through the CUDA route
-bwd_launch_count = 0  # rms_bwd launches (row kernel + partial-sum kernel)
+bwd_launch_count = 0  # rms_bwd launches (one-pass kernel + partial sums)
 
 
 def rms_fwd_plain(x2, w, eps: float):
@@ -93,6 +93,15 @@ def rms_fwd(x2, w, eps: float):
     return y, rrms
 
 
+def rows_per_block(n: int) -> int:
+    """Rows whose dw one block of the backward sums into its partial row:
+    enough blocks for two on each of the H100's 132 SMs, a multiple of the
+    block's warps. A function of n alone, so that dw's order of summation,
+    and so its bits, never change from run to run."""
+    per = -(-n // BWD_BLOCKS)
+    return -(-per // BWD_WARPS) * BWD_WARPS
+
+
 def rms_bwd(x2, w, g2, rrms):
     """-> (dx [n, H] in x2's dtype, dw [H] fp32)."""
     global bwd_launch_count
@@ -106,13 +115,14 @@ def rms_bwd(x2, w, g2, rrms):
         raise TypeError("rms_bwd: rrms must be fp32 [n, 1]")
     x2, w, g2, rrms = (t.contiguous() for t in (x2, w, g2, rrms))
     dx = torch.empty_like(x2)
-    nparts = (n + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK
-    part = torch.empty((nparts, h), dtype=torch.float32, device=x2.device)
+    rows = rows_per_block(n)
+    part = torch.empty((-(-n // rows), h), dtype=torch.float32,
+                       device=x2.device)
     dw = torch.empty(h, dtype=torch.float32, device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     code = _kernel("rms_norm_bwd")(
         *[t.data_ptr() for t in (x2, w, g2, rrms, dx, part, dw)], n, h,
-        ROWS_PER_BLOCK, int(x2.dtype == torch.bfloat16), stream)
+        rows, int(x2.dtype == torch.bfloat16), stream)
     _build.check(code, "rms_norm_bwd")
     bwd_launch_count += 1
     return dx, dw

@@ -6,7 +6,12 @@ weight was quantized (core/quant.py) holds `kernel_q` / `embedding_q` int8
 plus a scale as buffers instead, frozen, and dequantizes inline in the
 compute dtype, as the JAX Dense does. A Dense that also holds the
 `kernel_aq` flag (w8a8) runs `w8a8_dot` instead at call sites of at least
-ACT_QUANT_MIN_ROWS rows (counted over the leading dims). A block built
+ACT_QUANT_MIN_ROWS rows (counted over the leading dims), on `kernel_qt`:
+its int8 kernel transposed to [..., out, in] (K-major, as the int8 GEMM
+reads it), a non-persistent buffer derived from `kernel_q` on the Dense's
+first w8a8 call (`Dense.kernel_kmajor`; the state dict keeps only the JAX
+layout, and a Dense whose call sites stay under the row count never holds
+one). A block built
 for a scanned stack holds every layer's weights stacked on a leading `[L]`
 axis, as the fused
 kernels consume them; `forward(x, layer)` picks one slice. Inside
@@ -35,29 +40,30 @@ ACT_QUANT_MIN_ROWS = 128
 
 
 class W8A8Dot(torch.autograd.Function):
-    """y = w8a8_dot(x, kq, ks) in `out_dtype`: per-row int8 activations,
-    int8 x int8 product, (am / 127) * ks rescale (kernels/w8a8.py). The
-    backward is the straight-through estimator of the JAX custom VJP: dx =
-    g @ (kq * ks)^T in x's dtype, a plain matmul; the frozen int8 weight
-    gets no gradient."""
+    """y = w8a8_dot(x, kt, ks) in `out_dtype`: per-row int8 activations,
+    int8 x int8 product, (am / 127) * ks rescale (kernels/w8a8.py); kt is
+    the int8 kernel K-major [out, in]. The backward is the straight-through
+    estimator of the JAX custom VJP: dx = g @ (kq * ks)^T in x's dtype, a
+    plain matmul; the frozen int8 weight gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, kq, ks, out_dtype):
-        ctx.save_for_backward(kq, ks)
+    def forward(ctx, x, kt, ks, out_dtype):
+        ctx.save_for_backward(kt, ks)
         ctx.x_dtype = x.dtype
-        return w8a8.w8a8_dot(x, kq, ks, out_dtype)
+        return w8a8.w8a8_dot(x, kt, ks, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        kq, ks = ctx.saved_tensors
+        kt, ks = ctx.saved_tensors
         dt = ctx.x_dtype
-        w = kq.to(dt) * ks.to(dt)  # [in, out]
-        return g.to(dt) @ w.t(), None, None, None
+        wt = kt.to(dt) * ks.to(dt).reshape(-1, 1)  # (kq * ks)^T, [out, in]
+        return g.to(dt) @ wt, None, None, None
 
 
-def w8a8_dot(x, kq, ks, out_dtype=torch.float32):
-    """x [..., in] @ int8 kq [in, out] with per-row int8 activations."""
-    return W8A8Dot.apply(x, kq, ks, out_dtype)
+def w8a8_dot(x, kt, ks, out_dtype=torch.float32):
+    """x [..., in] @ int8 kt^T (kt [out, in], K-major) with per-row int8
+    activations."""
+    return W8A8Dot.apply(x, kt, ks, out_dtype)
 
 
 class Block(nn.Module):
@@ -171,11 +177,28 @@ class Dense(Block):
                 "kernel_scale", layer).to(cd)
         return self.leaf("kernel", layer).to(cd)
 
+    def kernel_kmajor(self, layer: Optional[int] = None) -> torch.Tensor:
+        """The int8 kernel K-major [..., out, in], as the int8 GEMM reads it:
+        `kernel_q` transposed, kept from the first call on as the
+        non-persistent buffer `kernel_qt`. Loading a state drops it
+        (load_state, load_state_dict), so the next call derives it from the
+        new `kernel_q`."""
+        if "kernel_qt" not in self._buffers:
+            # a normal tensor even when first asked for under inference_mode
+            with torch.inference_mode(False), torch.no_grad():
+                self.register_buffer("kernel_qt", self.kernel_q.transpose(
+                    -1, -2).contiguous(), persistent=False)
+        return self.leaf("kernel_qt", layer)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._buffers.pop("kernel_qt", None)
+        super()._load_from_state_dict(*args, **kwargs)
+
     def forward(self, x, layer: Optional[int] = None):
         cd = self.compute_dtype
         if ("kernel_aq" in self._buffers
                 and math.prod(x.shape[:-1]) >= ACT_QUANT_MIN_ROWS):
-            y = w8a8_dot(x.to(cd), self.leaf("kernel_q", layer),
+            y = w8a8_dot(x.to(cd), self.kernel_kmajor(layer),
                          self.leaf("kernel_scale", layer), out_dtype=cd)
         else:
             y = torch.matmul(x.to(cd), self.weight(layer))
@@ -241,8 +264,9 @@ def load_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
     model. Float leaves are copied into the model's parameters (their dtype
     and identity kept); int8 leaves, their scales and w8a8 flags
     (`kernel_aq`) become buffers that replace the float parameter they
-    quantize. Every parameter and buffer
-    must be covered and every key must name one."""
+    quantize; a new `kernel_q` drops the Dense's K-major copy `kernel_qt`
+    (Dense.kernel_kmajor derives it again). Every parameter and buffer must
+    be covered and every key must name one."""
     seen = set()
     for key, val in state.items():
         mod_name, _, leaf = key.rpartition(".")
@@ -250,6 +274,8 @@ def load_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
         device = next(t for _, t in _leaves(mod) if t is not None).device
         if leaf in _QUANT_OF:
             mod._parameters.pop(_QUANT_OF[leaf], None)
+            if leaf == "kernel_q":
+                mod._buffers.pop("kernel_qt", None)
             mod.register_buffer(leaf, val.to(device))
         else:
             cur = dict(_leaves(mod)).get(leaf)

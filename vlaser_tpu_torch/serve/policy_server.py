@@ -33,9 +33,10 @@ class PolicyServer:
         by the denoise stacks, int8 activations through the int8 GEMM in
         the ViT stack and the VLM prefix), as in the JAX package; mode
         "int8" keeps every matmul weight-only. On an H100 the batch-1 w8a8
-        step is for now slower than the int8 one (PERF.md, "Where the time
-        goes"): a latency-bound batch-1 caller may prefer mode "int8".
-        device: None is the CUDA card."""
+        step, with the wgmma int8 GEMM, takes less device time than the
+        int8 one (about 35 vs 44 ms of kernels); both steps are host-bound
+        and their wall times vary more between runs than they differ
+        (PERF.md, "Where the time goes"). device: None is the CUDA card."""
         if params is not None:
             load_state(model, params)
         self.device = torch.device(device if device is not None else "cuda")
