@@ -5,10 +5,13 @@
 
 With --ab (or its older name --flash-ab), the flash kernels, the int8 GEMM
 (one Qwen2.5-1.5B layer's 7 GEMMs at 384, 3,072 and 3,584 rows, the
-InternViT-300M stack's 4 products at 13,325 rows) and the RMSNorm backward
-(12,288 x 1536) are also timed against those of another tree (a `git
-archive` of the parent commit unpacked into a git-ignored directory), each
-built alone, in turns: parent, change, change, parent.
+InternViT-300M stack's 4 products at 13,325 rows), the RMSNorm backward
+(12,288 x 1536), the fused ViT stack (bf16 at B 1, act_quant at B 1, 8 and
+13) and the decoder stack (the decode at 384, 3,592 and 32,768 slots in
+both weight modes, the denoise suffix at R 4 and 5) are also timed against
+those of another tree (a `git archive` of the parent commit unpacked into
+a git-ignored directory), each built alone, in turns: parent, change,
+change, parent.
 
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
@@ -25,7 +28,10 @@ quantize_for_serving(mode="int8")):
      1 + N(0, 0.1^2), ViT layer scales ~0.1, ViT q/k columns x4 and
      external K/V ~N(0, 2^2), so every branch shows; the bound on x_out is
      a share of what the stack changes, and controls (input unchanged,
-     attention dropped, MLP dropped) must break it;
+     attention dropped, MLP dropped) must break it; the twin's norm-bound
+     shift is read over its 24 attentions (least m - max s, least d; a row
+     with d == 0 fails); each stack call is one kernel launch under the
+     profiler;
   2. the fused PolicyServer (reset + 3 steps), launch counters zeroed just
      before and read just after;
   3. the fused actions against the plain infer_action oracle (<= 2e-2 max
@@ -41,7 +47,8 @@ Serving, w8a8 (the default: quantize_for_serving(target="policy")):
      twin, with phase 1's visible draws and bound; controls (input
      unchanged, activation scale dropped, MLP dropped, and at batch 8 fc2
      quantized as one group on weights whose fc1 halves differ 40x) must
-     break it; timed, with the bound at the int8 and bf16 peaks;
+     break it; timed, with the bound at the int8 and bf16 peaks, and the
+     norm-bound shift's margins read as in phase 1;
   6. the two main paths, counters zeroed just before and read just after
      each, held to the counts the code implies: the fused PolicyServer
      (reset + 3 steps) and make_batched_infer_action at batch 8 (3 calls);
@@ -83,16 +90,20 @@ quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
      with visible norms and K/V ~N(0, 2^2), against its twin; controls
      (input unchanged, attention dropped, MLP dropped, cache mask ignored,
      rope dropped on k_self, and past 12,288 slots, where q is doubled so
-     that a few keys carry each head, the keys whose scores lie past the
-     default 48 KB of shared memory dropped) must break the bounds; timed,
-     with one call's device busy time and the attention kernel's share of
-     it from the profiler;
+     that a few keys carry each head, the keys from slot 12,288 on
+     dropped) must break the bounds; timed,
+     with one call's kernel launches (one) and device busy time from the
+     profiler; the split-KV attention alone (R 1 over E keys, 12 / 2 x 128)
+     against the plain split-KV attention (itself held to the unsplit
+     softmax), timed beside SDPA;
   13. the other kernels at the chat shapes against their plain versions,
      with controls: act_quant fused_vit_stack on the chat's own tiles at
      B = 1, 8 and 13 (each bound no less than VIT_WITNESS_K x the distance
      of a witness twin that rounds its LayerNorm in another order; the
      13-tile output bit-equal to the kernel's at B = 8 and 5 on the same
-     tiles; layer 0's differing int8 fc2 inputs counted), quantize_rows +
+     tiles; layer 0's differing int8 fc2 inputs counted; the attention
+     kernel alone at B 13 x 1025 x 16 x 64 against its twin, timed beside
+     SDPA), quantize_rows +
      int8_gemm at the prefill's rows, the causal flash prefill over the
      cache buffer (padded and future slots segment 0), again under a
      sliding window of 1,024 (control: window ignored), _rms_fwd at the
@@ -333,6 +344,71 @@ def _stack_gate(torch, what, run, x, cos, sin, controls):
     return err
 
 
+def _stack_phases(torch, fn, L, dev):
+    """One fused_int8_stack call (fn) with the kernel's trace on: -> mean
+    us of each of a layer's 8 phases over the L layers (block 0's clock
+    between grid barriers: a phase's slowest block and the barrier)."""
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    fused_decode.trace = torch.zeros(1 + 8 * L, dtype=torch.int64,
+                                     device=dev)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        t = fused_decode.trace.double().cpu()
+    finally:
+        fused_decode.trace = None
+    per = (t[1:] - t[:-1]).view(L, 8).mean(0) / 1e3
+    return dict(zip(fused_decode.PHASES, [round(v, 2) for v in per.tolist()]))
+
+
+def stack_launch_phase(torch, dev, llm, tag):
+    """One fused_int8_stack call is one kernel launch: under torch.profiler,
+    at R 1, 4 and 5 in both weight modes (2 layers of the model's widths;
+    the count does not depend on depth). Run before any other tree's
+    library is loaded: with one loaded, the profiler has been seen to miss
+    cooperative launches."""
+    from vlaser_tpu_torch.core.quant import quantize_int8
+    from vlaser_tpu_torch.kernels import fused_decode, ops
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    bf, L = torch.bfloat16, 2
+    C, H, KVH, D, I = (llm.hidden_size, llm.num_heads, llm.num_kv_heads,
+                       llm.head_dim, llm.intermediate_size)
+    w = {}
+    for n_, k, n in (("q", C, H * D), ("k", C, KVH * D), ("v", C, KVH * D),
+                     ("o", H * D, C), ("g", C, I), ("u", C, I), ("d", I, C)):
+        w["w" + n_], w["s" + n_] = quantize_int8(0.02 * r(L, k, n), -2)
+    counts = {}
+    for mode in ("int8", "bf16"):
+        ws = dict(w)
+        if mode == "bf16":
+            for k in [k for k in w if k[0] == "w"]:
+                ws[k] = (w[k].float() * w["s" + k[1:]]).to(bf)
+                ws["s" + k[1:]] = torch.ones_like(w["s" + k[1:]])
+        for R in (1, 4, 5):
+            cos, sin = ops.rope_cos_sin(torch.arange(R, device=dev) + 3.0, D,
+                                        llm.rope_theta)
+            args = (r(R, C).to(bf), cos, sin, torch.zeros(R, R, device=dev),
+                    torch.zeros(1, 384, device=dev), 1 + 0.1 * r(L, C),
+                    1 + 0.1 * r(L, C), 0.02 * r(L, H * D),
+                    0.02 * r(L, KVH * D), 0.02 * r(L, KVH * D),
+                    *[ws[k] for k in ("wq", "sq", "wk", "sk", "wv", "sv", "wo",
+                                      "so", "wg", "sg", "wu", "su", "wd",
+                                      "sd")],
+                    r(L, 384, KVH, D).to(bf), r(L, 384, KVH, D).to(bf))
+            fused_decode.fused_int8_stack(*args)
+            prof = _profile(torch, lambda: fused_decode.fused_int8_stack(
+                *args), "", tag, quiet=True)
+            counts[mode, R] = (prof["launches"], sorted(prof["kernels"]))
+    print(f"fused_int8_stack: kernel launches in one call under the profiler "
+          f"(weight mode, rows): {counts} {tag}", flush=True)
+    if any(n != 1 for n, _ in counts.values()):
+        raise RuntimeError("a fused_int8_stack call is not one launch")
+
+
 def _gate(name, got, ref, x_in, controls, bound=None):
     """Kernel x_out vs twin within `bound` (default: CHANGE_TOL of what the
     twin changes); each control (a wrong answer) must break it."""
@@ -455,8 +531,10 @@ def serving_phases(torch, np, dev, cfg, tag, report):
         torch.cuda.synchronize()
         plain = lambda **o: fused_vit.fused_vit_stack_plain(emb, **{**vs, **o},
                                                            **kw)
-        err = _gate(f"fused_vit_stack {tuple(emb.shape)} L={vcfg.num_layers}",
-                    got, plain(), emb, {
+        what = f"fused_vit_stack {tuple(emb.shape)} L={vcfg.num_layers}"
+        with _vit_shift_margins(torch, what):
+            ref = plain()
+        err = _gate(what, got, ref, emb, {
                         "input unchanged": emb,
                         "attention dropped": plain(ls1=0 * vs["ls1"]),
                         "MLP dropped": plain(ls2=0 * vs["ls2"])})
@@ -514,8 +592,16 @@ def serving_phases(torch, np, dev, cfg, tag, report):
             ms = _kernel_ms(torch, lambda: run(fused_decode.fused_int8_stack),
                             20)
             plain_ms = _kernel_ms(torch, plain, 3)
+            prof = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
+                            tag_r, tag, quiet=True)
+            phases = _stack_phases(
+                torch, lambda: run(fused_decode.fused_int8_stack), L, dev)
             print(f"fused_int8_stack R={rows} time: kernel {ms:.3f} ms, "
-                  f"plain twin {plain_ms:.3f} ms {tag}", flush=True)
+                  f"plain twin {plain_ms:.3f} ms; one call under the "
+                  f"profiler: {prof['launches']} kernel launch(es), device "
+                  f"busy {prof['busy']:.3f} ms, grid "
+                  f"{fused_decode.grid_blocks(rows, False, dev)} blocks; "
+                  f"us a layer by phase {phases} {tag}", flush=True)
             dec[f"ms_r{rows}"], dec[f"plain_ms_r{rows}"] = ms, plain_ms
             if rows == R:
                 w_bytes = sum(stack[k].numel() * stack[k].element_size()
@@ -801,6 +887,51 @@ def _vit_patched(**over):
             setattr(fused_vit, k, v)
 
 
+@contextmanager
+def _vit_shift_margins(torch, what):
+    """Around twin runs of the ViT stack: over every layer's attention, the
+    gap between the norm-bound shift m and each row's largest score (log2
+    units; the least and the largest), the rows whose d under the bound
+    falls below MIN_D, which the port shifts by their largest score, and
+    among them those where the TPU kernel's exponents all underflow (its d
+    = 0: a NaN row); and the least d of the port's shift, printed after. A
+    row whose d is 0 or not finite fails the phase."""
+    from vlaser_tpu_torch.kernels import fused_vit
+
+    orig = fused_vit.shifted_attention
+    seen = {"gap": math.inf, "gap_max": -math.inf, "d": math.inf,
+            "tpu_zero": 0, "out": 0, "calls": 0}
+
+    def record(q, k, v):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        m = fused_vit.norm_bound(q, k)
+        mx = s.amax(-1, keepdim=True)
+        gap = m - mx
+        seen["gap"] = min(seen["gap"], gap.min().item())
+        seen["gap_max"] = max(seen["gap_max"], gap.max().item())
+        bf = torch.bfloat16
+        d_tpu = torch.exp2(s - m).to(bf).float().sum(-1, keepdim=True)
+        out = d_tpu < fused_vit.MIN_D
+        seen["out"] += int(out.sum())
+        seen["tpu_zero"] += int((d_tpu == 0).sum())
+        d = torch.exp2(s - torch.where(out, mx, m)).to(bf).float().sum(-1)
+        seen["d"] = min(seen["d"], d.min().item())
+        seen["calls"] += 1
+        del s, d
+        return orig(q, k, v)
+
+    with _vit_patched(shifted_attention=record):
+        yield seen
+    print(f"{what}: norm-bound shift over the twin's {seen['calls']} "
+          f"attentions: m - max s from {seen['gap']:.2f} to "
+          f"{seen['gap_max']:.2f} (log2 units); rows whose d under the bound "
+          f"is below 2^-100, shifted by their largest score: {seen['out']}; "
+          f"of them the TPU kernel's d == 0 (a NaN row): {seen['tpu_zero']}; "
+          f"least d {seen['d']:.4e}", flush=True)
+    if not (math.isfinite(seen["d"]) and seen["d"] > 0 and seen["gap"] >= 0):
+        raise RuntimeError(f"{what}: a row's softmax denominator is 0")
+
+
 def _vit_w8a8_stacks(torch, vision_model, vcfg, dev):
     """The model's int8 encoder weights with the kernel phase's visible
     norms: -> (stack, the same with fc1's halves 40x apart, kwargs)."""
@@ -973,7 +1104,53 @@ def vit_chat_phase(torch, vision_model, vcfg, dev, tiles, tag):
                   f"inputs that differ (count, of, largest step): {flips}",
                   flush=True)
         del a, x
+    rep["attention"] = vit_attention_alone(torch, dev, B, vcfg, tag)
     return rep
+
+
+def vit_attention_alone(torch, dev, B, vcfg, tag):
+    """The ViT stack's one-pass attention alone at B x 1025 x 16 x 64 (q/k
+    drawn with phase 1's x4 columns' spread) against the twin's, timed
+    beside SDPA on the same q, k, v (a yardstick the port does not call).
+    -> report."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import fused_vit
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    S = (vcfg.image_size // vcfg.patch_size) ** 2 + 1
+    H, C = vcfg.num_heads, vcfg.hidden_size
+    D, bf = C // H, torch.bfloat16
+    r = lambda: torch.randn(B * S, C, generator=g, device=dev)
+    qs = (r() * 0.5 * D ** -0.5 * fused_vit.LOG2E).to(bf)
+    ks, vs = (r() * 0.5).to(bf), r().to(bf)
+    what = f"fused_vit attention alone B={B} S={S} H={H} D={D}"
+    with torch.inference_mode():
+        got = fused_vit.attention(qs, ks, vs, B, S, H)
+        torch.cuda.synchronize()
+        ref = fused_vit._attention(qs, ks, vs, B, S, H)
+        err = (got.float() - ref.float()).abs().max().item()
+        bound = FLASH_REL * ref.float().abs().max().item()
+        print(f"{what}: kernel vs twin max_abs_err {err:.3e} (bound "
+              f"{bound:.3e})", flush=True)
+        if not (err <= bound and got.float().isfinite().all()):
+            raise RuntimeError(f"{what}: disagrees with the twin")
+        del ref
+        norms = fused_vit.attention_norms(qs, ks, B, S, H)
+        ms = _kernel_ms(torch, lambda: fused_vit.attention(qs, ks, vs, B, S,
+                                                           H, norms), 10)
+        t = lambda x: x.view(B, S, H, D).transpose(1, 2).contiguous()
+        qt, kt, vt = t(qs), t(ks), t(vs)
+        lib = _kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), 10)
+    flops = 4 * B * S * S * C
+    bound_ms, bound_by = _bound(flops, 4 * B * S * C * 2, PEAK_BF16)
+    print(f"{what} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), sdpa {lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), "
+          f"bound {bound_ms:.4f} ms ({bound_by}) {tag}", flush=True)
+    return dict(max_abs_err=err, ms=ms, library_ms=lib, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def vit_w8a8_phase(torch, vision_model, vcfg, dev, frames, batches, tag,
@@ -1001,7 +1178,8 @@ def vit_w8a8_phase(torch, vision_model, vcfg, dev, frames, batches, tag,
             with _vit_patched(_qdot=_qdot_no_row_scale):
                 no_row_scale = plain()
             what = f"fused_vit_stack act_quant {tuple(x.shape)} L={L}"
-            ref = plain()
+            with _vit_shift_margins(torch, what):
+                ref = plain()
             bound = _vit_bound(what, got, ref, x, plain, vs) if witness \
                 else None
             err = _gate(what, got, ref, x, {
@@ -1756,7 +1934,7 @@ DECODE_PROMPT, DECODE_NEW = 320, 64  # bench.py's decode: 1 tile, 320 tokens
 # plain top-2 margin exceeds that bound
 DECODE_REL = 2e-2
 LONG_CACHE = 32768  # Qwen2.5-1.5B's max_position_embeddings
-SMEM_48K_KEYS = 48 * 1024 // 4  # fp32 scores in the default shared memory
+FAR_KEYS = 12288  # the long cache's control drops the keys from this slot on
 CHAT_WINDOW = 1024  # the windowed prefill case: keys at most 1,024 back
 
 
@@ -1827,7 +2005,7 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
             w, sname = stack[k], "s" + k[1:]
             stacks["bf16"][k] = (w.float() * stack[sname]).to(bf)
             stacks["bf16"][sname] = torch.ones_like(stack[sname])
-    out = {"int8": {}, "bf16": {}}
+    out = {"int8": {}, "bf16": {}, "attention": {}}
     for E in cache_lens:
         x = rnd(1, llm.hidden_size).to(bf)
         pos = torch.tensor([E - 40.0], device=dev)
@@ -1838,10 +2016,10 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
         extm[0, int(0.85 * E):int(0.9 * E)] = fused_decode.NEG_INF
         extm[0, int(0.98 * E):] = fused_decode.NEG_INF
         k_e, v_e = (2 * rnd(L, E, KVH, D)).to(bf), (2 * rnd(L, E, KVH, D)).to(bf)
-        past = extm.clone()  # every score past the default shared memory
-        past[0, SMEM_48K_KEYS:] = fused_decode.NEG_INF
+        past = extm.clone()  # the far half of a long cache dropped
+        past[0, FAR_KEYS:] = fused_decode.NEG_INF
         for mode, st in stacks.items():
-            if E > SMEM_48K_KEYS:
+            if E > FAR_KEYS:
                 # over this many keys a softmax of the draws' scores (std
                 # ~1.6) is near uniform and attention adds ~0: q x2 (exact
                 # in both modes) leaves a few keys to carry each head
@@ -1858,8 +2036,8 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
             controls = {"attention dropped": dict(so=0 * st["so"]),
                         "MLP dropped": dict(sd=0 * st["sd"]),
                         "cache mask ignored": dict(em=torch.zeros_like(extm))}
-            if E > SMEM_48K_KEYS:
-                controls[f"keys from slot {SMEM_48K_KEYS} on dropped"] = \
+            if E > FAR_KEYS:
+                controls[f"keys from slot {FAR_KEYS} on dropped"] = \
                     dict(em=past)
             err = _stack_gate(torch, what, run, x, cos, sin, controls)
             torch.cuda.synchronize()
@@ -1874,23 +2052,82 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
             flops = (2 * sum(st[k].numel() for k in STACK_ARGS if k[0] == "w")
                      + 4 * L * llm.num_heads * D * (E + 1))
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_FP32)
-            attn = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
+            prof = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
                             what, tag, quiet=True)
-            share = attn["kernels"].get("attention_kernel", 0.0) / max(
-                attn["busy"], 1e-9)
+            phases = _stack_phases(
+                torch, lambda: run(fused_decode.fused_int8_stack), L, dev)
             print(f"{what} time: kernel {ms:.3f} ms, plain twin "
                   f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-                  f"one call under the profiler: device busy "
-                  f"{attn['busy']:.3f} ms, attention kernel "
-                  f"{100 * share:.1f}% of it {tag}", flush=True)
+                  f"one call under the profiler: {prof['launches']} kernel "
+                  f"launch(es), device busy {prof['busy']:.3f} ms; us a "
+                  f"layer by phase {phases} {tag}", flush=True)
             out[mode][E] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=None, attention_share=share,
-                                profiled_busy_ms=attn["busy"])
+                                library_ms=None, launches_per_call=prof[
+                                    "launches"], profiled_busy_ms=prof["busy"],
+                                phase_us=phases)
+        out["attention"][E] = decode_attention_alone(
+            torch, dev, llm, k_e[0], v_e[0], extm, g, tag)
         del k_e, v_e, past
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def decode_attention_alone(torch, dev, llm, k_e, v_e, extm, g, tag):
+    """The stack's split-KV attention alone at the decode shape (R = 1 over
+    E keys, 12 / 2 heads x 128; layer-0 K/V of phase 12): against the plain
+    split-KV attention at the planner's chunk, which is held against the
+    unsplit softmax; timed beside SDPA on the same keys (a yardstick the
+    port does not call). -> report."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import fused_decode as fd
+
+    H, KVH, D = llm.num_heads, llm.num_kv_heads, llm.head_dim
+    E, G, bf = k_e.shape[0], H // KVH, torch.bfloat16
+    q = (2 * torch.randn(1, H * D, generator=g, device=dev)).to(bf)
+    ks = (2 * torch.randn(1, KVH, D, generator=g, device=dev)).to(bf)
+    vs = (2 * torch.randn(1, KVH, D, generator=g, device=dev)).to(bf)
+    selfm = torch.zeros(1, 1, device=dev)
+    chunk = fd.kv_chunk(E + 1, KVH, 1)
+    what = f"split-KV attention alone R=1 E={E} H={H}/{KVH} D={D} chunk {chunk}"
+    with torch.inference_mode():
+        got = fd.split_kv_attention(q, k_e, v_e, ks, vs, selfm, extm)
+        torch.cuda.synchronize()
+        keys = torch.cat([k_e, ks]).float()  # [E + 1, KVH, D]
+        vals = torch.cat([v_e, vs]).float()
+        mask = torch.cat([extm, selfm], 1)
+        qf = q.float().view(H, D) * D ** -0.5
+        split = torch.cat([fd.split_kv_attention_plain(
+            qf[h:h + 1], keys[:, h // G], vals[:, h // G], mask, chunk)
+            for h in range(H)], 1)
+        whole = torch.cat([torch.softmax(qf[h:h + 1] @ keys[:, h // G].T
+                                         + mask, -1) @ vals[:, h // G]
+                           for h in range(H)], 1)
+        split_err = (split - whole).abs().max().item()
+        split_bound = 1e-5 * max(1.0, whole.abs().max().item())
+        err = (got.float() - split).abs().max().item()
+        bound = FLASH_REL * split.abs().max().item()
+        print(f"{what}: kernel vs plain split-KV max_abs_err {err:.3e} "
+              f"(bound {bound:.3e}); plain split-KV vs the unsplit softmax "
+              f"{split_err:.3e} (bound {split_bound:.3e})", flush=True)
+        if not (err <= bound and split_err <= split_bound
+                and got.float().isfinite().all()):
+            raise RuntimeError(f"{what}: disagrees")
+        ms = _kernel_ms(torch, lambda: fd.split_kv_attention(
+            q, k_e, v_e, ks, vs, selfm, extm), 20)
+        qt = q.view(1, H, 1, D)
+        kt = torch.cat([k_e, ks]).repeat_interleave(G, 1).transpose(0, 1)[None]
+        vt = torch.cat([v_e, vs]).repeat_interleave(G, 1).transpose(0, 1)[None]
+        lib = _kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt.contiguous(), vt.contiguous(), attn_mask=mask.to(bf)), 20)
+    nbytes = 2 * (E + 1) * KVH * D * 2 + (E + 1) * 4 + 2 * H * D * 2
+    bound_ms, bound_by = _bound(4 * H * D * (E + 1), nbytes, PEAK_FP32)
+    print(f"{what} time: kernel {ms:.4f} ms, sdpa {lib:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) {tag}", flush=True)
+    return dict(max_abs_err=err, ms=ms, library_ms=lib, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag, window=None):
@@ -2116,6 +2353,8 @@ def chat_phases(torch, np, dev, cfg, tag, report):
         st[f"decode_e{Ek}"] = r
     report["fused_int8_stack_bf16"] = {**dec["bf16"][E], **{
         f"decode_e{Ek}": r for Ek, r in dec["bf16"].items() if Ek != E}}
+    for Ek, r in dec["attention"].items():
+        st[f"attention_alone_e{Ek}"] = r
     for name, r in (("fused_vit_stack_w8a8", vit), ("quantize_rows", k1),
                     ("int8_gemm", k2), ("flash_attention_fwd", flash),
                     ("_rms_fwd", rms)):
@@ -2546,30 +2785,32 @@ AB_SHAPES = (("vit", 32, 1025, 1025, 16, 16, 64, False, None, None, True),
              ("siglip", 32, 256, 256, 16, 16, 72, False, None, None, True))
 
 
-def _parent_lib(parent, stem):
-    """Build a parent tree's csrc/<stem>.cu (with its headers) into its own
-    library, as kernels/_build.py builds ours; -> (ctypes.CDLL, the
-    source's text). -fno-gnu-unique: g++ would otherwise export a template
-    function's local statics (a kernel's one-time shared-memory attribute,
-    a tensor-map cache) as process-wide unique symbols, and a parent kernel
-    of the same name as ours would then skip its own cudaFuncSetAttribute
-    and fail to launch."""
+def _parent_lib(parent, stem, *extra):
+    """Build a parent tree's csrc/<stem>.cu (and csrc/<extra>.cu, the
+    sources it calls into, with their headers) into its own library, as
+    kernels/_build.py builds ours; -> (ctypes.CDLL, the source's text).
+    -fno-gnu-unique: g++ would otherwise export a template function's local
+    statics (a kernel's one-time shared-memory attribute, a tensor-map
+    cache) as process-wide unique symbols, and a parent kernel of the same
+    name as ours would then skip its own cudaFuncSetAttribute and fail to
+    launch."""
     import ctypes
     import hashlib
 
     from vlaser_tpu_torch.kernels import _build
 
     src = os.path.join(os.path.abspath(parent), "vlaser_tpu_torch", "csrc")
+    stems = (stem, *extra)
     h = hashlib.sha256()
     for f in sorted(os.listdir(src)):
-        if f.startswith(stem + ".") or f.endswith(".cuh"):
+        if f.split(".")[0] in stems or f.endswith(".cuh"):
             h.update(open(os.path.join(src, f), "rb").read())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = _build.BUILD_DIR / f"libparent_{stem}_{h.hexdigest()[:16]}.so"
     if not lib.exists():
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler",
                         "-fno-gnu-unique", "-shared", "-o", str(lib),
-                        os.path.join(src, stem + ".cu")],
+                        *[os.path.join(src, t + ".cu") for t in stems]],
                        check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib)), open(os.path.join(src, stem + ".cu")).read()
 
@@ -2591,8 +2832,9 @@ def _parent_flash(parent):
 
 
 def _build_report(build):
-    """ptxas's registers and spills of each kernel of the flash, int8 GEMM
-    and RMSNorm sources (the launch's register count: the warp-specialized
+    """ptxas's registers and spills of each kernel of the flash, int8 GEMM,
+    RMSNorm, fused ViT and decoder-stack sources (the launch's register
+    count: the warp-specialized
     kernels then move registers from the producer to the consumers), the
     dynamic shared memory of the flash and GEMM kernels, and every ptxas
     warning of those sources, such as a note that it serialized wgmma
@@ -2604,8 +2846,11 @@ def _build_report(build):
     fsmem, gsmem = lib.flash_attention_smem, lib.w8a8_gemm_smem
     fsmem.argtypes, fsmem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     gsmem.argtypes, gsmem.restype = [ctypes.c_int], ctypes.c_int
+    vsmem = lib.vit_smem
+    vsmem.argtypes, vsmem.restype = [ctypes.c_int], ctypes.c_int
     which = {"fwd_kernel": 0, "dq_kernel": 1, "dkv_kernel": 2}
-    for stem in ("flash_attention", "w8a8", "rmsnorm"):
+    for stem in ("flash_attention", "w8a8", "rmsnorm", "fused_vit",
+                 "fused_decode"):
         for r in build.ptxas_report(stem):
             if "warning" in r:
                 print(f"ptxas {stem}: {r['warning']}", flush=True)
@@ -2629,7 +2874,16 @@ def _build_report(build):
                 name, targs = m.group(1), m.group(2) or ""
                 ints = [int(v) for v in re.findall(r"Li(\d+)", targs)]
                 sm = ""
-                if name == "gemm_kernel" and len(ints) == 2:
+                if stem == "fused_vit" and name == "gemm_kernel":
+                    label = f"{name} epilogue {ints[0]}, BN {ints[1]}"
+                    sm = f", {vsmem(ints[1])} bytes dynamic shared memory"
+                elif stem == "fused_vit" and name == "attention_kernel":
+                    label = name
+                    sm = f", {vsmem(0)} bytes dynamic shared memory"
+                elif stem == "fused_decode" and name == "stack_kernel":
+                    w = "bf16" if "bfloat16" in targs else "int8"
+                    label = f"stack_kernel rows {ints[0]}, {w} weights"
+                elif name == "gemm_kernel" and len(ints) == 2:
                     label = f"gemm_kernel epilogue {ints[0]}, BN {ints[1]}"
                     sm = (f", {gsmem(ints[1])} bytes dynamic shared memory")
                 elif name == "bwd_kernel" and ints:
@@ -2868,6 +3122,221 @@ def rms_ab_phase(torch, dev, cfg, parent, tag):
     return ts, lib
 
 
+def _ab(torch, label, par, chg, iters, tag):
+    """Parent / change / change / parent device times of two calls that
+    compute the same function; their outputs' largest difference. -> the 4
+    times."""
+    a, b_ = par(), chg()
+    torch.cuda.synchronize()
+    diff = max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b_))
+    del a, b_
+    ts = [_kernel_ms(torch, f, iters) for f in (par, chg, chg, par)]
+    print(f"{label}: parent {ts[0]:.4f} / change {ts[1]:.4f} / change "
+          f"{ts[2]:.4f} / parent {ts[3]:.4f} ms (parent / change "
+          f"{(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}x; max |parent - change| "
+          f"{diff:.3g}) {tag}", flush=True)
+    return ts
+
+
+def _vit_ab_weights(torch, dev, vcfg, act_quant):
+    """Random InternViT-300M stack arguments (N(0, 0.02^2) weights, phase
+    1's visible norms and x4 q/k columns): bf16 [L, K, N], or int8 K-major
+    [L, N, K] with scales."""
+    from vlaser_tpu_torch.core.quant import quantize_int8
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    L, C, I = vcfg.num_layers, vcfg.hidden_size, vcfg.intermediate_size
+    vs = dict(ln1w=1 + 0.1 * r(L, C), ln1b=0.1 * r(L, C),
+              ln2w=1 + 0.1 * r(L, C), ln2b=0.1 * r(L, C),
+              ls1=0.1 * (1 + 0.1 * r(L, C)), ls2=0.1 * (1 + 0.1 * r(L, C)),
+              qnw=torch.ones(L, C, device=dev),
+              knw=torch.ones(L, C, device=dev),
+              qkvb=0.02 * r(L, 3 * C), projb=0.02 * r(L, C),
+              fc1b=0.02 * r(L, I), fc2b=0.02 * r(L, C))
+    for w, sc, k, n in (("qkvw", "qkvs", C, 3 * C), ("projw", "projs", C, C),
+                        ("fc1w", "fc1s", C, I), ("fc2w", "fc2s", I, C)):
+        m = 0.02 * r(L, k, n)
+        if w == "qkvw":
+            m[:, :, :2 * C] *= 4
+        if act_quant:
+            q8, s8 = quantize_int8(m, -2)
+            vs[w] = q8.transpose(1, 2).contiguous()
+            vs[sc] = s8[:, 0].contiguous()
+        else:
+            vs[w] = m.to(torch.bfloat16)
+        del m
+    return vs
+
+
+VIT_VECS = ("ln1w", "ln1b", "ln2w", "ln2b", "ls1", "ls2", "qnw", "knw",
+            "qkvb", "projb", "fc1b", "fc2b")
+
+
+def vit_ab_phase(torch, dev, parent, vcfg, tag):
+    """fused_vit_stack against a parent tree's: bf16 mode at B 1, act_quant
+    at B 1, 8 and 13, on the same inputs, in turns (parent, change, change,
+    parent). The outputs differ by the softmax shift (the parent's row max,
+    this tree's norm bound). -> {(mode, B): [4 times]}."""
+    import ctypes
+
+    from vlaser_tpu_torch.kernels import fused_vit
+
+    cdll, _ = _parent_lib(parent, "fused_vit", "w8a8")
+    P, I_, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    f16, f8 = cdll.vit_stack_forward, cdll.vit_stack_forward_w8a8
+    f16.argtypes = [P] * 24 + [I_] * 6 + [F, I_, F, P]
+    f8.argtypes = [P] * 31 + [I_] * 6 + [F, I_, F, ctypes.c_longlong, P]
+    f16.restype = f8.restype = I_
+    pws = cdll.vit_w8a8_workspace
+    pws.argtypes, pws.restype = [I_] * 4, ctypes.c_longlong
+    S = (vcfg.image_size // vcfg.patch_size) ** 2 + 1
+    C, H, L, inter = (vcfg.hidden_size, vcfg.num_heads, vcfg.num_layers,
+                      vcfg.intermediate_size)
+    eps, qscale = vcfg.layer_norm_eps, (C // H) ** -0.5 * fused_vit.LOG2E
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    res = {}
+    for act_quant, batches in ((False, (1,)), (True, (1, B8, 13))):
+        vs = _vit_ab_weights(torch, dev, vcfg, act_quant)
+        mats = [vs[k] for k in ("qkvw", "projw", "fc1w", "fc2w")]
+        vecs = [vs[k] for k in VIT_VECS]
+        scales = ([vs[k] for k in ("qkvs", "projs", "fc1s", "fc2s")]
+                  if act_quant else [])
+        kw = dict(num_heads=H, eps=eps, qk_norm=False, act_quant=act_quant)
+        for B in batches:
+            x = torch.randn(B, S, C, generator=g, device=dev).to(torch.bfloat16)
+            st = lambda: torch.cuda.current_stream(dev).cuda_stream
+
+            def par():
+                out = x.reshape(B * S, C).clone()
+                if act_quant:
+                    scr, n_ws = fused_vit.w8a8_scratch(B, S, C, inter, dev)
+                    scr = scr[:9]
+                    pn = int(pws(B, S, C, inter))
+                    scr.append(torch.empty(max(pn, 1), dtype=torch.int32,
+                                           device=dev))
+                    code = f8(*[t.data_ptr() for t in (out, *vecs, *scales,
+                                                       *mats, *scr)],
+                              B, S, C, inter, H, L, eps, 0, qscale, pn, st())
+                else:
+                    e = lambda *s_, dt=torch.bfloat16: torch.empty(
+                        s_, dtype=dt, device=dev)
+                    M = B * S
+                    scr = [e(M, C), e(M, 3 * C, dt=torch.float32), e(M, C),
+                           e(M, C), e(M, C), e(M, C), e(M, inter)]
+                    code = f16(*[t.data_ptr() for t in (out, *vecs, *mats,
+                                                        *scr)],
+                               B, S, C, inter, H, L, eps, 0, qscale, st())
+                if code:
+                    raise RuntimeError(f"parent fused_vit: CUDA error {code}")
+                return (out.view(x.shape),)
+
+            chg = lambda: (fused_vit.fused_vit_stack(x, **vs, **kw),)
+            mode = "act_quant" if act_quant else "bf16"
+            res[mode, B] = _ab(torch, f"fused_vit_stack A/B {mode} B={B}",
+                               par, chg, 5 if B == 1 else 3, tag)
+            del x
+        del vs, mats, vecs, scales
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def stack_ab_phase(torch, dev, parent, cfg, tag):
+    """fused_int8_stack against a parent tree's, on the same inputs, in
+    turns: the VLM decode (R 1, Qwen2.5-1.5B, fp32 rope) over 384, 3,592 and
+    32,768 slots in both weight modes, and the denoise suffix (the 768-wide
+    expert, bf16 rope) at R 4 and 5 over the 384-token prompt. -> {(what, R,
+    E): [4 times]}."""
+    import ctypes
+
+    from vlaser_tpu_torch.core.quant import quantize_int8
+    from vlaser_tpu_torch.kernels import fused_decode, ops
+
+    cdll, _ = _parent_lib(parent, "fused_decode")
+    P, I_ = ctypes.c_void_p, ctypes.c_int
+    fn = cdll.int8_stack_forward
+    fn.argtypes = [P] * 33 + [I_] * 10 + [ctypes.c_float, P]
+    fn.restype = I_
+    scr = cdll.int8_stack_scratch_floats
+    scr.argtypes, scr.restype = [I_] * 5, ctypes.c_longlong
+    g = torch.Generator(device=dev)
+    g.manual_seed(28)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    bf, f32 = torch.bfloat16, torch.float32
+    S = cfg.max_image_text_tokens
+    cases = [("decode", cfg.vlm.llm, 1, E, mode) for mode in ("int8", "bf16")
+             for E in (DECODE_PROMPT + DECODE_NEW, 3592, LONG_CACHE)]
+    cases += [("denoise", cfg.expert, R, S + cfg.num_proprio_tokens
+               if R == cfg.num_action_tokens else S, "int8")
+              for R in (cfg.num_action_tokens,
+                        cfg.num_action_tokens + cfg.num_proprio_tokens)]
+    res, weights = {}, {}
+    for what, m, R, E, mode in cases:
+        C, H, KVH, D, I = (m.hidden_size, m.num_heads, m.num_kv_heads,
+                           m.head_dim, m.intermediate_size)
+        L = m.num_layers
+        if (what, mode) not in weights:
+            weights.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            w = {}
+            for n_, k, n in (("q", C, H * D), ("k", C, KVH * D),
+                             ("v", C, KVH * D), ("o", H * D, C), ("g", C, I),
+                             ("u", C, I), ("d", I, C)):
+                q8, s8 = quantize_int8(0.02 * r(L, k, n), -2)
+                if mode == "bf16":
+                    q8, s8 = (q8.float() * s8).to(bf), torch.ones_like(s8)
+                w["w" + n_], w["s" + n_] = q8, s8
+            w["ln1"], w["ln2"] = 1 + 0.1 * r(L, C), 1 + 0.1 * r(L, C)
+            w["bq"], w["bk"], w["bv"] = (0.02 * r(L, H * D),
+                                         0.02 * r(L, KVH * D),
+                                         0.02 * r(L, KVH * D))
+            weights[what, mode] = w
+        w = weights[what, mode]
+        x = r(R, C).to(bf)
+        cos, sin = ops.rope_cos_sin(torch.arange(R, device=dev) + E - 40.0,
+                                    D, m.rope_theta)
+        if what == "denoise":
+            cos, sin = cos.to(bf), sin.to(bf)
+        selfm = torch.zeros(R, R, device=dev)
+        extm = torch.zeros(1, E, device=dev)
+        extm[0, int(0.9 * E):] = fused_decode.NEG_INF
+        k_e, v_e = (2 * r(L, E, KVH, D)).to(bf), (2 * r(L, E, KVH, D)).to(bf)
+        args = (x, cos, sin, selfm, extm, w["ln1"], w["ln2"], w["bq"],
+                w["bk"], w["bv"], w["wq"], w["sq"], w["wk"], w["sk"],
+                w["wv"], w["sv"], w["wo"], w["so"], w["wg"], w["sg"],
+                w["wu"], w["su"], w["wd"], w["sd"], k_e, v_e)
+        eps = m.rms_norm_eps
+
+        def par():
+            e = lambda *s_, dt=bf: torch.empty(s_, dtype=dt, device=dev)
+            outs = (e(R, C), e(L, R, KVH, D), e(L, R, KVH, D))
+            tmp = (e(R, max(C, H * D, I)), e(R, C), e(R, H * D),
+                   e(int(scr(R, C, H * D, KVH * D, I)), dt=f32))
+            code = fn(*[t.data_ptr() for t in (*args, *outs, *tmp)], L, R, C,
+                      H, KVH, D, I, E, int(mode == "bf16"),
+                      int(cos.dtype == f32), eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
+            if code:
+                raise RuntimeError(f"parent int8_stack_forward: CUDA error "
+                                   f"{code}")
+            return outs
+
+        chg = lambda: fused_decode.fused_int8_stack(*args, eps=eps)
+        res[what, mode, R, E] = _ab(
+            torch, f"fused_int8_stack A/B {what} {mode} R={R} E={E}", par,
+            chg, 10 if E < LONG_CACHE else 5, tag)
+        del k_e, v_e, args
+    weights.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -2884,7 +3353,8 @@ def _profile(torch, fn, label, tag, quiet=False):
     """One call of fn under torch.profiler: device time by kernel group
     and the share of the call's wall time with no kernel running. -> {"busy":
     device ms, "groups": ms by group, "kernels": ms by kernel name (its
-    name before any template or argument list)}."""
+    name before any template or argument list), "launches": kernels
+    launched (copies and fills not counted)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2894,7 +3364,7 @@ def _profile(torch, fn, label, tag, quiet=False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels, by_name = {}, [], {}
+    groups, kernels, by_name, launches = {}, [], {}, 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0)
         if (ev.device_type != torch.autograd.DeviceType.CUDA or not us
@@ -2906,6 +3376,8 @@ def _profile(torch, fn, label, tag, quiet=False):
                       if any(k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
         kernels.append((us / 1e3, ev.count, ev.key[:90]))
+        if not ev.key.startswith(("Memcpy", "Memset")):
+            launches += ev.count
         short = ev.key.split("(")[0].split("<")[0].split("::")[-1]
         by_name[short] = by_name.get(short, 0.0) + us / 1e3
     busy = sum(groups.values())
@@ -2917,7 +3389,8 @@ def _profile(torch, fn, label, tag, quiet=False):
             print(f"  {g}: {ms:.1f} ms ({100 * ms / busy:.1f}%)", flush=True)
         for ms, n, key in sorted(kernels, reverse=True)[:12]:
             print(f"  {ms:9.2f} ms {n:5d}x {key}", flush=True)
-    return {"busy": busy, "groups": groups, "kernels": by_name}
+    return {"busy": busy, "groups": groups, "kernels": by_name,
+            "launches": launches}
 
 
 def main() -> int:
@@ -2927,9 +3400,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", "--flash-ab", dest="ab", metavar="DIR",
-                    help="also time the flash kernels, the int8 GEMM and "
-                         "the RMSNorm backward against those of the tree "
-                         "unpacked at DIR (parent, change, change, parent)")
+                    help="also time the flash kernels, the int8 GEMM, the "
+                         "RMSNorm backward, the fused ViT stack and the "
+                         "decoder stack against those of the tree unpacked "
+                         "at DIR (parent, change, change, parent)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2957,12 +3431,20 @@ def main() -> int:
           flush=True)
 
     _build_report(_build)
+    # the profiler's first trace in a process can miss its first kernels
+    _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up", tag,
+             quiet=True)
+    stack_launch_phase(torch, dev, vlaser_2b().llm, tag)
     if args.ab:  # first, so that a later phase's failure keeps it
         flash_ab_phase(torch, dev, args.ab, tag)
         gc.collect()
         torch.cuda.empty_cache()
         gemm_ab_phase(torch, dev, args.ab, tag)
         rms_ab_phase(torch, dev, vlaser_2b_vla(), args.ab, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        vit_ab_phase(torch, dev, args.ab, vlaser_2b().vision, tag)
+        stack_ab_phase(torch, dev, args.ab, vlaser_2b_vla(), tag)
         gc.collect()
         torch.cuda.empty_cache()
     cfg = vlaser_2b_vla()

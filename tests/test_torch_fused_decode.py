@@ -127,3 +127,69 @@ def test_neg_inf_matches_and_masked_keys_are_ignored():
     moved, _ = _run_both((d2, rd, wd))
     for a, b in zip(base, moved):
         assert torch.equal(a, b)
+
+
+def _attn_case(n, E, R, seed):
+    """q [n, 64] (scaled), keys / values [E + R, 64], an additive mask [n, E
+    + R] with the last 3 external keys masked, each row's self key open."""
+    rng = np.random.default_rng(seed)
+    T = E + R
+    q = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((T, 64)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((T, 64)).astype(np.float32))
+    mask = torch.zeros(n, T)
+    mask[:, max(0, E - 3):E] = fused_decode.NEG_INF
+    return q * 0.125, k, v, mask
+
+
+def _unsplit(q, k, v, mask):
+    return torch.softmax(q @ k.T + mask, dim=-1) @ v
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 7])
+@pytest.mark.parametrize("E", [1, 40])
+def test_split_kv_attention_matches_unsplit(n_chunks, E):
+    """The plain split-KV attention (the CUDA stack's chunking and combine)
+    against one softmax over all keys: 41 or 44 keys in 1, 2 or 7 chunks (E
+    + R not a multiple of the chunk), and E = 1; with 2+ chunks the first
+    chunk's keys are all NEG_INF for every row and must weigh 0. atol
+    1e-5."""
+    R = 4
+    q, k, v, mask = _attn_case(6, E, R, seed=E + n_chunks)
+    T = E + R
+    chunk = -(-T // n_chunks)
+    if n_chunks > 1:
+        mask[:, :chunk] = fused_decode.NEG_INF
+    assert len(fused_decode.chunk_bounds(T, chunk)) == min(n_chunks, T)
+    got = fused_decode.split_kv_attention_plain(q, k, v, mask, chunk)
+    np.testing.assert_allclose(got.numpy(), _unsplit(q, k, v, mask).numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_split_kv_attention_keeps_the_twins_all_masked_row():
+    """A row whose every key is masked: the twin's softmax gives the mean of
+    the values (every score is -1e30 in fp32); the split version gives it
+    too, through chunks that all weigh exp(0)."""
+    q, k, v, mask = _attn_case(3, 30, 2, seed=5)
+    mask[1] = fused_decode.NEG_INF
+    got = fused_decode.split_kv_attention_plain(q, k, v, mask, 8)
+    want = _unsplit(q, k, v, mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(want[1].numpy(), v.mean(0).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("keys,kv_heads,rows", [
+    (385, 2, 1), (3593, 2, 1), (32769, 2, 1),  # the VLM decode's caches
+    (389, 2, 4), (394, 2, 5),                  # the denoise suffix
+    (1, 1, 1), (41, 2, 3), (257, 8, 8)])
+def test_kv_chunk_planner_covers_every_key_once(keys, kv_heads, rows):
+    chunk = fused_decode.kv_chunk(keys, kv_heads, rows)
+    assert chunk % 32 == 0
+    assert fused_decode.KV_CHUNK_MIN <= chunk <= fused_decode.KV_CHUNK_MAX
+    bounds = fused_decode.chunk_bounds(keys, chunk)
+    seen = [j for j0, j1 in bounds for j in range(j0, j1)]
+    assert seen == list(range(keys))  # every key once, in order
+    assert all(j1 - j0 >= 1 for j0, j1 in bounds)
+    assert kv_heads * rows * len(bounds) >= 1
+    if keys > fused_decode.KV_CHUNK_MAX * 64:  # long caches fill the grid
+        assert kv_heads * rows * len(bounds) >= fused_decode.ITEM_TARGET // 2

@@ -230,3 +230,93 @@ def test_plain_encoder_w8a8_matches_jax():
         quantize_variables(variables, VIT_W8A8_PATTERNS, min_size=1),
         jnp.asarray(px)))
     assert np.abs(want - weight_only).max() > 5 * 2e-3  # w8a8 ran
+
+
+def _bf16_np(x):
+    """float32 -> the nearest bf16 value (round half to even), as float32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = (u + (((u >> 16) & 1) + 0x7FFF)) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _shifted_attention_np(q, k, v, S, Sp):
+    """A numpy transcription of the TPU kernel's attention for one sample
+    (fused_vit.py:270-281, 374-381): keys padded to Sp rows that are zeroed
+    (vmask), the Cauchy-Schwarz shift per head, e = bf16(exp2(s - m)), d =
+    sum e - npad * 2^-m in closed form, o = (e . v) * (1 / d). q/k/v [S,
+    heads, D] float32 (bf16 values) -> o [heads, S, D] float32."""
+    heads, D = q.shape[1], q.shape[2]
+    npad = Sp - S
+    pad = lambda t: np.concatenate([t, np.zeros((npad, heads, D),
+                                                np.float32)])
+    ks, vs = pad(k), pad(v)
+    out = np.zeros((heads, S, D), np.float32)
+    for h in range(heads):
+        qh, kh, vh = q[:, h], ks[:, h], vs[:, h]
+        s = (qh @ kh.T).astype(np.float32)
+        qn = np.sum(qh * qh, axis=-1, keepdims=True, dtype=np.float32)
+        kn = np.max(np.sum(kh * kh, axis=-1, keepdims=True, dtype=np.float32))
+        m = np.sqrt(qn * kn + np.float32(1e-12)).astype(np.float32)
+        e = _bf16_np(np.exp2(s - m).astype(np.float32))
+        d = np.sum(e, axis=-1, keepdims=True, dtype=np.float32)
+        if npad:
+            d = d - np.float32(npad) * np.exp2(-m).astype(np.float32)
+        out[h] = (e @ vh).astype(np.float32) * (np.float32(1.0) / d)
+    return out
+
+
+@pytest.mark.parametrize("B,S", [(1, 37), (2, 37)])
+def test_shifted_attention_matches_numpy_transcription(B, S):
+    """The twin's attention (fp32, before its bf16 rounding) against the
+    numpy transcription of the TPU kernel on a ragged S: 37 keys, padded to
+    48 on the TPU side, whose closed form removes the 11 zeroed tail keys
+    that the twin never has. q and k at 4x a unit draw (multiples of 1/2 in
+    [-1.5, 1.5], so every score is exact in fp32), each key near its own
+    query as a token's q and k are (then the 11 pads' bf16 rounding in the
+    closed form is ~2^-30 of d): atol 1e-6."""
+    rng = np.random.default_rng(20 + B)
+    heads, D = 2, 64
+    draw = lambda lo, hi: (4 * rng.integers(lo, hi, (B, S, heads, D))
+                           / 8).astype(np.float32)
+    q = draw(-2, 3)
+    k = q + draw(-1, 2)
+    v = _bf16_np(rng.uniform(-1, 1, (B, S, heads, D)).astype(np.float32))
+    want = np.stack([_shifted_attention_np(q[b], k[b], v[b], S, 48)
+                     for b in range(B)])
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = fused_vit.shifted_attention(tq, tk, tv).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    bf = torch.bfloat16
+    flat = lambda t: t.reshape(B * S, heads * D).to(bf)
+    twin = fused_vit._attention(flat(tq), flat(tk), flat(tv), B, S, heads)
+    want_rows = want.transpose(0, 2, 1, 3).reshape(B * S, heads * D)
+    # the bf16 rounding of the output: within one bf16 step
+    np.testing.assert_allclose(twin.float().numpy(), want_rows,
+                               atol=2.0 ** -8 * np.abs(want).max(), rtol=0)
+
+
+def test_shift_falls_back_to_the_row_max_where_the_bound_underflows():
+    """A row whose largest score lies far below the norm bound (q long and
+    orthogonal to the long keys): the TPU kernel's exponents all underflow
+    there (d = 0, a NaN row in the numpy transcription), and the twin
+    shifts that row by its largest score instead: finite, and the softmax
+    of the scores (bf16 exponents: atol 1e-2). The other rows keep the
+    bound (equal to the transcription at 1e-6)."""
+    S, heads, D = 6, 1, 64
+    q = np.zeros((1, S, heads, D), np.float32)
+    k = np.zeros((1, S, heads, D), np.float32)
+    q[0, 0, 0, 0] = 32.0        # row 0: long, along dim 0
+    k[0, :, 0, 1] = 32.0        # every key long along dim 1 (bound 1024)
+    k[0, 1, 0, 0] = 0.25        # one key with a small score for row 0
+    q[0, 1:, 0, 1] = 0.125      # rows 1..5 see the long keys (in range)
+    v = _bf16_np(np.random.default_rng(3).uniform(-1, 1, (1, S, heads, D))
+                 .astype(np.float32))
+    want = _shifted_attention_np(q[0], k[0], v[0], S, S)
+    assert not np.isfinite(want[0, 0]).all()  # the reference design's row
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = fused_vit.shifted_attention(tq, tk, tv).numpy()[0]
+    np.testing.assert_allclose(got[:, 1:], want[:, 1:], atol=1e-6, rtol=0)
+    s = q[0, 0, 0] @ k[0, :, 0].T  # row 0's scores (log2 domain)
+    p = np.exp2(s - s.max())
+    np.testing.assert_allclose(got[0, 0], p @ v[0, :, 0] / p.sum(),
+                               atol=1e-2, rtol=0)

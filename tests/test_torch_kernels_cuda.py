@@ -30,7 +30,9 @@ def _check(got, ref):
     assert err <= bound, (err, bound)
 
 
-@pytest.mark.parametrize("B,S,qk_norm", [(1, 100, False), (2, 77, True)])
+@pytest.mark.parametrize("B,S,qk_norm", [(1, 100, False), (2, 77, True),
+                                         (1, 1025, False), (2, 1025, True),
+                                         (13, 1025, False)])
 def test_fused_vit_kernel_matches_twin(cuda, B, S, qk_norm):
     from vlaser_tpu_torch.kernels import fused_vit
 
@@ -57,19 +59,12 @@ def test_fused_vit_kernel_matches_twin(cuda, B, S, qk_norm):
     _check(got, fused_vit.fused_vit_stack_plain(x, **vecs, **mats, **kw))
 
 
-@pytest.mark.parametrize("R,E,step0,wdtype,rope", [
-    (4, 37, False, "int8", "bf16"), (5, 33, True, "int8", "bf16"),
-    # the VLM decode: one row over a cache with masked slots, fp32 rope;
-    # 20,000 slots take the kernel past 48 KB of shared memory
-    (1, 3000, False, "int8", "f32"), (1, 20000, False, "int8", "f32"),
-    # the bf16-weight mode (unit scales)
-    (4, 37, False, "bf16", "bf16"), (1, 300, False, "bf16", "f32")])
-def test_fused_int8_kernel_matches_twin(cuda, R, E, step0, wdtype, rope):
+def _stack_args(cuda, R, E, step0, wdtype, rope, seed=1, H=4, KVH=2):
     from vlaser_tpu_torch.core.quant import quantize_int8
     from vlaser_tpu_torch.kernels import fused_decode, ops
 
-    g = torch.Generator(device=cuda).manual_seed(1)
-    L, C, inter, H, KVH, D = 2, 256, 640, 4, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    L, C, inter, D = 2, 256, 640, 128
     r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=cuda) * sc
     bf = torch.bfloat16
     ws = {}
@@ -96,6 +91,25 @@ def test_fused_int8_kernel_matches_twin(cuda, R, E, step0, wdtype, rope):
             ws["wo"], ws["so"], ws["wg"], ws["sg"], ws["wu"], ws["su"],
             ws["wd"], ws["sd"],
             r(L, E, KVH, D, sc=0.3).to(bf), r(L, E, KVH, D, sc=0.3).to(bf))
+    return args
+
+
+@pytest.mark.parametrize("R,E,step0,wdtype,rope", [
+    (4, 37, False, "int8", "bf16"), (5, 33, True, "int8", "bf16"),
+    # the VLM decode: one row over a cache with masked slots, fp32 rope
+    (1, 3000, False, "int8", "f32"), (1, 20000, False, "int8", "f32"),
+    # the bf16-weight mode (unit scales)
+    (4, 37, False, "bf16", "bf16"), (1, 300, False, "bf16", "f32"),
+    # the persistent stack at every row count and the caches of the
+    # serving paths: E 1 (one chunk), 385, 3,592 and 32,768 (129 chunks)
+    (1, 1, False, "int8", "f32"), (4, 385, False, "int8", "bf16"),
+    (5, 385, True, "bf16", "bf16"), (8, 385, False, "int8", "bf16"),
+    (8, 385, False, "bf16", "bf16"), (1, 3592, False, "bf16", "f32"),
+    (1, 32768, False, "int8", "f32"), (1, 32768, False, "bf16", "f32")])
+def test_fused_int8_kernel_matches_twin(cuda, R, E, step0, wdtype, rope):
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    args = _stack_args(cuda, R, E, step0, wdtype, rope)
     n = fused_decode.launch_count
     got = fused_decode.fused_int8_stack(*args)
     torch.cuda.synchronize()
@@ -105,25 +119,108 @@ def test_fused_int8_kernel_matches_twin(cuda, R, E, step0, wdtype, rope):
         _check(a, b)
 
 
-def test_fused_int8_refuses_a_cache_beyond_shared_memory(cuda):
-    """More external slots than the attention's shared memory holds: a
-    clear ValueError before any launch, not a refused launch."""
+@pytest.mark.parametrize("R,E,wdtype", [(1, 3592, "int8"), (5, 385, "int8"),
+                                        (4, 385, "bf16")])
+def test_fused_int8_two_calls_are_bit_equal(cuda, R, E, wdtype):
+    """Partials reduced in one fixed order, chunks combined in one fixed
+    order, barriers that publish every partial: two calls give the same
+    bits (a missing fence would read stale partials and differ)."""
     from vlaser_tpu_torch.kernels import fused_decode
 
-    L, C, inter, H, KVH, D, E = 1, 256, 512, 2, 1, 128, 70000
-    bf, i8 = torch.bfloat16, torch.int8
-    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=cuda)
-    mats = []
-    for k, n in ((C, H * D), (C, KVH * D), (C, KVH * D), (H * D, C),
-                 (C, inter), (C, inter), (inter, C)):
-        mats += [z(L, k, n, dt=i8), z(L, 1, n)]
+    args = _stack_args(cuda, R, E, False, wdtype, "f32", seed=3)
+    a = fused_decode.fused_int8_stack(*args)
+    for _ in range(3):
+        b = fused_decode.fused_int8_stack(*args)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_fused_int8_refuses_a_cache_beyond_shared_memory(cuda):
+    """70,000 external slots, past what the old kernel's shared-memory
+    scores held: the split-KV stack keeps no scores beyond one chunk, so it
+    runs (one launch) and matches its twin."""
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    args = _stack_args(cuda, 1, 70000, False, "int8", "f32", seed=4)
     n = fused_decode.launch_count
-    with pytest.raises(ValueError, match="shared"):
-        fused_decode.fused_int8_stack(
-            z(1, C, dt=bf), z(1, D), z(1, D), z(1, 1), z(1, E), z(L, C),
-            z(L, C), z(L, H * D), z(L, KVH * D), z(L, KVH * D), *mats,
-            z(L, E, KVH, D, dt=bf), z(L, E, KVH, D, dt=bf))
-    assert fused_decode.launch_count == n
+    got = fused_decode.fused_int8_stack(*args)
+    torch.cuda.synchronize()
+    assert fused_decode.launch_count == n + 1
+    for a, b in zip(got, fused_decode.fused_int8_stack_plain(*args)):
+        _check(a, b)
+
+
+@pytest.mark.parametrize("R,E,H,KVH", [(1, 3592, 12, 2), (4, 385, 12, 2),
+                                       (1, 1, 4, 2), (8, 700, 8, 1)])
+def test_split_kv_attention_kernel_matches_plain(cuda, R, E, H, KVH):
+    """The stack's attention phase alone (int8_stack_attention) against the
+    plain split-KV attention at the planner's chunk, fp32 softmax: 2e-2 of
+    the largest output (bf16 out)."""
+    from vlaser_tpu_torch.kernels import fused_decode as fd
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    D, bf = 128, torch.bfloat16
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q = (2 * r(R, H * D)).to(bf)
+    ke, ve = (2 * r(E, KVH, D)).to(bf), r(E, KVH, D).to(bf)
+    ks, vs = (2 * r(R, KVH, D)).to(bf), r(R, KVH, D).to(bf)
+    selfm = torch.zeros(R, R, device=cuda)
+    extm = torch.zeros(1, E, device=cuda)
+    extm[0, E // 2:] = fd.NEG_INF
+    got = fd.split_kv_attention(q, ke, ve, ks, vs, selfm, extm)
+    torch.cuda.synchronize()
+    chunk = fd.kv_chunk(E + R, KVH, R)
+    G = H // KVH
+    want = torch.empty(R, H * D, device=cuda)
+    for h in range(H):
+        keys = torch.cat([ke[:, h // G], ks[:, h // G]])
+        vals = torch.cat([ve[:, h // G], vs[:, h // G]])
+        mask = torch.cat([extm.expand(R, E), selfm], 1)
+        want[:, h * D:(h + 1) * D] = fd.split_kv_attention_plain(
+            q[:, h * D:(h + 1) * D].float() * D ** -0.5, keys, vals, mask,
+            chunk)
+    _check(got, want)
+
+
+@pytest.mark.parametrize("N", [128, 256])
+def test_transposed_b_wgmma_probe_matches_matmul(cuda, N):
+    """One 128 x N tile of the bf16 GEMM's product with B read MN-major
+    (wgmma's transposed B) from the JAX [K, N] layout: the descriptors and
+    swizzles checked alone. Products of bf16 values summed in fp32 over 64
+    terms: within 1e-3 of the fp32 product."""
+    import ctypes
+
+    from vlaser_tpu_torch.kernels import _build
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn(128, 64, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(64, N, generator=g, device=cuda).to(torch.bfloat16)
+    c = torch.empty(128, N, device=cuda)
+    fn = _build.bind("vit_wgmma_tb_probe", 3, (ctypes.c_int, ctypes.c_void_p))
+    _build.check(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), N,
+                    torch.cuda.current_stream().cuda_stream), "probe")
+    torch.cuda.synchronize()
+    want = a.float() @ b.float()
+    assert (c - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B", [1, 2, 13])
+def test_vit_attention_kernel_matches_twin(cuda, B):
+    """The one-pass attention under the norm-bound shift alone, at the
+    InternViT shape (S 1025, 16 heads x 64), q/k drawn as the stack's
+    phase 1 draws them (x4): bf16 out within 2e-2 of the largest."""
+    from vlaser_tpu_torch.kernels import fused_vit
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    S, heads, C = 1025, 16, 1024
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    qs = (r(B * S, C) * 0.5 * 64 ** -0.5 * fused_vit.LOG2E).to(torch.bfloat16)
+    ks, vs = (r(B * S, C) * 0.5).to(torch.bfloat16), r(B * S, C).to(
+        torch.bfloat16)
+    got = fused_vit.attention(qs, ks, vs, B, S, heads)
+    torch.cuda.synchronize()
+    _check(got, fused_vit._attention(qs, ks, vs, B, S, heads))
 
 
 def test_cuda_wrappers_refuse_wrong_dtypes(cuda):
@@ -458,7 +555,8 @@ def test_w8a8_kernels_match_plain(cuda, M, K, N, dtype):
     assert torch.equal(yb, y.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("B,S", [(1, 100), (2, 77)])
+@pytest.mark.parametrize("B,S", [(1, 100), (2, 77), (1, 1025), (2, 1025),
+                                 (13, 1025)])
 def test_fused_vit_act_quant_kernel_matches_twin(cuda, B, S):
     from vlaser_tpu_torch.core.quant import quantize_int8
     from vlaser_tpu_torch.kernels import fused_vit
@@ -510,3 +608,27 @@ def test_w8a8_dense_launches_both_kernels(cuda):
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(counts(), before)] == [1, 1]
     assert y.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()
+
+
+def test_vit_attention_kernel_shifts_out_of_range_rows_by_their_max(cuda):
+    """Rows whose largest score lies far below the norm bound (q long and
+    orthogonal to the long keys): the kernel runs its second pass and, as
+    the twin, shifts them by their largest score: finite, within 2e-2 of
+    the twin; the in-range rows of the same block too."""
+    from vlaser_tpu_torch.kernels import fused_vit
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    B, S, heads = 2, 300, 16
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q, k, v = r(B, S, heads, 64) * 0.3, r(B, S, heads, 64) * 0.3, r(B, S,
+                                                                    heads, 64)
+    k[..., 1] = 32.0           # every key long along dim 1
+    q[0, :20] = 0.0
+    q[0, :20, :, 0] = 32.0     # 20 rows long along dim 0: out of range
+    q[0, :20, :, 2] = 1.0
+    k[0, :, :, 2] = r(S, heads)
+    bf = torch.bfloat16
+    qs, ks, vs = (t.reshape(B * S, heads * 64).to(bf) for t in (q, k, v))
+    got = fused_vit.attention(qs, ks, vs, B, S, heads)
+    torch.cuda.synchronize()
+    _check(got, fused_vit._attention(qs, ks, vs, B, S, heads))

@@ -120,6 +120,20 @@ def test_cpu_wrappers_take_the_twin_and_launch_nothing():
     assert (fused_vit.launch_count, fused_decode.launch_count) == before
 
 
+def test_stack_launch_has_no_fallback_around_the_cooperative_launch():
+    """The decoder stack's CUDA route is one cooperative launch whose error
+    the wrapper raises: no `try` (that could turn a refused launch into the
+    twin or the old kernel chain) in the wrapper or its entry point."""
+    import inspect
+
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    for fn in (fused_decode._launch, fused_decode.fused_int8_stack):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and "except" not in src, fn.__name__
+    assert "_build.check(code" in inspect.getsource(fused_decode._launch)
+
+
 @pytest.mark.parametrize("which", ["fused_vit_stack", "fused_int8_stack"])
 def test_no_route_for_other_devices(which):
     """A tensor that is neither on the CPU nor on a CUDA device raises

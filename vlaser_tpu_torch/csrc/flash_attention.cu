@@ -173,40 +173,6 @@ __device__ __forceinline__ bool allowed(int qm, int km) {
   return qs == ks && ks != 0 && (km & 3) <= (qm & 3);
 }
 
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// An accumulator row block re-packed to bf16 A operands: f[4 kk + i] is
-// register i of the 64 x 16 tile of k-step kk (columns 16 kk ...).
-template <int N>
-__device__ __forceinline__ void to_frags(uint32_t (&f)[N / 4],
-                                         const float (&c)[N / 2]) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) f[i] = pack_f(c[2 * i], c[2 * i + 1]);
-}
-__device__ __forceinline__ const uint32_t (&frag(const uint32_t* f,
-                                                 int kk))[4] {
-  return *reinterpret_cast<const uint32_t(*)[4]>(f + 4 * kk);
-}
-
-// Row and column of accumulator entry e of thread (warp, g, t) of a
-// warpgroup: row warp * 16 + g + 8 * rsel(e), column col(e, t).
-__device__ __forceinline__ int rsel(int e) { return (e >> 1) & 1; }
-__device__ __forceinline__ int col(int e, int t) {
-  return (e >> 2) * 8 + 2 * t + (e & 1);
-}
-
 // -- tiles in shared memory ---------------------------------------------------
 // Descriptor of a K-major operand: rows [r0, ...) of a tile of R rows,
 // k-step kk (columns 16 kk .. 16 kk + 15).
@@ -239,10 +205,6 @@ __device__ __forceinline__ void load_tile(bf16* tile, int R,
 #pragma unroll
   for (int c = 0; c < C::NCH; ++c)
     tma_load_4d(tile + c * R * C::CW, map, bar, c * C::CW, h, s, b);
-}
-
-__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // -- forward ------------------------------------------------------------------

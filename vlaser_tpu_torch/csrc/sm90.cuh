@@ -21,6 +21,7 @@
 // memory with set_smem.
 #pragma once
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
 
@@ -269,7 +270,9 @@ struct Mma<80> {
 
 template <>
 struct Mma<128> {
-  // D (64 x 128) (+)= A (smem, K-major) . B (smem, K-major)
+  // D (64 x 128) (+)= A (smem, K-major) . B (smem, K-major; MN-major with
+  // TB = 1, wgmma's transposed B)
+  template <int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
                                             uint64_t b, int scale_d) {
     asm volatile(
@@ -280,7 +283,7 @@ struct Mma<128> {
         "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-        "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -294,7 +297,7 @@ struct Mma<128> {
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
   // D (64 x 128) (+)= A (registers) . B (smem, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[64],
@@ -328,7 +331,9 @@ struct Mma<128> {
 
 template <>
 struct Mma<256> {
-  // D (64 x 256) (+)= A (smem, K-major) . B (smem, K-major)
+  // D (64 x 256) (+)= A (smem, K-major) . B (smem, K-major; MN-major with
+  // TB = 1)
+  template <int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a,
                                             uint64_t b, int scale_d) {
     asm volatile(
@@ -344,7 +349,7 @@ struct Mma<256> {
         "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-        "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -371,7 +376,7 @@ struct Mma<256> {
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
   // D (64 x 256) (+)= A (registers) . B (smem, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[128],
@@ -420,6 +425,47 @@ struct Mma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
+
+// -- accumulator fragments ----------------------------------------------------
+__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// max / sum over the four threads (t = 0..3) that share an accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// An accumulator row block re-packed to bf16 A operands: f[4 kk + i] is
+// register i of the 64 x 16 tile of k-step kk (columns 16 kk ...).
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&f)[N / 4],
+                                         const float (&c)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) f[i] = pack_f(c[2 * i], c[2 * i + 1]);
+}
+__device__ __forceinline__ const uint32_t (&frag(const uint32_t* f,
+                                                 int kk))[4] {
+  return *reinterpret_cast<const uint32_t(*)[4]>(f + 4 * kk);
+}
+
+// Row and column of accumulator entry e of thread (warp, g, t) of a
+// warpgroup: row warp * 16 + g + 8 * rsel(e), column col(e, t).
+__device__ __forceinline__ int rsel(int e) { return (e >> 1) & 1; }
+__device__ __forceinline__ int col(int e, int t) {
+  return (e >> 2) * 8 + 2 * t + (e & 1);
+}
+
+// the first 1024-byte boundary at or after p (swizzled tiles' alignment)
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
 
 // m64nNk32, s8 inputs (both K-major), int32 accumulators in registers, in
 // the layout of the fp32 accumulators above: thread (warp w, lane 4g + t)

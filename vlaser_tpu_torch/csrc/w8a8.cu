@@ -175,9 +175,6 @@ struct GemmL {
   static constexpr int BYTES = BAR_OFF + 2 * NST * 8 + 1024;  // + alignment
 };
 
-__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 // Descriptor of k-step kk (32 bytes of K) of a K-major int8 tile whose rows
 // are 128-byte swizzle rows (8 rows: 1024 bytes).
 __device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int kk) {

@@ -9,11 +9,17 @@ other device raises, and a failed build or launch raises.
 Rounding points (both versions, as the TPU kernel): LayerNorm in fp32 ->
 bf16; QKV in fp32 with bias; optional full-hidden QK-RMSNorm in fp32; q is
 scaled by head_dim^-0.5*log2(e) and q/k/v are rounded to bf16; softmax in
-exp2 with one shift per row (the row max), exponent rounded to bf16 for the
-P.V product and the denominator; attention out bf16; proj/fc2 outputs are
+exp2 under the TPU kernel's shift, no row max: every score of a row is
+shifted by m = sqrt(||q_h||^2 * max_r ||k_h||^2 + 1e-12) (Cauchy-Schwarz on
+the bf16 operands, norms in fp32), e = exp2(s - m) rounded to bf16 for the
+P.V product, the denominator d summed over the rounded e in fp32, and the
+output multiplied by 1 / d (a row whose d falls below MIN_D = 2^-100,
+where the TPU kernel's exponents underflow to a NaN row, is shifted by its
+largest score); attention out bf16; proj/fc2 outputs are
 rounded to bf16 before `x + out * ls` (fp32) -> bf16; fc1 -> exact-erf GELU
--> bf16. The TPU kernel's Cauchy-Schwarz shift and polynomial erf are
-replaced by the row max and erf (same function, within bf16 rounding).
+-> bf16. The TPU kernel's polynomial erf is replaced by erf (the same
+function within bf16 rounding); its padded keys (B > 1), whose closed-form
+correction `d - npad * 2^-m` removes them, are not there at all.
 
 act_quant (w8a8) mode: int8 weights K-major [L, N, K] (the layout the int8
 tensor-core GEMM reads; `pack_vit_stack` packs them so) with fp32 scales
@@ -73,17 +79,45 @@ def _fc2_groups(B: int) -> int:
     return 1 if B == 1 else 2
 
 
+MIN_D = 2.0 ** -100  # a denominator under the norm bound below this: the
+# row's exponents have underflowed (or nearly)
+
+
+def norm_bound(q, k):
+    """The TPU kernel's shift for q/k [B, S, heads, D] (bf16 values, q in
+    the log2 domain): m = sqrt(||q||^2 max_r ||k_r||^2 + 1e-12) [B, heads,
+    S, 1], which no score of the row exceeds (Cauchy-Schwarz)."""
+    qn = (q * q).sum(-1).permute(0, 2, 1)[..., None]  # [B, heads, S, 1]
+    kn = (k * k).sum(-1).amax(1)[:, :, None, None]    # [B, heads, 1, 1]
+    return torch.sqrt(qn * kn + 1e-12)
+
+
+def shifted_attention(q, k, v):
+    """The TPU kernel's softmax.V (fused_vit.py:270-281, 374-381) in fp32:
+    q/k/v [B, S, heads, D] (bf16 values, q in the log2 domain) -> o [B,
+    heads, S, D] fp32, before its bf16 rounding. Every score of a row is
+    shifted by the norm bound m; e = bf16(exp2(s - m)); o = (e.V) / d with d
+    the fp32 sum of the rounded e. A row whose d falls below MIN_D, where
+    the TPU kernel's exponents underflow (d = 0: a NaN row), is shifted by
+    its largest score instead."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    m = norm_bound(q, k)
+    e = torch.exp2(s - m).to(torch.bfloat16).float()
+    d = e.sum(-1, keepdim=True)
+    low = d < MIN_D
+    if low.any():
+        m = torch.where(low, s.amax(-1, keepdim=True), m)
+        e = torch.exp2(s - m).to(torch.bfloat16).float()
+        d = e.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bhqd", e, v) * (1.0 / d)
+
+
 def _attention(qs, ks, vs, B, S, heads):
     """qs/ks/vs bf16 [B*S, C], q pre-scaled into the log2 domain."""
     C = qs.shape[-1]
     D = C // heads
-    q = qs.view(B, S, heads, D).float()
-    k = ks.view(B, S, heads, D).float()
-    v = vs.view(B, S, heads, D).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    e = torch.exp2(s - s.amax(-1, keepdim=True)).to(torch.bfloat16).float()
-    d = e.sum(-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bhqd", e, v) * (1.0 / d)
+    q, k, v = (t.view(B, S, heads, D).float() for t in (qs, ks, vs))
+    o = shifted_attention(q, k, v)
     return o.permute(0, 2, 1, 3).reshape(B * S, C).to(torch.bfloat16)
 
 
@@ -137,13 +171,39 @@ def fused_vit_stack_plain(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
 
 
 _SIGNATURES = {  # C name -> (pointer args, the types after them)
-    "vit_stack_forward": (24, (ctypes.c_int,) * 6 + (
+    "vit_stack_forward": (26, (ctypes.c_int,) * 6 + (
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)),
-    "vit_stack_forward_w8a8": (31, (ctypes.c_int,) * 6 + (
+    "vit_stack_forward_w8a8": (33, (ctypes.c_int,) * 6 + (
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
         ctypes.c_void_p)),
 }
 _fns = {}
+
+
+def attention_norms(qs, ks, B, S, heads):
+    """The shift's inputs for `attention`, in fp32 from the bf16 values:
+    ||q_h||^2 [B*S, heads] and the bits of max_r ||k_h||^2 [B, heads]."""
+    q, k = (t.view(B, S, heads, 64).float() for t in (qs, ks))
+    return ((q * q).sum(-1).reshape(B * S, heads).contiguous(),
+            (k * k).sum(-1).amax(1).contiguous().view(torch.int32))
+
+
+def attention(qs, ks, vs, B, S, heads, norms=None):
+    """The stack's attention kernel alone on the card (timing and tests):
+    qs/ks/vs bf16 [B*S, heads * 64], q pre-scaled into the log2 domain ->
+    bf16 [B*S, heads * 64], as `_attention` computes it; `norms` from
+    `attention_norms` (taken here when not given)."""
+    fn = _fns.get("attention")
+    if fn is None:
+        fn = _fns["attention"] = _build.bind(
+            "vit_attention_forward", 6, (ctypes.c_int,) * 3 + (
+                ctypes.c_void_p,))
+    qn, kmax = norms or attention_norms(qs, ks, B, S, heads)
+    out = torch.empty_like(qs)
+    code = fn(*[t.data_ptr() for t in (qs, ks, vs, qn, kmax, out)], B, S,
+              heads, torch.cuda.current_stream(qs.device).cuda_stream)
+    _build.check(code, "vit_attention_forward")
+    return out
 
 
 def _kernel(name):
@@ -165,8 +225,8 @@ def _check_args(x, vecs, mats, scales, num_heads):
     dev = x.device
     if C % num_heads or C // num_heads != 64:
         raise ValueError("fused_vit_stack CUDA kernel needs head_dim 64")
-    # 16-byte rows: bf16 cp.async (8), int8 TMA strides (16; inter in two
-    # fc2 halves of 16)
+    # 16-byte rows: bf16 TMA strides (8), int8 TMA strides (16; inter in
+    # two fc2 halves of 16)
     c_mult, i_mult = (8, 8) if scales is None else (16, 32)
     if C % c_mult or inter % i_mult:
         raise ValueError(f"fused_vit_stack CUDA kernel needs C % {c_mult} "
@@ -192,12 +252,21 @@ def _check_args(x, vecs, mats, scales, num_heads):
     return B, S, C, L, inter
 
 
+def _norm_scratch(B, S, C, dev):
+    """The attention's shift inputs: ||q_h||^2 fp32 [B*S, heads] and max_r
+    ||k_h||^2 [B, heads] (the float's bits, int32)."""
+    heads = C // 64
+    return [torch.empty((B * S, heads), dtype=torch.float32, device=dev),
+            torch.empty((B, heads), dtype=torch.int32, device=dev)]
+
+
 def w8a8_scratch(B, S, C, inter, dev):
     """The act_quant stack's scratch, in the C function's order: int8
     activations and their row amax (two groups at B > 1), qkv fp32, q / k /
     v / attention bf16, the fp32 GELU output fc2 quantizes, fc2's fp32
-    partial sum over the first half (B > 1) and the GEMM's int32 partials
-    (its K splits) -> (tensors, int32 elements of the last)."""
+    partial sum over the first half (B > 1), the GEMM's int32 partials (its
+    K splits) and the attention's shift inputs -> (tensors, int32 elements
+    of the GEMM's partials)."""
     M, f32 = B * S, torch.float32
     e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=dev)
     fn = _build.library().vit_w8a8_workspace
@@ -207,7 +276,8 @@ def w8a8_scratch(B, S, C, inter, dev):
     return [e(M, max(C, inter), dt=torch.int8), e(M, 2, dt=f32),
             e(M, 3 * C, dt=f32), e(M, C), e(M, C), e(M, C), e(M, C),
             e(M, inter, dt=f32), e(M if B > 1 else 1, C, dt=f32),
-            e(max(n_ws, 1), dt=torch.int32)], n_ws
+            e(max(n_ws, 1), dt=torch.int32), *_norm_scratch(B, S, C, dev)], \
+        n_ws
 
 
 def _launch(x, vecs, mats, scales, num_heads, eps, qk_norm):
@@ -225,7 +295,8 @@ def _launch(x, vecs, mats, scales, num_heads, eps, qk_norm):
     if scales is None:
         e = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=dev)
         ptrs = [out, *vecs, *mats, e(M, C), e(M, 3 * C, dt=torch.float32),
-                e(M, C), e(M, C), e(M, C), e(M, C), e(M, inter)]
+                e(M, C), e(M, C), e(M, C), e(M, C), e(M, inter),
+                *_norm_scratch(B, S, C, dev)]
         tail = (*tail, stream)
     else:
         scratch, n_ws = w8a8_scratch(B, S, C, inter, dev)
