@@ -5,7 +5,9 @@
 
 With --ab (or its older name --flash-ab), the flash kernels, the int8 GEMM
 (one Qwen2.5-1.5B layer's 7 GEMMs at 384, 3,072 and 3,584 rows, the
-InternViT-300M stack's 4 products at 13,325 rows), the RMSNorm backward
+InternViT-300M stack's 4 products at 13,325 rows), the layer's activation
+quantization at the same rows (the parent's route of 7 quantize_rows
+launches and an eager silu * u against 4 launches), the RMSNorm backward
 (12,288 x 1536), the fused ViT stack (bf16 at B 1, act_quant at B 1, 8 and
 13) and the decoder stack (the decode at 384, 3,592 and 32,768 slots in
 both weight modes, the denoise suffix at R 4 and 5) are also timed against
@@ -42,7 +44,10 @@ Serving, w8a8 (the default: quantize_for_serving(target="policy")):
      and 3,072 rows) against their plain versions: int8 rows bit-identical,
      each y within one fp32 rounding; controls (half-away rounding on a row
      of exact .5 ties, row scale dropped, column scale dropped) must break
-     the checks; timed against the plain versions and torch._int_mm;
+     the checks; timed against the plain versions and torch._int_mm; then
+     quantize_silu_mul (down's input, h = silu(g) * u never stored) bit for
+     bit against the eager product's rows (control: the product unrounded)
+     and the layer's 4 quantizer launches timed against their bound;
   5. fused_vit_stack in act_quant mode at batch 1 and batch 8 against its
      twin, with phase 1's visible draws and bound; controls (input
      unchanged, activation scale dropped, MLP dropped, and at batch 8 fc2
@@ -103,7 +108,7 @@ quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
      13-tile output bit-equal to the kernel's at B = 8 and 5 on the same
      tiles; layer 0's differing int8 fc2 inputs counted; the attention
      kernel alone at B 13 x 1025 x 16 x 64 against its twin, timed beside
-     SDPA), quantize_rows +
+     SDPA), quantize_rows, quantize_silu_mul and
      int8_gemm at the prefill's rows, the causal flash prefill over the
      cache buffer (padded and future slots segment 0), again under a
      sliding window of 1,024 (control: window ignored), _rms_fwd at the
@@ -111,7 +116,9 @@ quantize_for_serving(model) with its defaults, target "vlm", mode "w8a8"):
   14. VlaserChat.chat with 13 tiles, 8 new tokens, bench.py's stub
      tokenizer: a warm-up, then 3 calls with the launch counters zeroed just
      before and read just after, held to the counts the code implies; the
-     stage times (ViT, prefill, decode per token, lm_head per token);
+     stage times (ViT, prefill, decode per token, lm_head per token); one
+     prefill under torch.profiler: 4 quantizer launches a layer, no eager
+     silu;
   15. one 13-tile chat call under torch.profiler;
   16. bench.py's decode configuration (1 tile, a 320-token prompt, 64 new
      tokens, mode "int8"): vlm_decode_tok_mismatches of the fused vs the
@@ -143,6 +150,7 @@ the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
 
 import gc
+import itertools
 import json
 import math
 import os
@@ -244,6 +252,25 @@ def _kernel_ms(torch, fn, iters):
     return ms
 
 
+# more than the H100's 50 MB of L2: inputs cycled through this many bytes
+# are read from device memory on every call
+COLD_BYTES = 64 << 20
+
+
+def _cold_ms(torch, fn, args, iters):
+    """_kernel_ms of fn(*args) with args cycled through copies that hold
+    COLD_BYTES or more together, so that each call reads its inputs from
+    device memory (the bytes a bound counts), not from the L2 in which a
+    repeated small input would stay."""
+    n = sum(t.numel() * t.element_size() for t in args)
+    sets = [tuple(args)] + [tuple(t.clone() for t in args)
+                            for _ in range(-(-COLD_BYTES // n) - 1)]
+    it = itertools.cycle(sets)
+    ms = _kernel_ms(torch, lambda: fn(*next(it)), iters)
+    del sets, it
+    return ms
+
+
 def _queued_ms(torch, fn, iters, cycles, markers):
     """-> (device ms a call over `iters` calls queued behind a sleep, whether
     the device may have run dry while they were queued)."""
@@ -287,6 +314,7 @@ def _counters():
             "fused_vit_stack_w8a8": (fused_vit, "act_quant_launch_count"),
             "fused_int8_stack": (fused_decode, "launch_count"),
             "quantize_rows": (w8a8, "quant_launch_count"),
+            "quantize_silu_mul": (w8a8, "silu_quant_launch_count"),
             "int8_gemm": (w8a8, "gemm_launch_count"),
             "flash_attention_fwd": (fa, "fwd_launch_count"),
             "flash_attention_bwd": (fa, "bwd_launch_count"),
@@ -767,11 +795,22 @@ def _gemm_sites(att, mlp):
             ("down_proj", mlp.down_proj))
 
 
+# the sites whose inputs the main path quantizes with quantize_rows, once
+# each: q/k/v share q_proj's input, gate/up gate_proj's; down_proj's input
+# is quantize_silu_mul's (layer_quant_phase)
+QUANT_SITES = ("q_proj", "o_proj", "gate_proj")
+
+
 def gemm_phase(torch, sites, rows_list, dev, tag):
     """K1 (quantize_rows) and K2 (int8_gemm) at one layer's 7 GEMM shapes
     (layer 0's int8 weights of `sites`) for each row count, against the
     plain versions, with controls; timed against the plain versions and
-    torch._int_mm. -> {rows: (K1 report, K2 report)}."""
+    torch._int_mm, each K1 call on inputs cycled through COLD_BYTES
+    (_cold_ms). Each report's ms, plain_ms and bound_ms sum the 7 shapes
+    (as in every run since the port began); K1's "main_path" sums the 3
+    inputs the main path quantizes with it (QUANT_SITES). Then the layer's
+    4-launch quantization and K3 (quantize_silu_mul, layer_quant_phase).
+    -> {rows: (K1, K2, K3 reports)}."""
     from vlaser_tpu_torch.kernels import w8a8
 
     g = torch.Generator(device=dev)
@@ -781,6 +820,8 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
         # sums over the 7 shapes; "by": bound ms per bounding resource
         k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": None}
+        main = {"inputs": len(QUANT_SITES), "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0}
         k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": 0.0, "torch_w8a8_ms": 0.0}
         for name, d in sites:
@@ -827,7 +868,7 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
             k2["max_abs_err"] = max(k2["max_abs_err"], err)
 
             # timing: the main path's call (bf16 out)
-            t1 = _kernel_ms(torch, lambda: w8a8.quantize_rows(x), 20)
+            t1 = _cold_ms(torch, w8a8.quantize_rows, (x,), 20)
             t2 = _kernel_ms(torch, lambda: w8a8.int8_gemm(q, am, kq, ks,
                                                    torch.bfloat16), 20)
             p1 = _kernel_ms(torch, lambda: w8a8.quantize_rows_plain(x), 5)
@@ -847,6 +888,10 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
             b1_ms, b1_by = _bound_s(0, rows * K * 3 + rows * 4)
             b2_ms, b2_by = _bound(2 * rows * K * N, rows * K + K * N + N * 4
                                   + rows * 4 + rows * N * 2, PEAK_INT8)
+            if name in QUANT_SITES:
+                main["ms"] += t1
+                main["plain_ms"] += p1
+                main["bound_ms"] += b1_ms
             for rep, t, pt, bd, by in ((k1, t1, p1, b1_ms, b1_by),
                                        (k2, t2, p2, b2_ms, b2_by)):
                 rep["ms"] += t
@@ -862,13 +907,85 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
         for rep in (k1, k2):
             by = rep.pop("by")
             rep["bound_by"] = max(by, key=by.get)
+        k1["main_path"] = main
         print(f"w8a8 one layer's 7 prefix GEMMs at {rows} rows: quantize_rows "
-              f"{k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}), int8_gemm "
+              f"{k1['ms']:.4f} ms at the 7 shapes (bound "
+              f"{k1['bound_ms']:.4f}; at the main path's 3 inputs "
+              f"{main['ms']:.4f}, bound {main['bound_ms']:.4f}), int8_gemm "
               f"{k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, "
               f"{k2['bound_by']}), torch._int_mm {k2['library_ms']:.4f} ms "
               f"{tag}", flush=True)
-        out[rows] = (k1, k2)
+        k3, k1["layer"] = layer_quant_phase(
+            torch, rows, dict(sites)["q_proj"].kernel_q.shape[-2],
+            dict(sites)["down_proj"].kernel_q.shape[-2], dev, tag)
+        out[rows] = (k1, k2, k3)
     return out
+
+
+def _silu_mul_inputs(torch, g, rows, I, dev):
+    """g, u bf16 [rows, I] (N(0, 2^2), N(0, 1)): row 0 makes h the tie row
+    (silu(64) = 64, u = tie / 64, exact in bf16), row 1 makes h zero."""
+    gg = torch.randn(rows, I, generator=g, device=dev) * 2
+    uu = torch.randn(rows, I, generator=g, device=dev)
+    gg[0], uu[0] = 64.0, _tie_row(torch, I, dev) / 64.0
+    gg[1], uu[1] = 0.0, 0.0
+    return gg.to(torch.bfloat16), uu.to(torch.bfloat16)
+
+
+def layer_quant_phase(torch, rows, C, I, dev, tag):
+    """One Qwen2 layer's activation quantization as its main path runs it
+    at `rows` rows: quantize_rows on the 3 distinct C-wide inputs (q/k/v's,
+    o's, gate/up's) and quantize_silu_mul on g, u [rows, I] (down's).
+    quantize_silu_mul against its plain version (the eager F.silu(g) * u,
+    then quantize_rows_plain): int8 rows and am bit for bit; control: the
+    product left in fp32 (no bf16 rounding) must break it. Timed: the
+    silu-mul kernel beside its plain version and the eager silu * u alone;
+    the 4 launches together beside their bound, rows x (3 x (3C + 4) + 5I +
+    4) bytes (58,640 a row for Qwen2.5-1.5B); the kernels on inputs cycled
+    through COLD_BYTES (_cold_ms). -> (K3 report, layer report)."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import w8a8
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(28)
+    bf = torch.bfloat16
+    xs = [torch.randn(rows, C, generator=g, device=dev).to(bf)
+          for _ in range(3)]
+    gg, uu = _silu_mul_inputs(torch, g, rows, I, dev)
+    q, am = w8a8.quantize_silu_mul(gg, uu)
+    torch.cuda.synchronize()
+    p_q, p_am = w8a8.quantize_silu_mul_plain(gg, uu)
+    bad = int((q != p_q).sum())
+    ctrl = int((w8a8.quantize_rows_plain(F.silu(gg).float() * uu.float())[0]
+                != q).sum())
+    what = f"quantize_silu_mul {rows}x{I}"
+    print(f"{what}: int8 rows differing {bad}, am equal "
+          f"{torch.equal(am, p_am)}; control (the product unrounded) "
+          f"breaks {ctrl} (must be > 0) {tag}", flush=True)
+    if bad or not torch.equal(am, p_am) or ctrl == 0:
+        raise RuntimeError(f"{what}: kernel disagrees with plain")
+    t3 = _cold_ms(torch, w8a8.quantize_silu_mul, (gg, uu), 20)
+    p3 = _kernel_ms(torch, lambda: w8a8.quantize_silu_mul_plain(gg, uu), 5)
+    eager = _kernel_ms(torch, lambda: F.silu(gg) * uu, 20)
+    b3, b3_by = _bound_s(0, rows * I * 5 + rows * 4)
+
+    def layer(*ins):
+        for x in ins[:3]:
+            w8a8.quantize_rows(x)
+        w8a8.quantize_silu_mul(*ins[3:])
+
+    tl = _cold_ms(torch, layer, (*xs, gg, uu), 20)
+    bl, _ = _bound_s(0, rows * (3 * (3 * C + 4) + 5 * I + 4))
+    print(f"  {what} time: {t3:.4f} ms (plain {p3:.4f}, bound {b3:.4f}; the "
+          f"eager F.silu(g) * u alone {eager:.4f}) {tag}", flush=True)
+    print(f"w8a8 one layer's quantization at {rows} rows: 4 launches "
+          f"{tl:.4f} ms (bound {bl:.4f}, {bl / tl:.1%} of it) {tag}",
+          flush=True)
+    k3 = {"max_abs_err": float(bad), "ms": t3, "plain_ms": p3,
+          "bound_ms": b3, "bound_by": b3_by, "library_ms": None,
+          "eager_silu_mul_ms": eager}
+    return k3, {"launches": 4, "ms": tl, "bound_ms": bl}
 
 
 @contextmanager
@@ -1274,9 +1391,10 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
     vlm = model.joint.layers.vlm
     out = gemm_phase(torch, _gemm_sites(vlm, vlm.mlp),
                      (S, B8 * S), dev, tag)
-    (k1, k2), (k1b8, k2b8) = out[S], out[B8 * S]
-    k1["b8"], k2["b8"] = k1b8, k2b8
+    (k1, k2, k3), (k1b8, k2b8, k3b8) = out[S], out[B8 * S]
+    k1["b8"], k2["b8"], k3["b8"] = k1b8, k2b8, k3b8
     report["quantize_rows"], report["int8_gemm"] = k1, k2
+    report["quantize_silu_mul"] = k3
     rep = vit_w8a8_phase(torch, model.vision_model, cfg.vlm.vision, dev, px8,
                          (1, B8), tag)
     rep[1]["b8"] = rep[B8]
@@ -1286,9 +1404,12 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
 
     # -- main path 1: the fused PolicyServer at batch 1 ---------------------
     L = cfg.vlm.llm.num_layers
+    # the VLM prefix's layers: q/k/v share one quantization, o its own,
+    # gate/up one, down the silu-mul kernel; 7 GEMMs
     per_step = {"fused_vit_stack_w8a8": 1,
                 "fused_int8_stack": cfg.num_inference_steps,
-                "quantize_rows": 7 * L, "int8_gemm": 7 * L}
+                "quantize_rows": 3 * L, "quantize_silu_mul": L,
+                "int8_gemm": 7 * L}
     stats = {"action": {"p01": [-0.05] * 6 + [0.0], "p99": [0.05] * 6 + [1.0],
                         "mean": [0.0] * 7, "std": [1.0] * 7},
              "proprio": {"p01": [-0.5] * 6 + [0.0], "p99": [0.5] * 6 + [1.0],
@@ -1321,8 +1442,8 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
 
     # -- main path 2: the batched path at batch 8 ---------------------------
     batched = make_batched_infer_action(model)
-    per_step8 = {"fused_vit_stack_w8a8": 1, "quantize_rows": 7 * L,
-                 "int8_gemm": 7 * L}
+    per_step8 = {"fused_vit_stack_w8a8": 1, "quantize_rows": 3 * L,
+                 "quantize_silu_mul": L, "int8_gemm": 7 * L}
     if B8 * S >= 2048 and cfg.vlm.llm.hidden_size <= 2048:
         per_step8["_rms_fwd"] = 2 * L  # the VLM mixture's two norms a layer
     torch.cuda.synchronize()
@@ -2206,6 +2327,21 @@ def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag, window=None):
     return rep
 
 
+def prefill_quant_profile(torch, prefill, L, n, tag):
+    """One prefill under torch.profiler: the activation quantizer's kernel
+    must launch 4 times a layer (q/k/v, o, gate/up, the silu-mul of down)
+    and no eager silu kernel may run."""
+    keys = _profile(torch, prefill, f"{n}-row prefill", tag,
+                    quiet=True)["launch_keys"]
+    nq = sum(c for k, c in keys.items() if "w8a8::quantize" in k)
+    ns = sum(c for k, c in keys.items() if "silu" in k.lower())
+    print(f"profiled {n}-row prefill: {nq} quantizer launches ({nq / L:g} a "
+          f"layer, {L} layers), {ns} eager silu launches {tag}", flush=True)
+    if nq != 4 * L or ns:
+        raise RuntimeError(f"prefill: {nq} quantizer and {ns} silu launches, "
+                           f"not {4 * L} and 0")
+
+
 def chat_phases(torch, np, dev, cfg, tag, report):
     """Phases 12-16, the Vlaser-2B chat path: -> launches of the main path
     (3 timed 13-tile VlaserChat.chat calls)."""
@@ -2251,8 +2387,8 @@ def chat_phases(torch, np, dev, cfg, tag, report):
     # -- phase 13: the other kernels at the chat shapes ---------------------
     vit = vit_chat_phase(torch, model.vision_model, vcfg, dev, tiles, tag)
     lay = model.language_model.model.layers
-    (k1, k2), = gemm_phase(torch, _gemm_sites(lay.self_attn, lay.mlp), (n,),
-                           dev, tag).values()
+    (k1, k2, k3), = gemm_phase(torch, _gemm_sites(lay.self_attn, lay.mlp),
+                               (n,), dev, tag).values()
     flash = flash_prefill_phase(torch, dev, llm, n_valid, n, E, tag)
     # the same prefill under a sliding window short enough to bite (a Qwen2
     # config's sliding_window; Vlaser-2B ships without one)
@@ -2268,11 +2404,13 @@ def chat_phases(torch, np, dev, cfg, tag, report):
     resp = chat.chat(question, tiles)  # warm-up
     torch.cuda.synchronize()
     # derived from the code: one act_quant ViT stack; 7 w8a8 Dense a layer
-    # in the prefill (>= 128 rows); the prefill's attention and its 2 norms a
+    # in the prefill (>= 128 rows) on 4 quantizations (q/k/v, o, gate/up,
+    # the silu-mul of down); the prefill's attention and its 2 norms a
     # layer plus the final norm take their kernels at the JAX dispatch's row
     # thresholds; one fused stack per decoded token after the first
-    per_call = {"fused_vit_stack_w8a8": 1, "quantize_rows": 7 * L,
-                "int8_gemm": 7 * L, "fused_int8_stack": CHAT_NEW - 1}
+    per_call = {"fused_vit_stack_w8a8": 1, "quantize_rows": 3 * L,
+                "quantize_silu_mul": L, "int8_gemm": 7 * L,
+                "fused_int8_stack": CHAT_NEW - 1}
     if n >= fa.SQ_MIN:
         per_call["flash_attention_fwd"] = L
     if n >= rmsnorm.MIN_ROWS and llm.hidden_size <= rmsnorm.MAX_HIDDEN:
@@ -2330,6 +2468,10 @@ def chat_phases(torch, np, dev, cfg, tag, report):
             lengths), 10)
         hidden = torch.randn(1, llm.hidden_size, device=dev).to(torch.bfloat16)
         head_ms = _kernel_ms(torch, lambda: fr._head_logits(head, hidden), 10)
+        prefill_quant_profile(torch, lambda: model.prefill(
+            ids, None, seg, KVCache.create(L, 1, E, llm.num_kv_heads,
+                                           llm.head_dim, torch.bfloat16, dev),
+            visual_features=feats), L, n, tag)
     print(f"chat stages, each timed alone (CUDA events): ViT "
           f"({CHAT_TILES} tiles, fused act_quant) {vit_ms:.3f} ms, prefill "
           f"({n} rows) {prefill_ms:.3f} ms, decode {step_ms:.3f} ms per "
@@ -2356,6 +2498,7 @@ def chat_phases(torch, np, dev, cfg, tag, report):
     for Ek, r in dec["attention"].items():
         st[f"attention_alone_e{Ek}"] = r
     for name, r in (("fused_vit_stack_w8a8", vit), ("quantize_rows", k1),
+                    ("quantize_silu_mul", k3),
                     ("int8_gemm", k2), ("flash_attention_fwd", flash),
                     ("_rms_fwd", rms)):
         report[name]["chat"] = r
@@ -3020,11 +3163,84 @@ def _parent_gemm(parent):
     return run
 
 
+def _parent_quant(parent):
+    """The parent's w8a8_quantize_rows -> fn(x [M, K]) -> (q, am)."""
+    import ctypes
+
+    import torch
+
+    cdll, _ = _parent_lib(parent, "w8a8")
+    fn, P, I = cdll.w8a8_quantize_rows, ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [P] * 3 + [I] * 4 + [P], I
+
+    def run(x):
+        M, K = x.shape
+        q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        am = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+        code = fn(x.data_ptr(), q.data_ptr(), am.data_ptr(), M, K, 1,
+                  int(x.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        if code:
+            raise RuntimeError(f"parent w8a8_quantize_rows: CUDA error {code}")
+        return q, am
+    return run
+
+
+def quant_ab_phase(torch, dev, parent, tag):
+    """One Qwen2.5-1.5B layer's activation quantization against a parent
+    tree's, at the rows of GEMM_AB's layers: the parent's route (7
+    quantize_rows launches, one per Dense, and the eager F.silu(g) * u
+    before down's) against this tree's (3 quantize_rows and
+    quantize_silu_mul), in turns (parent, change, change, parent); the
+    change's 4 results must equal the parent's matching ones bit for bit.
+    The eager silu * u alone is timed in the same run. -> {rows: [4
+    times]}."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import w8a8
+
+    pq = _parent_quant(parent)
+    (_, C, _), I = QWEN_GEMMS[0], QWEN_GEMMS[-1][1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    bf = torch.bfloat16
+    res = {}
+    for name, rows, _ in GEMM_AB:
+        if name != "layer":
+            continue
+        h, attn, h2 = (torch.randn(rows, C, generator=g, device=dev).to(bf)
+                       for _ in range(3))
+        gg, uu = _silu_mul_inputs(torch, g, rows, I, dev)
+        par = lambda: [pq(h), pq(h), pq(h), pq(attn), pq(h2), pq(h2),
+                       pq(F.silu(gg) * uu)]
+        chg = lambda: [w8a8.quantize_rows(h), w8a8.quantize_rows(attn),
+                       w8a8.quantize_rows(h2), w8a8.quantize_silu_mul(gg, uu)]
+        a, b_ = par(), chg()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for i, j in zip((0, 3, 4, 6), range(4))
+                   for x, y in zip(a[i], b_[j]))
+        ts = [_kernel_ms(torch, f, 20) for f in (par, chg, chg, par)]
+        eager = _kernel_ms(torch, lambda: F.silu(gg) * uu, 20)
+        res[rows] = ts
+        print(f"w8a8 quantization A/B, one layer at {rows} rows: parent (7 "
+              f"launches + eager silu * u) {ts[0]:.4f} / change (4 launches) "
+              f"{ts[1]:.4f} / change {ts[2]:.4f} / parent {ts[3]:.4f} ms "
+              f"(parent / change {(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}x); "
+              f"the eager silu * u alone {eager:.4f} ms; int8 rows and am "
+              f"bit-equal {same} {tag}", flush=True)
+        if not same:
+            raise RuntimeError(f"quantization A/B at {rows} rows: the change's "
+                               f"int8 rows differ from the parent's")
+        del h, attn, h2, gg, uu, a, b_
+    return res
+
+
 def gemm_ab_phase(torch, dev, parent, tag):
     """The int8 GEMM against a parent tree's, on the same int8 rows, each
     in its own weight layout, bf16 out (the w8a8 Dense's call), timed in
     turns (parent, change, change, parent) at GEMM_AB; the outputs are
-    compared. -> {(name, rows): [4 summed times]}."""
+    compared; then the layer's quantization (quant_ab_phase). -> {(name,
+    rows): [4 summed times]}."""
     from vlaser_tpu_torch.kernels import w8a8
 
     pgemm = _parent_gemm(parent)
@@ -3061,6 +3277,7 @@ def gemm_ab_phase(torch, dev, parent, tag):
               f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x; max "
               f"|parent - change| {diff:.3g}) {tag}", flush=True)
         torch.cuda.empty_cache()
+    res["quantization"] = quant_ab_phase(torch, dev, parent, tag)
     return res
 
 
@@ -3171,102 +3388,74 @@ def _vit_ab_weights(torch, dev, vcfg, act_quant):
     return vs
 
 
-VIT_VECS = ("ln1w", "ln1b", "ln2w", "ln2b", "ls1", "ls2", "qnw", "knw",
-            "qkvb", "projb", "fc1b", "fc2b")
+@contextmanager
+def _parent_route(mod, cdll, fns):
+    """Within: the wrappers of kernels module `mod` bind and launch the
+    C functions of a parent tree's library `cdll` (which must have this
+    tree's C signatures), keeping their bindings in `fns` from call to
+    call; every other library call of the wrapper (its scratch sizes) goes
+    to the parent's library too."""
+    from vlaser_tpu_torch.kernels import _build
+
+    old = mod._fns, _build._lib
+    mod._fns, _build._lib = fns, cdll
+    try:
+        yield
+    finally:
+        mod._fns, _build._lib = old
 
 
 def vit_ab_phase(torch, dev, parent, vcfg, tag):
-    """fused_vit_stack against a parent tree's: bf16 mode at B 1, act_quant
-    at B 1, 8 and 13, on the same inputs, in turns (parent, change, change,
-    parent). The outputs differ by the softmax shift (the parent's row max,
-    this tree's norm bound). -> {(mode, B): [4 times]}."""
-    import ctypes
-
+    """fused_vit_stack against a parent tree's (its fused_vit.cu with its
+    w8a8.cu, called through this tree's wrapper): bf16 mode at B 1,
+    act_quant at B 1, 8 and 13, on the same inputs, in turns (parent,
+    change, change, parent). -> {(mode, B): [4 times]}."""
     from vlaser_tpu_torch.kernels import fused_vit
 
     cdll, _ = _parent_lib(parent, "fused_vit", "w8a8")
-    P, I_, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    f16, f8 = cdll.vit_stack_forward, cdll.vit_stack_forward_w8a8
-    f16.argtypes = [P] * 24 + [I_] * 6 + [F, I_, F, P]
-    f8.argtypes = [P] * 31 + [I_] * 6 + [F, I_, F, ctypes.c_longlong, P]
-    f16.restype = f8.restype = I_
-    pws = cdll.vit_w8a8_workspace
-    pws.argtypes, pws.restype = [I_] * 4, ctypes.c_longlong
+    pfns = {}
     S = (vcfg.image_size // vcfg.patch_size) ** 2 + 1
-    C, H, L, inter = (vcfg.hidden_size, vcfg.num_heads, vcfg.num_layers,
-                      vcfg.intermediate_size)
-    eps, qscale = vcfg.layer_norm_eps, (C // H) ** -0.5 * fused_vit.LOG2E
     g = torch.Generator(device=dev)
     g.manual_seed(27)
     res = {}
     for act_quant, batches in ((False, (1,)), (True, (1, B8, 13))):
         vs = _vit_ab_weights(torch, dev, vcfg, act_quant)
-        mats = [vs[k] for k in ("qkvw", "projw", "fc1w", "fc2w")]
-        vecs = [vs[k] for k in VIT_VECS]
-        scales = ([vs[k] for k in ("qkvs", "projs", "fc1s", "fc2s")]
-                  if act_quant else [])
-        kw = dict(num_heads=H, eps=eps, qk_norm=False, act_quant=act_quant)
+        kw = dict(num_heads=vcfg.num_heads, eps=vcfg.layer_norm_eps,
+                  qk_norm=False, act_quant=act_quant)
         for B in batches:
-            x = torch.randn(B, S, C, generator=g, device=dev).to(torch.bfloat16)
-            st = lambda: torch.cuda.current_stream(dev).cuda_stream
+            x = torch.randn(B, S, vcfg.hidden_size, generator=g,
+                            device=dev).to(torch.bfloat16)
+            chg = lambda: (fused_vit.fused_vit_stack(x, **vs, **kw),)
 
             def par():
-                out = x.reshape(B * S, C).clone()
-                if act_quant:
-                    scr, n_ws = fused_vit.w8a8_scratch(B, S, C, inter, dev)
-                    scr = scr[:9]
-                    pn = int(pws(B, S, C, inter))
-                    scr.append(torch.empty(max(pn, 1), dtype=torch.int32,
-                                           device=dev))
-                    code = f8(*[t.data_ptr() for t in (out, *vecs, *scales,
-                                                       *mats, *scr)],
-                              B, S, C, inter, H, L, eps, 0, qscale, pn, st())
-                else:
-                    e = lambda *s_, dt=torch.bfloat16: torch.empty(
-                        s_, dtype=dt, device=dev)
-                    M = B * S
-                    scr = [e(M, C), e(M, 3 * C, dt=torch.float32), e(M, C),
-                           e(M, C), e(M, C), e(M, C), e(M, inter)]
-                    code = f16(*[t.data_ptr() for t in (out, *vecs, *mats,
-                                                        *scr)],
-                               B, S, C, inter, H, L, eps, 0, qscale, st())
-                if code:
-                    raise RuntimeError(f"parent fused_vit: CUDA error {code}")
-                return (out.view(x.shape),)
+                with _parent_route(fused_vit, cdll, pfns):
+                    return chg()
 
-            chg = lambda: (fused_vit.fused_vit_stack(x, **vs, **kw),)
             mode = "act_quant" if act_quant else "bf16"
             res[mode, B] = _ab(torch, f"fused_vit_stack A/B {mode} B={B}",
                                par, chg, 5 if B == 1 else 3, tag)
             del x
-        del vs, mats, vecs, scales
+        del vs
         gc.collect()
         torch.cuda.empty_cache()
     return res
 
 
 def stack_ab_phase(torch, dev, parent, cfg, tag):
-    """fused_int8_stack against a parent tree's, on the same inputs, in
-    turns: the VLM decode (R 1, Qwen2.5-1.5B, fp32 rope) over 384, 3,592 and
-    32,768 slots in both weight modes, and the denoise suffix (the 768-wide
-    expert, bf16 rope) at R 4 and 5 over the 384-token prompt. -> {(what, R,
-    E): [4 times]}."""
-    import ctypes
-
+    """fused_int8_stack against a parent tree's (called through this tree's
+    wrapper), on the same inputs, in turns: the VLM decode (R 1,
+    Qwen2.5-1.5B, fp32 rope) over 384, 3,592 and 32,768 slots in both
+    weight modes, and the denoise suffix (the 768-wide expert, bf16 rope) at
+    R 4 and 5 over the 384-token prompt. -> {(what, R, E): [4 times]}."""
     from vlaser_tpu_torch.core.quant import quantize_int8
     from vlaser_tpu_torch.kernels import fused_decode, ops
 
     cdll, _ = _parent_lib(parent, "fused_decode")
-    P, I_ = ctypes.c_void_p, ctypes.c_int
-    fn = cdll.int8_stack_forward
-    fn.argtypes = [P] * 33 + [I_] * 10 + [ctypes.c_float, P]
-    fn.restype = I_
-    scr = cdll.int8_stack_scratch_floats
-    scr.argtypes, scr.restype = [I_] * 5, ctypes.c_longlong
+    pfns = {}
     g = torch.Generator(device=dev)
     g.manual_seed(28)
     r = lambda *s: torch.randn(s, generator=g, device=dev)
-    bf, f32 = torch.bfloat16, torch.float32
+    bf = torch.bfloat16
     S = cfg.max_image_text_tokens
     cases = [("decode", cfg.vlm.llm, 1, E, mode) for mode in ("int8", "bf16")
              for E in (DECODE_PROMPT + DECODE_NEW, 3592, LONG_CACHE)]
@@ -3310,23 +3499,12 @@ def stack_ab_phase(torch, dev, parent, cfg, tag):
                 w["bk"], w["bv"], w["wq"], w["sq"], w["wk"], w["sk"],
                 w["wv"], w["sv"], w["wo"], w["so"], w["wg"], w["sg"],
                 w["wu"], w["su"], w["wd"], w["sd"], k_e, v_e)
-        eps = m.rms_norm_eps
+        chg = lambda: fused_decode.fused_int8_stack(*args, eps=m.rms_norm_eps)
 
         def par():
-            e = lambda *s_, dt=bf: torch.empty(s_, dtype=dt, device=dev)
-            outs = (e(R, C), e(L, R, KVH, D), e(L, R, KVH, D))
-            tmp = (e(R, max(C, H * D, I)), e(R, C), e(R, H * D),
-                   e(int(scr(R, C, H * D, KVH * D, I)), dt=f32))
-            code = fn(*[t.data_ptr() for t in (*args, *outs, *tmp)], L, R, C,
-                      H, KVH, D, I, E, int(mode == "bf16"),
-                      int(cos.dtype == f32), eps,
-                      torch.cuda.current_stream(dev).cuda_stream)
-            if code:
-                raise RuntimeError(f"parent int8_stack_forward: CUDA error "
-                                   f"{code}")
-            return outs
+            with _parent_route(fused_decode, cdll, pfns):
+                return chg()
 
-        chg = lambda: fused_decode.fused_int8_stack(*args, eps=eps)
         res[what, mode, R, E] = _ab(
             torch, f"fused_int8_stack A/B {what} {mode} R={R} E={E}", par,
             chg, 10 if E < LONG_CACHE else 5, tag)
@@ -3354,7 +3532,8 @@ def _profile(torch, fn, label, tag, quiet=False):
     and the share of the call's wall time with no kernel running. -> {"busy":
     device ms, "groups": ms by group, "kernels": ms by kernel name (its
     name before any template or argument list), "launches": kernels
-    launched (copies and fills not counted)}."""
+    launched (copies and fills not counted), "launch_keys": launches by
+    the profiler's full kernel name}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3364,7 +3543,7 @@ def _profile(torch, fn, label, tag, quiet=False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels, by_name, launches = {}, [], {}, 0
+    groups, kernels, by_name, launches, keys = {}, [], {}, 0, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0)
         if (ev.device_type != torch.autograd.DeviceType.CUDA or not us
@@ -3378,6 +3557,7 @@ def _profile(torch, fn, label, tag, quiet=False):
         kernels.append((us / 1e3, ev.count, ev.key[:90]))
         if not ev.key.startswith(("Memcpy", "Memset")):
             launches += ev.count
+            keys[ev.key] = keys.get(ev.key, 0) + ev.count
         short = ev.key.split("(")[0].split("<")[0].split("::")[-1]
         by_name[short] = by_name.get(short, 0.0) + us / 1e3
     busy = sum(groups.values())
@@ -3390,7 +3570,7 @@ def _profile(torch, fn, label, tag, quiet=False):
         for ms, n, key in sorted(kernels, reverse=True)[:12]:
             print(f"  {ms:9.2f} ms {n:5d}x {key}", flush=True)
     return {"busy": busy, "groups": groups, "kernels": by_name,
-            "launches": launches}
+            "launches": launches, "launch_keys": keys}
 
 
 def main() -> int:
@@ -3400,7 +3580,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", "--flash-ab", dest="ab", metavar="DIR",
-                    help="also time the flash kernels, the int8 GEMM, the "
+                    help="also time the flash kernels, the int8 GEMM and the "
+                         "activation quantizer, the "
                          "RMSNorm backward, the fused ViT stack and the "
                          "decoder stack against those of the tree unpacked "
                          "at DIR (parent, change, change, parent)")
@@ -3477,6 +3658,7 @@ def main() -> int:
             ("fused_vit_stack_w8a8", "fused_vit.cu",
              "kernels/fused_vit.py:455"),
             ("quantize_rows", "w8a8.cu", "models/layers.py:49"),
+            ("quantize_silu_mul", "w8a8.cu", "models/layers.py:49"),
             ("int8_gemm", "w8a8.cu", "models/layers.py:49"),
             ("fused_int8_stack", "fused_decode.cu",
              "kernels/fused_decode.py:303"),

@@ -555,6 +555,157 @@ def test_w8a8_kernels_match_plain(cuda, M, K, N, dtype):
     assert torch.equal(yb, y.to(torch.bfloat16))
 
 
+QUANT_ROWS = (1, 127, 384, 3584)
+
+
+def _quant_input(cuda, M, K, dtype, seed):
+    """Normal rows, row 0 of exact .5 ties (chip_smoke._tie_row), row 1
+    zero."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=cuda) * 3
+    x[0] = (torch.arange(K, device=cuda) % 120 - 60 + 0.5).float()
+    x[0, 0] = 127.0
+    if M > 1:
+        x[1] = 0.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("K", [1024, 1536, 4096, 8960])
+def test_quantize_rows_bit_equal_to_plain(cuda, K, G, dtype):
+    """The one-pass quantizer against its plain version, int8 rows and am
+    bit for bit, at every row count (the launcher's layout follows M and
+    K: 1 to 3,584 rows take several)."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    for M in QUANT_ROWS:
+        x = _quant_input(cuda, M, K, dtype, 11)
+        n = w8a8.quant_launch_count
+        q, am = w8a8.quantize_rows(x, G)
+        torch.cuda.synchronize()
+        assert w8a8.quant_launch_count == n + 1
+        p_q, p_am = w8a8.quantize_rows_plain(x, G)
+        assert torch.equal(q, p_q) and torch.equal(am, p_am), M
+
+
+@pytest.mark.parametrize("K", [1024, 1536, 4096, 8960])
+def test_quantize_silu_mul_bit_equal_to_eager(cuda, K):
+    """h = F.silu(g) * u in the eager ops' rounding, then its rows: the
+    int8 rows and am bit for bit; row 0 is h = the tie row (silu(64) = 64
+    and u = tie / 64, exact in bf16), row 1 zero."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    for M in QUANT_ROWS:
+        g = _quant_input(cuda, M, K, torch.bfloat16, 12)
+        u = _quant_input(cuda, M, K, torch.float32, 13)
+        g[0] = 64.0
+        u[0] = u[0] / 64.0
+        u = u.to(torch.bfloat16)
+        n = w8a8.silu_quant_launch_count
+        q, am = w8a8.quantize_silu_mul(g, u)
+        torch.cuda.synchronize()
+        assert w8a8.silu_quant_launch_count == n + 1
+        h = torch.nn.functional.silu(g) * u
+        assert torch.equal(h[0].float(), u[0].float() * 64.0)
+        p_q, p_am = w8a8.quantize_rows_plain(h)
+        assert torch.equal(q, p_q) and torch.equal(am, p_am), M
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_ln_prologue_matches_fp32_layer_norm(cuda, dtype):
+    """The LayerNorm prologue (the act_quant ViT's LN1 / LN2) against the
+    fp32 twin: its sums run in another order, so an int8 value may round
+    one step the other way (at most 1e-3 of them) and am agrees within
+    1e-5; the first rows of a 3,584-row call equal a 384-row call bit for
+    bit (the order of a row's sums does not depend on M)."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    K = 1024
+    w = 1 + 0.1 * torch.randn(K, generator=g, device=cuda)
+    b = 0.1 * torch.randn(K, generator=g, device=cuda)
+    x = (torch.randn(3584, K, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    first = None
+    for M in QUANT_ROWS:
+        q, am = w8a8.quantize_ln_probe(x[:M], w, b, 1e-6)
+        torch.cuda.synchronize()
+        p_q, p_am = w8a8.quantize_ln_rows_plain(x[:M], w, b, 1e-6)
+        d = (q.int() - p_q.int()).abs()
+        assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3, M
+        assert ((am - p_am).abs() <= 1e-5 * p_am).all(), M
+        if M == 384:
+            first = q
+    assert torch.equal(q[:384], first)
+
+
+def test_quantizers_refuse_bad_rows(cuda):
+    """K % 16, K / groups % 8, a misaligned row start, mismatched g / u
+    and rows beyond a block's threads x chunks (16,384 values) raise;
+    nothing falls back to the CPU."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    bf = torch.bfloat16
+    with pytest.raises(ValueError):
+        w8a8.quantize_rows(torch.zeros(4, 40, dtype=bf, device=cuda))
+    with pytest.raises(ValueError):
+        w8a8.quantize_rows(torch.zeros(4, 16, dtype=bf, device=cuda), 4)
+    buf = torch.zeros(4 * 64 + 1, dtype=bf, device=cuda)
+    skew = buf[1:].view(4, 64)  # contiguous, 2 bytes off a 16-byte boundary
+    with pytest.raises(ValueError):
+        w8a8.quantize_rows(skew)
+    with pytest.raises(ValueError):
+        w8a8.quantize_silu_mul(skew, skew)
+    a = torch.zeros(4, 64, dtype=bf, device=cuda)
+    with pytest.raises(ValueError):
+        w8a8.quantize_silu_mul(a, torch.zeros(4, 32, dtype=bf, device=cuda))
+    with pytest.raises(TypeError):
+        w8a8.quantize_silu_mul(a.float(), a.float())
+    with pytest.raises(RuntimeError):  # 2,050 chunks of 8 > 512 x 4
+        w8a8.quantize_rows(torch.zeros(2, 16400, dtype=bf, device=cuda))
+    with pytest.raises(RuntimeError):  # 2,050 chunks of 8 > 256 x 8
+        w8a8.quantize_rows(torch.zeros(2, 16400, device=cuda))
+
+
+def test_qwen2_w8a8_layer_runs_four_quantizers(cuda):
+    """A w8a8 Qwen2 stack on the card: 3 quantize_rows and 1
+    quantize_silu_mul launches a layer (7 GEMMs), and its output equals
+    the per-Dense route's (7 quantize_rows, eager silu * u) bit for bit."""
+    from vlaser_tpu_torch.core.config import tiny_llm
+    from vlaser_tpu_torch.core.quant import quantize_module
+    from vlaser_tpu_torch.kernels import w8a8
+    from vlaser_tpu_torch.models import layers
+    from vlaser_tpu_torch.models.layers import init_normal_
+    from vlaser_tpu_torch.models.qwen2 import Qwen2Model
+
+    cfg = tiny_llm()
+    model = Qwen2Model(cfg, device=cuda)
+    init_normal_(model, torch.Generator(device=cuda).manual_seed(15))
+    quantize_module(model, (r"kernel$",), (r"kernel$",), min_size=1)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(2, 80, cfg.hidden_size, generator=g, device=cuda).to(
+        torch.bfloat16)
+    pos = torch.arange(80, device=cuda)[None].expand(2, 80)
+    counts = lambda: (w8a8.quant_launch_count, w8a8.silu_quant_launch_count,
+                      w8a8.gemm_launch_count)
+    L = cfg.num_layers
+    with torch.no_grad():
+        before = counts()
+        got = model(x, pos, attn_impl="reference")[0]
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == [3 * L, L, 7 * L]
+        shared = layers._int8_shared
+        layers._int8_shared = lambda x, denses: False
+        try:
+            before = counts()
+            ref = model(x, pos, attn_impl="reference")[0]
+            torch.cuda.synchronize()
+        finally:
+            layers._int8_shared = shared
+        assert [a - b for a, b in zip(counts(), before)] == [7 * L, 0, 7 * L]
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("B,S", [(1, 100), (2, 77), (1, 1025), (2, 1025),
                                  (13, 1025)])
 def test_fused_vit_act_quant_kernel_matches_twin(cuda, B, S):

@@ -41,15 +41,3 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int i = 0; i < nw; ++i) t += red[i];
   return t;
 }
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int i = 1; i < nw; ++i) t = fmaxf(t, red[i]);
-  return t;
-}

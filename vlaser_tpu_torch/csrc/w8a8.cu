@@ -2,10 +2,12 @@
 // tensor-core GEMM with a rescale epilogue.
 //
 // Replaces: vlaser_tpu/models/layers.py :: w8a8_dot (XLA: per-token int8
-// quant, int8 x int8 -> int32 dot, fp32 rescale) and the act_quant `dot` of
-// vlaser_tpu/kernels/fused_vit.py :: fused_vit_stack (fused_vit.py:150-168).
-// Both compute the same thing, so both call the two kernels here
-// (fused_vit.cu through the launchers of w8a8.cuh).
+// quant, int8 x int8 -> int32 dot, fp32 rescale; under jit XLA merges the
+// identical quantizations of q/k/v's and gate/up's input and fuses silu(g)
+// * u of vlaser_tpu/models/qwen2.py:162 into the down projection's) and the
+// act_quant `dot` of vlaser_tpu/kernels/fused_vit.py :: fused_vit_stack
+// (fused_vit.py:150-168). Both compute the same thing, so both call the
+// kernels here (fused_vit.cu through the launchers of w8a8.cuh).
 //
 // What bounds it on the H100: the GEMM, by the int8 tensor cores (1,979
 // TOP/s dense) at 3,072+ rows (the VLA's batch-8 prefix, the chat prefill,
@@ -13,11 +15,35 @@
 // weights at 384 rows (~770 ops per weight byte against the ~590 op/byte
 // ridge, but a layer's 7 GEMMs are then ~21 us of work that a launch per
 // GEMM and a small grid leave far from either roof). The quantizer is a
-// bandwidth pass (read x once, write 1 byte an element).
+// bandwidth pass (read x once, write 1 byte an element), and at 384 rows a
+// launch-latency one.
 //
-// The quantizer: one block per (row, column group), two passes over the
-// row (amax, then quantize; LayerNorm recomputed in fp32 in each, not
-// rounded to bf16).
+// The quantizer: one DRAM pass. A row (or one of its G column groups,
+// which are contiguous: [M, K] in G groups is [M * G, K / G]) belongs to
+// `tpr` threads, a warp or more; each thread loads its chunks of 8 values
+// (one 16-byte load of bf16, two of fp32) once, all before any is used,
+// and keeps them in registers through the amax and the quantize steps.
+// The amax (and the LayerNorm's sums) reduce by warp shuffles, then, where
+// a row spans several warps, one step through shared memory; the int8
+// results go out as 8-byte stores. Two kernels:
+// - quantize_packed_kernel, bf16 rows (the w8a8 Dense's inputs, the ViT's
+//   attention output): the words stay packed bf16 (4 registers a chunk) and
+//   the amax is a bf16 max, exact. Optional silu-mul prologue: h =
+//   bf16(bf16(silu(g)) * u) from two bf16 inputs (the down projection of a
+//   SiLU MLP; silu = g / (1 + expf(-g)) in fp32 with IEEE division, as
+//   PyTorch's CUDA silu), h never written to memory. A max is the same in
+//   any order, so the layout follows M too: where rows are few, a row
+//   spreads over more warps (up to 512 threads) so that each thread's
+//   chain of loads, silu and stores is short.
+// - quantize_kernel, fp32 rows (the ViT's fc2 input) and the LayerNorm
+//   prologue (the act_quant ViT's LN1 / LN2; fp32, var = E[x^2] - mean^2,
+//   the normed value not rounded to bf16): tpr is a function of the row
+//   length alone, so a row's sums are taken in the same order at any M.
+// The conversions per value (float -> bf16, the rounding to int8) run as
+// fp32 and integer ops, not cvt instructions, which issue at a quarter of
+// the fp32 rate: the silu-mul pass does ~30 operations a value, and with
+// two of them on the quarter-rate pipe already (ex2, rcp) it is close to
+// bound by arithmetic, not bytes.
 //
 // The GEMM: int8 wgmma (m64nNk32 .s32.s8.s8, int32 accumulators in
 // registers) fed by TMA. int8 wgmma reads both operands K-major only (its
@@ -49,7 +75,6 @@ namespace w8a8 {
 
 using namespace sm90;
 
-constexpr int QTHREADS = 256;
 constexpr int SMS = 132;
 constexpr int BM = 128, BK = 128;  // tile rows, bytes (values) of K a stage
 constexpr int WG = 128;            // threads of a warpgroup
@@ -58,51 +83,213 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int STAGE_BUDGET = 192 * 1024;  // shared memory of the ring
 constexpr int MAX_SPLIT = 16;
 
-__device__ __forceinline__ float ld(const bf16* p, int i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float ld(const float* p, int i) { return p[i]; }
+// -- the activation quantizer --------------------------------------------------
+constexpr int QBLOCK = 256;  // threads of a block of quantize_kernel, at most
+constexpr int QNV = 6;       // its chunks a thread the layout aims at
+constexpr int QMAX_NV = 8;   // ... at most (rows up to 16,384 values)
+constexpr int PBLOCK = 512;  // threads of a block of quantize_packed_kernel
+constexpr int PMAX_NV = 4;   // its chunks a thread, at most (16,384 values)
+constexpr int FILL = 1024 * SMS;  // threads that keep the card's loads in flight
 
-// One block per (row, group). LN: v = (x - mean) * rsqrt(var + eps) * w + b
+__device__ __forceinline__ void qload8(const bf16* p, float v[8]) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void qload8(const float* p, float v[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// round_half_even(v * inv), |v * inv| <= 127.5, as the low byte of a word:
+// RN(t + 1.5 * 2^23) is 1.5 * 2^23 + round_half_even(t) (the ulp there is 1
+// and 1.5 * 2^23 is even), and its bits are 0x4b400000 + that integer.
+__device__ __forceinline__ uint32_t q1(float v, float inv) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(v, inv), 12582912.f));
+}
+
+// 8 values -> round_half_even(v * inv) as int8, stored as one 8-byte word.
+__device__ __forceinline__ void qstore8(int8_t* p, const float v[8],
+                                        float inv) {
+  uint32_t w[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* f = v + 4 * h;
+    w[h] = __byte_perm(__byte_perm(q1(f[0], inv), q1(f[1], inv), 0x0040),
+                       __byte_perm(q1(f[2], inv), q1(f[3], inv), 0x0040),
+                       0x5410);
+  }
+  *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
+// x rounded to bf16 (half to even) in the high half of the word, the low
+// half zero: a float whose value is that bf16 (finite x or a quiet NaN).
+__device__ __forceinline__ uint32_t bf16_hi(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+}
+
+// PyTorch's CUDA silu on a bf16 tensor: x / (1 + exp(-x)) in fp32 (expf,
+// IEEE division), rounded to bf16.
+__device__ __forceinline__ float silu_bf16(float x) {
+  return __uint_as_float(bf16_hi(__fdiv_rn(x, __fadd_rn(1.f, expf(-x)))));
+}
+
+// Sum (or max) over the tpr threads of one row, tpr a multiple of 32 and the
+// same for the whole block: shuffles, then one step through red[] when the
+// row spans several warps. Every thread gets the result.
+template <bool MAX>
+__device__ __forceinline__ float row_reduce(float v, float* red, int tpr) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if (tpr == 32) return v;
+  const int warp = threadIdx.x >> 5, wpr = tpr >> 5, first = warp - warp % wpr;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[first];
+  for (int i = 1; i < wpr; ++i)
+    r = MAX ? fmaxf(r, red[first + i]) : r + red[first + i];
+  return r;
+}
+
+// bf16 rows (SILU: the rows of h = bf16(bf16(silu(g)) * u), g = x), kept in
+// registers as loaded: NV 16-byte words of 8 bf16 a thread. Block of tpr *
+// (rows a block) threads; row = blockIdx.x * rows + threadIdx.x / tpr, K %
+// 8 == 0; thread t of a row holds chunks t, t + tpr, ... (those past K / 8
+// are empty). The amax is exact in any order, so the layout may follow M.
+// am = max(max|h|, 1e-9), q = round_half_even(h * (127 / am)).
+template <bool SILU, int NV>
+__global__ void __launch_bounds__(PBLOCK)
+quantize_packed_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
+                       int M, int K, int tpr, int8_t* __restrict__ q,
+                       float* __restrict__ am) {
+  __shared__ float red[PBLOCK / 32];
+  const int sub = threadIdx.x / tpr, t = threadIdx.x - sub * tpr;
+  const size_t row = (size_t)blockIdx.x * (blockDim.x / tpr) + sub;
+  const bool live = row < (size_t)M;
+  const int nch = K >> 3;
+  uint4 h[NV], w[SILU ? NV : 1];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {  // every load issued before any use
+    const int ch = t + c * tpr;
+    h[c] = w[SILU ? c : 0] = make_uint4(0u, 0u, 0u, 0u);
+    if (live && ch < nch) {
+      h[c] = __ldg(reinterpret_cast<const uint4*>(x + row * K) + ch);
+      if (SILU) w[c] = __ldg(reinterpret_cast<const uint4*>(u + row * K) + ch);
+    }
+  }
+  __nv_bfloat162 m2 = __float2bfloat162_rn(0.f);
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    uint32_t* hw = reinterpret_cast<uint32_t*>(&h[c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (SILU) {  // zeros stay zero: silu(0) * 0
+        const uint32_t g = hw[i], uw = reinterpret_cast<const uint32_t*>(
+                                          &w[c])[i];
+        const uint32_t lo = bf16_hi(__fmul_rn(
+            silu_bf16(__uint_as_float(g << 16)), __uint_as_float(uw << 16)));
+        const uint32_t hi = bf16_hi(
+            __fmul_rn(silu_bf16(__uint_as_float(g & 0xffff0000u)),
+                      __uint_as_float(uw & 0xffff0000u)));
+        hw[i] = __byte_perm(lo, hi, 0x7632);
+      }
+      m2 = __hmax2(m2, __habs2(reinterpret_cast<__nv_bfloat162*>(hw)[i]));
+    }
+  }
+  const float2 mf = __bfloat1622float2(m2);
+  const float a =
+      fmaxf(row_reduce<true>(fmaxf(mf.x, mf.y), red, tpr), 1e-9f);
+  const float inv = __fdiv_rn(127.f, a);
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int ch = t + c * tpr;
+    if (ch >= nch) continue;
+    float v[8];
+    const uint32_t* hw = reinterpret_cast<const uint32_t*>(&h[c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(hw[i] << 16);
+      v[2 * i + 1] = __uint_as_float(hw[i] & 0xffff0000u);
+    }
+    qstore8(q + row * K + ch * 8, v, inv);
+  }
+  if (t == 0) am[row] = a;
+}
+
+// fp32 rows, or (LN) the fp32 LayerNorm of bf16 or fp32 rows, held in
+// registers as fp32: NV chunks of 8 a thread, laid out as in
+// quantize_packed_kernel. tpr follows K alone, so a row's LayerNorm sums
+// run in one order at any M. LN: v = (x - mean) * rsqrt(var + eps) * w + b
 // in fp32 (var = E[x^2] - mean^2, as the TPU kernel's _layer_norm).
-template <typename T, bool LN>
-__global__ void __launch_bounds__(QTHREADS)
-quantize_kernel(const T* __restrict__ x, int K, int G,
+template <typename T, bool LN, int NV>
+__global__ void __launch_bounds__(QBLOCK)
+quantize_kernel(const T* __restrict__ x, int M, int K, int tpr,
                 const float* __restrict__ lnw, const float* __restrict__ lnb,
                 float eps, int8_t* __restrict__ q, float* __restrict__ am) {
-  __shared__ float red[32];
-  const size_t row = blockIdx.x;
-  const int g = blockIdx.y, Kg = K / G, c0 = g * Kg;
-  const T* xr = x + row * K;
-  float mean = 0.f, r = 1.f;
+  __shared__ float red[3][32];
+  const int sub = threadIdx.x / tpr, t = threadIdx.x - sub * tpr;
+  const size_t row = (size_t)blockIdx.x * (blockDim.x / tpr) + sub;
+  const bool live = row < (size_t)M;
+  const int nch = K >> 3;
+  float v[NV][8];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int ch = t + c * tpr;
+    if (live && ch < nch) {
+      qload8(x + row * K + ch * 8, v[c]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
+    }
+  }
   if (LN) {
     float s = 0.f, ss = 0.f;
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      const float v = ld(xr, i);
-      s += v;
-      ss += v * v;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[c][e];
+        ss += v[c][e] * v[c][e];
+      }
+    s = row_reduce<false>(s, red[0], tpr);
+    ss = row_reduce<false>(ss, red[1], tpr);
+    const float mean = s / K, r = rsqrtf(ss / K - mean * mean + eps);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int ch = t + c * tpr;
+      if (!live || ch >= nch) continue;
+      float w[8], b[8];
+      qload8(lnw + ch * 8, w);
+      qload8(lnb + ch * 8, b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[c][e] = __fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(v[c][e], mean), r), w[e]), b[e]);
     }
-    s = block_sum(s, red);
-    ss = block_sum(ss, red);
-    mean = s / K;
-    r = rsqrtf(ss / K - mean * mean + eps);
   }
-  auto val = [&](int i) {
-    float v = ld(xr, i);
-    if (LN)
-      v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), r), lnw[i]),
-                    lnb[i]);
-    return v;
-  };
   float m = 0.f;
-  for (int i = c0 + threadIdx.x; i < c0 + Kg; i += blockDim.x)
-    m = fmaxf(m, fabsf(val(i)));
-  const float a = fmaxf(block_max(m, red), 1e-9f);
-  const float inv = 127.f / a;  // IEEE division (no fast math)
-  int8_t* qr = q + row * K;
-  for (int i = c0 + threadIdx.x; i < c0 + Kg; i += blockDim.x)
-    qr[i] = (int8_t)__float2int_rn(__fmul_rn(val(i), inv));  // half to even
-  if (threadIdx.x == 0) am[row * G + g] = a;
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    if (t + c * tpr < nch)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[c][e]));
+  const float a = fmaxf(row_reduce<true>(m, red[2], tpr), 1e-9f);
+  const float inv = __fdiv_rn(127.f, a);
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int ch = t + c * tpr;
+    if (ch < nch) qstore8(q + row * K + ch * 8, v[c], inv);
+  }
+  if (t == 0) am[row] = a;
 }
 
 // -- the int8 GEMM --------------------------------------------------------------
@@ -461,29 +648,109 @@ static int probe(const void* a, const void* b, void* c, cudaStream_t st) {
   return 0;
 }
 
+// Rows a block: the most up to `most` threads that still leave two blocks an
+// SM.
+static int q_rows_a_block(int M, int tpr, int most) {
+  int rpb = tpr >= most ? 1 : most / tpr;
+  while (rpb > 1 && (M + rpb - 1) / rpb < 2 * SMS) rpb /= 2;
+  return rpb;
+}
+
+#define Q_CASES(LAUNCH) \
+  LAUNCH(1) LAUNCH(2) LAUNCH(3) LAUNCH(4) LAUNCH(5) LAUNCH(6) LAUNCH(7) LAUNCH(8)
+
+// bf16 rows, plain or silu-mul: a row spreads over as many warps as leave
+// a thread nv = clamp(M * (K / 8) / FILL, 1, most) chunks (few rows:
+// short chains of work a thread), at most PBLOCK threads; most is PMAX_NV,
+// or 3 for the silu-mul, whose arithmetic gains from more threads (3,584 x
+// 8,960: 3 chunks a thread 3% faster than 4, 2 slower).
+static int q_packed(const bf16* x, const bf16* u, int M, int K, int8_t* q,
+                    float* am, cudaStream_t st) {
+  const int nch = K / 8;
+  const long long fill = (long long)M * nch / FILL;
+  const int most = u ? 3 : PMAX_NV;
+  const int want = fill < 1 ? 1 : fill > most ? most : (int)fill;
+  int tpr = 32 * ((nch + 32 * want - 1) / (32 * want));
+  if (tpr > PBLOCK) tpr = PBLOCK;
+  const int rpb = q_rows_a_block(M, tpr, QBLOCK);
+  const int nv = (nch + tpr - 1) / tpr;
+  if (nv > PMAX_NV) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + rpb - 1) / rpb), block(tpr * rpb);
+#define Q_LAUNCH(N)                                                       \
+  case N:                                                                 \
+    if (u)                                                                \
+      quantize_packed_kernel<true, N><<<grid, block, 0, st>>>(x, u, M, K, \
+                                                              tpr, q, am); \
+    else                                                                  \
+      quantize_packed_kernel<false, N><<<grid, block, 0, st>>>(x, u, M, K, \
+                                                               tpr, q, am); \
+    break;
+  switch (nv) {
+    Q_LAUNCH(1) Q_LAUNCH(2) Q_LAUNCH(3) Q_LAUNCH(4)
+  }
+#undef Q_LAUNCH
+  RETURN_IF_ERR();
+  return 0;
+}
+
+// fp32 rows or the LayerNorm: threads a row, the smallest power of two from
+// 32 to QBLOCK that leaves a thread at most QNV chunks of 8 (K alone
+// decides; rows up to QBLOCK x QMAX_NV chunks).
+template <typename T>
+static int q_fp32(const T* x, int M, int K, const float* lnw,
+                  const float* lnb, float eps, int8_t* q, float* am,
+                  cudaStream_t st) {
+  const int nch = K / 8;
+  int tpr = 32;
+  while (tpr < QBLOCK && nch > tpr * QNV) tpr *= 2;
+  const int rpb = q_rows_a_block(M, tpr, QBLOCK);
+  const int nv = (nch + tpr - 1) / tpr;
+  if (nv > QMAX_NV) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + rpb - 1) / rpb), block(tpr * rpb);
+#define Q_LAUNCH(N)                                                        \
+  case N:                                                                  \
+    if (lnw)                                                               \
+      quantize_kernel<T, true, N><<<grid, block, 0, st>>>(x, M, K, tpr, lnw, \
+                                                          lnb, eps, q, am); \
+    else                                                                   \
+      quantize_kernel<T, false, N><<<grid, block, 0, st>>>(x, M, K, tpr,    \
+                                                           lnw, lnb, eps, q, \
+                                                           am);            \
+    break;
+  switch (nv) { Q_CASES(Q_LAUNCH) }
+#undef Q_LAUNCH
+  RETURN_IF_ERR();
+  return 0;
+}
+#undef Q_CASES
+
+// Both prologues (u: silu-mul, lnw / lnb: LayerNorm) or neither.
+static int quantize_any(const void* x, const bf16* u, int x_bf16, int M,
+                        int K, int G, const float* lnw, const float* lnb,
+                        float eps, int8_t* q, float* am, cudaStream_t st) {
+  const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)u % 16 == 0 &&
+                       (uintptr_t)q % 8 == 0;
+  if (M <= 0 || G < 1 || K % 16 || K % G || (K / G) % 8 || !aligned ||
+      ((lnw || u) && G != 1) || (lnw && u) || (u && !x_bf16) ||
+      (lnw && ((uintptr_t)lnw % 16 || (uintptr_t)lnb % 16)) ||
+      (long long)M * G > (1ll << 31) - 1)
+    return (int)cudaErrorInvalidValue;
+  const int R = M * G, Kg = K / G;
+  if (x_bf16 && !lnw) return q_packed((const bf16*)x, u, R, Kg, q, am, st);
+  if (x_bf16)
+    return q_fp32((const bf16*)x, R, Kg, lnw, lnb, eps, q, am, st);
+  return q_fp32((const float*)x, R, Kg, lnw, lnb, eps, q, am, st);
+}
+
 int quantize(const void* x, int x_bf16, int M, int K, int G, const float* lnw,
              const float* lnb, float eps, int8_t* q, float* am,
              cudaStream_t st) {
-  if (M <= 0 || G < 1 || K % G || (lnw && G != 1))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(M, G);
-  if (x_bf16) {
-    if (lnw)
-      quantize_kernel<bf16, true><<<grid, QTHREADS, 0, st>>>(
-          (const bf16*)x, K, G, lnw, lnb, eps, q, am);
-    else
-      quantize_kernel<bf16, false><<<grid, QTHREADS, 0, st>>>(
-          (const bf16*)x, K, G, lnw, lnb, eps, q, am);
-  } else {
-    if (lnw)
-      quantize_kernel<float, true><<<grid, QTHREADS, 0, st>>>(
-          (const float*)x, K, G, lnw, lnb, eps, q, am);
-    else
-      quantize_kernel<float, false><<<grid, QTHREADS, 0, st>>>(
-          (const float*)x, K, G, lnw, lnb, eps, q, am);
-  }
-  RETURN_IF_ERR();
-  return 0;
+  return quantize_any(x, nullptr, x_bf16, M, K, G, lnw, lnb, eps, q, am, st);
+}
+
+int quantize_silu_mul(const bf16* g, const bf16* u, int M, int K, int8_t* q,
+                      float* am, cudaStream_t st) {
+  return quantize_any(g, u, 1, M, K, 1, nullptr, nullptr, 0.f, q, am, st);
 }
 
 }  // namespace w8a8
@@ -493,6 +760,27 @@ extern "C" int w8a8_quantize_rows(const void* x, void* q, void* am, int M,
                                   int K, int G, int x_bf16, void* stream) {
   return w8a8::quantize(x, x_bf16, M, K, G, nullptr, nullptr, 0.f,
                         (int8_t*)q, (float*)am, (cudaStream_t)stream);
+}
+
+// g, u bf16 [M, K] -> the rows of h = bf16(bf16(silu(g)) * u): q int8 [M,
+// K], am fp32 [M]; h is never stored.
+extern "C" int w8a8_quantize_silu_mul(const void* g, const void* u, void* q,
+                                      void* am, int M, int K, void* stream) {
+  return w8a8::quantize_silu_mul((const bf16*)g, (const bf16*)u, M, K,
+                                 (int8_t*)q, (float*)am,
+                                 (cudaStream_t)stream);
+}
+
+// The LayerNorm prologue alone (the act_quant ViT's LN1 / LN2, which
+// fused_vit.cu runs in its layer loop), for tests: x [M, K] bf16 or fp32,
+// lnw / lnb fp32 [K] -> q int8 [M, K], am fp32 [M].
+extern "C" int w8a8_quantize_ln_rows(const void* x, const void* lnw,
+                                     const void* lnb, void* q, void* am, int M,
+                                     int K, int x_bf16, float eps,
+                                     void* stream) {
+  return w8a8::quantize(x, x_bf16, M, K, 1, (const float*)lnw,
+                        (const float*)lnb, eps, (int8_t*)q, (float*)am,
+                        (cudaStream_t)stream);
 }
 
 // y [M, N] (fp32, or bf16 if out_bf16) = (float(qa @ kt^T) * (am / 127)) *

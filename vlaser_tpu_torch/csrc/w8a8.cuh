@@ -1,6 +1,7 @@
 // The w8a8 building blocks shared by w8a8.cu (the Dense w8a8_dot route) and
-// fused_vit.cu (the act_quant encoder stack): a per-row int8 quantizer and
-// an int8 tensor-core GEMM (wgmma s8, TMA) with a rescale epilogue.
+// fused_vit.cu (the act_quant encoder stack): a per-row int8 quantizer (with
+// LayerNorm and silu-mul prologues) and an int8 tensor-core GEMM (wgmma s8,
+// TMA) with a rescale epilogue.
 // Host-side launchers; the kernels and their design notes live in w8a8.cu.
 //
 // The GEMM's weight operand is K-major, [N, K]: int8 wgmma reads both of its
@@ -26,10 +27,17 @@ enum Epi {
 // x [M, K] (bf16 if x_bf16, else fp32; row stride K) -> q int8 [M, K] and
 // am fp32 [M, G]: per row and per group of K/G columns, am = max(max|v|,
 // 1e-9) and q = round_half_even(v * (127 / am)). With lnw != nullptr, v is
-// the fp32 LayerNorm of the row (G must be 1), not rounded to bf16.
+// the fp32 LayerNorm of the row (G must be 1), not rounded to bf16. K % 16
+// == 0, (K / G) % 8 == 0, x 16-byte and q 8-byte aligned (else
+// cudaErrorInvalidValue).
 int quantize(const void* x, int x_bf16, int M, int K, int G, const float* lnw,
              const float* lnb, float eps, int8_t* q, float* am,
              cudaStream_t st);
+
+// The same for the rows of h = bf16(bf16(silu(g)) * u), g and u bf16 [M, K]
+// (PyTorch's rounding of F.silu(g) * u), G 1; h is never stored.
+int quantize_silu_mul(const bf16* g, const bf16* u, int M, int K, int8_t* q,
+                      float* am, cudaStream_t st);
 
 // int32 elements of scratch `gemm` needs for (M, N, K): the K splits' partial
 // sums where the plan splits K (a grid short of one wave), else 0.

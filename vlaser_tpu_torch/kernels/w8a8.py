@@ -7,6 +7,10 @@ through the same two kernels).
       per row and per group of K/G columns am = max(max|x|, 1e-9) and
       q = round_half_even(x * (127 / am))  (IEEE division, as jnp computes
       it; torch's `127.0 / t` is a reciprocal times 127, so it is not used)
+  quantize_silu_mul: g, u bf16 [M, K] -> quantize_rows(F.silu(g) * u), the
+      product rounded as the eager ops round it and never stored (the down
+      projection's input in a SiLU MLP; XLA fuses the same product into the
+      quantize of the JAX function)
   int8_gemm: (q [M, K], am [M, 1], kt int8 [N, K], ks fp32 [N]) ->
       y = (float(q @ kt^T) * (am * (1/127))) * ks, fp32 or bf16 (int32
       accumulation; the order of the rescale is w8a8_dot's)
@@ -16,14 +20,19 @@ The weight is K-major, [N, K] = the JAX kernel [K, N] transposed: the int8
 tensor-core product (wgmma s8) reads both operands with K contiguous.
 models/layers.py derives that copy of a w8a8 Dense's kernel on its first
 w8a8 call (`Dense.kernel_kmajor`, the buffer `kernel_qt`). `int8_gemm_ex` exposes the GEMM's other options (the act_quant
-ViT's epilogues, row strides, the row-scale stride) for tests and timing.
+ViT's epilogues, row strides, the row-scale stride) for tests and timing;
+`quantize_ln_probe` runs alone, on the card, the quantizer's LayerNorm
+prologue (the act_quant ViT's LN1 / LN2, which csrc/fused_vit.cu runs
+inside its layer loop) for tests.
 
 On a CUDA tensor each wrapper launches its kernel of `csrc/w8a8.cu` and
 counts the launch; on a CPU tensor it runs the plain version; any other
-device raises, as does a failed build or launch. The plain product runs in
-float64, which is exact for int8 operands (K x 127^2 < 2^53), so the
-kernel's and the plain version's products agree bit for bit given the same
-int8 rows.
+device raises, as does a failed build or launch. The quantizer takes rows
+of K % 16 == 0 (and K / groups % 8 == 0, at most 16,384 values a group)
+starting on 16-byte boundaries; anything else raises. The plain product
+runs in float64, which is exact for int8 operands (K x 127^2 < 2^53), so
+the kernel's and the plain version's products agree bit for bit given the
+same int8 rows.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -40,6 +50,7 @@ INV127 = 1.0 / 127.0
 EPI_F32, EPI_BF16, EPI_BIAS_F32, EPI_BIAS_GELU_F32, EPI_BIAS_LS_RESIDUAL = \
     range(5)
 quant_launch_count = 0  # quantize_rows launches through the CUDA route
+silu_quant_launch_count = 0  # quantize_silu_mul launches
 gemm_launch_count = 0   # int8 GEMM launches through the CUDA route
 
 
@@ -50,6 +61,21 @@ def quantize_rows_plain(x2, groups: int = 1):
     am = torch.clamp_min(xf.abs().amax(-1, keepdim=True), 1e-9)
     q = torch.round(xf * (torch.full_like(am, 127.0) / am)).to(torch.int8)
     return q.reshape(M, K), am.reshape(M, groups)
+
+
+def quantize_silu_mul_plain(g, u):
+    """g, u [M, K] -> quantize_rows_plain(F.silu(g) * u)."""
+    return quantize_rows_plain(F.silu(g) * u)
+
+
+def quantize_ln_rows_plain(x2, w, b, eps):
+    """x2 [M, K] -> quantize_rows_plain of its fp32 LayerNorm (var = E[x^2]
+    - mean^2, the normed value not rounded to bf16)."""
+    xf = x2.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    return quantize_rows_plain((xf - mean) * torch.rsqrt(var + eps)
+                               * w.float() + b.float())
 
 
 def int_mm_exact(q, kt):
@@ -95,6 +121,8 @@ def int8_gemm_ex_plain(a, am, b, s_col, epi, row_first=False, bias=None,
 _I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {  # C name -> (pointer args, the types after them)
     "w8a8_quantize_rows": (3, (_I, _I, _I, _I, _P)),
+    "w8a8_quantize_silu_mul": (4, (_I, _I, _P)),
+    "w8a8_quantize_ln_rows": (5, (_I, _I, _I, ctypes.c_float, _P)),
     "w8a8_gemm_rows": (6, (_I, _I, _I, _I, _LL, _P)),
     "w8a8_gemm_general": (10, (_I,) * 8 + (_LL, _P)),
     "w8a8_s8_probe": (3, (_I, _P)),
@@ -131,26 +159,85 @@ def _route(x, what):
     raise RuntimeError(f"{what}: no route for device {x.device}")
 
 
+def _quant_rows_arg(x, what, dtypes, groups=1):
+    """The quantizer's input on the card: a contiguous 2-d tensor of one of
+    `dtypes` whose rows the kernel takes (K % 16, K / groups % 8, 16-byte
+    aligned); else raises."""
+    if x.dtype not in dtypes or x.dim() != 2:
+        raise TypeError(f"{what}: x must be {' or '.join(map(str, dtypes))} "
+                        f"[M, K]")
+    x = x.contiguous()
+    M, K = x.shape
+    if M == 0 or K % 16 or K % groups or (K // groups) % 8 \
+            or x.data_ptr() % 16:
+        raise ValueError(f"{what}: {M} rows of K={K} in {groups} groups "
+                         f"(need K % 16 == 0, K / groups % 8 == 0, 16-byte "
+                         f"aligned rows)")
+    return x
+
+
+def _outputs(M, K, groups, dev):
+    return (torch.empty((M, K), dtype=torch.int8, device=dev),
+            torch.empty((M, groups), dtype=torch.float32, device=dev))
+
+
 def quantize_rows(x2, groups: int = 1):
     """x2 [M, K] bf16 or fp32 -> (q int8 [M, K], am fp32 [M, groups])."""
     global quant_launch_count
     if _route(x2, "quantize_rows") == "cpu":
         return quantize_rows_plain(x2, groups)
-    if x2.dtype not in (torch.bfloat16, torch.float32) or x2.dim() != 2:
-        raise TypeError("quantize_rows: x must be bf16 or fp32 [M, K]")
-    M, K = x2.shape
-    if M == 0 or K % groups:
-        raise ValueError(f"quantize_rows: {M} rows, K={K} in {groups} groups")
+    x2 = _quant_rows_arg(x2, "quantize_rows", (torch.bfloat16, torch.float32),
+                         groups)
     fn = _kernel("w8a8_quantize_rows")  # a failed build raises here
-    x2 = x2.contiguous()
-    q = torch.empty((M, K), dtype=torch.int8, device=x2.device)
-    am = torch.empty((M, groups), dtype=torch.float32, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    code = fn(
-        x2.data_ptr(), q.data_ptr(), am.data_ptr(), M, K, groups,
-        int(x2.dtype == torch.bfloat16), stream)
+    M, K = x2.shape
+    q, am = _outputs(M, K, groups, x2.device)
+    code = fn(x2.data_ptr(), q.data_ptr(), am.data_ptr(), M, K, groups,
+              int(x2.dtype == torch.bfloat16),
+              torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(code, "w8a8_quantize_rows")
     quant_launch_count += 1
+    return q, am
+
+
+def quantize_silu_mul(g, u):
+    """g, u bf16 [M, K] -> (q int8 [M, K], am fp32 [M, 1]) of the rows of
+    F.silu(g) * u, rounded as the eager ops round it (bf16 silu, then a
+    bf16 product); on the card the product stays in registers."""
+    global silu_quant_launch_count
+    if _route(g, "quantize_silu_mul") == "cpu":
+        return quantize_silu_mul_plain(g, u)
+    bf = (torch.bfloat16,)
+    g = _quant_rows_arg(g, "quantize_silu_mul", bf)
+    u = _quant_rows_arg(u, "quantize_silu_mul", bf)
+    if u.shape != g.shape or u.device != g.device:
+        raise ValueError("quantize_silu_mul: g and u must match")
+    fn = _kernel("w8a8_quantize_silu_mul")  # a failed build raises here
+    M, K = g.shape
+    q, am = _outputs(M, K, 1, g.device)
+    code = fn(g.data_ptr(), u.data_ptr(), q.data_ptr(), am.data_ptr(), M, K,
+              torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(code, "w8a8_quantize_silu_mul")
+    silu_quant_launch_count += 1
+    return q, am
+
+
+def quantize_ln_probe(x2, w, b, eps: float):
+    """The quantizer's LayerNorm prologue alone, on the card: x2 [M, K] bf16
+    or fp32, w, b fp32 [K] -> (q int8 [M, K], am fp32 [M, 1]) of the fp32
+    LayerNorm of each row (its plain version: quantize_ln_rows_plain)."""
+    if x2.device.type != "cuda":
+        raise ValueError("quantize_ln_probe: a tensor on the card")
+    x2 = _quant_rows_arg(x2, "quantize_ln_probe",
+                         (torch.bfloat16, torch.float32))
+    M, K = x2.shape
+    w, b = (_quant_rows_arg(t.reshape(1, K), "quantize_ln_probe",
+                            (torch.float32,)) for t in (w, b))
+    fn = _kernel("w8a8_quantize_ln_rows")  # a failed build raises here
+    q, am = _outputs(M, K, 1, x2.device)
+    code = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(),
+              am.data_ptr(), M, K, int(x2.dtype == torch.bfloat16),
+              float(eps), torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(code, "w8a8_quantize_ln_rows")
     return q, am
 
 

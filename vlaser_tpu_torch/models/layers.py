@@ -11,7 +11,10 @@ its int8 kernel transposed to [..., out, in] (K-major, as the int8 GEMM
 reads it), a non-persistent buffer derived from `kernel_q` on the Dense's
 first w8a8 call (`Dense.kernel_kmajor`; the state dict keeps only the JAX
 layout, and a Dense whose call sites stay under the row count never holds
-one). A block built
+one). Several w8a8 Dense that read one input (q/k/v, gate/up) share its
+int8 rows through `w8a8_group`, and a SiLU MLP's down projection
+quantizes silu(g) * u without storing it (`gated_mlp`), as XLA merges and
+fuses the JAX function's quantizers under `jit`. A block built
 for a scanned stack holds every layer's weights stacked on a leading `[L]`
 axis, as the fused
 kernels consume them; `forward(x, layer)` picks one slice. Inside
@@ -194,17 +197,71 @@ class Dense(Block):
         self._buffers.pop("kernel_qt", None)
         super()._load_from_state_dict(*args, **kwargs)
 
+    def takes_w8a8(self, x) -> bool:
+        """Whether a call on x runs w8a8_dot (a kernel_aq-flagged Dense at
+        >= ACT_QUANT_MIN_ROWS rows)."""
+        return ("kernel_aq" in self._buffers
+                and math.prod(x.shape[:-1]) >= ACT_QUANT_MIN_ROWS)
+
     def forward(self, x, layer: Optional[int] = None):
         cd = self.compute_dtype
-        if ("kernel_aq" in self._buffers
-                and math.prod(x.shape[:-1]) >= ACT_QUANT_MIN_ROWS):
+        if self.takes_w8a8(x):
             y = w8a8_dot(x.to(cd), self.kernel_kmajor(layer),
                          self.leaf("kernel_scale", layer), out_dtype=cd)
         else:
             y = torch.matmul(x.to(cd), self.weight(layer))
+        return self._biased(y, layer)
+
+    def forward_int8(self, q, am, lead, layer: Optional[int] = None):
+        """forward's w8a8 route from int8 rows already made (q int8 [M, in],
+        am fp32 [M, 1]): -> [*lead, out], equal to forward on the input
+        they were made from. No gradient flows."""
+        y = w8a8.int8_gemm(q, am, self.kernel_kmajor(layer),
+                           self.leaf("kernel_scale", layer),
+                           self.compute_dtype)
+        return self._biased(y.reshape(*lead, -1), layer)
+
+    def _biased(self, y, layer):
         if self.use_bias:
             y = y + self.leaf("bias", layer).to(y.dtype)
         return y
+
+
+def _int8_shared(x, denses) -> bool:
+    """Whether `denses` may share x's int8 rows: each takes w8a8 at x, and
+    no gradient is asked of x (with one, each Dense runs its own W8A8Dot,
+    whose STE backward the shared route does not have)."""
+    return (all(d.takes_w8a8(x) for d in denses)
+            and not (x.requires_grad and torch.is_grad_enabled()))
+
+
+def w8a8_group(x, denses, layer: Optional[int] = None):
+    """[d(x, layer) for d in denses], x quantized once where every Dense
+    takes w8a8 and no gradient is asked of x (each output equal to the
+    Dense's own forward bit for bit: the same int8 rows and GEMM); else
+    each Dense's own forward, the w8a8 ones through W8A8Dot and its STE
+    backward."""
+    if not _int8_shared(x, denses):
+        return [d(x, layer) for d in denses]
+    q, am = w8a8.quantize_rows(
+        x.to(denses[0].compute_dtype).reshape(-1, x.shape[-1]))
+    return [d.forward_int8(q, am, x.shape[:-1], layer) for d in denses]
+
+
+def gated_mlp(x, gate, up, down, act, layer: Optional[int] = None):
+    """down(act(gate(x)) * up(x)): gate and up share x's int8 rows
+    (w8a8_group); with act SiLU, bf16 g and u and a w8a8 down that needs no
+    gradient, the down projection quantizes silu(g) * u in one kernel
+    (w8a8.quantize_silu_mul; the product is the eager ops' bit for bit and
+    is never stored). Any other activation stays eager."""
+    g, u = w8a8_group(x, (gate, up), layer)
+    if (act is F.silu and g.dtype == u.dtype == down.compute_dtype
+            == torch.bfloat16 and _int8_shared(g, (down,))
+            and not u.requires_grad):
+        q, am = w8a8.quantize_silu_mul(g.reshape(-1, g.shape[-1]),
+                                       u.reshape(-1, u.shape[-1]))
+        return down.forward_int8(q, am, g.shape[:-1], layer)
+    return down(act(g) * u, layer)
 
 
 class Embed(Block):

@@ -33,7 +33,8 @@ from torch import nn
 from ..inference.kv_cache import KVCache, write_kv
 from ..kernels import ops
 from ..kernels.flash_attention import attention_fn
-from .layers import Dense, Embed, RMSNorm, layer_slices
+from .layers import (Dense, Embed, RMSNorm, gated_mlp, layer_slices,
+                     w8a8_group)
 
 
 class Qwen2Attention(nn.Module):
@@ -60,8 +61,8 @@ class Qwen2MLP(nn.Module):
         self.down_proj = Dense(I, C, False, (L,), pd, cd, device)
 
     def forward(self, x, l):
-        return self.down_proj(F.silu(self.gate_proj(x, l))
-                              * self.up_proj(x, l), l)
+        return gated_mlp(x, self.gate_proj, self.up_proj, self.down_proj,
+                         F.silu, l)
 
 
 class Qwen2Layers(nn.Module):
@@ -81,9 +82,10 @@ class Qwen2Layers(nn.Module):
         cfg, att = self.cfg, self.self_attn
         b, s, _ = x.shape
         h = self.input_layernorm(x, l)
-        q = att.q_proj(h, l).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = att.k_proj(h, l).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = att.v_proj(h, l).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = w8a8_group(h, (att.q_proj, att.k_proj, att.v_proj), l)
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q, k = att.q_norm(q, l), att.k_norm(k, l)
         q, k = ops.apply_rope(q, cos, sin), ops.apply_rope(k, cos, sin)

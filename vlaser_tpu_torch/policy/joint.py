@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..kernels.flash_attention import attention_fn
-from ..models.layers import Dense, RMSNorm, gelu_tanh
+from ..models.layers import (Dense, RMSNorm, gated_mlp, gelu_tanh,
+                             w8a8_group)
 
 _ACT = {"silu": F.silu, "gelu_tanh": gelu_tanh}
 
@@ -41,8 +42,8 @@ class MixtureMLP(nn.Module):
         self.down_proj = Dense(I, C, False, (L,), pd, cd, device)
 
     def forward(self, x, l):
-        return self.down_proj(self.act(self.gate_proj(x, l))
-                              * self.up_proj(x, l), l)
+        return gated_mlp(x, self.gate_proj, self.up_proj, self.down_proj,
+                         self.act, l)
 
 
 class MixtureBlock(nn.Module):
@@ -69,9 +70,10 @@ class MixtureBlock(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h = self.input_layernorm(x, l)
-        q = self.q_proj(h, l).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(h, l).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(h, l).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = w8a8_group(h, (self.q_proj, self.k_proj, self.v_proj), l)
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         return ops.apply_rope(q, cos, sin), ops.apply_rope(k, cos, sin), v
 
     def post_attn(self, x, attn_out, l):
