@@ -18,8 +18,9 @@ change, parent.
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
 width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
-model (phases 12-16) and of the PaliGemma VLA (phases 17-19) with random
-weights from seeded generators:
+model (phases 12-16), of the PaliGemma VLA (phases 17-19) and of the
+Vlaser-2B serving engine (phases 20-22, run after 16) with random weights
+from seeded generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -145,6 +146,31 @@ the 1024-wide Gemma expert; attn_impl "kernel"):
      fits): a parity gate of loss and group gradient norms against the
      reference attention (LOSS_REL, GNORM_REL), 3 VLATrainer steps with
      derived launch counts, step time, peak memory, one step profiled.
+The continuous-batching engine (Vlaser-2B, bf16 weights N(0, 0.02^2),
+quantize_for_serving(model) with its defaults):
+  20. the kernels at the engine's shapes against their plain versions
+     (quantize_rows, quantize_silu_mul and int8_gemm at its largest
+     admission group, 4 x 320 rows; flash at its ViT group of 4 tiles;
+     _rms_fwd at the offline runner's 16 x 320 wave); then bench.py's
+     _bench_engine workload (16 requests, prompts of 64-320 tokens, the
+     320-token ones with a 448 px tile, max_new 16 / 32 / 64) through the
+     engine (16 slots, max_len 448, buckets 64-320, chunk 64, pipeline
+     depth 1), the engine with speculative_draft_len 4, the offline runner
+     and the static batch-8 make_generate_fn: useful tokens/s (median of
+     3 wall-clock runs after a warm-up), rows that differ from the solo
+     plain decode (bf16, informational) with the first divergence and the
+     plain top-2 margin there, the schedule (decode steps queued against
+     steps with a live row); launch counters zeroed before the solo
+     decodes and read after the four paths: flash_attention_fwd,
+     int8_gemm, quantize_rows, quantize_silu_mul and _rms_fwd must each
+     have launched;
+  21. bench.py's engine fp32 gate on the card (tiny_vlm, fp32 compute and
+     cache, default_rng(97)'s 16 requests, 3 slots, max_len 64): the
+     bucketed, offline, speculative, prefix-cached and automatic-prefix
+     rows must each be 0;
+  22. VlaserChat(speculative_draft_len=4) at full width against the plain
+     generator (1 tile, 64 new tokens; tokens reported, bf16), and at fp32
+     on tiny_vlm, where the tokens must be equal.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -1754,10 +1780,12 @@ def flash_phase(torch, dev, cfg, tag, report):
     report["flash_attention_bwd"] = bwd_rep
 
 
-def rms_serving(torch, g, dev, ns, H, eps, label, tag):
+def rms_serving(torch, g, dev, ns, H, eps, label, tag, cold=False):
     """_rms_fwd at a serving shape (ns x H bf16, bf16 weights, under
     inference_mode) against the plain version, with the w-ignored control;
-    timed against the plain version and F.rms_norm. -> report."""
+    timed against the plain version and F.rms_norm, each on inputs cycled
+    through COLD_BYTES when `cold` (_cold_ms), else on the one repeated
+    input. -> report."""
     import torch.nn.functional as F
 
     from vlaser_tpu_torch.kernels import rmsnorm
@@ -1779,16 +1807,21 @@ def rms_serving(torch, g, dev, ns, H, eps, label, tag):
                         {k: rel[k] * ref_s[k].float().abs().max().item()
                          for k in ref_s},
                         {"w ignored": plain_s(torch.ones_like(ws))})
+        if cold:
+            timed = lambda fn, n: _cold_ms(torch, lambda x, w: fn(x, w, eps),
+                                           (xs, ws), n)
+        else:
+            timed = lambda fn, n: _kernel_ms(torch, lambda: fn(xs, ws, eps),
+                                             n)
         s_rep = {"max_abs_err": max(errs_s.values()),
-                 "ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd(xs, ws, eps),
-                                  20),
-                 "plain_ms": _kernel_ms(torch, lambda: rmsnorm.rms_fwd_plain(
-                     xs, ws, eps), 5),
-                 "library_ms": _kernel_ms(torch, lambda: F.rms_norm(
-                     xs, (H,), ws, eps), 20)}
+                 "ms": timed(rmsnorm.rms_fwd, 20),
+                 "plain_ms": timed(rmsnorm.rms_fwd_plain, 5),
+                 "library_ms": timed(lambda x, w, e: F.rms_norm(
+                     x, (H,), w, e), 20)}
     s_rep["bound_ms"], s_rep["bound_by"] = _bound(
         4 * xs.numel(), 2 * xs.numel() * 2 + H * 2 + ns * 4, PEAK_FP32)
-    print(f"rms_norm fwd {ns} rows (serving, {label}) time: kernel "
+    print(f"rms_norm fwd {ns} rows (serving, {label}"
+          f"{', cold inputs' if cold else ''}) time: kernel "
           f"{s_rep['ms']:.4f} ms, plain {s_rep['plain_ms']:.4f} ms, torch "
           f"rms_norm {s_rep['library_ms']:.4f} ms, bound "
           f"{s_rep['bound_ms']:.4f} ms ({s_rep['bound_by']}) {tag}",
@@ -2621,6 +2654,435 @@ def decode_parity_phase(torch, dev, cfg, tag):
           f"-> {1e3 * NEW / ms:.1f} tok/s ({NEW} / the whole generate), "
           f"plain generate {plain_ms:.1f} ms; fused decode step "
           f"{step_ms:.3f} ms per token (CUDA events) {tag}", flush=True)
+
+
+# -- the continuous-batching engine: phases 20-22 ----------------------------
+ENGINE_BUCKETS = (64, 128, 192, 256, 320)  # bench.py's _bench_engine
+ENGINE_REPS = 3  # timed runs a path (after one warm-up run), median
+ENGINE_KW = dict(num_slots=16, max_len=448, eos_token_ids=[2],
+                 pad_token_id=0, chunk_size=64, pipeline_depth=1)
+ENGINE_GATE_ROWS = ("bucketed", "offline", "spec", "prefix_cached",
+                    "auto_prefix")
+
+
+def _tiny_fp32_vlm(torch, dev, seed):
+    """tiny_vlm at fp32 compute with seeded weights: N(0, 0.1^2) (about
+    1 / sqrt(fan-in) at its widths), norm scales and the ViT's layer scales
+    1, norm biases 0."""
+    from vlaser_tpu_torch.core.config import tiny_vlm
+    from vlaser_tpu_torch.models.layers import init_normal_
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+
+    model = InternVLChatModel(tiny_vlm(), compute_dtype=torch.float32,
+                              device=dev)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    init_normal_(model, gen, std=0.1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parent, leaf = name.split(".")[-2:]
+            if "norm" in parent:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf in ("ls1", "ls2"):
+                p.fill_(1.0)
+    return model
+
+
+def _solo_oracle(torch, np, model, eos, cache_dtype):
+    """-> oracle(request) -> its tokens from the plain make_generate_fn
+    alone (one generator a max_new_tokens)."""
+    from vlaser_tpu_torch.inference.sampling import make_generate_fn, \
+        trim_output
+
+    dev, gens = model.device, {}
+
+    def oracle(r):
+        if r.max_new_tokens not in gens:
+            gens[r.max_new_tokens] = make_generate_fn(
+                model, max_new_tokens=r.max_new_tokens, eos_token_ids=eos,
+                pad_token_id=0, cache_dtype=cache_dtype)
+        ids = torch.as_tensor(np.asarray(r.input_ids, np.int64),
+                              device=dev)[None]
+        px = (None if r.pixel_values is None
+              else torch.as_tensor(r.pixel_values, device=dev))
+        with torch.inference_mode():
+            toks, num = gens[r.max_new_tokens](
+                ids, torch.ones_like(ids, dtype=torch.int32), px)
+        return trim_output(toks, num, eos)[0]
+
+    return oracle
+
+
+def engine_fp32_gate(torch, np, dev):
+    """bench.py's _engine_fp32_gate_impl on the port: tiny_vlm at fp32
+    compute and cache, the same 16 requests from default_rng(97) (prompt
+    lengths 8-32, a 32-token prompt holds one image, max_new 4 / 7 / 11),
+    3 slots, max_len 64, EOS 3; then 8 text tails over one image prefix,
+    registered and automatic. -> {row: requests whose tokens differ from
+    the solo plain decode} (the automatic row + 100 when the store was
+    never hit)."""
+    from vlaser_tpu_torch.serve.engine import ContinuousBatchingEngine, \
+        Request
+    from vlaser_tpu_torch.serve.offline import run_offline
+
+    model = _tiny_fp32_vlm(torch, dev, 3)
+    cfg = model.cfg
+    rng = np.random.default_rng(97)
+    npt, img = cfg.num_image_token, cfg.vision.image_size
+    rng.integers(1, 400, (1, 8 + npt))  # bench.py's init prompt (unused)
+    px0 = rng.standard_normal((1, img, img, 3)).astype(np.float32)
+    EOS = [3]
+    oracle = _solo_oracle(torch, np, model, EOS, torch.float32)
+    reqs = []
+    for i in range(16):
+        n = (8, 14, 20, 26, 32)[i % 5]
+        row = rng.integers(1, 400, (n,)).astype(np.int64)
+        px = None
+        if n >= 32:
+            row[2:2 + npt] = cfg.img_context_token_id
+            px = px0
+        reqs.append(Request(uid=i, input_ids=row, pixel_values=px,
+                            max_new_tokens=(4, 7, 11)[i % 3]))
+    want = {r.uid: oracle(r) for r in reqs}
+    bad = lambda done, w: float(sum(c.token_ids != w[c.uid] for c in done))
+    ekw = dict(num_slots=3, max_len=64, eos_token_ids=EOS, pad_token_id=0,
+               cache_dtype=torch.float32)
+    rows = {}
+    rows["bucketed"] = bad(ContinuousBatchingEngine(
+        model, prefill_buckets=(16, 32, 48), **ekw).run(reqs), want)
+    rows["offline"] = bad(run_offline(
+        model, reqs, num_slots=3, max_len=64, eos_token_ids=EOS,
+        pad_token_id=0, cache_dtype=torch.float32), want)
+    rows["spec"] = bad(ContinuousBatchingEngine(
+        model, prefill_buckets=(16, 32, 48), speculative_draft_len=4,
+        speculative_adaptive=False, **ekw).run(reqs), want)
+    prefix = rng.integers(1, 400, (4 + npt,)).astype(np.int64)
+    prefix[2:2 + npt] = cfg.img_context_token_id
+    tails = [rng.integers(1, 400, ((5, 9, 3, 12)[i % 4],)).astype(np.int64)
+             for i in range(8)]
+    full = [Request(uid=i, input_ids=np.concatenate([prefix, t]),
+                    pixel_values=px0, max_new_tokens=6)
+            for i, t in enumerate(tails)]
+    want_pc = {r.uid: oracle(r) for r in full}
+    eng = ContinuousBatchingEngine(model, prefill_buckets=(16, 32), **ekw)
+    pid = eng.register_prefix(prefix, px0)
+    rows["prefix_cached"] = bad(eng.run([
+        Request(uid=i, input_ids=t, prefix_id=pid, max_new_tokens=6)
+        for i, t in enumerate(tails)]), want_pc)
+    apc = ContinuousBatchingEngine(model, prefill_buckets=(16, 24, 32, 48),
+                                   auto_prefix_block=4, **ekw)
+    rows["auto_prefix"] = bad(apc.run(full), want_pc) + (
+        100.0 if apc.auto_prefix_hits < 1 else 0.0)
+    return rows
+
+
+def _engine_requests(np, cfg, Request):
+    """bench.py's _bench_engine workload: 16 requests from default_rng(7),
+    prompt lengths cycling 64 / 128 / 192 / 256 / 320 (a 320-token prompt
+    holds 256 <IMG_CONTEXT> tokens and one 448 px tile of 0.5), max_new
+    cycling 16 / 32 / 64."""
+    rng = np.random.default_rng(7)
+    img = cfg.vision.image_size
+    reqs = []
+    for i in range(16):
+        n = ENGINE_BUCKETS[i % 5]
+        row = rng.integers(4, 1000, (n,)).astype(np.int64)
+        px = None
+        if n >= 320:
+            row[1:257] = cfg.img_context_token_id
+            px = np.full((1, img, img, 3), 0.5, np.float32)
+        reqs.append(Request(uid=i, input_ids=row, pixel_values=px,
+                            max_new_tokens=(16, 32, 64)[i % 3]))
+    return reqs
+
+
+def _divergence(torch, np, model, reqs, got, want):
+    """-> (rows whose tokens differ from the solo plain decode, the first
+    such row's (uid, token index), the plain top-2 margin there: the
+    prompt and the plain tokens before it, prefilled)."""
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+
+    bad = [r for r in reqs if got[r.uid] != want[r.uid]]
+    if not bad:
+        return 0, None, None
+    r = bad[0]
+    a, b = got[r.uid], want[r.uid]
+    pos = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+               min(len(a), len(b)))
+    dev, llm = model.device, model.cfg.llm
+    ids = torch.as_tensor(np.concatenate([np.asarray(r.input_ids, np.int64),
+                                          np.asarray(b[:pos], np.int64)]),
+                          device=dev)[None]
+    px = (None if r.pixel_values is None
+          else torch.as_tensor(r.pixel_values, device=dev))
+    with torch.inference_mode():
+        cache = KVCache.create(llm.num_layers, 1, ids.shape[1],
+                               llm.num_kv_heads, llm.head_dim,
+                               torch.bfloat16, dev)
+        logits, _, _ = model.prefill(ids, px, torch.ones_like(
+            ids, dtype=torch.int32), cache)
+        top = logits[0, -1].float().topk(2).values
+    return len(bad), (r.uid, pos), float(top[0] - top[1])
+
+
+def _wall_ms(torch, fn, reps):
+    """Median wall ms of fn() (host included, synchronized) over `reps`
+    runs after one warm-up run; -> (ms, the warm-up's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def engine_wall(torch, np, dev, cfg, profile_first, tag):
+    """--engine-wall: the engine's wall time on _bench_engine's workload in
+    this process, after one torch.profiler session when `profile_first`;
+    with the host's cost of a launch (x.add_ on 16 floats, 20,000 queued).
+    Fresh processes alternated with and without the session show what a
+    session leaves behind in the host's launch path."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.serve.engine import ContinuousBatchingEngine, \
+        Request
+
+    if profile_first:
+        _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up",
+                 tag, quiet=True)
+    x = torch.ones(16, device=dev)
+    for _ in range(500):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t) / 20000 * 1e6
+    model = quantize_for_serving(_chat_model(torch, dev, cfg, 1))
+    reqs = _engine_requests(np, cfg, Request)
+    eng = ContinuousBatchingEngine(model, prefill_buckets=ENGINE_BUCKETS,
+                                   **ENGINE_KW)
+    with torch.inference_mode():
+        ms, out = _wall_ms(torch, lambda: eng.run(reqs), ENGINE_REPS)
+    n_tok = sum(len(c.token_ids) for c in out)
+    print(f"engine wall, profiler session first: {profile_first}: "
+          f"{us:.3f} us a launch; engine {ms:.1f} ms (median of "
+          f"{ENGINE_REPS}) -> {1e3 * n_tok / ms:.1f} tok/s {tag}", flush=True)
+
+
+def engine_phases(torch, np, dev, cfg, tag, report):
+    """Phases 20-22, the continuous-batching engine, first in the process:
+    its wall times are host-bound, and a profiler session leaves later
+    launches in its process slower (engine_profile_phase profiles it, last).
+    -> launches of its main path (phase 20's four serving paths)."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.inference.sampling import make_generate_fn, \
+        trim_output
+    from vlaser_tpu_torch.serve.engine import ContinuousBatchingEngine, \
+        Request
+    from vlaser_tpu_torch.serve.offline import run_offline
+
+    t0 = time.perf_counter()
+    llm, vcfg = cfg.llm, cfg.vision
+    model = quantize_for_serving(_chat_model(torch, dev, cfg, 1))
+    torch.cuda.synchronize()
+    print(f"engine model: Vlaser-2B, quantize_for_serving defaults (vlm, "
+          f"w8a8), {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    reqs = _engine_requests(np, cfg, Request)
+    N, EOS = ENGINE_BUCKETS[-1], ENGINE_KW["eos_token_ids"]
+
+    # -- the kernels at the engine's shapes, against their plain versions:
+    # the w8a8 GEMMs and quantizers at its largest admission group (4 x 320
+    # rows), flash at its ViT group (4 tiles), _rms_fwd at the offline
+    # runner's [16, 320] wave
+    lay = model.language_model.model.layers
+    rows = 4 * N
+    (k1, k2, k3), = gemm_phase(torch, _gemm_sites(lay.self_attn, lay.mlp),
+                               (rows,), dev, tag).values()
+    i32 = dict(dtype=torch.int32, device=dev)
+    S = vcfg.seq_len
+    seg = torch.ones(4, S, **i32)
+    flash, _ = _flash_case(torch, dev, torch.Generator(device=dev).manual_seed(
+        20), tag, "engine vit", 4, S, S, vcfg.num_heads, vcfg.num_heads,
+        vcfg.head_dim, seg, None, seg, None)
+    rms = rms_serving(torch, torch.Generator(device=dev).manual_seed(21), dev,
+                      16 * N, llm.hidden_size, llm.rms_norm_eps,
+                      "engine offline wave", tag, cold=True)
+    # main() files these under each kernel's "engine" key at the end (this
+    # phase runs before the phases that make those entries)
+    report["engine_kernels"] = {
+        "quantize_rows": k1, "quantize_silu_mul": k3, "int8_gemm": k2,
+        "flash_attention_fwd": flash, "_rms_fwd": rms}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 20: bench.py's _bench_engine at full width -------------------
+    engine = ContinuousBatchingEngine(model, prefill_buckets=ENGINE_BUCKETS,
+                                      **ENGINE_KW)
+    spec = ContinuousBatchingEngine(model, prefill_buckets=ENGINE_BUCKETS,
+                                    speculative_draft_len=4, **ENGINE_KW)
+    static_gen = make_generate_fn(model, max_new_tokens=64,
+                                  eos_token_ids=EOS, pad_token_id=0)
+
+    def run_static():
+        out = {}
+        for half in (reqs[:8], reqs[8:]):
+            ids = torch.zeros((8, N), dtype=torch.int64, device=dev)
+            sg = torch.zeros((8, N), **i32)
+            tiles = []
+            for j, r in enumerate(half):
+                ids[j, :len(r.input_ids)] = torch.as_tensor(r.input_ids)
+                sg[j, :len(r.input_ids)] = 1
+                if r.pixel_values is not None:
+                    tiles.append(torch.as_tensor(r.pixel_values))
+            px = torch.cat(tiles).to(dev) if tiles else None
+            with torch.inference_mode():
+                toks, num = static_gen(ids, sg, px)
+            for r, row in zip(half, trim_output(toks, num, EOS)):
+                out[r.uid] = row[:r.max_new_tokens]
+        return out
+
+    paths = (("engine", lambda: engine.run(reqs)),
+             ("speculative engine (draft 4)", lambda: spec.run(reqs)),
+             ("offline runner", lambda: run_offline(
+                 model, reqs, num_slots=16, max_len=448, eos_token_ids=EOS,
+                 pad_token_id=0, chunk_size=64)),
+             ("static batch-8 make_generate_fn", run_static))
+    oracle = _solo_oracle(torch, np, model, EOS, torch.bfloat16)
+    want = {r.uid: oracle(r) for r in reqs}
+    print(f"engine: solo plain decodes of the 16 requests done "
+          f"({time.perf_counter() - t0:.0f} s into the phase) {tag}",
+          flush=True)
+    # the kernels each path must launch: admission groups of <= 1,280 rows
+    # stay under _rms_fwd's 2,048-row threshold; the offline runner's
+    # [16, 320] wave and the static generator's [8, 320] prefills reach it
+    need = ("flash_attention_fwd", "int8_gemm", "quantize_rows",
+            "quantize_silu_mul")
+    needs = {"offline runner": need + ("_rms_fwd",),
+             "static batch-8 make_generate_fn": need + ("_rms_fwd",)}
+    rep, launches, missing = {}, {}, {}
+    for name, fn in paths:
+        _zero_counts()
+        ms, out = _wall_ms(torch, fn, ENGINE_REPS)
+        used = {k: v for k, v in _read_counts().items() if v}
+        _add(launches, used)
+        lack = [k for k in needs.get(name, need) if not used.get(k)]
+        if lack:
+            missing[name] = lack
+        got = out if isinstance(out, dict) else {
+            c.uid: c.token_ids for c in out}
+        n_tok = sum(len(t) for t in got.values())
+        bad, first, margin = _divergence(torch, np, model, reqs, got, want)
+        stats = ""
+        if name.startswith(("engine", "speculative")):
+            e = engine if name == "engine" else spec
+            stats = (f"; last run's schedule {e.stats} (steps_run: decode "
+                     f"steps queued, steps_live: steps with a live row)")
+            if e is spec:
+                stats += (f", spec chunks {spec.spec_chunks_run} / plain "
+                          f"{spec.plain_chunks_run}, acceptance EMA "
+                          f"{spec.spec_last_ema}")
+        print(f"engine phase, {name}: {n_tok} useful tokens in {ms:.1f} ms "
+              f"(median of {ENGINE_REPS}, wall, host included) -> "
+              f"{1e3 * n_tok / ms:.1f} tok/s; {bad} of 16 rows differ from "
+              f"the solo plain decode (bf16, informational)"
+              + (f", the first at uid {first[0]} token {first[1]}, plain "
+                 f"top-2 margin there {margin:.5g}" if first else "")
+              + f"; its own launches over {ENGINE_REPS + 1} runs {used}"
+              + (f" (MISSING {lack})" if lack else "") + f"{stats} ("
+              f"{time.perf_counter() - t0:.0f} s into the phase) {tag}",
+              flush=True)
+        rep[name] = dict(tok_s=1e3 * n_tok / ms, ms=ms, mismatched_rows=bad,
+                         launches=used)
+    print(f"engine phase launches (the 4 paths, {ENGINE_REPS + 1} runs "
+          f"each; the solo decodes not counted): {launches} {tag}",
+          flush=True)
+    if missing:
+        raise RuntimeError(f"engine phase paths never launched: {missing}")
+    report["engine"] = rep
+
+    # -- phase 22: speculative chat (VlaserChat, speculative_draft_len 4) ---
+    tok = ChatStubTokenizer(cfg.img_context_token_id)
+    img = vcfg.image_size
+    tile = torch.full((1, img, img, 3), 0.5, device=dev)
+    question = "What is shown in this image? " * 4
+    kw = dict(max_new_tokens=64)
+    chat_s = VlaserChat(model, tok, speculative_draft_len=4, **kw)
+    chat_p = VlaserChat(model, tok, use_fused=False, **kw)
+    ms_s, out_s = _wall_ms(torch, lambda: chat_s.chat(question, tile), 1)
+    ms_p, out_p = _wall_ms(torch, lambda: chat_p.chat(question, tile), 1)
+    ids_s, ids_p = out_s.split(), out_p.split()
+    first = next((i for i in range(min(len(ids_s), len(ids_p)))
+                  if ids_s[i] != ids_p[i]), None)
+    print(f"speculative chat (Vlaser-2B, 1 tile, 64 new tokens, bf16): "
+          f"{ms_s:.1f} ms vs {ms_p:.1f} ms for the plain generator (wall); "
+          f"tokens {'equal' if out_s == out_p else 'differ'} ("
+          f"{len(ids_s)} / {len(ids_p)} tokens"
+          + (f", first difference at token {first}" if first is not None
+             else "") + f"; informational in bf16) {tag}", flush=True)
+    rep["spec_chat_ms"] = ms_s
+    rep["plain_chat_ms"] = ms_p
+    del engine, spec, static_gen, model, chat_s, chat_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 21: the fp32 gate (bench.py's engine_fp32_* rows) ------------
+    t1 = time.perf_counter()
+    gate = engine_fp32_gate(torch, np, dev)
+    print(f"engine fp32 gate (tiny_vlm, fp32 compute and cache, on the "
+          f"card): mismatched rows {gate} ({time.perf_counter() - t1:.1f} s) "
+          f"{tag}", flush=True)
+    if set(gate) != set(ENGINE_GATE_ROWS) or any(gate.values()):
+        raise RuntimeError(f"engine fp32 gate failed: {gate}")
+
+    # -- phase 22 at fp32: speculative chat equals the plain chat -----------
+    tiny = _tiny_fp32_vlm(torch, dev, 5)
+    ttok = ChatStubTokenizer(tiny.cfg.img_context_token_id)
+    timg = tiny.cfg.vision.image_size
+    ttile = torch.randn(1, timg, timg, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    kw = dict(max_new_tokens=24, cache_dtype=torch.float32, bucket=64)
+    a = VlaserChat(tiny, ttok, speculative_draft_len=4, **kw).chat(
+        "describe the scene", ttile)
+    b = VlaserChat(tiny, ttok, use_fused=False, **kw).chat(
+        "describe the scene", ttile)
+    verdict = "equal" if a == b else "DIFFERENT"
+    print(f"speculative chat at fp32 (tiny_vlm): {verdict} to the plain chat "
+          f"({len(a.split())} tokens); the engine phases took "
+          f"{time.perf_counter() - t0:.0f} s {tag}", flush=True)
+    if a != b:
+        raise RuntimeError("speculative chat differs from greedy at fp32")
+    del tiny
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def engine_profile_phase(torch, np, dev, cfg, tag, report):
+    """One engine run of phase 20's workload under torch.profiler, last in
+    the process: after a profile of a run this large, later profiles have
+    missed the cooperative stack kernel's launches (PERF.md)."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.serve.engine import ContinuousBatchingEngine, \
+        Request
+
+    model = quantize_for_serving(_chat_model(torch, dev, cfg, 1))
+    engine = ContinuousBatchingEngine(model, prefill_buckets=ENGINE_BUCKETS,
+                                      **ENGINE_KW)
+    reqs = _engine_requests(np, cfg, Request)
+    with torch.inference_mode():
+        engine.run(reqs)
+        prof = _profile(torch, lambda: engine.run(reqs),
+                        "engine run (16 requests)", tag)
+    report["engine"]["engine"]["profiled_busy_ms"] = prof["busy"]
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- PaliGemma: phases 17-19 -------------------------------------------------
@@ -3585,6 +4047,13 @@ def main() -> int:
                          "RMSNorm backward, the fused ViT stack and the "
                          "decoder stack against those of the tree unpacked "
                          "at DIR (parent, change, change, parent)")
+    ap.add_argument("--engine-wall", action="store_true",
+                    help="only build the kernels and time the engine on "
+                         "bench.py's _bench_engine workload (wall, host "
+                         "included) in this process, then exit")
+    ap.add_argument("--profile-first", action="store_true",
+                    help="with --engine-wall: one torch.profiler session "
+                         "before the timing")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3611,12 +4080,21 @@ def main() -> int:
           f"{_build.last_build_seconds:.1f} s) -> {_build.BUILD_DIR}",
           flush=True)
 
+    if args.engine_wall:
+        engine_wall(torch, np, dev, vlaser_2b(), args.profile_first, tag)
+        return 0
     _build_report(_build)
+    report = {}
+    # first: its wall times are host-bound, and a profiler session leaves
+    # later launches in the process slower (PERF.md)
+    launches = engine_phases(torch, np, dev, vlaser_2b(), tag, report)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the profiler's first trace in a process can miss its first kernels
     _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up", tag,
              quiet=True)
     stack_launch_phase(torch, dev, vlaser_2b().llm, tag)
-    if args.ab:  # first, so that a later phase's failure keeps it
+    if args.ab:  # before the slices, so that their failure keeps it
         flash_ab_phase(torch, dev, args.ab, tag)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3629,8 +4107,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     cfg = vlaser_2b_vla()
-    report = {}
-    launches = serving_phases(torch, np, dev, cfg, tag, report)
+    _add(launches, serving_phases(torch, np, dev, cfg, tag, report))
     gc.collect()
     torch.cuda.empty_cache()
     _add(launches, w8a8_phases(torch, np, dev, cfg, tag, report))
@@ -3648,10 +4125,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     _add(launches, pali_phases(torch, np, dev, pizero_paligemma(), tag,
                                report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_profile_phase(torch, np, dev, vlaser_2b(), tag, report)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]
     if bad:
         raise RuntimeError(f"the port imported {bad[:4]}")
 
+    for name, r in report.pop("engine_kernels").items():
+        report[name]["engine"] = r
     kernels = []
     for name, src, rep in (
             ("fused_vit_stack", "fused_vit.cu", "kernels/fused_vit.py:455"),

@@ -210,7 +210,8 @@ def test_chat_routing():
     """As tests/test_chat_and_configs.py's routing cases: only a quantized
     LLM, greedy, single-stream request takes the fused runner; "auto" does
     not route on the CPU nor at a non-bf16 cache; batch_chat keeps the plain
-    generator; beams and speculative decoding are not ported."""
+    generator; beams are not ported; speculative decoding takes its own
+    generator, never the fused runner."""
     cfg, jm, v, tm, ids, px = _models()
     assert VlaserChat(tm, ToyTok(), max_new_tokens=4,
                       use_fused=True)._fused_gen is None  # unquantized
@@ -219,9 +220,11 @@ def test_chat_routing():
                       use_fused=True)._fused_gen is None
     assert VlaserChat(tm, ToyTok(), max_new_tokens=4, repetition_penalty=1.2,
                       use_fused=True)._fused_gen is None
-    for kw in (dict(num_beams=2), dict(speculative_draft_len=4)):
-        with pytest.raises(NotImplementedError):
-            VlaserChat(tm, ToyTok(), max_new_tokens=4, **kw)
+    with pytest.raises(NotImplementedError):
+        VlaserChat(tm, ToyTok(), max_new_tokens=4, num_beams=2)
+    spec = VlaserChat(tm, ToyTok(), max_new_tokens=4,
+                      speculative_draft_len=4, use_fused=True)
+    assert spec._fused_gen is None and hasattr(spec._gen, "with_stats")
     assert VlaserChat(tm, ToyTok(), max_new_tokens=4)._fused_gen is None
     assert VlaserChat(tm, ToyTok(), max_new_tokens=4,
                       cache_dtype=torch.float32,

@@ -783,3 +783,46 @@ def test_vit_attention_kernel_shifts_out_of_range_rows_by_their_max(cuda):
     got = fused_vit.attention(qs, ks, vs, B, S, heads)
     torch.cuda.synchronize()
     _check(got, fused_vit._attention(qs, ks, vs, B, S, heads))
+
+
+def test_engine_tokens_equal_solo_decode_fp32(cuda):
+    """A short continuous-batching run on the card (tiny_vlm, fp32 compute
+    and cache, 3 slots, staggered text and an image request, a speculative
+    engine beside it): every request's tokens equal its solo plain decode."""
+    import os
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from vlaser_tpu_torch.serve.engine import (ContinuousBatchingEngine,
+                                               Request)
+
+    model = chip_smoke._tiny_fp32_vlm(torch, cuda, 3)
+    cfg = model.cfg
+    rng = np.random.default_rng(7)
+    npt, img = cfg.num_image_token, cfg.vision.image_size
+    reqs = []
+    for i, n in enumerate((4, 9, 5, 13, 7, 3, 11)):
+        row = rng.integers(1, 400, (n + (npt if i == 3 else 0),))
+        px = None
+        if i == 3:
+            row[2:2 + npt] = cfg.img_context_token_id
+            px = rng.standard_normal((1, img, img, 3)).astype(np.float32)
+        reqs.append(Request(uid=i, input_ids=row, pixel_values=px,
+                            max_new_tokens=(6, 9, 12)[i % 3]))
+    oracle = chip_smoke._solo_oracle(torch, np, model, [3], torch.float32)
+    want = {r.uid: oracle(r) for r in reqs}
+    for kw in (dict(chunk_size=4), dict(chunk_size=3, pipeline_depth=2),
+               dict(chunk_size=4, speculative_draft_len=4,
+                    speculative_adaptive=False)):
+        eng = ContinuousBatchingEngine(
+            model, num_slots=3, max_len=96, eos_token_ids=[3],
+            pad_token_id=0, prefill_buckets=(16, 32), cache_dtype=torch.float32,
+            **kw)
+        assert eng.cache.k.is_cuda and eng.cache.length.is_cuda
+        got = {c.uid: c.token_ids for c in eng.run(reqs)}
+        assert got == want, kw
+        assert eng.stats["steps_run"] >= eng.stats["steps_live"]

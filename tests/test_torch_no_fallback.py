@@ -55,6 +55,10 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.inference.sampling",
     "vlaser_tpu_torch.inference.fused_runner",
     "vlaser_tpu_torch.inference.chat",
+    "vlaser_tpu_torch.inference.speculative",
+    "vlaser_tpu_torch.serve.engine",
+    "vlaser_tpu_torch.serve.engine_chat",
+    "vlaser_tpu_torch.serve.offline",
 )
 
 
@@ -80,6 +84,7 @@ def _chip_smoke_imports():
 def test_port_never_imports_jax():
     mods = SLICE_MODULES + tuple(_chip_smoke_imports())
     assert "vlaser_tpu_torch.train.trainer" in mods
+    assert "vlaser_tpu_torch.serve.offline" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -338,3 +343,20 @@ def test_chat_entry_points_default_to_the_card():
                                  min_size=1)
     chat = VlaserChat(model, Tok())
     assert chat.device.type == "cpu" and chat._fused_gen is None
+
+
+def test_engine_runs_on_the_models_device():
+    """The serving engine takes its model's device for its cache and row
+    state: the card by default (the model raises without one), the CPU
+    only for a model built there."""
+    from vlaser_tpu_torch.core.config import tiny_vlm
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    model = InternVLChatModel(tiny_vlm(),
+                              device=None if dev == "cuda" else "cpu")
+    eng = ContinuousBatchingEngine(model, num_slots=2, max_len=32,
+                                   eos_token_ids=[3], pad_token_id=0)
+    assert eng.device.type == dev
+    assert eng.cache.k.device.type == eng.cache.length.device.type == dev

@@ -15,7 +15,9 @@ sampled, penalised and batched requests take `sampling.make_generate_fn`.
 use_fused "auto" routes to the fused runner when the model sits on a CUDA
 device and the cache is bf16 (the JAX gate is a TPU backend); True forces
 it (on CPU tensors that means the kernels' plain versions); False turns it
-off. Beam search and speculative decoding are not ported yet.
+off. speculative_draft_len > 0 takes the prompt-lookup speculative
+decoder (`inference/speculative.py`: greedy, single stream, the same tokens
+as greedy decode). Beam search is not ported yet.
 """
 
 from __future__ import annotations
@@ -67,9 +69,8 @@ class VlaserChat:
         `core.quant.quantize_for_serving` for the fused runner). Sampling
         draws from a generator seeded with 0 on the model's device (the JAX
         chat's PRNGKey(0))."""
-        if num_beams > 1 or speculative_draft_len > 0:
-            raise NotImplementedError(
-                "beam search and speculative decoding are not ported yet")
+        if num_beams > 1:
+            raise NotImplementedError("beam search is not ported yet")
         self.model, self.tokenizer = model, tokenizer
         self.cfg = model.cfg
         self.bucket, self.system_message = bucket, system_message
@@ -78,22 +79,34 @@ class VlaserChat:
         gen_kw = dict(max_new_tokens=max_new_tokens,
                       eos_token_ids=[self.eos_token_id],
                       pad_token_id=self.cfg.pad_token_id)
+        self.device = model.device
+        self._fused_gen = None
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(0)
+        if speculative_draft_len > 0:
+            # prompt-lookup speculative decoding: greedy-exact, single
+            # stream (chat(), not batch_chat)
+            from .speculative import make_speculative_generate_fn
+
+            if temperature != 0.0 or repetition_penalty != 1.0:
+                raise ValueError(
+                    "speculative decode is greedy (no penalty or sampling)")
+            self._gen = make_speculative_generate_fn(
+                model, draft_len=speculative_draft_len,
+                cache_dtype=cache_dtype, **gen_kw)
+            return
         self._gen = make_generate_fn(
             model, temperature=temperature, top_k=top_k,
             repetition_penalty=repetition_penalty, cache_dtype=cache_dtype,
             **gen_kw)
-        self.device = model.device
         fused_ok = use_fused is True or (
             use_fused == "auto" and self.device.type == "cuda"
             and cache_dtype == torch.bfloat16)
-        self._fused_gen = None
         if (fused_ok and temperature == 0.0 and repetition_penalty == 1.0
                 and _llm_is_quantized(model)):
             from .fused_runner import make_fused_generate_fn
 
             self._fused_gen = make_fused_generate_fn(model, **gen_kw)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(0)
 
     def _encode(self, queries: Sequence[str]) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:

@@ -10,7 +10,10 @@ model). It serves sampled, penalised and batched requests, and it is the
 oracle of the fused decoder (`inference/fused_runner.py`) on the card.
 Sampling draws from an explicit `torch.Generator`; the JAX package's
 Gumbel draws from a PRNG key give other tokens for the same seed, so only
-greedy decoding is compared across the two packages.
+greedy decoding (and the filters' kept sets) is compared across the two
+packages. `sample_per_row` is the engine's per-slot sampler: a sampled
+slot emits what a solo `make_generate_fn(temperature=...)` emits under a
+generator of the same seed.
 """
 
 from __future__ import annotations
@@ -29,24 +32,99 @@ def _apply_repetition_penalty(logits, seen, penalty: float):
     return torch.where(seen, pen, logits)
 
 
+def _filter_logits(logits, temps, top_ks, top_ps, use_k: bool = True,
+                   use_p: bool = True):
+    """The sampling filters with per-row parameters (tensors, not Python
+    numbers), in the logits' own dtype as in JAX: temperature scale, then
+    the top-k threshold (the k-th largest scaled logit; k 0 = off), then
+    the nucleus threshold on the filtered logits (a token is kept while the
+    mass before it is under top_p; p 1 = off). Dropped tokens take -1e30.
+    logits [B, V]; temps, top_ps [B] float; top_ks [B] int. A row of
+    temperature 0 is scaled by 1 (its caller takes the argmax).
+
+    `use_k` / `use_p` False (the host knows that no row has k > 0 / p < 1)
+    skip that filter's full-vocabulary sort: it would keep every token, so
+    the result is the same bits."""
+    v, dt = logits.shape[-1], logits.dtype
+    temps = temps.to(dt)
+    scale = torch.where(temps > 0, temps, torch.ones_like(temps))
+    lt = logits / scale[:, None]
+    drop = torch.full((), -1e30, dtype=dt, device=lt.device)
+    if use_k:
+        lt = _top_k_filter(lt, top_ks, drop)
+    if use_p:
+        lt = _top_p_filter(lt, top_ps, drop)
+    return lt
+
+
+def _top_k_filter(lt, top_ks, drop):
+    v = lt.shape[-1]
+    srt = torch.sort(lt, dim=-1, descending=True).values
+    kth = srt.gather(1, (top_ks.long() - 1).clamp(0, v - 1)[:, None])
+    thr_k = torch.where(top_ks[:, None] > 0, kth,
+                        torch.full_like(kth, -torch.inf))
+    return torch.where(lt < thr_k, drop, lt)
+
+
+def _top_p_filter(lt, top_ps, drop):
+    srt = torch.sort(lt, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    keep = probs.cumsum(-1) - probs < top_ps.to(probs.dtype)[:, None]
+    thr_p = torch.where(keep, srt, torch.inf).amin(-1, keepdim=True)
+    thr_p = torch.where(top_ps[:, None] < 1.0, thr_p,
+                        torch.full_like(thr_p, -torch.inf))
+    return torch.where(lt < thr_p, drop, lt)
+
+
+def _draw(logits, generator):
+    """One categorical draw a row from the filtered logits [B, V]."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 def _sample(logits, generator: Optional[torch.Generator], temperature: float,
             top_k: int, top_p: float = 1.0):
     """logits [B, V] -> tokens [B] int64: greedy at temperature 0, else
-    temperature, top-k and nucleus filtering, then one categorical draw."""
+    temperature, top-k and nucleus filtering (`_filter_logits`), then one
+    categorical draw."""
     if temperature == 0.0:
         return logits.argmax(-1)
-    logits = logits / temperature
-    if top_k > 0:
-        top = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < top, -1e30, logits)
-    if top_p < 1.0:
-        srt = torch.sort(logits, dim=-1, descending=True).values
-        probs = torch.softmax(srt, dim=-1)
-        keep = probs.cumsum(-1) - probs < top_p  # mass before it < p
-        thr = torch.where(keep, srt, torch.inf).amin(-1, keepdim=True)
-        logits = torch.where(logits < thr, -1e30, logits)
-    probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    b, dev = logits.shape[0], logits.device
+    full = lambda x, dt: torch.full((b,), x, dtype=dt, device=dev)
+    lt = _filter_logits(logits, full(temperature, torch.float32),
+                        full(top_k, torch.int64),
+                        full(top_p, torch.float32), use_k=top_k > 0,
+                        use_p=top_p < 1.0)
+    return _draw(lt, generator)
+
+
+def sample_per_row(logits, generators: Sequence[Optional[torch.Generator]],
+                   temps, top_ks, top_ps, use_k: bool = True,
+                   use_p: bool = True):
+    """Per-row sampling with per-row parameters (the engine's slots each
+    carry their own; the vLLM SamplingParams role). logits [B, V];
+    generators: one `torch.Generator` (or None) a row; temps / top_ps [B]
+    float tensors, top_ks [B] int (0 = no top-k). -> [B] int64 tokens.
+
+    A row with no generator takes the argmax, and so does a row of
+    temperature 0 (its generator, if any, still draws, as JAX's key
+    splits). A sampled row draws from its own generator on its own [1, V]
+    filtered row, so it emits what `_sample` at B = 1 with that row's
+    numbers and a generator in the same state emits (the filter is one
+    code path; the draw one multinomial over one row). No host sync: the
+    rows to draw are the host's list of generators. The JAX package draws
+    Gumbel noise from a PRNG key: only the filter's kept set and the greedy
+    rows compare across the packages. `use_k` / `use_p` as in
+    `_filter_logits`: False when the host knows no row filters."""
+    out = logits.argmax(-1)
+    rows = [i for i, g in enumerate(generators) if g is not None]
+    if not rows:
+        return out
+    lt = _filter_logits(logits, temps, top_ks, top_ps, use_k, use_p)
+    drawn = out.clone()
+    for i in rows:
+        drawn[i:i + 1] = _draw(lt[i:i + 1], generators[i])
+    return torch.where(temps > 0, drawn, out)
 
 
 def _is_eos(token, eos):

@@ -19,7 +19,11 @@ slots back, flash-attn's left window, as in JAX). Not ported (they raise
 NotImplementedError): MoE layers, context parallelism, Phi3 longrope
 (`rope_cos_sin_su`), the Gemma family's options (plus-one RMSNorm,
 tanh-GELU MLP, embedding scale, softcap, query pre-attention scale),
-per-row cache offsets and remat.
+and remat. A cache with per-row offsets (`KVCache.length` a [B] tensor,
+the continuous-batching engine) writes K/V at each row's offset; a
+one-token step then attends under the segment mask alone (every valid
+cached slot is in the past), a multi-token block causally at the per-row
+offsets, on the eager reference as in JAX.
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ class Qwen2Layers(nn.Module):
         self.mlp = Qwen2MLP(cfg, L, pd, cd, device)
 
     def forward(self, x, l, cos, sin, attend, cache: Optional[KVCache],
-                q_offset: int):
+                q_offset):
         cfg, att = self.cfg, self.self_attn
         b, s, _ = x.shape
         h = self.input_layernorm(x, l)
@@ -132,16 +136,26 @@ class Qwen2Model(nn.Module):
                   window=cfg.sliding_window if causal else None)
         q_offset = 0
         if cache is not None:
-            if not isinstance(cache.length, int):
-                raise NotImplementedError("per-row cache offsets")
             q_offset = cache.length
             cache = cache.write_meta(seg_ids, levels)
+            if torch.is_tensor(q_offset):
+                # per-row offsets: a single query token attends every valid
+                # cached slot (all lie in its past), so causal reduces to
+                # the kv segment mask; a multi-token block (a speculative
+                # verify) is causal at the [B] offsets
+                if cfg.sliding_window is not None:
+                    raise NotImplementedError(
+                        "sliding window with per-row cache offsets")
+                kw.update(causal=s > 1, window=None)
+            mask_offset = q_offset
+            if torch.is_tensor(q_offset) and s == 1:
+                mask_offset = 0
             attend = attention_fn(
                 b, s, cache.max_len, cfg.num_heads, dev,
                 q_segment_ids=seg_ids, kv_segment_ids=cache.seg,
                 q_levels=levels,
                 kv_levels=None if levels is None else cache.lev,
-                q_offset=q_offset, **kw)
+                q_offset=mask_offset, **kw)
         else:
             attend = attention_fn(
                 b, s, s, cfg.num_heads, dev, q_segment_ids=seg_ids,
@@ -176,8 +190,9 @@ class Qwen2ForCausalLM(nn.Module):
         b, s, _ = inputs_embeds.shape
         if positions is None:
             off = cache.length if cache is not None else 0
-            positions = (torch.arange(s, device=inputs_embeds.device)
-                         + off)[None].expand(b, s)
+            base = torch.arange(s, device=inputs_embeds.device)
+            positions = (base[None] + off[:, None] if torch.is_tensor(off)
+                         else (base + off)[None].expand(b, s))
         hidden, cache = self.model(inputs_embeds, positions, seg_ids=seg_ids,
                                    cache=cache, attn_impl=attn_impl)
         logits = self.logits(hidden) if return_logits else None

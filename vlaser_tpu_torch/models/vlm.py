@@ -5,7 +5,8 @@ projector, the static-shape IMG_CONTEXT scatter, and `InternVLChatModel`
 Module names are the JAX parameter tree's (`vision_model`, `mlp1`,
 `language_model/{embed_tokens,model,lm_head}`), so
 `utils.convert.from_jax_variables` loads a JAX tree as it is. Padding tiles
-(`image_flags`) are not ported.
+(`image_flags` 0, the engine's tile buckets) are compacted out of the
+scatter, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,12 +46,19 @@ def scatter_image_embeds(input_ids: torch.Tensor, tok_embeds: torch.Tensor,
                          img_context_token_id: int) -> torch.Tensor:
     """Replace <IMG_CONTEXT> positions with ViT tokens, statically shaped.
     The source index is a cumsum over the WHOLE flattened batch, so the
-    k-th context slot of the batch takes the k-th (flagged) ViT token."""
-    if image_flags is not None:
-        raise NotImplementedError("padding tiles (image_flags) are not ported")
+    k-th context slot of the batch takes the k-th (flagged) ViT token.
+    image_flags [T] (1 = real tile, 0 = padding) repeats over each tile's
+    tokens; flagged tokens are compacted to the front in order (a scatter
+    into a scratch row that the padding tokens share), the rest zero."""
     b, n, c = tok_embeds.shape
     t, ppt, _ = vit_embeds.shape
     compact = vit_embeds.reshape(t * ppt, c)
+    if image_flags is not None:
+        flags = image_flags.to(torch.int64).repeat_interleave(ppt)
+        dest = torch.cumsum(flags, 0) - 1
+        dest = torch.where(flags == 1, dest, t * ppt)  # dropped: scratch row
+        compact = compact.new_zeros((t * ppt + 1, c)).index_copy_(
+            0, dest, compact)[:t * ppt]
     sel = (input_ids == img_context_token_id).reshape(b * n)
     src = torch.cumsum(sel.to(torch.int64), 0) - 1
     gathered = compact[src.clamp(0, t * ppt - 1)]
