@@ -18,9 +18,10 @@ change, parent.
 Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
 width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
-model (phases 12-16), of the PaliGemma VLA (phases 17-19) and of the
-Vlaser-2B serving engine (phases 20-22, run after 16) with random weights
-from seeded generators:
+model (phases 12-16), of the PaliGemma VLA (phases 17-19), of the
+Vlaser-2B serving engine (phases 20-22, run first) and of the Vlaser-2B
+SFT train step (phases 23-26, after 19) with random weights from seeded
+generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -171,6 +172,36 @@ quantize_for_serving(model) with its defaults):
   22. VlaserChat(speculative_draft_len=4) at full width against the plain
      generator (1 tile, 64 new tokens; tokens reported, bf16), and at fp32
      on tiny_vlm, where the tokens must be equal.
+The SFT train step (Vlaser-2B, N(0, 0.02^2) draws with norms 1 + N(0,
+0.1^2) and ViT layer scales ~0.1; bench.py's synthetic batches):
+  23. the SFT path's kernels at its shapes against their plain versions,
+     with controls, timed: flash forward and backward (B 1, causal, 12 / 2
+     heads x 128) at 2,048 tokens in per-token segments 1..4 (control:
+     segments ignored) and at 16,384 in segment blocks of 2,048 (held
+     block by block; controls: segments ignored, causal dropped); _rms_fwd
+     / _rms_bwd at 2,048 and 16,384 x 1,536; quantize_rows and int8_gemm
+     at one layer's 7 shapes at 2,048 and 16,384 rows;
+  24. the QLoRA step of bench.py's _bench_sft_train (bf16, remat, the int8
+     base with w8a8 on the LLM layers, LoRA r 64 alpha 128 on the LLM
+     targets, the vocab-chunked CE in chunks of 512, AdamW 1e-4 with decay
+     0.01 on the factors alone, no clip; B 1 x 2,048 tokens): a gate of
+     one loss + backward on the kernel route against the reference
+     attention and RMSNorm (loss LOSS_REL, LoRA gradient norm GNORM_REL,
+     layer 0's and the final hidden states LAYER0_REL / HIDDEN_REL, max
+     |dL/db| > 0; control: segments ignored), then a warm-up and 5 steps
+     with the launch counters zeroed just before and read just after,
+     held to the counts the code implies; tok/s, step ms, bench.py's fwd
+     / bwd / optimizer split, peak memory; one step under torch.profiler;
+  25. the same step at 16,384 tokens in segment blocks of 2,048
+     (_bench_sft_16k): a warm-up and 2 counted steps, tok/s, peak memory;
+     then merge_qlora_into_quant's float model against the int8 + LoRA
+     model, weight-only, on a 384-token input (MERGE_REL);
+  26. SFTTrainer with full parameters as scripts/train_sft.py builds it
+     (fp32 parameters, bf16 compute, remat, TrainConfig() defaults, the
+     ViT frozen) on one batch packed as PackedDataset emits it: 3 steps
+     with derived launch counts, losses, grad norms, step ms, peak memory,
+     the ViT bit for bit unchanged, and the cost of the ViT backward that
+     grad_norm's parity with the JAX step takes.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -1609,7 +1640,8 @@ def _flash_case(torch, dev, g, tag, name, B, Sq, Skv, H, KVH, D, q_seg,
                 timed=True):
     """flash_attention_fwd / _bwd at one shape against the plain versions on
     the same CUDA tensors. Controls, where they apply: scale dropped, levels
-    ignored, padding keys unmasked, causal and q_offset dropped, softcap
+    ignored, padding keys unmasked, packed segments ignored, causal and
+    q_offset dropped, softcap
     and its 1 - t^2 factor dropped, and at D = 72 the last 8 dims of k
     zeroed. Fully masked rows must give zeros. When `timed`: times against
     the plain version and, without a softcap (which no PyTorch call
@@ -1652,8 +1684,13 @@ def _flash_case(torch, dev, g, tag, name, B, Sq, Skv, H, KVH, D, q_seg,
     if not bool(seg.all()):
         controls["padding keys unmasked"] = plain(
             km_=fa.pack_meta(torch.ones_like(seg), lev))
+    if int(seg.max()) > 1 and Sq == Skv:  # packed segments
+        controls["segments ignored"] = plain(
+            fa.pack_meta(torch.ones_like(q_seg), q_lev),
+            fa.pack_meta(torch.ones_like(seg), lev))
     if causal:
         controls["causal dropped"] = plain(causal_=False)
+    if off:
         controls["q_offset dropped"] = plain(off_=0)
     if cap:
         controls["softcap dropped"] = plain(cap_=None)
@@ -1831,16 +1868,30 @@ def rms_serving(torch, g, dev, ns, H, eps, label, tag, cold=False):
 
 # -- training: phase 10, RMSNorm ----------------------------------------------
 def rms_phase(torch, dev, cfg, tag, report):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    llm = cfg.vlm.llm
+    f_rep, b_rep = rms_train_case(
+        torch, g, dev, 32 * cfg.max_image_text_tokens, llm.hidden_size,
+        llm.rms_norm_eps, "", tag)
+    # the forward at the batch-8 serving prefix's shape (8 x 384 rows, bf16
+    # weights, under inference_mode as make_batched_infer_action runs it)
+    f_rep["b8"] = rms_serving(torch, g, dev, B8 * cfg.max_image_text_tokens,
+                              llm.hidden_size, llm.rms_norm_eps,
+                              f"batch {B8}", tag)
+    report["_rms_fwd"], report["_rms_bwd"] = f_rep, b_rep
+
+
+def rms_train_case(torch, g, dev, n, H, eps, label, tag):
+    """_rms_fwd and _rms_bwd at n x H bf16 (a training shape) against the
+    plain versions, dw twice bit-equal; controls (w ignored, the x * sum
+    term of dx dropped); timed against the plain versions and
+    F.rms_norm's forward and backward. -> (fwd report, bwd report)."""
     import torch.nn.functional as F
 
     from vlaser_tpu_torch.kernels import rmsnorm
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
     bf = torch.bfloat16
-    llm = cfg.vlm.llm
-    n, H, eps = 32 * cfg.max_image_text_tokens, llm.hidden_size, \
-        llm.rms_norm_eps
     r = lambda *s: torch.randn(s, generator=g, device=dev)
     x, w, gy = r(n, H).to(bf), (1 + 0.1 * r(H)).to(bf), r(n, H).to(bf)
     what = f"rms_norm {n}x{H} bf16"
@@ -1887,17 +1938,12 @@ def rms_phase(torch, dev, cfg, tag, report):
         yl, (xl, wl), gy, retain_graph=True), 20)
     b_rep["bound_ms"], b_rep["bound_by"] = _bound(
         8 * x.numel(), 3 * nb + H * 2 + n * 4 + H * 4, PEAK_FP32)
-    # the forward at the batch-8 serving prefix's shape (8 x 384 rows, bf16
-    # weights, under inference_mode as make_batched_infer_action runs it)
-    s_rep = rms_serving(torch, g, dev, B8 * cfg.max_image_text_tokens, H,
-                        eps, f"batch {B8}", tag)
-    f_rep["b8"] = s_rep
     for nm, t in (("fwd", f_rep), ("bwd", b_rep)):
-        print(f"rms_norm {nm} time: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, torch rms_norm "
+        print(f"rms_norm {nm}{label} {n} rows time: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, torch rms_norm "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}) {tag}", flush=True)
-    report["_rms_fwd"], report["_rms_bwd"] = f_rep, b_rep
+    return f_rep, b_rep
 
 
 # -- training: phase 11, the train step ---------------------------------------
@@ -3376,6 +3422,564 @@ def pali_phases(torch, np, dev, cfg, tag, report):
     return _add(launches, pali_train_phase(torch, np, dev, cfg, tag))
 
 
+# -- SFT: phases 23-26 ---------------------------------------------------------
+SFT_TOKENS = 2048  # _bench_sft_train's packed batch (B 1)
+SFT_LONG, SFT_BLOCK = 16384, 2048  # _bench_sft_16k's, segment blocks of 2,048
+SFT_ITERS, SFT_LONG_ITERS = 5, 2  # timed steps, each after one warm-up step
+SFT_CHUNK, SFT_RANK, SFT_ALPHA, SFT_LR = 512, 64, 128.0, 1e-4
+MERGE_TOKENS = 384
+# QLoRA gate, the decoder's hidden states on the kernel route against the
+# reference route's, relative L2 distance: layer 0's output within
+# LAYER0_REL (the reference RMSNorm rounds x rrms to bf16 before the
+# weight, the kernel rounds once, and each one-step bf16 difference can
+# flip an int8 activation by amax / 127; 1.2e-2 at a cut config on the
+# CPU), the final norm's within HIDDEN_REL (that noise compounds through 28
+# layers of random weights: 8.2e-2 on an H100, segments ignored 0.38)
+LAYER0_REL, HIDDEN_REL = 5e-2, 0.2
+# the merged float model's logits against the int8 + LoRA model's (weight-
+# only): relative L2 distance (the merged kernels are rounded to bf16 once,
+# the int8 route rounds x W and (x a) b apart, through 28 layers)
+MERGE_REL = 5e-2
+
+
+def _sft_batch(torch, np, dev, cfg, n, seed, block=None):
+    """bench.py's synthetic SFT batch (_bench_sft_train, _bench_sft_16k):
+    B 1 x n ids in [4, 1000), the first num_image_token of them IMG_CONTEXT,
+    labels the ids, weights 1, segment ids drawn per token in 1..4 (block
+    None) or in blocks of `block` tokens, one 448 px tile of 0.5."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(4, 1000, (1, n))
+    ids[0, :cfg.num_image_token] = cfg.img_context_token_id
+    seg = (rng.integers(0, 4, (1, n)) + 1 if block is None
+           else (np.arange(n) // block + 1)[None])
+    img = cfg.vision.image_size
+    ids = torch.from_numpy(ids).to(dev)
+    return {"input_ids": ids, "labels": ids.clone(),
+            "loss_weight": torch.ones((1, n), device=dev),
+            "seg_ids": torch.from_numpy(seg).to(dev, torch.int32),
+            "pixel_values": torch.full((1, img, img, 3), 0.5, device=dev),
+            "image_flags": torch.ones((1,), dtype=torch.int32, device=dev)}
+
+
+def _packed_batch(np, cfg, n, seed, lengths):
+    """One B 1 x n batch as PackedDataset._emit (vlaser_tpu/data/
+    chat_dataset.py:624-648) lays it out, in numpy: contiguous segments of
+    `lengths` tokens whose positions restart at 0, the first holding one
+    tile's IMG_CONTEXT tokens after its first token; the prompt (the first
+    token, the image and 16 more) labelled -100; the tail segment 0, pad
+    ids, labels -100, weight 0."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((n,), cfg.pad_token_id, np.int64)
+    labels = np.full((n,), -100, np.int64)
+    weights = np.zeros((n,), np.float32)
+    seg = np.zeros((n,), np.int32)
+    pos = np.zeros((n,), np.int32)
+    ofs, T = 0, cfg.num_image_token
+    for k, m in enumerate(lengths):
+        s_ids = rng.integers(4, 1000, m)
+        if k == 0:
+            s_ids[1:1 + T] = cfg.img_context_token_id
+        s_lab = s_ids.copy()
+        s_lab[:1 + (T if k == 0 else 0) + 16] = -100
+        ids[ofs:ofs + m], labels[ofs:ofs + m] = s_ids, s_lab
+        weights[ofs:ofs + m] = 1.0
+        seg[ofs:ofs + m], pos[ofs:ofs + m] = k + 1, np.arange(m)
+        ofs += m
+    img = cfg.vision.image_size
+    return {"input_ids": ids[None], "labels": labels[None],
+            "loss_weight": weights[None], "seg_ids": seg[None],
+            "positions": pos[None],
+            "pixel_values": rng.uniform(-1, 1, (1, img, img, 3)).astype(
+                np.float32),
+            "image_flags": np.ones((1,), np.int32)}
+
+
+def _flash_blocks(torch, dev, g, tag, name, n, block, H, KVH, D):
+    """flash_attention_fwd / _bwd over B 1 x n causal tokens packed in
+    segments of `block`, against the plain versions taken block by block:
+    the segments make the mask block-diagonal, so each block's plain pass
+    is the whole pass's on its rows (the plain version over all n would
+    hold [H, n, n] fp32 logits). Controls: segments ignored (block 1's rows
+    over keys 0 .. 2 block, causal at q_offset block) and causal dropped
+    (block 0). Timed against the plain block loop and SDPA under the
+    block-diagonal causal mask. -> (fwd report, bwd report)."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(torch, g, dev, 1, n, n, H, KVH, D)
+    seg = (torch.arange(n, device=dev) // block + 1).to(torch.int32)[None]
+    meta = fa.pack_meta(seg)
+    what = f"flash {name} B=1 S={n} H={H}/{KVH} D={D} causal, {block}-blocks"
+    out, lse = fa.flash_attention_fwd(q, k, v, meta, meta, 0, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, meta, meta, 0, out, lse, do,
+                                        True)
+    torch.cuda.synchronize()
+    keys = ("out", "lse", "dq", "dk", "dv")
+
+    def plain_blocks():
+        parts = []
+        for i in range(0, n, block):
+            r = slice(i, i + block)
+            o, l = fa.flash_attention_fwd_plain(
+                q[:, r], k[:, r], v[:, r], meta[:, r], meta[:, r], 0, True)
+            parts.append((o, l, *fa.flash_attention_bwd_plain(
+                q[:, r], k[:, r], v[:, r], meta[:, r], meta[:, r], 0,
+                out[:, r], lse[:, :, r], do[:, r], True)))
+        return {kk: torch.cat([p[j] for p in parts], dim=2 if kk == "lse"
+                              else 1) for j, kk in enumerate(keys)}
+
+    ref = plain_blocks()
+    bounds = {kk: FLASH_REL * ref[kk].float().abs().max().item()
+              for kk in ("out", "dq", "dk", "dv")}
+    bounds["lse"] = LSE_ABS
+    b0, b1 = slice(0, block), slice(block, 2 * block)
+    ones = fa.pack_meta(torch.ones_like(seg))
+    o_seg = ref["out"].clone()
+    o_seg[:, b1] = fa.flash_attention_fwd_plain(
+        q[:, b1], k[:, :2 * block], v[:, :2 * block], ones[:, b1],
+        ones[:, :2 * block], block, True)[0]
+    o_cau = ref["out"].clone()
+    o_cau[:, b0] = fa.flash_attention_fwd_plain(
+        q[:, b0], k[:, b0], v[:, b0], meta[:, b0], meta[:, b0], 0, False)[0]
+    errs = _check(what, dict(zip(keys, (out, lse, dq, dk, dv))), ref, bounds,
+                  {"segments ignored": {"out": o_seg},
+                   "causal dropped": {"out": o_cau}})
+    del ref, o_seg, o_cau
+    pairs = (n // block) * block * (block + 1) // 2
+    io = (q.numel() + k.numel() + v.numel()) * 2
+    meta_b, lse_b = 2 * meta.numel() * 4, lse.numel() * 4
+    t_fwd = {"max_abs_err": errs["out"],
+             "ms": _kernel_ms(torch, lambda: fa.flash_attention_fwd(
+                 q, k, v, meta, meta, 0, True), 10),
+             "plain_ms": _ms(torch, lambda: [fa.flash_attention_fwd_plain(
+                 q[:, i:i + block], k[:, i:i + block], v[:, i:i + block],
+                 meta[:, i:i + block], meta[:, i:i + block], 0, True)
+                 for i in range(0, n, block)], 2)}
+    t_fwd["bound_ms"], t_fwd["bound_by"] = _bound(
+        4 * D * H * pairs, io + q.numel() * 2 + lse_b + meta_b, PEAK_BF16)
+    t_bwd = {"max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+             "ms": _kernel_ms(torch, lambda: fa.flash_attention_bwd(
+                 q, k, v, meta, meta, 0, out, lse, do, True), 10),
+             "plain_ms": _ms(torch, lambda: [fa.flash_attention_bwd_plain(
+                 q[:, i:i + block], k[:, i:i + block], v[:, i:i + block],
+                 meta[:, i:i + block], meta[:, i:i + block], 0,
+                 out[:, i:i + block], lse[:, :, i:i + block],
+                 do[:, i:i + block], True) for i in range(0, n, block)], 2)}
+    t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
+        10 * D * H * pairs, 2 * io + 2 * q.numel() * 2 + lse_b + meta_b,
+        PEAK_BF16)
+    rep = lambda t: t.repeat_interleave(H // KVH, dim=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, rep(k), rep(v)))
+    dot = do.transpose(1, 2).contiguous()
+    mask = fa._allowed(meta, meta, 0, True)[:, None]
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    t_fwd["library_ms"] = _kernel_ms(torch, sdpa, 10)
+    o_lib = sdpa()
+    t_bwd["library_ms"] = _kernel_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), dot, retain_graph=True), 10)
+    del o_lib, qt, kt, vt, dot, mask
+    for nm, t, flop in (("fwd", t_fwd, 4 * D * H * pairs),
+                        ("bwd", t_bwd, 10 * D * H * pairs)):
+        _flash_rate(t, flop)
+        print(f"flash {nm} {name} time: kernel {t['ms']:.3f} ms "
+              f"({t['tflops']:.1f} TFLOP/s), plain (block loop) "
+              f"{t['plain_ms']:.3f} ms, sdpa {t['library_ms']:.3f} ms "
+              f"({t['library_tflops']:.1f} TFLOP/s), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}", flush=True)
+    return t_fwd, t_bwd
+
+
+def sft_kernel_phase(torch, np, dev, cfg, sites, tag, report):
+    """Phase 23: the SFT path's kernels at its shapes against their plain
+    versions, with controls, timed: flash forward and backward (B 1, causal,
+    the LLM's heads) at SFT_TOKENS with bench.py's per-token segments 1..4
+    (_flash_case) and at SFT_LONG in blocks of SFT_BLOCK (_flash_blocks);
+    _rms_fwd / _rms_bwd at SFT_TOKENS and SFT_LONG rows x hidden; and
+    quantize_rows and int8_gemm at one layer's 7 shapes at both row counts
+    (gemm_phase, on `sites`: the QLoRA model's layer-0 int8 weights). Each
+    report is filed under its kernel as "sft_<rows>"."""
+    llm = cfg.llm
+    H, KVH, D = llm.num_heads, llm.num_kv_heads, llm.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    seg = _sft_batch(torch, np, dev, cfg, SFT_TOKENS, 0)["seg_ids"]
+    short = f"sft_{SFT_TOKENS}"
+    flash = {short: _flash_case(torch, dev, g, tag, f"sft {SFT_TOKENS}", 1,
+                                SFT_TOKENS, SFT_TOKENS, H, KVH, D, seg, None,
+                                seg, None, causal=True)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash[f"sft_{SFT_LONG}"] = _flash_blocks(
+        torch, dev, g, tag, f"sft {SFT_LONG}", SFT_LONG, SFT_BLOCK, H, KVH, D)
+    for name, (f, b) in flash.items():
+        report["flash_attention_fwd"][name] = f
+        report["flash_attention_bwd"][name] = b
+    gc.collect()
+    torch.cuda.empty_cache()
+    for n in (SFT_TOKENS, SFT_LONG):
+        f, b = rms_train_case(torch, g, dev, n, llm.hidden_size,
+                              llm.rms_norm_eps, " (sft)", tag)
+        report["_rms_fwd"][f"sft_{n}"], report["_rms_bwd"][f"sft_{n}"] = f, b
+    for n, (k1, k2, _) in gemm_phase(torch, sites, (SFT_TOKENS, SFT_LONG),
+                                     dev, tag).items():
+        report["quantize_rows"][f"sft_{n}"] = k1
+        report["int8_gemm"][f"sft_{n}"] = k2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _qlora_model(torch, dev, cfg, seed):
+    """_bench_sft_train's model: Vlaser-2B in bf16 (parameters and
+    compute), remat, draws as _train_init_, every LLM layer kernel, the
+    embedding and the lm_head int8 (DEFAULT_PATTERNS) with the layer
+    kernels flagged w8a8 (VLM_W8A8_ACT_PATTERNS), every weight frozen, LoRA
+    r SFT_RANK, alpha SFT_ALPHA, bf16 on LLM_TARGETS. -> (model, factors)."""
+    from vlaser_tpu_torch.core import quant
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.train.lora import LLM_TARGETS, init_qlora_collection
+
+    bf = torch.bfloat16
+    model = InternVLChatModel(cfg, param_dtype=bf, compute_dtype=bf,
+                              device=dev, remat=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    _train_init_(torch, model, gen)
+    quant.quantize_module(model, quant.DEFAULT_PATTERNS,
+                          act_quant_patterns=quant.VLM_W8A8_ACT_PATTERNS)
+    model.requires_grad_(False)
+    factors = init_qlora_collection(model, LLM_TARGETS, r=SFT_RANK,
+                                    alpha=SFT_ALPHA, dtype=bf, generator=gen)
+    return model, factors
+
+
+def _qlora_want(L, steps):
+    """The launches `steps` QLoRA steps imply: every decoder layer runs one
+    flash forward and its 7 w8a8 Dense (each a quantize_rows and an
+    int8_gemm: a Dense with LoRA factors never shares int8 rows, so no
+    quantize_silu_mul) twice (the remat recompute), one flash backward, its
+    two RMSNorms twice; the final norm runs once; every norm but layer 0's
+    input norm (over the frozen embeddings) has a backward. The ViT (1,025
+    tokens, one tile) takes the reference attention."""
+    return {"flash_attention_fwd": steps * 2 * L,
+            "flash_attention_bwd": steps * L,
+            "_rms_fwd": steps * (4 * L + 1), "_rms_bwd": steps * 2 * L,
+            "quantize_rows": steps * 14 * L, "int8_gemm": steps * 14 * L}
+
+
+def qlora_gate(torch, model, factors, loss_fn, batch, tag):
+    """One loss + backward of the QLoRA loss on the kernel route (flash,
+    RMSNorm kernels) and one on the reference attention and RMSNorm, same
+    weights and batch: the loss within LOSS_REL, the LoRA gradient norm
+    within GNORM_REL, max |dL/db| > 0 (the STE backward of the w8a8 Dense
+    is alive; b starts at 0, so only b has a gradient), and, in one more
+    forward, the decoder's hidden states: layer 0's output within
+    LAYER0_REL and the final norm's (the CE's input) within HIDDEN_REL in
+    relative L2 norm (over random weights the logits are near uniform, so
+    the loss and the gradient norm hardly see what attention attends; every
+    layer's distance is printed). Control: the kernel route with the
+    segment ids ignored must break the gate."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+    from vlaser_tpu_torch.models.layers import set_rms_impl
+    from vlaser_tpu_torch.train.train_step import grad_norm
+
+    def run(impl, b, label):
+        model.set_attn_impl(impl)
+        set_rms_impl(model, impl)
+        for p in factors.values():
+            p.grad = None
+        n0 = (fa.fwd_launch_count, rmsnorm.fwd_launch_count)
+        loss = loss_fn(b)
+        loss.backward()
+        torch.cuda.synchronize()
+        used = (fa.fwd_launch_count - n0[0], rmsnorm.fwd_launch_count - n0[1])
+        norm = grad_norm(factors.values()).item()
+        bmax = max(p.grad.abs().max().item() for n, p in factors.items()
+                   if n.endswith("lora_b"))
+        finite = all(bool(p.grad.isfinite().all()) for p in factors.values())
+        outs = {}
+        hook = layers.register_forward_hook(
+            lambda mod, args, out: outs.__setitem__(args[1], out.float()))
+        try:
+            with torch.no_grad():
+                hidden = model(b["input_ids"], b["pixel_values"],
+                               b["image_flags"], seg_ids=b["seg_ids"],
+                               return_logits=False)[1].float()
+        finally:
+            hook.remove()
+        hidden = [outs[l] for l in range(len(outs))] + [hidden]
+        finite = finite and bool(hidden[-1].isfinite().all())
+        print(f"QLoRA gate, {label}: loss {loss.item():.6f}, LoRA grad norm "
+              f"{norm:.6e}, max |dL/db| {bmax:.3e}, finite {finite}, kernel "
+              f"launches (flash fwd, rms fwd) {used}", flush=True)
+        if not (finite and math.isfinite(loss.item())):
+            raise RuntimeError(f"QLoRA gate: {label} not finite")
+        if (impl == "reference") != (used == (0, 0)):
+            raise RuntimeError(f"QLoRA gate: {label} launches {used}")
+        return loss.item(), norm, bmax, hidden
+
+    layers = model.language_model.model.layers
+    ref = run("reference", batch, "reference route")
+    got = run("auto", batch, "kernel route")
+    ctrl = run("auto", {**batch, "seg_ids": None},
+               "control: kernel route, segments ignored")
+    for p in factors.values():
+        p.grad = None
+    dist = lambda a: [(torch.linalg.vector_norm(h - r)
+                       / torch.linalg.vector_norm(r)).item()
+                      for h, r in zip(a[3], ref[3])]
+    print(f"QLoRA gate: hidden states' rel L2 distance from the reference "
+          f"route, layer by layer, then the final norm: kernel route "
+          f"{[f'{v:.1e}' for v in dist(got)]}; control "
+          f"{[f'{v:.1e}' for v in dist(ctrl)]}", flush=True)
+    rel = lambda a: (abs(a[0] - ref[0]) / abs(ref[0]),
+                     abs(a[1] - ref[1]) / ref[1], dist(a)[0], dist(a)[-1])
+    bounds = (LOSS_REL, GNORM_REL, LAYER0_REL, HIDDEN_REL)
+    r_got, r_ctrl = rel(got), rel(ctrl)
+    print(f"QLoRA gate: rel diffs of the loss, the LoRA grad norm, layer "
+          f"0's output and the final hidden states "
+          f"{[f'{v:.3e}' for v in r_got]} (bounds {bounds}); control "
+          f"{[f'{v:.3e}' for v in r_ctrl]} (must break one) {tag}",
+          flush=True)
+    if not (all(v <= b for v, b in zip(r_got, bounds)) and got[2] > 0):
+        raise RuntimeError("QLoRA step: kernel route disagrees with reference")
+    if all(v <= b for v, b in zip(r_ctrl, bounds)):
+        raise RuntimeError("QLoRA gate cannot see the segments ignored")
+
+
+def _timed_steps(torch, step, batch, iters):
+    """`iters` steps, each between CUDA events (host included). -> (ms a
+    step, losses, grad norms)."""
+    times, losses, gnorms = [], [], []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        m = step(batch)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    return times, losses, gnorms
+
+
+def _held(launches, want, what):
+    print(f"{what} launches {launches} (derived {want})", flush=True)
+    if launches != want:
+        raise RuntimeError(f"{what} launches {launches} != {want}")
+
+
+def qlora_phases(torch, np, dev, cfg, tag, report):
+    """Phases 23-25: the kernels at the SFT shapes (sft_kernel_phase); the
+    QLoRA step at SFT_TOKENS (bench.py's _bench_sft_train): the gate, a
+    warm-up and SFT_ITERS timed steps with the launch counters zeroed just
+    before and read just after, held to _qlora_want; the fwd / bwd /
+    optimizer split as bench.py defines it (the forward alone, loss +
+    backward minus it, the whole step minus loss + backward); one step
+    under torch.profiler; the step at SFT_LONG in segment blocks of
+    SFT_BLOCK (_bench_sft_16k, batch seed 1), counted the same way; then
+    merge_qlora_into_quant's float model against the int8 + LoRA model.
+    -> launches of both steps."""
+    from vlaser_tpu_torch.train.losses import make_sft_loss_chunked
+    from vlaser_tpu_torch.train.train_step import ParamGroup, make_train_step
+
+    t0 = time.perf_counter()
+    model, factors = _qlora_model(torch, dev, cfg, 24)
+    lay = model.language_model.model.layers
+    torch.cuda.synchronize()
+    n_lora = sum(p.numel() for p in factors.values())
+    print(f"QLoRA model: Vlaser-2B, bf16, remat, int8 base (LLM layers w8a8, "
+          f"embedding and lm_head weight-only), LoRA r {SFT_RANK} alpha "
+          f"{SFT_ALPHA} on {len(factors) // 2} targets ({n_lora / 1e6:.2f} M "
+          f"parameters), {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+          f"device, {time.perf_counter() - t0:.1f} s", flush=True)
+    sft_kernel_phase(torch, np, dev, cfg, _gemm_sites(lay.self_attn, lay.mlp),
+                     tag, report)
+
+    batch = _sft_batch(torch, np, dev, cfg, SFT_TOKENS, 0)
+    loss_fn = make_sft_loss_chunked(model, chunk=SFT_CHUNK)
+    qlora_gate(torch, model, factors, loss_fn, batch, tag)
+    step = make_train_step(loss_fn, {"lora": ParamGroup(
+        list(factors.values()), lambda i: SFT_LR, 0.01, None)})
+    L = cfg.llm.num_layers
+    launches = {}
+    for n, iters, b in ((SFT_TOKENS, SFT_ITERS, batch), (SFT_LONG,
+                        SFT_LONG_ITERS, None)):
+        if b is None:
+            b = _sft_batch(torch, np, dev, cfg, n, 1, block=SFT_BLOCK)
+        step(b)  # the warm-up, outside the counted window
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        times, losses, _ = _timed_steps(torch, step, b, iters)
+        counts = {k: v for k, v in _read_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = statistics.median(times)
+        print(f"QLoRA step, {n} tokens: losses "
+              f"{[round(v, 6) for v in losses]}, step ms "
+              f"{[round(v, 3) for v in times]} (median {med:.3f} ms, CUDA "
+              f"events), {n / med * 1e3:.1f} tok/s, peak device memory "
+              f"{peak:.2f} GiB {tag}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError("QLoRA step gave a non-finite loss")
+        _held(counts, _qlora_want(L, iters), f"QLoRA {n}")
+        _add(launches, counts)
+        if n != SFT_TOKENS:
+            continue
+
+        def fwd():
+            with torch.no_grad():
+                loss_fn(b)
+
+        def grad():
+            for p in factors.values():
+                p.grad = None
+            loss_fn(b).backward()
+
+        t_fwd, t_grad = _ms(torch, fwd, iters), _ms(torch, grad, iters)
+        print(f"QLoRA step split (bench.py's phases, CUDA events): fwd "
+              f"{t_fwd:.3f} ms, bwd (with the remat recompute) "
+              f"{max(t_grad - t_fwd, 0):.3f} ms, optimizer "
+              f"{max(med - t_grad, 0):.3f} ms, step {med:.3f} ms {tag}",
+              flush=True)
+        _profile(torch, lambda: step(b), f"QLoRA step ({n} tokens)", tag)
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    merge_phase(torch, np, dev, cfg, model, factors, tag)
+    return launches
+
+
+def merge_phase(torch, np, dev, cfg, model, factors, tag):
+    """merge_qlora_into_quant's float model (bf16) against the int8 + LoRA
+    model after its steps, both weight-only (the w8a8 flags dropped), on one
+    MERGE_TOKENS-token input with a tile: the logits within MERGE_REL in
+    relative L2 distance. Informational: how far the logits move when the
+    LoRA term is dropped."""
+    from vlaser_tpu_torch.models.layers import load_state
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.train.lora import merge_qlora_into_quant
+
+    flt = InternVLChatModel(cfg, param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, device=dev)
+    load_state(flt, merge_qlora_into_quant(model.state_dict()))
+    for m in model.modules():
+        m._buffers.pop("kernel_aq", None)
+    b = _sft_batch(torch, np, dev, cfg, MERGE_TOKENS, 3)
+    args = (b["input_ids"], b["pixel_values"], b["image_flags"])
+    with torch.no_grad():
+        lq, lf = model(*args)[0], flt(*args)[0]
+        for n, p in factors.items():
+            if n.endswith("lora_b"):
+                p.zero_()
+        l0 = model(*args)[0]
+    dist = lambda a: (torch.linalg.vector_norm(a - lq)
+                      / torch.linalg.vector_norm(lq)).item()
+    err, moved = dist(lf), dist(l0)
+    fin = bool(lf.isfinite().all())
+    print(f"merge: merged float model vs int8 + LoRA logits [{MERGE_TOKENS} x "
+          f"{lq.shape[-1]}] rel L2 {err:.3e} (bound {MERGE_REL}), max_abs_err "
+          f"{(lf - lq).abs().max().item():.3e}, finite {fin}; the LoRA term "
+          f"moves them {moved:.3e} {tag}", flush=True)
+    if not (fin and err <= MERGE_REL):
+        raise RuntimeError("merge_qlora_into_quant: merged model disagrees")
+
+
+def sft_trainer_phase(torch, np, dev, cfg, tag):
+    """Phase 26: SFTTrainer with full parameters as scripts/train_sft.py
+    builds it (fp32 parameters, bf16 compute, remat, TrainConfig()
+    defaults: the ViT frozen, AdamW 2e-5 cosine with warmup, clip 1.0) on
+    one packed batch (_packed_batch): 3 steps with the launch counters
+    zeroed just before and read just after, held to the counts the code
+    implies; losses, grad norms (the frozen ViT's gradients included, as
+    the JAX step's), step ms, peak memory; the ViT bit for bit unchanged;
+    the cost of the ViT's backward (loss + backward with and without the
+    ViT taking gradients). -> launches of the 3 steps."""
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.train.losses import make_sft_loss
+    from vlaser_tpu_torch.train.trainer import SFTTrainer, TrainConfig
+
+    t0 = time.perf_counter()
+    model = InternVLChatModel(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.bfloat16, device=dev,
+                              remat=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    _train_init_(torch, model, gen)
+    trainer = SFTTrainer(model, TrainConfig())
+    lengths = (SFT_TOKENS * 3 // 8, SFT_TOKENS * 5 // 16, SFT_TOKENS // 4)
+    batch = _packed_batch(np, cfg, SFT_TOKENS, 26, lengths)
+    vit = {n: p.detach().clone()
+           for n, p in model.vision_model.named_parameters()}
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in model.parameters())
+    n_vit = sum(p.numel() for p in vit.values())
+    print(f"SFTTrainer model: Vlaser-2B, fp32 params / bf16 compute, remat, "
+          f"{n_param / 1e9:.3f} G parameters ({n_vit / 1e9:.3f} G frozen "
+          f"ViT), {torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s; batch 1 x {SFT_TOKENS}, "
+          f"segments {lengths}, {SFT_TOKENS - sum(lengths)} padding tokens",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times, losses, gnorms = _timed_steps(
+        torch, lambda b: trainer.train(iter([b])), batch, STEPS)
+    counts = {k: v for k, v in _read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"SFTTrainer: {STEPS} steps, losses {[round(v, 6) for v in losses]}"
+          f", grad norms {[round(v, 4) for v in gnorms]}, step ms "
+          f"{[round(v, 3) for v in times]} (median "
+          f"{statistics.median(times):.3f} ms, CUDA events), peak device "
+          f"memory {peak:.2f} GiB {tag}", flush=True)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise RuntimeError("SFTTrainer gave a non-finite loss or norm")
+    # as _qlora_want, without w8a8 and with every norm's backward (the
+    # embeddings are trained)
+    L = cfg.llm.num_layers
+    _held(counts, {"flash_attention_fwd": STEPS * 2 * L,
+                   "flash_attention_bwd": STEPS * L,
+                   "_rms_fwd": STEPS * (4 * L + 1),
+                   "_rms_bwd": STEPS * (2 * L + 1)}, "SFTTrainer")
+    changed = [n for n, p in model.vision_model.named_parameters()
+               if not torch.equal(p.detach(), vit[n])]
+    print(f"SFTTrainer: frozen ViT parameters changed: {len(changed)} of "
+          f"{len(vit)}", flush=True)
+    if changed:
+        raise RuntimeError(f"SFTTrainer moved the frozen ViT: {changed[:4]}")
+    del vit
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    loss_fn = make_sft_loss(model)
+
+    def grad():
+        model.zero_grad(set_to_none=True)
+        loss_fn(tb).backward()
+
+    ms = {}
+    for label, on in (("with", True), ("without", False), ("with", True)):
+        model.vision_model.requires_grad_(on)
+        ms.setdefault(label, []).append(_ms(torch, grad, 2))
+    model.zero_grad(set_to_none=True)
+    with_, without = statistics.mean(ms["with"]), ms["without"][0]
+    print(f"SFTTrainer: loss + backward {with_:.3f} ms with the ViT's "
+          f"gradients, {without:.3f} ms without: the ViT backward that "
+          f"grad_norm parity costs is {with_ - without:.3f} ms "
+          f"({(with_ - without) / statistics.median(times):.1%} of a step) "
+          f"{tag}", flush=True)
+    return counts
+
+
+def sft_phases(torch, np, dev, cfg, tag, report):
+    """Phases 23-26, the Vlaser-2B SFT slice: -> launches of its main
+    paths."""
+    launches = qlora_phases(torch, np, dev, cfg, tag, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _add(launches, sft_trainer_phase(torch, np, dev, cfg, tag))
+
+
 # -- the A/B against a parent tree's kernels (--ab DIR) ------------------------
 # (name, B, Sq, Skv, H, KVH, D, causal, softcap, window, backward): the flash
 # shapes of PERF.md's kernel table (phases 9, 13 and 17)
@@ -4125,6 +4729,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     _add(launches, pali_phases(torch, np, dev, pizero_paligemma(), tag,
                                report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, sft_phases(torch, np, dev, vlaser_2b(), tag, report))
     gc.collect()
     torch.cuda.empty_cache()
     engine_profile_phase(torch, np, dev, vlaser_2b(), tag, report)

@@ -48,6 +48,9 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.train.optim",
     "vlaser_tpu_torch.train.train_step",
     "vlaser_tpu_torch.train.trainer",
+    "vlaser_tpu_torch.train.lora",
+    "vlaser_tpu_torch.train.losses",
+    "vlaser_tpu_torch.utils.monitoring",
     "vlaser_tpu_torch.serve.policy_server",
     "vlaser_tpu_torch.tokenizer.conversation",
     "vlaser_tpu_torch.models.qwen2",

@@ -14,7 +14,13 @@ layout, and a Dense whose call sites stay under the row count never holds
 one). Several w8a8 Dense that read one input (q/k/v, gate/up) share its
 int8 rows through `w8a8_group`, and a SiLU MLP's down projection
 quantizes silu(g) * u without storing it (`gated_mlp`), as XLA merges and
-fuses the JAX function's quantizers under `jit`. A block built
+fuses the JAX function's quantizers under `jit`. A Dense may also hold a
+LoRA adapter (`lora_a` [..., in, r], `lora_b` [..., r, out], parameters
+made by train/lora.init_qlora_collection): its term (x a) b is added on
+the activation path after the base product, whatever that product is
+(float, int8 weight-only, w8a8), as the JAX Dense adds its `lora`
+collection. Such a Dense never takes the shared int8 route, which has no
+x to form the term from. A block built
 for a scanned stack holds every layer's weights stacked on a leading `[L]`
 axis, as the fused
 kernels consume them; `forward(x, layer)` picks one slice. Inside
@@ -197,6 +203,10 @@ class Dense(Block):
         self._buffers.pop("kernel_qt", None)
         super()._load_from_state_dict(*args, **kwargs)
 
+    @property
+    def has_lora(self) -> bool:
+        return "lora_a" in self._parameters
+
     def takes_w8a8(self, x) -> bool:
         """Whether a call on x runs w8a8_dot (a kernel_aq-flagged Dense at
         >= ACT_QUANT_MIN_ROWS rows)."""
@@ -205,11 +215,15 @@ class Dense(Block):
 
     def forward(self, x, layer: Optional[int] = None):
         cd = self.compute_dtype
+        xc = x.to(cd)
         if self.takes_w8a8(x):
-            y = w8a8_dot(x.to(cd), self.kernel_kmajor(layer),
+            y = w8a8_dot(xc, self.kernel_kmajor(layer),
                          self.leaf("kernel_scale", layer), out_dtype=cd)
         else:
-            y = torch.matmul(x.to(cd), self.weight(layer))
+            y = torch.matmul(xc, self.weight(layer))
+        if self.has_lora:  # alpha / r is folded into a
+            y = y + (xc @ self.leaf("lora_a", layer).to(cd)) @ self.leaf(
+                "lora_b", layer).to(cd)
         return self._biased(y, layer)
 
     def forward_int8(self, q, am, lead, layer: Optional[int] = None):
@@ -228,10 +242,11 @@ class Dense(Block):
 
 
 def _int8_shared(x, denses) -> bool:
-    """Whether `denses` may share x's int8 rows: each takes w8a8 at x, and
-    no gradient is asked of x (with one, each Dense runs its own W8A8Dot,
-    whose STE backward the shared route does not have)."""
-    return (all(d.takes_w8a8(x) for d in denses)
+    """Whether `denses` may share x's int8 rows: each takes w8a8 at x and
+    holds no LoRA adapter (whose term needs x), and no gradient is asked of
+    x (with one, each Dense runs its own W8A8Dot, whose STE backward the
+    shared route does not have)."""
+    return (all(d.takes_w8a8(x) and not d.has_lora for d in denses)
             and not (x.requires_grad and torch.is_grad_enabled()))
 
 
@@ -310,6 +325,7 @@ def init_normal_(model: nn.Module, generator: torch.Generator,
     return model
 
 
+LORA_FACTORS = ("lora_a", "lora_b")
 _QUANT_OF = {"kernel_q": "kernel", "kernel_scale": "kernel",
              "kernel_aq": "kernel",
              "embedding_q": "embedding", "embedding_scale": "embedding"}
@@ -322,14 +338,18 @@ def load_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
     and identity kept); int8 leaves, their scales and w8a8 flags
     (`kernel_aq`) become buffers that replace the float parameter they
     quantize; a new `kernel_q` drops the Dense's K-major copy `kernel_qt`
-    (Dense.kernel_kmajor derives it again). Every parameter and buffer must
-    be covered and every key must name one."""
+    (Dense.kernel_kmajor derives it again); LoRA factors (`lora_a`,
+    `lora_b`) a Dense does not hold yet become new parameters of it, in the
+    state's dtype. Every parameter and buffer must be covered and every key
+    must name one."""
     seen = set()
     for key, val in state.items():
         mod_name, _, leaf = key.rpartition(".")
         mod = model.get_submodule(mod_name)
         device = next(t for _, t in _leaves(mod) if t is not None).device
-        if leaf in _QUANT_OF:
+        if leaf in LORA_FACTORS and leaf not in mod._parameters:
+            mod.register_parameter(leaf, nn.Parameter(val.to(device)))
+        elif leaf in _QUANT_OF:
             mod._parameters.pop(_QUANT_OF[leaf], None)
             if leaf == "kernel_q":
                 mod._buffers.pop("kernel_qt", None)

@@ -18,8 +18,11 @@ the causal path every layer's attention sees keys at most that many
 slots back, flash-attn's left window, as in JAX). Not ported (they raise
 NotImplementedError): MoE layers, context parallelism, Phi3 longrope
 (`rope_cos_sin_su`), the Gemma family's options (plus-one RMSNorm,
-tanh-GELU MLP, embedding scale, softcap, query pre-attention scale),
-and remat. A cache with per-row offsets (`KVCache.length` a [B] tensor,
+tanh-GELU MLP, embedding scale, softcap, query pre-attention scale).
+`remat=True` wraps each decoder layer in `torch.utils.checkpoint` when a
+gradient is being taken without a cache (the JAX `nn.remat` over the
+scanned layer), so the backward recomputes a layer's activations instead
+of keeping them. A cache with per-row offsets (`KVCache.length` a [B] tensor,
 the continuous-batching engine) writes K/V at each row's offset; a
 one-token step then attends under the segment mask alone (every valid
 cached slot is in the past), a multi-token block causally at the per-row
@@ -33,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..inference.kv_cache import KVCache, write_kv
 from ..kernels import ops
@@ -106,7 +110,8 @@ class Qwen2Model(nn.Module):
     """Decoder stack + final norm (no embedding, no head)."""
 
     def __init__(self, cfg, param_dtype=torch.float32,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None,
+                 remat: bool = False):
         super().__init__()
         if cfg.num_experts > 0 or cfg.context_parallel_axis is not None:
             raise NotImplementedError(
@@ -117,7 +122,7 @@ class Qwen2Model(nn.Module):
                 or cfg.query_pre_attn_scalar is not None):
             raise NotImplementedError(
                 "Phi3 longrope and the Gemma options are not ported yet")
-        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.cfg, self.compute_dtype, self.remat = cfg, compute_dtype, remat
         self.layers = Qwen2Layers(cfg, param_dtype, compute_dtype, device)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, (),
                             param_dtype, device)
@@ -162,21 +167,28 @@ class Qwen2Model(nn.Module):
                 kv_segment_ids=seg_ids, q_levels=levels, kv_levels=levels,
                 **kw)
         x = inputs_embeds.to(self.compute_dtype)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         with layer_slices(self):
             for l in range(cfg.num_layers):
-                x = self.layers(x, l, cos, sin, attend, cache, q_offset)
+                if remat:
+                    x = checkpoint(self.layers, x, l, cos, sin, attend, None,
+                                   0, use_reentrant=False)
+                else:
+                    x = self.layers(x, l, cos, sin, attend, cache, q_offset)
         return self.norm(x), cache
 
 
 class Qwen2ForCausalLM(nn.Module):
     def __init__(self, cfg, param_dtype=torch.float32,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         if cfg.has_embed:
             self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
                                       param_dtype, compute_dtype, device)
-        self.model = Qwen2Model(cfg, param_dtype, compute_dtype, device)
+        self.model = Qwen2Model(cfg, param_dtype, compute_dtype, device,
+                                remat)
         if cfg.has_lm_head and not cfg.tie_word_embeddings:
             self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, False, (),
                                  param_dtype, compute_dtype, device)

@@ -71,12 +71,13 @@ class InternVLChatModel(nn.Module):
     """Vision + projector + LLM. `device` None means the CUDA card; the CPU
     only when asked for (device="cpu"). A box without a card raises rather
     than build there. `attn_impl` routes the ViT's and the LLM's attention
-    ("auto" | "kernel" | "reference"), as the JAX constructor flag does.
-    Inference only: the JAX flag `remat` (training) is not ported."""
+    ("auto" | "kernel" | "reference"), and `remat` checkpoints each ViT
+    and decoder layer while a gradient is taken, as the JAX constructor
+    flags do."""
 
     def __init__(self, cfg, param_dtype=torch.float32,
                  compute_dtype=torch.bfloat16, device=None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", remat: bool = False):
         super().__init__()
         if device is None:
             if not torch.cuda.is_available():
@@ -87,11 +88,17 @@ class InternVLChatModel(nn.Module):
         self.cfg, self.attn_impl = cfg, attn_impl
         self.vision_model = InternVisionModel(cfg.vision, param_dtype,
                                               compute_dtype, device,
+                                              remat=remat,
                                               attn_impl=attn_impl)
         self.language_model = Qwen2ForCausalLM(cfg.llm, param_dtype,
-                                               compute_dtype, device)
+                                               compute_dtype, device, remat)
         self.mlp1 = MLP1(cfg.vit_proj_in_dim, cfg.llm.hidden_size,
                          param_dtype, compute_dtype, device)
+
+    def set_attn_impl(self, impl: str) -> None:
+        """Route the ViT's and the LLM's attention ("auto" | "kernel" |
+        "reference"), as the constructor flag does."""
+        self.attn_impl = self.vision_model.encoder.attn_impl = impl
 
     @property
     def device(self) -> torch.device:

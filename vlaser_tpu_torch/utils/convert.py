@@ -1,8 +1,10 @@
 """JAX variables -> the port's flat state.
 
 `from_jax_variables` takes the `params` (and optional `quant`: int8
-weights, their scales and the w8a8 `kernel_aq` flags) collections
-of a vlaser_tpu `PiZeroVLA` as nested dicts of numpy arrays (for example
+weights, their scales and the w8a8 `kernel_aq` flags; and optional `lora`:
+the activation-path factors `a` / `b` of train/lora.init_qlora_collection,
+named `lora_a` / `lora_b` on their Dense) collections
+of a vlaser_tpu model as nested dicts of numpy arrays (for example
 `jax.tree_util.tree_map(np.asarray, variables)`) and returns
 {dotted name: torch tensor} for `models.layers.load_state`. Names mirror the
 JAX paths ("a/b/c" -> "a.b.c"); this is the only place where a layout
@@ -42,10 +44,13 @@ def _to_torch(a) -> torch.Tensor:
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
-    for col in ("params", "quant"):
+    for col in ("params", "quant", "lora"):
         for name, leaf in _flatten(variables.get(col, {})):
             t = _to_torch(leaf)
             if name.endswith(_PATCH):  # HWIO -> OIHW
                 name, t = name[:-len("kernel")] + "weight", t.permute(3, 2, 0, 1)
+            if col == "lora":
+                mod, dot, leaf_name = name.rpartition(".")
+                name = f"{mod}{dot}lora_{leaf_name}"
             out[name] = t.contiguous()
     return out
