@@ -19,9 +19,9 @@ Builds the Hopper kernels from vlaser_tpu_torch/csrc (one nvcc per source,
 all started together, sm_90a), then drives the port's paths at the full
 width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
 model (phases 12-16), of the PaliGemma VLA (phases 17-19), of the
-Vlaser-2B serving engine (phases 20-22, run first) and of the Vlaser-2B
-SFT train step (phases 23-26, after 19) with random weights from seeded
-generators:
+Vlaser-2B serving engine (phases 20-22, run first), of the Vlaser-2B
+SFT train step (phases 23-26, after 19) and of the training entry points
+(phases 27-31, after 26) with random weights from seeded generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -202,18 +202,52 @@ The SFT train step (Vlaser-2B, N(0, 0.02^2) draws with norms 1 + N(0,
      with derived launch counts, losses, grad norms, step ms, peak memory,
      the ViT bit for bit unchanged, and the cost of the ViT backward that
      grad_norm's parity with the JAX step takes.
+The training entry points (vlaser_tpu_torch/scripts: train_sft, pretrain,
+train_mpo; Vlaser-2B, the byte tokenizer, seeded JSONL files of text-only
+conversations, each with one blank tile, in a temporary directory that
+the run removes):
+  27. the converter round trip: a seeded Vlaser-2B exported to an HF
+     checkpoint directory (utils/convert.to_jax_params ->
+     hf_convert.export_internvl_chat, bf16, save_hf_checkpoint_dir) and
+     read back as the CLIs read one (load_safetensors_dir ->
+     convert_internvl_chat -> from_jax_variables): every tensor equal to
+     its bf16-rounded source (control: the fp32 source differs); GB and
+     seconds;
+  28. train_sft's stages at full width and depth from that checkpoint:
+     160 conversations of 64-1,500 text tokens, --packed --max_seq 2048,
+     4 steps, a checkpoint directory: the packer's fill rate, tokens/s over
+     real tokens, step ms, each step's wait on the prefetch queue, the
+     host's packing time, peak memory, launch counts held to the derived
+     ones (the blank tiles of a pack send the ViT to flash from 2 tiles on),
+     one step under torch.profiler; the final checkpoint's GB, free disk,
+     save and restore seconds; restored into a fresh model and trainer it
+     equals the live trainer (every parameter and AdamW entry, the step
+     counter, the saved data state) bit for bit; control: the same
+     comparison against the state one step earlier fails;
+  29. pretrain --stage 1's recipe on that model: 2 steps, derived launch
+     counts, only mlp1 changes, every other parameter bit for bit;
+  30. train_mpo's stages at full width: 3 MPOTrainer steps on one pair of
+     2,000 tokens, the losses, reward accuracy, step ms, peak memory,
+     derived launch counts (the reference forward and the policy's); the
+     reference copy bit for bit the initial parameters in storage of its
+     own; control: a reference aliasing the live parameters moved;
+  31. each CLI's main through argparse with --tiny on the card: it must
+     train there and leave its checkpoint (train_mpo takes none).
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
 
+import argparse
 import gc
 import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -1947,22 +1981,6 @@ def rms_train_case(torch, g, dev, n, H, eps, label, tag):
 
 
 # -- training: phase 11, the train step ---------------------------------------
-def _train_init_(torch, model, gen):
-    """N(0, 0.02^2) everywhere, then norm weights 1 + N(0, 0.1^2) and ViT
-    layer scales ~0.1: at N(0, 0.02^2) norms every branch would vanish."""
-    from vlaser_tpu_torch.models.layers import LayerNorm, RMSNorm, init_normal_
-
-    init_normal_(model, gen, std=0.02)
-    rnd = lambda t: torch.randn(t.shape, generator=gen, device=t.device)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (LayerNorm, RMSNorm)):
-                m.weight.copy_(1 + 0.1 * rnd(m.weight))
-        enc = model.vision_model.encoder
-        for p in (enc.ls1, enc.ls2):
-            p.copy_(0.1 * (1 + 0.1 * rnd(p)))
-
-
 def _train_batch(torch, np, dev, cfg, B):
     from vlaser_tpu_torch.policy.processing import InternVLAProcessor
 
@@ -1996,6 +2014,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
     from vlaser_tpu_torch.models.layers import set_rms_impl
     from vlaser_tpu_torch.policy.flow import sample_fm_time
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
     from vlaser_tpu_torch.train.train_step import group_grad_norms
     from vlaser_tpu_torch.train.trainer import VLATrainConfig, VLATrainer
 
@@ -2005,7 +2024,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
                       compute_dtype=torch.bfloat16, device=dev, remat=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    _train_init_(torch, model, gen)
+    random_init_(model, gen)
     batch = _train_batch(torch, np, dev, cfg, B)
     trainer = VLATrainer(model, VLATrainConfig(), generator=gen)
     torch.cuda.synchronize()
@@ -2408,14 +2427,20 @@ def flash_prefill_phase(torch, dev, llm, n_valid, Sq, Skv, tag, window=None):
 
 def prefill_quant_profile(torch, prefill, L, n, tag):
     """One prefill under torch.profiler: the activation quantizer's kernel
-    must launch 4 times a layer (q/k/v, o, gate/up, the silu-mul of down)
-    and no eager silu kernel may run."""
+    must launch 4 times a layer (q/k/v, o, gate/up, the silu-mul of down),
+    counted by its wrappers, and the trace must show no eager silu kernel.
+    The trace's own quantizer count is printed beside the wrappers' (a
+    trace has dropped one launch of 112 on an H100)."""
+    _zero_counts()
     keys = _profile(torch, prefill, f"{n}-row prefill", tag,
                     quiet=True)["launch_keys"]
-    nq = sum(c for k, c in keys.items() if "w8a8::quantize" in k)
+    counts = _read_counts()
+    nq = counts["quantize_rows"] + counts["quantize_silu_mul"]
+    traced = sum(c for k, c in keys.items() if "w8a8::quantize" in k)
     ns = sum(c for k, c in keys.items() if "silu" in k.lower())
     print(f"profiled {n}-row prefill: {nq} quantizer launches ({nq / L:g} a "
-          f"layer, {L} layers), {ns} eager silu launches {tag}", flush=True)
+          f"layer, {L} layers; the trace shows {traced}), {ns} eager silu "
+          f"launches {tag}", flush=True)
     if nq != 4 * L or ns:
         raise RuntimeError(f"prefill: {nq} quantizer and {ns} silu launches, "
                            f"not {4 * L} and 0")
@@ -3632,20 +3657,20 @@ def sft_kernel_phase(torch, np, dev, cfg, sites, tag, report):
 
 def _qlora_model(torch, dev, cfg, seed):
     """_bench_sft_train's model: Vlaser-2B in bf16 (parameters and
-    compute), remat, draws as _train_init_, every LLM layer kernel, the
+    compute), remat, draws as random_init_, every LLM layer kernel, the
     embedding and the lm_head int8 (DEFAULT_PATTERNS) with the layer
     kernels flagged w8a8 (VLM_W8A8_ACT_PATTERNS), every weight frozen, LoRA
     r SFT_RANK, alpha SFT_ALPHA, bf16 on LLM_TARGETS. -> (model, factors)."""
     from vlaser_tpu_torch.core import quant
     from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
     from vlaser_tpu_torch.train.lora import LLM_TARGETS, init_qlora_collection
 
     bf = torch.bfloat16
     model = InternVLChatModel(cfg, param_dtype=bf, compute_dtype=bf,
                               device=dev, remat=True)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    _train_init_(torch, model, gen)
+    gen = torch.Generator(dev).manual_seed(seed)
+    random_init_(model, gen)
     quant.quantize_module(model, quant.DEFAULT_PATTERNS,
                           act_quant_patterns=quant.VLM_W8A8_ACT_PATTERNS)
     model.requires_grad_(False)
@@ -3899,6 +3924,7 @@ def sft_trainer_phase(torch, np, dev, cfg, tag):
     the cost of the ViT's backward (loss + backward with and without the
     ViT taking gradients). -> launches of the 3 steps."""
     from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
     from vlaser_tpu_torch.train.losses import make_sft_loss
     from vlaser_tpu_torch.train.trainer import SFTTrainer, TrainConfig
 
@@ -3906,9 +3932,7 @@ def sft_trainer_phase(torch, np, dev, cfg, tag):
     model = InternVLChatModel(cfg, param_dtype=torch.float32,
                               compute_dtype=torch.bfloat16, device=dev,
                               remat=True)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(26)
-    _train_init_(torch, model, gen)
+    random_init_(model, torch.Generator(dev).manual_seed(26))
     trainer = SFTTrainer(model, TrainConfig())
     lengths = (SFT_TOKENS * 3 // 8, SFT_TOKENS * 5 // 16, SFT_TOKENS // 4)
     batch = _packed_batch(np, cfg, SFT_TOKENS, 26, lengths)
@@ -3978,6 +4002,535 @@ def sft_phases(torch, np, dev, cfg, tag, report):
     gc.collect()
     torch.cuda.empty_cache()
     return _add(launches, sft_trainer_phase(torch, np, dev, cfg, tag))
+
+
+# -- the training entry points (phases 27-31) ---------------------------------
+CLI_TOKENS = 2048  # --max_seq of the packed SFT and pretrain runs
+CLI_STEPS = 4      # train_sft steps at full width
+PRETRAIN_STEPS = 2  # the first takes warmup_cosine's lr 0
+CLI_CONVS = 160    # conversations of the JSONL
+CLI_TEXT = (64, 1500)  # their text bytes (byte tokenizer tokens)
+MPO_STEPS, MPO_PAIR = 3, 2000  # MPO steps; the pair's padded tokens
+CLI_WORDS = ("pick", "place", "the", "red", "green", "block", "cube", "on",
+             "plate", "left", "of", "near", "robot", "arm", "moves", "then",
+             "grasp", "open", "drawer", "towel", "stack", "yellow", "spoon")
+
+
+def _text(rng, n):
+    """n bytes of seeded lowercase words."""
+    s = ""
+    while len(s) < n:
+        s += CLI_WORDS[int(rng.integers(len(CLI_WORDS)))] + " "
+    return s[:n]
+
+
+def _cli_data(np, root, seed):
+    """Write the phases' JSONL files under root: CLI_CONVS text-only
+    conversations of CLI_TEXT text bytes (a short system turn, 1-3 human /
+    gpt turns, the answers 4x the questions), one preference pair padded to
+    MPO_PAIR tokens, and a few short ones of each for the --tiny runs. ->
+    their paths."""
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, f"{k}.jsonl")
+             for k in ("conv", "pair", "tiny_conv", "tiny_pair")}
+
+    def conv(n):
+        turns = int(rng.integers(1, 4))
+        c = [{"from": "system", "value": "You are a helpful robot."}]
+        for _ in range(turns):
+            q = max(1, n // (5 * turns))
+            c += [{"from": "human", "value": _text(rng, q)},
+                  {"from": "gpt", "value": _text(rng, max(1, n // turns - q))}]
+        return {"conversations": c}
+
+    def pair(n):  # n tokens: the template with its default system prompt
+        # and a 100-byte question take 348; the rejected answer 60 fewer
+        return {"question": _text(rng, 100), "chosen": _text(rng, n - 348),
+                "rejected": _text(rng, n - 408)}
+
+    for key, items in (
+            ("conv", [conv(int(rng.integers(CLI_TEXT[0], CLI_TEXT[1] + 1)))
+                      for _ in range(CLI_CONVS)]),
+            ("pair", [pair(MPO_PAIR)]),
+            ("tiny_conv", [conv(int(rng.integers(8, 60))) for _ in range(6)]),
+            ("tiny_pair", [pair(480) for _ in range(3)])):
+        with open(paths[key], "w") as f:
+            for it in items:
+                f.write(json.dumps(it) + "\n")
+    return paths
+
+
+def _uses_flash(b, sq, heads):
+    """kernels/flash_attention.attention_fn's "auto" rule on the card."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    return sq >= fa.SQ_MIN or b * heads * sq * sq * 4 > fa.LOGITS_BYTES_MIN
+
+
+def _step_want(cfg, b, n, tiles, grad=True):
+    """Launches of one forward (grad=False) or one remat forward + backward
+    (every parameter takes a gradient, the frozen ones too) of the
+    InternVLChatModel on [b, n] tokens and `tiles` tiles: each ViT and LLM
+    layer's attention (and its recompute) by the dispatch rule, each
+    RMSNorm (two a layer and the final one) at b * n rows."""
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    v, llm = cfg.vision, cfg.llm
+    s = (v.image_size // v.patch_size) ** 2 + 1
+    vit = v.num_layers if _uses_flash(tiles, s, v.num_heads) else 0
+    lm = llm.num_layers if _uses_flash(b, n, llm.num_heads) else 0
+    L = llm.num_layers
+    rms = b * n >= rmsnorm.MIN_ROWS and llm.hidden_size <= rmsnorm.MAX_HIDDEN
+    passes = 2 if grad else 1
+    return {"flash_attention_fwd": passes * (vit + lm),
+            "flash_attention_bwd": (vit + lm) if grad else 0,
+            "_rms_fwd": (passes * 2 * L + 1) if rms else 0,
+            "_rms_bwd": (2 * L + 1) if rms and grad else 0}
+
+
+def _launches_held(counts, want, what):
+    _held({k: v for k, v in counts.items() if v},
+          {k: v for k, v in want.items() if v}, what)
+
+
+def _train_state(torch, model, step_fn, data, host=False):
+    """{key: value} of everything a checkpoint restores: every parameter,
+    every AdamW state entry, the step counter and the data state (copied to
+    the host with host=True)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {f"param/{n}": p.detach() for n, p in model.named_parameters()}
+    for p, st in step_fn.optimizer.state.items():
+        for k, v in st.items():
+            out[f"adam/{names[id(p)]}/{k}"] = v.detach()
+    if host:
+        out = {k: v.to("cpu", copy=True) for k, v in out.items()}
+    out["step"], out["data"] = step_fn.count, json.loads(json.dumps(data))
+    return out
+
+
+def _state_diff(torch, a, b):
+    """Keys whose values differ (a tensor bit for bit, on a's device)."""
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        if torch.is_tensor(x):
+            same = x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        else:
+            same = x == y
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _dir_gb(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+@contextmanager
+def _timing(mod, names, seconds):
+    """Time every call of mod.<name> for each name into seconds[name]."""
+    orig = {n: getattr(mod, n) for n in names}
+
+    def timed(n):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = orig[n](*a, **kw)
+            seconds[n] = seconds.get(n, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    for n in names:
+        setattr(mod, n, timed(n))
+    try:
+        yield seconds
+    finally:
+        for n, f in orig.items():
+            setattr(mod, n, f)
+
+
+def convert_phase(torch, np, dev, cfg, hf_dir, tag):
+    """Phase 27: a seeded Vlaser-2B (scripts/train_sft.random_init_, seed
+    27) exported as real checkpoints are (utils/convert.to_jax_params ->
+    hf_convert.export_internvl_chat, bf16, save_hf_checkpoint_dir in 2
+    shards), then loaded by train_sft's weights stage (load_model
+    --model_path: load_safetensors_dir -> convert_internvl_chat ->
+    from_jax_variables -> load_state on the card): every parameter equal to
+    its source rounded to bf16, bit for bit. Control: the fp32 source of
+    mlp1.fc1.kernel must differ from what came back (the files hold bf16).
+    -> (the loaded model, which phase 28 trains as train_sft's `main`
+    would after the same load; its config)."""
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.scripts import train_sft as cli
+    from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+    from vlaser_tpu_torch.utils import convert
+    from vlaser_tpu_torch.utils import hf_convert as hc
+
+    t0 = time.perf_counter()
+    model = cli.random_init_(InternVLChatModel(cfg, device=dev),
+                             torch.Generator(dev).manual_seed(27))
+    fp32_ctrl = model.mlp1.fc1.kernel.detach().clone()
+    src = {n: p.detach().to(torch.bfloat16)
+           for n, p in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    hf = hc.export_internvl_chat(convert.to_jax_params(src))
+    hf = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in hf.items()}
+    t2 = time.perf_counter()
+    hc.save_hf_checkpoint_dir(hf, hf_dir, num_shards=2)
+    t3 = time.perf_counter()
+    n_hf = len(hf)
+    del hf
+    args = argparse.Namespace(tiny=False, model_path=hf_dir)
+    tok = ByteTokenizer()
+    cfg, n_added, _, _ = cli.build_config(args, tok, cfg)
+    with _timing(hc, ("load_safetensors_dir", "convert_internvl_chat"),
+                 {}) as sec, _timing(convert, ("from_jax_variables",), sec):
+        model = cli.load_model(args, cfg, n_added, len(tok), dev)
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    back = model.state_dict()
+    bad = sorted(set(src) ^ set(back))
+    bad += [n for n in set(src) & set(back)
+            if back[n].dtype != torch.float32
+            or not torch.equal(back[n], src[n].float())]
+    ctrl = torch.equal(back["mlp1.fc1.kernel"], fp32_ctrl)
+    print(f"converter round trip: Vlaser-2B, {len(src)} port tensors -> "
+          f"{n_hf} HF tensors, {_dir_gb(hf_dir):.3f} GB of bf16 "
+          f"safetensors; init {t1 - t0:.1f} s, export {t2 - t1:.1f} s, "
+          f"write {t3 - t2:.1f} s; train_sft's load_model {t4 - t3:.1f} s "
+          f"(read {sec['load_safetensors_dir']:.1f}, convert "
+          f"{sec['convert_internvl_chat']:.1f}, from_jax_variables "
+          f"{sec['from_jax_variables']:.1f}, the rest to the card); "
+          f"{len(bad)} tensors differ from their bf16 source; control "
+          f"(fp32 source of mlp1.fc1.kernel equal to what came back): "
+          f"{ctrl} {tag}", flush=True)
+    if bad:
+        raise RuntimeError(f"converter round trip differs: {bad[:4]}")
+    if ctrl:
+        raise RuntimeError("converter control: the bf16 file equals the "
+                           "fp32 source")
+    return model, cfg
+
+
+def sft_cli_phase(torch, np, dev, cfg, model, hf_dir, data, work, tag):
+    """Phase 28: train_sft's stages at full width and depth as `main` runs
+    them: --model_path (phase 27's checkpoint, loaded there by the same
+    load_model into `model`) --data (CLI_CONVS conversations) --packed
+    --max_seq CLI_TOKENS --steps CLI_STEPS --checkpoint_dir (under `work`),
+    with the byte tokenizer and vlaser_2b's 151,674-word config handed in.
+    The packer's fill rate, tokens/s over real tokens, step ms, the time
+    each step waited on the prefetch queue, peak memory, and the launch
+    counts held to _step_want's. Then the final checkpoint, restored into
+    a fresh model and trainer, must equal the live trainer (every parameter and AdamW
+    entry, the step counter, the data state it saved) bit for bit; the same
+    comparison against the state after step CLI_STEPS - 1 must fail. ->
+    (launches, the trained model)."""
+    from vlaser_tpu_torch.data.chat_dataset import PackedDataset
+    from vlaser_tpu_torch.scripts import train_sft as cli
+    from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+    from vlaser_tpu_torch.train.trainer import _to_device
+    from vlaser_tpu_torch.utils import checkpoint as ck
+
+    ckdir = os.path.join(work, "sft_ckpt")
+    args = cli.build_parser().parse_args([
+        "--model_path", hf_dir, "--data", data["conv"], "--packed",
+        "--max_seq", str(CLI_TOKENS), "--steps", str(CLI_STEPS),
+        "--checkpoint_dir", ckdir])
+    tok = ByteTokenizer()  # no tokenizer files, no transformers here
+    cfg, n_added, start, end = cli.build_config(args, tok, cfg)
+    dataset = cli.build_dataset(args, cfg, tok)
+    batches, state_fn = cli.build_batches(args, cfg, dataset, start, end)
+    trainer = cli.build_trainer(args, model)
+    saves, waits, steps, taken, snap = [], [], [], [], {}
+    save = ck.save_checkpoint
+
+    def timed_save(directory, step, m, fn, data_state=None, **kw):
+        free = shutil.disk_usage(work).free / 1e9
+        s = time.perf_counter()
+        path = save(directory, step, m, fn, data_state, **kw)
+        saves.append((step, time.perf_counter() - s, _dir_gb(path), free,
+                      data_state))
+        return path
+
+    def fed():
+        for i in range(CLI_STEPS):
+            if i:
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t)
+            if i == CLI_STEPS - 1:  # the state after step CLI_STEPS - 1
+                snap.update(_train_state(torch, model, trainer.step_fn,
+                                         state_fn(), host=True))
+            s = time.perf_counter()
+            b = next(batches)
+            waits.append(time.perf_counter() - s)
+            taken.append(b)
+            t = time.perf_counter()
+            yield b
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+
+    ck.save_checkpoint = timed_save
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        trainer.train(fed(), data_state_fn=state_fn)
+    finally:
+        ck.save_checkpoint = save
+        batches.close()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tiles = [len(b["pixel_values"]) for b in taken]
+    real = [int((b["seg_ids"] > 0).sum()) for b in taken]
+    ms = [1e3 * s for s in steps]
+    print(f"train_sft: {CLI_STEPS} packed steps of {CLI_TOKENS} tokens, "
+          f"{real} real ({sum(real) / (CLI_STEPS * CLI_TOKENS):.1%} fill), "
+          f"{[int(b['seg_ids'].max()) for b in taken]} conversations, "
+          f"{tiles} blank tiles; step ms {[round(v, 1) for v in ms]} (median "
+          f"of steps 2-{CLI_STEPS} {statistics.median(ms[1:]):.1f} ms), "
+          f"{sum(real[1:]) / sum(steps[1:]):.0f} tok/s over real tokens "
+          f"(steps 2-{CLI_STEPS}; {sum(real) / sum(steps):.0f} with the "
+          f"first); waited on "
+          f"the prefetch queue {[round(1e3 * w, 2) for w in waits]} ms; "
+          f"peak device memory {peak:.2f} GiB {tag}", flush=True)
+    want = {}
+    for t in tiles:
+        _add(want, _step_want(cfg, 1, CLI_TOKENS, t))
+    _launches_held(counts, want, "train_sft")
+    (step, save_s, gb, free, saved_data), = saves
+    print(f"train_sft checkpoint (step {step}): {gb:.3f} GB in {save_s:.1f} "
+          f"s ({gb / save_s:.2f} GB/s), {free:.1f} GB free before it; data "
+          f"state {saved_data} {tag}", flush=True)
+    model.zero_grad(set_to_none=True)
+    live = _train_state(torch, model, trainer.step_fn, saved_data)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model2 = cli.load_model(argparse.Namespace(tiny=False, model_path=None),
+                            cfg, 0, 0, dev)  # overwritten by the restore
+    trainer2 = cli.build_trainer(args, model2)
+    s = time.perf_counter()
+    data2 = ck.restore_checkpoint(ckdir, model2, trainer2.step_fn)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - s
+    restored = _state_diff(torch, _train_state(torch, model2,
+                                               trainer2.step_fn, data2), live)
+    earlier = _state_diff(torch, _train_state(torch, model2,
+                                              trainer2.step_fn, data2), snap)
+    print(f"train_sft restore: {gb:.3f} GB in {restore_s:.1f} s "
+          f"({gb / restore_s:.2f} GB/s); {len(live)} entries, "
+          f"{len(restored)} differ from the live trainer; control (the state "
+          f"after step {CLI_STEPS - 1}): {len(earlier)} differ {tag}",
+          flush=True)
+    if restored:
+        raise RuntimeError(f"the restored checkpoint differs: {restored[:4]}")
+    if not ("step" in earlier and any(k.startswith("param/") for k in earlier)
+            and any(k.startswith("adam/") for k in earlier)):
+        raise RuntimeError(f"restore control: the state one step earlier "
+                           f"differs only in {earlier[:4]}")
+    del model2, trainer2, live, snap
+    shutil.rmtree(ckdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    s = time.perf_counter()
+    it = iter(PackedDataset(dataset, max_packed_tokens=CLI_TOKENS,
+                            pad_token_id=cfg.pad_token_id, img_start_id=start,
+                            img_end_id=end,
+                            num_image_token=cfg.num_image_token,
+                            image_size=cfg.vision.image_size))
+    for _ in range(CLI_STEPS):
+        next(it)
+    pack_s = (time.perf_counter() - s) / CLI_STEPS
+    lens = sorted(len(dataset[i]["input_ids"]) for i in range(len(dataset)))
+    print(f"train_sft host: {len(dataset)} conversations of "
+          f"{lens[0]}-{lens[-1]} tokens (median {lens[len(lens) // 2]}), "
+          f"image ids {start} / {end} / {cfg.img_context_token_id}; "
+          f"tokenizing and packing {1e3 * pack_s:.1f} ms a "
+          f"pack on one thread (the prefetch thread's work), "
+          f"{1e3 * pack_s / statistics.median(ms[1:]):.1%} of a step "
+          f"{tag}", flush=True)
+    b = _to_device(taken[-1], dev)
+    _profile(torch, lambda: trainer.step_fn(b), "train_sft step", tag)
+    return {k: v for k, v in counts.items() if v}, model
+
+
+def pretrain_phase(torch, np, dev, cfg, model, data, tag):
+    """Phase 29: pretrain --stage 1's recipe (its train_sft arguments:
+    --freeze_llm, lr 1e-3) on phase 28's model, PRETRAIN_STEPS packed steps
+    with derived launch counts (the frozen ViT and LLM still take
+    gradients): every mlp1 parameter must change and every other stay bit
+    for bit (no checkpoint is written here; phase 31 writes one). ->
+    launches."""
+    from vlaser_tpu_torch.scripts import pretrain
+    from vlaser_tpu_torch.scripts import train_sft as cli
+    from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+
+    pargs = pretrain.build_parser().parse_args([
+        "--data", data["conv"], "--stage", "1", "--packed", "--max_seq",
+        str(CLI_TOKENS), "--steps", str(PRETRAIN_STEPS)])
+    args = cli.build_parser().parse_args(pretrain.sft_argv(pargs))
+    args.checkpoint_dir = None
+    tok = ByteTokenizer()
+    cfg, _, start, end = cli.build_config(args, tok, cfg)
+    batches, _ = cli.build_batches(args, cfg, cli.build_dataset(
+        args, cfg, tok), start, end)
+    trainer = cli.build_trainer(args, model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    taken = []
+
+    def fed():
+        for _ in range(PRETRAIN_STEPS):
+            taken.append(next(batches))
+            yield taken[-1]
+
+    _zero_counts()
+    s = time.perf_counter()
+    try:
+        trainer.train(fed())
+        torch.cuda.synchronize()
+    finally:
+        batches.close()
+    wall = time.perf_counter() - s
+    counts = _read_counts()
+    moved = sorted(n for n, p in model.named_parameters()
+                   if not torch.equal(p.detach(), before[n]))
+    mlp1 = sorted(n for n in before if n.startswith("mlp1."))
+    print(f"pretrain --stage 1: lr {args.lr}, {PRETRAIN_STEPS} steps in "
+          f"{wall:.2f} s; changed: {moved} (mlp1 holds {len(mlp1)}) {tag}",
+          flush=True)
+    want = {}
+    for b in taken:
+        _add(want, _step_want(cfg, 1, CLI_TOKENS, len(b["pixel_values"])))
+    _launches_held(counts, want, "pretrain --stage 1")
+    if moved != mlp1:
+        raise RuntimeError(f"pretrain --stage 1 changed {moved}, not mlp1")
+    return {k: v for k, v in counts.items() if v}
+
+
+def mpo_phase(torch, np, dev, cfg, data, tag):
+    """Phase 30: train_mpo's stages at full width (random_init_, remat,
+    MPOConfig(), lr 5e-6) on one pair padded to MPO_PAIR tokens: MPO_STEPS
+    steps with derived launch counts (the reference forward, then the
+    policy's with its recompute), the losses, reward accuracy, step ms and
+    peak memory. The reference copy must be bit for bit the initial
+    parameters, in their dtype, in storage of its own; control: a
+    reference that aliases the live parameters must fail that check. ->
+    launches."""
+    from vlaser_tpu_torch.scripts import train_mpo
+    from vlaser_tpu_torch.scripts import train_sft as cli
+    from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+
+    args = train_mpo.build_parser().parse_args([
+        "--data", data["pair"], "--steps", str(MPO_STEPS), "--batch", "1"])
+    tok = ByteTokenizer()
+    cfg, n_added, _, _ = cli.build_config(args, tok, cfg)
+    model = cli.load_model(args, cfg, n_added, len(tok), dev)
+    trainer = train_mpo.build_trainer(args, model)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = next(train_mpo.batches(args, cfg, train_mpo.build_dataset(
+        args, cfg, tok)))
+    n = batch["chosen_input_ids"].shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rows = []
+    for _ in range(MPO_STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        m = trainer.train(iter([batch]), 1)
+        e.record()
+        e.synchronize()
+        rows.append((s.elapsed_time(e), {k: round(v.item(), 5)
+                                         for k, v in m.items()}))
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for ms, m in rows:
+        print(f"MPO step: {ms:.1f} ms, {m}", flush=True)
+    print(f"MPO: B 1 pair x {n} tokens ([2, {n}] a forward), "
+          f"{MPO_STEPS} steps, median "
+          f"{statistics.median(r[0] for r in rows):.1f} ms, peak device "
+          f"memory {peak:.2f} GiB {tag}", flush=True)
+    tiles = 2 * len(batch["pixel_values"])
+    want = {}
+    for _ in range(MPO_STEPS):
+        _add(want, _step_want(cfg, 2, n, tiles, grad=False))
+        _add(want, _step_want(cfg, 2, n, tiles))
+    _launches_held(counts, want, "MPOTrainer")
+    if not all(math.isfinite(v) for _, m in rows for v in m.values()):
+        raise RuntimeError("MPO gave a non-finite metric")
+    live = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    shared = [k for k, t in trainer.ref_params.items()
+              if t.untyped_storage().data_ptr() in live]
+    changed = [k for k, t in trainer.ref_params.items()
+               if t.dtype != init[k].dtype or not torch.equal(t, init[k])]
+    alias = dict(model.named_parameters())
+    alias_changed = [k for k, t in alias.items()
+                     if not torch.equal(t.detach(), init[k])]
+    print(f"MPO reference: {len(trainer.ref_params)} tensors, {len(shared)} "
+          f"share storage with the live parameters, {len(changed)} changed; "
+          f"control (a reference aliasing the live parameters): "
+          f"{len(alias_changed)} changed {tag}", flush=True)
+    if shared or changed:
+        raise RuntimeError(
+            f"the MPO reference moved: {(shared + changed)[:4]}")
+    if not alias_changed:
+        raise RuntimeError("MPO control: the live parameters did not move")
+    return {k: v for k, v in counts.items() if v}
+
+
+def tiny_cli_phase(torch, dev, data, work, tag):
+    """Phase 31: each CLI's main through argparse, --tiny, on the card (no
+    --device; the model must land on `dev`'s type): short runs that must
+    leave their checkpoints."""
+    from vlaser_tpu_torch.scripts import pretrain, train_mpo, train_sft
+    from vlaser_tpu_torch.utils.checkpoint import latest_step
+
+    for name, mod, src, ck in (("train_sft", train_sft, "tiny_conv", True),
+                               ("pretrain", pretrain, "tiny_conv", True),
+                               ("train_mpo", train_mpo, "tiny_pair", False)):
+        argv = ["--tiny", "--data", data[src], "--steps", "2", "--batch", "2"]
+        ckdir = os.path.join(work, f"tiny_{name}")
+        if ck:
+            argv += ["--checkpoint_dir", ckdir]
+        s = time.perf_counter()
+        trainer = mod.main(argv)
+        wall = time.perf_counter() - s
+        left = latest_step(ckdir) if ck else None
+        print(f"{name} --tiny on the card: {wall:.1f} s, device "
+              f"{trainer.model.device}, step {trainer.step}, checkpoint "
+              f"{left if ck else '(the MPO CLI takes no --checkpoint_dir)'} "
+              f"{tag}", flush=True)
+        if (trainer.model.device.type != dev.type or trainer.step != 2
+                or (ck and left != 2)):
+            raise RuntimeError(f"{name} --tiny did not train on the card or "
+                               "left no checkpoint")
+
+
+def cli_phases(torch, np, dev, cfg, tag, work):
+    """Phases 27-31, the training entry points at Vlaser-2B width: ->
+    launches of their main paths. `work`: a scratch directory for the
+    JSONL files, the HF checkpoint and the train checkpoints."""
+    t0 = time.perf_counter()
+    data = _cli_data(np, work, 27)
+    hf_dir = os.path.join(work, "hf")
+    model, _ = convert_phase(torch, np, dev, cfg, hf_dir, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, model = sft_cli_phase(torch, np, dev, cfg, model, hf_dir, data,
+                                    work, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, pretrain_phase(torch, np, dev, cfg, model, data, tag))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, mpo_phase(torch, np, dev, cfg, data, tag))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny_cli_phase(torch, dev, data, work, tag)
+    print(f"phases 27-31: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 # -- the A/B against a parent tree's kernels (--ab DIR) ------------------------
@@ -4732,6 +5285,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _add(launches, sft_phases(torch, np, dev, vlaser_2b(), tag, report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoints: ~27 GB
+    try:
+        _add(launches, cli_phases(torch, np, dev, vlaser_2b(), tag, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     engine_profile_phase(torch, np, dev, vlaser_2b(), tag, report)

@@ -6,7 +6,7 @@
   no route raises; on a CUDA tensor a kernel library that cannot be built
   raises (no CPU carry-on);
 - the entry points run on the card unless the caller asks for the CPU: a
-  box without one raises;
+  box without one raises (the training CLIs too, without --device cpu);
 - chip_smoke.py refuses to run without a CUDA device."""
 
 import ast
@@ -62,6 +62,18 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.serve.engine",
     "vlaser_tpu_torch.serve.engine_chat",
     "vlaser_tpu_torch.serve.offline",
+    "vlaser_tpu_torch.tokenizer.byte_tokenizer",
+    "vlaser_tpu_torch.data.chat_dataset",
+    "vlaser_tpu_torch.data.prefetch",
+    "vlaser_tpu_torch.data.preference_dataset",
+    "vlaser_tpu_torch.utils.hf_convert",
+    "vlaser_tpu_torch.utils.tools",
+    "vlaser_tpu_torch.utils.checkpoint",
+    "vlaser_tpu_torch.utils.preemption",
+    "vlaser_tpu_torch.train.mpo",
+    "vlaser_tpu_torch.scripts.train_sft",
+    "vlaser_tpu_torch.scripts.pretrain",
+    "vlaser_tpu_torch.scripts.train_mpo",
 )
 
 
@@ -363,3 +375,50 @@ def test_engine_runs_on_the_models_device():
                                    eos_token_ids=[3], pad_token_id=0)
     assert eng.device.type == dev
     assert eng.cache.k.device.type == eng.cache.length.device.type == dev
+
+
+CLI_DATA = {"train_sft": "conv", "pretrain": "conv", "train_mpo": "pairs"}
+
+
+@pytest.mark.parametrize("cli", sorted(CLI_DATA))
+def test_training_clis_default_to_the_card(tmp_path, cli):
+    """A port CLI given no --device runs on the card: on a box without one
+    it raises before it builds or trains anything, in a process that
+    loads no jax and no vlaser_tpu; each module also refuses --fsdp 2."""
+    import json
+
+    with open(tmp_path / "conv.jsonl", "w") as f:
+        f.write(json.dumps({"conversations": [
+            {"from": "human", "value": "hi"},
+            {"from": "gpt", "value": "hello"}]}) + "\n")
+    with open(tmp_path / "pairs.jsonl", "w") as f:
+        f.write(json.dumps({"question": "q", "chosen": "a",
+                            "rejected": "b"}) + "\n")
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    data = str(tmp_path / f"{CLI_DATA[cli]}.jsonl")
+    code = ("import sys\n"
+            f"from vlaser_tpu_torch.scripts import {cli} as m\n"
+            "try:\n"
+            f"    m.main(['--tiny', '--data', {data!r}, '--steps', '1',\n"
+            f"            '--checkpoint_dir', {str(tmp_path / 'ck')!r}]\n"
+            f"           if {cli!r} != 'train_mpo' else\n"
+            f"           ['--tiny', '--data', {data!r}, '--steps', '1'])\n"
+            "except RuntimeError as e:\n"
+            "    assert '--device cpu' in str(e), e\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in\n"
+            "           ('jax', 'flax', 'jaxlib', 'vlaser_tpu')]\n"
+            "    assert not bad, bad\n"
+            "    print('refused')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "refused" in out.stdout
+    assert not (tmp_path / "ck").exists()
+    from vlaser_tpu_torch.scripts import pretrain, train_mpo, train_sft
+
+    mod = {"train_sft": train_sft, "pretrain": pretrain,
+           "train_mpo": train_mpo}[cli]
+    with pytest.raises(NotImplementedError, match="one device"):
+        mod.main(["--tiny", "--data", data, "--fsdp", "2", "--device",
+                  "cpu"])

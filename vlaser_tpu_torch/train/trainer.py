@@ -5,10 +5,13 @@ mesh).
 trained parameter, clipped by its global norm, under `warmup_cosine`; the
 ViT frozen by default (`freeze_vision`), the LLM with `freeze_llm`.
 Frozen parameters keep taking gradients, which `grad_norm` counts as the
-JAX step's global norm does, and get no update (optax.set_to_zero). Still
-to port, and raising NotImplementedError when asked for: `checkpoint_dir`
-(utils/checkpoint.py), meshes of more than one device (the parallel
-layouts) and the MoE router loss (models/moe.py).
+JAX step's global norm does, and get no update (optax.set_to_zero). With
+`checkpoint_dir` it saves (utils/checkpoint.py) every `save_every` steps,
+when a preemption guard stops the loop, and after the last step, each
+with `data_state_fn()`. Steps are counted across `train` calls and a
+restore (`step`), as the schedule counts them. Still to port, and raising
+NotImplementedError when asked for: meshes of more than one device (the
+parallel layouts) and the MoE router loss (models/moe.py).
 
 `VLATrainer` (the flow-matching VLA): two optimizer groups with their own
 cosine-warmup-restarts schedules: "action" = the expert mixture, its final
@@ -76,9 +79,6 @@ def _to_device(batch: Dict, device) -> Dict:
 class SFTTrainer:
     def __init__(self, model, cfg: TrainConfig):
         """model: a port InternVLChatModel on its device."""
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir: utils/checkpoint.py is not ported yet")
         if cfg.mesh_fsdp != 1 or cfg.mesh_tp != 1 or cfg.mesh_cp != 1:
             raise NotImplementedError(
                 "the port trains on one device; the parallel layouts are "
@@ -117,22 +117,23 @@ class SFTTrainer:
     def train(self, batches: Iterator[Dict],
               data_state_fn: Optional[Callable[[], Dict]] = None,
               preemption_guard=None):
-        """Run a step for each batch, up to cfg.total_steps; -> the last
-        step's metrics. data_state_fn is for checkpoints, which are not
-        ported. preemption_guard: an object whose should_stop() ends the
-        loop after the current step."""
+        """Run a step for each batch until `step` reaches cfg.total_steps;
+        -> the last step's metrics. data_state_fn: the data stream's state
+        for the checkpoints (PackedDataset.state_dict). preemption_guard: an
+        object whose should_stop() ends the loop after the current step."""
         cfg, dev = self.cfg, self.model.device
         timer, prof, metrics = Timer(), None, None
         writer = MetricsWriter(cfg.metrics_path) if cfg.metrics_path else None
+        saved = self.step
         self.model.train()
         try:
-            for i, batch in enumerate(batches):
-                if i >= cfg.total_steps:
+            for batch in batches:
+                if self.step >= cfg.total_steps:
                     break
-                if cfg.profile_dir and i == cfg.profile_start:
+                if cfg.profile_dir and self.step == cfg.profile_start:
                     prof = self._profiler()
                 metrics = self.step_fn(_to_device(batch, dev))
-                step = i + 1
+                step = self.step
                 if prof is not None and step == (cfg.profile_start
                                                  + cfg.profile_steps):
                     prof = self._stop(prof)
@@ -144,16 +145,29 @@ class SFTTrainer:
                                 step, loss, gnorm, timer() / cfg.log_every)
                     if writer is not None:
                         writer.write(step, loss=loss, grad_norm=gnorm)
+                if step % cfg.save_every == 0:
+                    saved = self._save(data_state_fn)
                 if (preemption_guard is not None
                         and preemption_guard.should_stop()):
                     logger.warning("preemption: stopping at step %d", step)
                     break
+            if saved != self.step:  # the final (or preempted) step
+                self._save(data_state_fn)
         finally:
             if prof is not None:  # the loop ended inside the window
                 self._stop(prof)
             if writer is not None:
                 writer.close()
         return metrics
+
+    def _save(self, data_state_fn) -> int:
+        if self.cfg.checkpoint_dir:
+            from ..utils.checkpoint import save_checkpoint
+
+            save_checkpoint(self.cfg.checkpoint_dir, self.step, self.model,
+                            self.step_fn,
+                            data_state_fn() if data_state_fn else None)
+        return self.step
 
     def _stop(self, prof):
         if self.model.device.type == "cuda":

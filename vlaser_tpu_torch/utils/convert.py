@@ -9,7 +9,9 @@ of a vlaser_tpu model as nested dicts of numpy arrays (for example
 {dotted name: torch tensor} for `models.layers.load_state`. Names mirror the
 JAX paths ("a/b/c" -> "a.b.c"); this is the only place where a layout
 changes: the patch-embedding conv kernels (InternViT's and SigLIP's) go
-from HWIO to torch's OIHW.
+from HWIO to torch's OIHW. `to_jax_params` is its inverse for float
+parameters: a port model's state -> the JAX `params` tree of numpy arrays
+(fp32), the input of utils/hf_convert's exporters.
 Nothing here imports jax.
 """
 
@@ -54,3 +56,23 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 name = f"{mod}{dot}lora_{leaf_name}"
             out[name] = t.contiguous()
     return out
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict:
+    """{dotted name: float tensor} (a port model's state_dict) -> the
+    nested JAX `params` tree of fp32 numpy arrays (the patch convs back to
+    HWIO "kernel"s)."""
+    tree: Dict = {}
+    for name, t in state.items():
+        if not t.is_floating_point():
+            raise TypeError(f"{name}: {t.dtype} is not a float parameter")
+        t = t.detach()
+        if name.endswith("weight") and (
+                name[:-len("weight")] + "kernel").endswith(_PATCH):
+            name, t = name[:-len("weight")] + "kernel", t.permute(2, 3, 1, 0)
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.float().cpu().contiguous().numpy()
+    return tree
