@@ -20,8 +20,9 @@ all started together, sm_90a), then drives the port's paths at the full
 width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
 model (phases 12-16), of the PaliGemma VLA (phases 17-19), of the
 Vlaser-2B serving engine (phases 20-22, run first), of the Vlaser-2B
-SFT train step (phases 23-26, after 19) and of the training entry points
-(phases 27-31, after 26) with random weights from seeded generators:
+SFT train step (phases 23-26, after 19), of the training entry points
+(phases 27-31, after 26) and of the VLA recipe's 8-bit trainer (phases
+32-34, right after 11) with random weights from seeded generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -233,6 +234,28 @@ the run removes):
      own; control: a reference aliasing the live parameters moved;
   31. each CLI's main through argparse with --tiny on the card: it must
      train there and leave its checkpoint (train_mpo takes none).
+The VLA recipe's trainer (Vlaser-2B-VLA, batch 32, phase 11's seeded
+batch: the card's machine has no tensorflow, so train_vla's RLDS stream is
+not run there; its stages build the model and the trainer with --adam8bit,
+EMA 0.999 from step 0 and a metrics log):
+  32. 3 VLATrainer steps timed with CUDA events, launch counters zeroed
+     just before and read just after, held to phase 11's flash and RMSNorm
+     counts plus one adamw8bit launch a leaf of >= 4,096 elements a step;
+     losses, grad norms, the metrics log's lines, peak memory beside phase
+     11's fp32 AdamW; the checkpoint of step 3 (15 GB, uint8 codes
+     included) saved, restored into a fresh trainer and equal to the live
+     one bit for bit (control: the state after step 2 differs);
+  33. the adamw8bit kernel against its twin on the live state and
+     gradients, from cloned state, at the largest leaf and the patch conv
+     (HWIO blocking): codes, scales and parameters bit for bit (control: b1
+     one fp32 ulp up differs); a small leaf's fp32 route on the card equals
+     the host's; the step split (forward, backward with remat, 8-bit AdamW,
+     EMA);
+  34. evaluate on 8 rows under the EMA parameters: action accuracy, L1,
+     ms; then the step's 50 kernel launches timed against their bound, the
+     twin over every leaf, AdamW8bit.step with its host work, fused fp32
+     AdamW over the same parameters (another function, for reference) and
+     the peak memory of a step without the EMA.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -399,7 +422,8 @@ def _bound_s(ops_seconds, nbytes):
 def _counters():
     """Every kernel wrapper's launch counter: name -> (module, attribute)."""
     from vlaser_tpu_torch.kernels import flash_attention as fa
-    from vlaser_tpu_torch.kernels import fused_decode, fused_vit, rmsnorm, w8a8
+    from vlaser_tpu_torch.kernels import (adam8bit, fused_decode, fused_vit,
+                                          rmsnorm, w8a8)
 
     return {"fused_vit_stack": (fused_vit, "launch_count"),
             "fused_vit_stack_w8a8": (fused_vit, "act_quant_launch_count"),
@@ -410,7 +434,8 @@ def _counters():
             "flash_attention_fwd": (fa, "fwd_launch_count"),
             "flash_attention_bwd": (fa, "bwd_launch_count"),
             "_rms_fwd": (rmsnorm, "fwd_launch_count"),
-            "_rms_bwd": (rmsnorm, "bwd_launch_count")}
+            "_rms_bwd": (rmsnorm, "bwd_launch_count"),
+            "adamw8bit": (adam8bit, "launch_count")}
 
 
 def _zero_counts():
@@ -2123,6 +2148,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
         raise RuntimeError("train step gave a non-finite loss or norm")
     if launches != want:
         raise RuntimeError(f"train launches {launches} != {want}")
+    report["train_peak_gib"] = peak
 
     # -- stage split of one more step (after the counters were read) ----------
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -2142,6 +2168,389 @@ def train_phase(torch, np, dev, cfg, tag, report):
           f"{tag}", flush=True)
     _profile_step(torch, trainer, batch, tag)
     return launches
+
+
+# -- the VLA training recipe, 8-bit AdamW: phases 32-34 (after 11) ----------
+VLA8_STEPS = 3
+EVAL_ROWS = 8
+EMA_DECAY = 0.999
+
+
+def _adam8_leaves(model, opt):
+    """The leaves the kernel is held on: the largest, one with a tail block,
+    the patch conv (HWIO blocking) and one under MIN_8BIT_SIZE."""
+    from vlaser_tpu_torch.train.optim8bit import MIN_8BIT_SIZE
+    from vlaser_tpu_torch.utils.convert import is_patch_conv
+
+    named = list(model.named_parameters())
+    big = [(n, p) for n, p in named if p.numel() >= MIN_8BIT_SIZE]
+    out = {"largest": max(big, key=lambda np_: np_[1].numel())}
+    tails = [(n, p) for n, p in big if p.numel() % 256]
+    if tails:
+        out["tail"] = tails[0]
+    out["patch conv"] = next((n, p) for n, p in big if is_patch_conv(n))
+    out["small"] = next((n, p) for n, p in named
+                        if p.numel() < MIN_8BIT_SIZE)
+    return out
+
+
+def _adam8_inputs(opt, p, b1_ulps=0):
+    """(g, a clone of p and of its state in block order, the next update's
+    constants) of one live leaf; b1 moved by b1_ulps fp32 ulps."""
+    import numpy as np
+
+    from vlaser_tpu_torch.train import optim8bit as o
+
+    group = next(g for g in opt.param_groups
+                 if any(q is p for q in g["params"]))
+    st = opt.state[p]
+    b1, b2 = group["betas"]
+    h = o.hyper(b1, b2, group["eps"], group["weight_decay"], group["lr"],
+                int(st["step"].item()) + 1)
+    if b1_ulps:
+        h = o.Hyper(**{**h.__dict__, "b1": float(np.nextafter(
+            np.float32(h.b1), np.float32(1)))})
+    g, flat = ((p.grad, p.detach()) if "m" in st else opt._leaf(p, p.grad))
+    return g, flat.clone(), {k: v.clone() for k, v in st.items()}, h
+
+
+def adam8_kernel_phase(torch, np, dev, trainer, tag):
+    """Phase 32: the 8-bit step's kernel against its twin on a live
+    trainer's state and gradients, leaf by leaf from cloned state: codes
+    equal in every entry, scales and parameters bit for bit; control: b1
+    one fp32 ulp up must differ. The small leaf's fp32 route on the card
+    against the same on the host. -> the largest leaf's report."""
+    from vlaser_tpu_torch.kernels import adam8bit
+    from vlaser_tpu_torch.train import optim8bit as o
+
+    opt, model = trainer.step_fn.optimizer, trainer.model
+    keys = ("m_q", "m_scale", "v_q", "v_scale")
+    rep = {}
+    leaves = _adam8_leaves(model, opt)
+    if "tail" not in leaves:
+        print("adamw8bit: no leaf of >= 4,096 elements has a tail block "
+              "(n % 256 != 0) in this model; the cuda tests hold tails",
+              flush=True)
+    for what, (name, p) in leaves.items():
+        if what == "small":
+            g, flat, st, h = _adam8_inputs(opt, p)
+            host = [t.cpu() for t in (g, flat, st["m"], st["v"])]
+            o.adam_fp32_update(g, flat, st["m"], st["v"], h)
+            o.adam_fp32_update(*host, h)
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(
+                (flat, st["m"], st["v"]), host[1:]))
+            print(f"adamw8bit {what} leaf {name} {tuple(p.shape)}: the fp32 "
+                  f"route on the card equals the host's bit for bit: {same} "
+                  f"{tag}", flush=True)
+            if not same:
+                raise RuntimeError("the small-leaf fp32 Adam route differs")
+            continue
+        g, pk, sk, h = _adam8_inputs(opt, p)
+        _, pt, stw, _ = _adam8_inputs(opt, p)
+        adam8bit.adamw8bit(g, pk, *(sk[k] for k in keys), h)
+        o.adam8bit_update_plain(g, pt, *(stw[k] for k in keys), h)
+        torch.cuda.synchronize()
+        diff = {k: int((sk[k] != stw[k]).sum()) for k in keys}
+        diff["p"] = int((pk != pt).sum())
+        err = (pk - pt).abs().max().item()
+        _, pc, sc, hc = _adam8_inputs(opt, p, b1_ulps=1)
+        adam8bit.adamw8bit(g, pc, *(sc[k] for k in keys), hc)
+        ctrl = {k: int((sc[k] != stw[k]).sum()) for k in keys}
+        ctrl["p"] = int((pc != pt).sum())
+        n, nb = p.numel(), o.num_blocks(p.numel())
+        print(f"adamw8bit {what} leaf {name} {tuple(p.shape)} ({n:,} "
+              f"elements, {nb:,} blocks, tail {n % 256}): kernel vs twin "
+              f"differing entries {diff}, max |dp| {err:.3e}; control (b1 "
+              f"one ulp up) {ctrl} {tag}", flush=True)
+        if any(diff.values()):
+            raise RuntimeError(f"adamw8bit: kernel != twin on {name}")
+        if not any(ctrl.values()):
+            raise RuntimeError("adamw8bit control: b1 + 1 ulp showed no "
+                               "difference")
+        if what == "largest":
+            nbytes = 3 * 4 * n + 2 * 2 * nb * 256 + 4 * 4 * nb
+            bound = nbytes / PEAK_BYTES * 1e3
+            ms = _kernel_ms(torch, lambda: adam8bit.adamw8bit(
+                g, pk, *(sk[k] for k in keys), h), 10)
+            plain = _ms(torch, lambda: o.adam8bit_update_plain(
+                g, pt, *(stw[k] for k in keys), h), 2)
+            rep = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+                   "shape": list(p.shape)}
+            print(f"adamw8bit largest leaf: kernel {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.0f} GB/s), bound {bound:.4f} ms "
+                  f"(bytes, {100 * bound / ms:.1f}% of it), twin {plain:.3f} "
+                  f"ms {tag}", flush=True)
+        del g, pk, sk, pt, stw, pc, sc
+    return rep
+
+
+def _step_bytes(model):
+    """Bytes the step's kernel launches must move: each leaf of at least
+    MIN_8BIT_SIZE elements reads g, p and its codes and scales and writes
+    p, codes and scales (the small leaves' fp32 route, ~10 k elements, is
+    not the kernel's)."""
+    from vlaser_tpu_torch.train import optim8bit as o
+
+    total = 0
+    for p in model.parameters():
+        n = p.numel()
+        if n >= o.MIN_8BIT_SIZE:
+            nb = o.num_blocks(n)
+            total += 3 * 4 * n + 2 * 2 * nb * 256 + 4 * 4 * nb
+    return total
+
+
+def vla8bit_phases(torch, np, dev, cfg, tag, report, work):
+    """Phases 32-34: the VLA recipe's 8-bit trainer at Vlaser-2B-VLA batch
+    32 (the train_vla CLI's stages, --adam8bit, EMA 0.999 from step 0, a
+    metrics log): 3 timed steps with derived launch counts, peak memory
+    with and without the EMA, the checkpoint round trip, the kernel against
+    its twin, the step split, evaluate, and the whole optimizer step against
+    the twin and fused fp32 AdamW. -> launches of the 3 steps."""
+    import importlib.util
+
+    from vlaser_tpu_torch.kernels import adam8bit
+    from vlaser_tpu_torch.policy.flow import sample_fm_time
+    from vlaser_tpu_torch.scripts import train_vla as cli
+    from vlaser_tpu_torch.train import optim8bit as o
+    from vlaser_tpu_torch.train.model_averaging import (AveragingConfig,
+                                                        ModelAveraging)
+    from vlaser_tpu_torch.utils import checkpoint as ck
+
+    print("train_vla's RLDS stream: not run on the card (tensorflow "
+          f"installed: {importlib.util.find_spec('tensorflow') is not None}, "
+          "tensorflow_datasets: "
+          f"{importlib.util.find_spec('tensorflow_datasets') is not None}); "
+          "the phases feed phase 11's seeded batch", flush=True)
+    B = 32
+    ckdir, mpath = os.path.join(work, "vla_ckpt"), os.path.join(
+        work, "vla_metrics.jsonl")
+    args = cli.build_parser().parse_args([
+        "--model_path", "-", "--rlds_dir", "-", "--adam8bit",
+        "--checkpoint_dir", ckdir])
+    t0 = time.perf_counter()
+    model = cli.build_model(args, cfg, dev)
+    trainer = cli.build_trainer(
+        args, model, averaging=AveragingConfig("ema", start=0,
+                                               ema_decay=EMA_DECAY),
+        metrics_path=mpath, log_every=1)
+    opt = trainer.step_fn.optimizer
+    batch = _train_batch(torch, np, dev, cfg, B)
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in model.parameters())
+    big = [p for p in model.parameters() if p.numel() >= o.MIN_8BIT_SIZE]
+    print(f"vla 8-bit trainer: {n_param:,} parameters in "
+          f"{len(list(model.parameters()))} leaves, {len(big)} of >= "
+          f"{o.MIN_8BIT_SIZE} elements ({sum(p.numel() for p in big):,}); "
+          f"built in {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+
+    # -- phase 32: 3 timed steps, counters around them ----------------------
+    marks, snap = [], {}  # (the end of a step, the start of the next)
+
+    def fed():
+        for i in range(VLA8_STEPS + 1):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            s = e
+            if i == VLA8_STEPS - 1:  # the state after step VLA8_STEPS - 1
+                snap.update(_train_state(torch, model, trainer.step_fn,
+                                         None, host=True))
+                s = torch.cuda.Event(enable_timing=True)
+                s.record()
+            marks.append((e, s))
+            yield batch
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    m = trainer.train_steps(fed(), VLA8_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts().items() if v}
+    peak_ema = torch.cuda.max_memory_allocated() / 2**30
+    times = [marks[i][1].elapsed_time(marks[i + 1][0])
+             for i in range(VLA8_STEPS)]
+    with open(mpath) as f:
+        logged = [json.loads(line) for line in f]
+    n_vit, L = cfg.vlm.vision.num_layers, cfg.vlm.llm.num_layers
+    want = {"flash_attention_fwd": VLA8_STEPS * 2 * (n_vit + L),
+            "flash_attention_bwd": VLA8_STEPS * (n_vit + L),
+            "_rms_fwd": VLA8_STEPS * (2 * 2 * L + 1),
+            "_rms_bwd": VLA8_STEPS * (2 * L - 1),
+            "adamw8bit": VLA8_STEPS * len(big)}
+    print(f"vla 8-bit: {VLA8_STEPS} steps, losses "
+          f"{[round(r['loss'], 6) for r in logged]}, grad norms "
+          f"{[round(r['grad_norm'], 4) for r in logged]}, step ms "
+          f"{[round(v, 3) for v in times]} (CUDA events; each with its EMA "
+          f"update, the first the EMA's copy), peak device memory "
+          f"{peak_ema:.2f} GiB with the EMA (phase 11's fp32 AdamW: "
+          f"{report.get('train_peak_gib', float('nan')):.2f} GiB) {tag}",
+          flush=True)
+    print(f"vla 8-bit launches {launches} (derived {want})", flush=True)
+    if [r["step"] for r in logged] != list(range(1, VLA8_STEPS + 1)):
+        raise RuntimeError(f"metrics log steps {[r['step'] for r in logged]}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in logged) or not math.isfinite(m["loss"].item()):
+        raise RuntimeError("vla 8-bit step gave a non-finite loss or norm")
+    if launches != want:
+        raise RuntimeError(f"vla 8-bit launches {launches} != {want}")
+    state_gb = sum(v.numel() * v.element_size() for st in opt.state.values()
+                   for k, v in st.items() if k != "step") / 1e9
+    ema_gb = sum(v.numel() * 4 for v in
+                 trainer.averaging.avg_params.values()) / 1e9
+    print(f"vla 8-bit memory: optimizer state {state_gb:.3f} GB (fp32 "
+          f"AdamW's would be {8 * n_param / 1e9:.3f} GB), EMA {ema_gb:.3f} "
+          f"GB {tag}", flush=True)
+
+    # -- the checkpoint round trip --------------------------------------------
+    s = time.perf_counter()
+    path = trainer.save(VLA8_STEPS)
+    save_s = time.perf_counter() - s
+    gb = _dir_gb(path)
+    live = _train_state(torch, model, trainer.step_fn, None)
+    model2 = cli.build_model(args, cfg, dev, seed=1)
+    trainer2 = cli.build_trainer(args, model2)
+    s = time.perf_counter()
+    ck.restore_checkpoint(ckdir, model2, trainer2.step_fn)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - s
+    restored = _state_diff(torch, _train_state(torch, model2,
+                                               trainer2.step_fn, None), live)
+    earlier = _state_diff(torch, _train_state(torch, model2,
+                                              trainer2.step_fn, None), snap)
+    n_u8 = sum(1 for v in live.values() if torch.is_tensor(v)
+               and v.dtype == torch.uint8)
+    print(f"vla 8-bit checkpoint (step {VLA8_STEPS}): {gb:.3f} GB, saved in "
+          f"{save_s:.1f} s, restored in {restore_s:.1f} s; {len(live)} "
+          f"entries ({n_u8} uint8 code tensors), {len(restored)} differ "
+          f"from the live trainer; control (the state after step "
+          f"{VLA8_STEPS - 1}): {len(earlier)} differ {tag}", flush=True)
+    if restored:
+        raise RuntimeError(f"the restored checkpoint differs: {restored[:4]}")
+    if not ("step" in earlier and any(k.startswith("param/") for k in earlier)
+            and any(k.endswith("/m_q") for k in earlier)):
+        raise RuntimeError(f"restore control: the state one step earlier "
+                           f"differs only in {earlier[:4]}")
+    del model2, trainer2, live, snap
+    shutil.rmtree(ckdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 33: the kernel against its twin, the step split -----------------
+    report["adamw8bit"] = adam8_kernel_phase(torch, np, dev, trainer, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = sample_fm_time(trainer.generator, B, "beta", cfg.flow_alpha,
+                       cfg.flow_beta, cfg.flow_t_max, device=dev)
+    x0 = torch.randn((B, cfg.num_action_tokens, cfg.action_dim),
+                     generator=trainer.generator, device=dev)
+    args5 = [batch[k] for k in ("input_ids", "pixel_values", "text_mask",
+                                "proprios", "actions")] + [t, x0]
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    model.zero_grad(set_to_none=True)
+    evs[0].record()
+    loss = model(*args5)
+    evs[1].record()
+    loss.backward()
+    evs[2].record()
+    opt.step()
+    evs[3].record()
+    trainer.averaging.update(1, trainer.params())
+    evs[4].record()
+    evs[4].synchronize()
+    split = [evs[i].elapsed_time(evs[i + 1]) for i in range(4)]
+    ema_bound = 3 * 4 * n_param / PEAK_BYTES * 1e3
+    print(f"vla 8-bit step split (CUDA events): forward {split[0]:.3f} ms, "
+          f"backward with remat {split[1]:.3f} ms, 8-bit AdamW "
+          f"{split[2]:.3f} ms, EMA {split[3]:.3f} ms (bound {ema_bound:.3f} "
+          f"ms: 12 B a parameter) {tag}", flush=True)
+    del loss
+
+    # -- phase 34: evaluate under the EMA --------------------------------------
+    rows = {k: v[:EVAL_ROWS] for k, v in batch.items()}
+    ev_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = trainer.evaluate(rows)
+        ev_ms.append((time.perf_counter() - s) * 1e3)
+    print(f"vla evaluate ({EVAL_ROWS} rows, {cfg.num_inference_steps} Euler "
+          f"steps, EMA parameters): action accuracy "
+          f"{[round(float(a), 4) for a in out['action_accuracy']]} at "
+          f"{list(trainer.cfg.eval_thresholds)}, L1 {out['l1']:.5f}; ms "
+          f"{[round(v, 1) for v in ev_ms]} (host clock, synchronized) {tag}",
+          flush=True)
+    if not (np.isfinite(out["action_accuracy"]).all()
+            and math.isfinite(out["l1"])):
+        raise RuntimeError("evaluate gave a non-finite metric")
+
+    # -- the whole optimizer step: kernel, twin, fused fp32 AdamW --------------
+    trainer.averaging = ModelAveraging(AveragingConfig())  # EMA freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_steps(iter([batch]), 1)
+    torch.cuda.synchronize()
+    peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    nbytes = _step_bytes(model)
+    bound = nbytes / PEAK_BYTES * 1e3
+    n0 = adam8bit.launch_count
+    opt.step()
+    per_step = adam8bit.launch_count - n0
+    step_ms = _ms(torch, opt.step, 3)  # host included
+    group = opt.param_groups[0]  # timing only: one group's constants
+    h = o.hyper(*group["betas"], group["eps"], group["weight_decay"],
+                group["lr"], 2)
+    # every kernel launch of a step, its arguments made ahead (the patch
+    # conv's flat OIHW view: the same bytes as its HWIO copy)
+    leaves = [(p.grad.view(-1), p.detach().view(-1),
+               *(opt.state[p][k] for k in ("m_q", "m_scale", "v_q",
+                                           "v_scale"))) for p in big]
+    kernel_ms = _kernel_ms(torch, lambda: [adam8bit.adamw8bit(*a, h)
+                                           for a in leaves], 5)
+    del leaves
+
+    def twin_all():
+        for p in big:
+            g, flat = opt._leaf(p, p.grad)
+            st = opt.state[p]
+            o.adam8bit_update_plain(g, flat, st["m_q"], st["m_scale"],
+                                    st["v_q"], st["v_scale"], h)
+
+    plain_ms = _ms(torch, twin_all, 1, warmup=0)
+    opt.state.clear()  # the 8-bit state goes; fp32 AdamW's comes
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = torch.optim.AdamW(list(model.parameters()), lr=5e-5,
+                            weight_decay=0.01, fused=True)
+    fused_ms = _kernel_ms(torch, ref.step, 5)
+    fused_bound = 7 * 4 * n_param / PEAK_BYTES * 1e3
+    print(f"vla optimizer step over all {len(list(model.parameters()))} "
+          f"leaves: the {per_step} kernel launches {kernel_ms:.3f} ms "
+          f"(device; bound {bound:.3f} ms, bytes {nbytes / 1e9:.2f} GB, "
+          f"{100 * bound / kernel_ms:.1f}% of it); AdamW8bit.step "
+          f"{step_ms:.3f} ms (CUDA events, host included: the small leaves' "
+          f"fp32 ops and the patch conv's HWIO copies); twin "
+          f"{plain_ms:.1f} ms; another function for reference: "
+          f"torch.optim.AdamW(fused=True) over fp32 moments {fused_ms:.3f} ms "
+          f"(bound {fused_bound:.3f} ms, 28 B a parameter); peak memory "
+          f"without the EMA {peak_plain:.2f} GiB, with it {peak_ema:.2f} GiB "
+          f"{tag}", flush=True)
+    report["adamw8bit"]["largest_leaf"] = {
+        k: report["adamw8bit"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "shape")}
+    report["adamw8bit"].update(ms=kernel_ms, plain_ms=plain_ms,
+                               bound_ms=bound)
+    report["adamw8bit"]["optimizer_step_ms"] = {"ms": step_ms}
+    report["adamw8bit"]["fused_adamw_fp32_ms"] = {"ms": fused_ms,
+                                                  "bound_ms": fused_bound}
+    del ref, trainer, model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 # -- chat: phases 12-16 ------------------------------------------------------
@@ -5277,6 +5686,14 @@ def main() -> int:
     _add(launches, train_phase(torch, np, dev, cfg, tag, report))
     gc.collect()
     torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoint: ~15 GB
+    try:
+        _add(launches, vla8bit_phases(torch, np, dev, cfg, tag, report,
+                                      work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     _add(launches, chat_phases(torch, np, dev, vlaser_2b(), tag, report))
     gc.collect()
     torch.cuda.empty_cache()
@@ -5318,7 +5735,8 @@ def main() -> int:
             ("flash_attention_bwd", "flash_attention.cu",
              "kernels/flash_attention.py:416"),
             ("_rms_fwd", "rmsnorm.cu", "kernels/rmsnorm.py:64"),
-            ("_rms_bwd", "rmsnorm.cu", "kernels/rmsnorm.py:89")):
+            ("_rms_bwd", "rmsnorm.cu", "kernels/rmsnorm.py:89"),
+            ("adamw8bit", "adam8bit.cu", "train/optim8bit.py:142")):
         r = report[name]
         entry = {"name": name, "route": "cuda",
                  "source": "vlaser_tpu_torch/csrc/" + src,

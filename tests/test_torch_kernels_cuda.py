@@ -826,3 +826,87 @@ def test_engine_tokens_equal_solo_decode_fp32(cuda):
         got = {c.uid: c.token_ids for c in eng.run(reqs)}
         assert got == want, kw
         assert eng.stats["steps_run"] >= eng.stats["steps_live"]
+
+
+def _adam8bit_leaf(dev, n, seed):
+    """A leaf of n elements with a non-zero 8-bit state: two twin steps
+    from zero, gradients across 6 decades."""
+    from vlaser_tpu_torch.train import optim8bit as o
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grad = lambda: torch.randn(n, generator=g, device=dev) * 10.0 ** (
+        -6 * torch.rand(n, generator=g, device=dev))
+    p = torch.randn(n, generator=g, device=dev)
+    st = o.init_state(p)
+    for count in (1, 2):
+        o.adam8bit_update_plain(grad(), p, st["m_q"], st["m_scale"],
+                                st["v_q"], st["v_scale"],
+                                o.hyper(0.9, 0.999, 1e-8, 0.01, 1e-3, count))
+    return p, st, grad()
+
+
+@pytest.mark.parametrize("n", [4096, 37 * 256 + 13, (1 << 20) + 5,
+                               3 * 32_768 * 256 + 256])
+def test_adam8bit_kernel_equals_twin_bit_for_bit(cuda, n):
+    """One step from the same non-zero state: codes, scales and parameters
+    equal in every entry (tail blocks, several slabs of the twin); a b1 one
+    fp32 ulp off must show (the gate can see a difference)."""
+    import numpy as np
+
+    from vlaser_tpu_torch.kernels import adam8bit
+    from vlaser_tpu_torch.train import optim8bit as o
+
+    p, st, g = _adam8bit_leaf(cuda, n, seed=n % 97)
+    h = o.hyper(0.9, 0.999, 1e-8, 0.01, 1e-3, 3)
+    clone = lambda: (p.clone(), {k: v.clone() for k, v in st.items()})
+    (pk, sk), (pt, stw) = clone(), clone()
+    before = adam8bit.launch_count
+    adam8bit.adamw8bit(g, pk, sk["m_q"], sk["m_scale"], sk["v_q"],
+                       sk["v_scale"], h)
+    torch.cuda.synchronize()
+    assert adam8bit.launch_count == before + 1
+    o.adam8bit_update_plain(g, pt, stw["m_q"], stw["m_scale"], stw["v_q"],
+                            stw["v_scale"], h)
+    for k in ("m_q", "m_scale", "v_q", "v_scale"):
+        assert torch.equal(sk[k], stw[k]), k
+    assert torch.equal(pk, pt)
+    b1 = float(np.nextafter(np.float32(0.9), np.float32(1)))
+    ho = o.Hyper(**{**h.__dict__, "b1": b1})
+    (pc, sc) = clone()
+    adam8bit.adamw8bit(g, pc, sc["m_q"], sc["m_scale"], sc["v_q"],
+                       sc["v_scale"], ho)
+    assert not torch.equal(sc["m_scale"], stw["m_scale"])
+
+
+def test_adamw8bit_optimizer_on_the_card_equals_the_cpu_twin(cuda):
+    """AdamW8bit over a patch conv (HWIO blocking), a tail leaf and a
+    small fp32 leaf: 3 steps on the card equal 3 on the CPU bit for bit."""
+    from vlaser_tpu_torch.kernels import adam8bit
+    from vlaser_tpu_torch.train.optim8bit import AdamW8bit
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(64, 3, 14, 14), (70 * 256 + 3,), (100,)]
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 1e-2 for s in shapes]
+             for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        ps = [torch.nn.Parameter(t.clone().to(dev)) for t in init]
+        opt = AdamW8bit(ps, lr=1e-3, weight_decay=0.01, hwio=ps[:1])
+        before = adam8bit.launch_count
+        for gs in grads:
+            for p, gr in zip(ps, gs):
+                p.grad = gr.to(dev)
+            opt.step()
+        torch.cuda.synchronize()
+        out[str(dev)] = ([p.detach().cpu() for p in ps],
+                         [{k: v.cpu() for k, v in opt.state[p].items()}
+                          for p in ps], adam8bit.launch_count - before)
+    (pc, sc, nc), (pg, sg, ng) = out["cpu"], out[str(cuda)]
+    assert nc == 0 and ng == 3 * 2
+    for a, b in zip(pc, pg):
+        assert torch.equal(a, b)
+    for a, b in zip(sc, sg):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k

@@ -74,6 +74,12 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.scripts.train_sft",
     "vlaser_tpu_torch.scripts.pretrain",
     "vlaser_tpu_torch.scripts.train_mpo",
+    "vlaser_tpu_torch.train.metrics",
+    "vlaser_tpu_torch.train.model_averaging",
+    "vlaser_tpu_torch.train.optim8bit",
+    "vlaser_tpu_torch.kernels.adam8bit",
+    "vlaser_tpu_torch.data.rlds",
+    "vlaser_tpu_torch.scripts.train_vla",
 )
 
 
@@ -422,3 +428,99 @@ def test_training_clis_default_to_the_card(tmp_path, cli):
     with pytest.raises(NotImplementedError, match="one device"):
         mod.main(["--tiny", "--data", data, "--fsdp", "2", "--device",
                   "cpu"])
+
+
+def test_port_and_chip_smoke_never_import_tensorflow():
+    """tensorflow (the RLDS stream's host pipeline) is imported only inside
+    data/rlds.py's functions: importing the port, or what chip_smoke.py
+    imports, loads none of it."""
+    mods = SLICE_MODULES + tuple(_chip_smoke_imports())
+    assert "vlaser_tpu_torch.scripts.train_vla" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('tensorflow', 'tensorflow_datasets')]\n"
+            "assert not bad, bad[:5]\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=_env(), cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "clean" in out.stdout
+
+
+def _adam8bit_args(make, n=5000):
+    nb = -(-n // 256)
+    return (make(n), make(n), make(nb, 256, dt=torch.uint8), make(nb, 1),
+            make(nb, 256, dt=torch.uint8), make(nb, 1))
+
+
+def test_adamw8bit_has_no_route_for_other_devices():
+    from vlaser_tpu_torch.kernels import adam8bit
+    from vlaser_tpu_torch.train.optim8bit import hyper
+
+    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    with pytest.raises(RuntimeError, match="no route"):
+        adam8bit.adamw8bit(*_adam8bit_args(meta),
+                           hyper(0.9, 0.999, 1e-8, 0.0, 1e-3, 1))
+
+
+def test_adamw8bit_raises_when_the_library_cannot_load(monkeypatch):
+    """A CUDA tensor reaches the kernel's build (which fails here), never
+    the eager twin; AdamW8bit.step's 8-bit leaves go through this wrapper
+    alone."""
+    import inspect
+
+    from vlaser_tpu_torch.kernels import _build, adam8bit
+    from vlaser_tpu_torch.train import optim8bit
+
+    def no_library():
+        raise RuntimeError("cannot build the kernel library: nvcc not found")
+
+    def no_twin(*a, **k):
+        raise AssertionError("a CUDA tensor reached the twin")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(adam8bit, "_fns", {})
+    monkeypatch.setattr(optim8bit, "adam8bit_update_plain", no_twin)
+    monkeypatch.setattr(optim8bit, "_tables", {})
+    monkeypatch.setattr(optim8bit, "code_tables", lambda dev: {
+        "all": torch.zeros(766).as_subclass(_OnCard)})
+    card = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt).as_subclass(
+        _OnCard)
+    before = adam8bit.launch_count
+    with pytest.raises(RuntimeError, match="cannot build"):
+        adam8bit.adamw8bit(*_adam8bit_args(card),
+                           optim8bit.hyper(0.9, 0.999, 1e-8, 0.0, 1e-3, 1))
+    assert adam8bit.launch_count == before
+    src = inspect.getsource(optim8bit.AdamW8bit.step)
+    assert "adam8bit_update_plain" not in src and "_kernel.adamw8bit" in src
+    assert "try:" not in inspect.getsource(adam8bit.adamw8bit)
+
+
+def test_train_vla_cli_defaults_to_the_card(tmp_path):
+    """train_vla's main with no --device raises on a box without a card,
+    before it builds or reads anything, in a process that loads no jax,
+    no vlaser_tpu and no tensorflow; --fsdp 2 raises NotImplementedError."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    code = ("import sys\n"
+            "from vlaser_tpu_torch.scripts import train_vla as m\n"
+            "try:\n"
+            "    m.main(['--model_path', 'x', '--rlds_dir', 'y'])\n"
+            "except RuntimeError as e:\n"
+            "    assert '--device cpu' in str(e), e\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in\n"
+            "           ('jax', 'flax', 'jaxlib', 'vlaser_tpu', 'tensorflow')]\n"
+            "    assert not bad, bad\n"
+            "    print('refused')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "refused" in out.stdout
+    from vlaser_tpu_torch.scripts import train_vla
+
+    with pytest.raises(NotImplementedError, match="one device"):
+        train_vla.main(["--model_path", "x", "--rlds_dir", "y", "--fsdp",
+                        "2", "--device", "cpu"])

@@ -13,7 +13,9 @@ over every gradient the step took, frozen ones included, before clipping,
 as the JAX step takes optax.global_norm of the whole gradient tree. With
 `accum_steps` > 1 every batch tensor is [accum, micro, ...]: the micro
 batches' gradients are summed in fp32 and divided by accum_steps, and the
-loss is their mean (the JAX step's scan).
+loss is their mean (the JAX step's scan). `optimizer="adamw8bit"` puts
+every group on train/optim8bit.AdamW8bit (the JAX adamw8bit chain) under
+the same clip, schedule and grad_norm; `hwio` names its patch convs.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+
+from .optim8bit import AdamW8bit
 
 
 @dataclass
@@ -70,7 +74,9 @@ def _accumulate(loss_fn, batch, params, accum_steps: int):
 
 def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
                     groups: Dict[str, ParamGroup], accum_steps: int = 1,
-                    frozen: Sequence[nn.Parameter] = ()):
+                    frozen: Sequence[nn.Parameter] = (),
+                    optimizer: str = "adamw",
+                    hwio: Sequence[nn.Parameter] = ()):
     """loss_fn(batch) -> scalar loss of the model that owns the groups'
     parameters (and the frozen ones). Returns step(batch) -> {"loss",
     "grad_norm"} (0-dim fp32 tensors on the device: reading them syncs, so
@@ -80,11 +86,17 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     params = [p for g in groups.values() for p in g.params]
     frozen = list(frozen)
-    fused = bool(params) and params[0].is_cuda
-    optimizer = torch.optim.AdamW(
-        [{"params": g.params, "weight_decay": g.weight_decay, "lr": 0.0}
-         for g in groups.values()],
-        betas=(0.9, 0.999), eps=1e-8, fused=fused or None)
+    param_groups = [{"params": g.params, "weight_decay": g.weight_decay,
+                     "lr": 0.0} for g in groups.values()]
+    if optimizer == "adamw":
+        fused = bool(params) and params[0].is_cuda
+        optimizer = torch.optim.AdamW(param_groups, betas=(0.9, 0.999),
+                                      eps=1e-8, fused=fused or None)
+    elif optimizer == "adamw8bit":
+        optimizer = AdamW8bit(param_groups, betas=(0.9, 0.999), eps=1e-8,
+                              hwio=hwio)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         for p in frozen:

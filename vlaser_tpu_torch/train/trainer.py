@@ -17,24 +17,34 @@ parallel layouts) and the MoE router loss (models/moe.py).
 cosine-warmup-restarts schedules: "action" = the expert mixture, its final
 norm and the proprio/action encoders and decoder; "vlm" = everything else.
 With `train_vlm=False` the vlm group is frozen (`requires_grad=False`, no
-optimizer state). Still to port, and raising NotImplementedError when
-asked for: `optimizer_8bit`, model averaging (EMA/SWA), `checkpoint_dir`,
-`metrics_path` and `evaluate`.
+optimizer state). `optimizer_8bit` puts both groups on the block-wise
+8-bit AdamW (train/optim8bit.py); `averaging` keeps an EMA / SWA of the
+parameters after every step (train/model_averaging.py), which `evaluate`
+runs `infer_action` under (action accuracy and L1, train/metrics.py);
+`checkpoint_dir` saves every `save_every` steps (utils/checkpoint.py:
+parameters, optimizer state and counter, no average, as the JAX trainer
+saves); `metrics_path` logs every `log_every` steps. As in the JAX
+trainer, `train_steps` numbers its steps from 1 in every call: averaging,
+logging and saving see that count, the schedule the optimizer's own.
+Still to port, and raising NotImplementedError when asked for: meshes of
+more than one device.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import time
-from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
 from ..policy.flow import make_flow_loss
+from ..utils.convert import is_patch_conv
 from ..utils.monitoring import MetricsWriter, Timer
 from .losses import make_sft_loss
+from .metrics import action_accuracy, action_l1
+from .model_averaging import AveragingConfig, ModelAveraging
 from .optim import cosine_warmup_restarts, make_optimizer, warmup_cosine
 from .train_step import ParamGroup, make_train_step
 
@@ -191,15 +201,15 @@ class VLATrainConfig:
     accum_steps: int = 1
     train_vlm: bool = True
     flow_sampling: str = "beta"
-    optimizer_8bit: bool = False
-    averaging: Optional[object] = None  # an AveragingConfig; mode None only
+    optimizer_8bit: bool = False  # bnb AdamW8bit (train/optim8bit.py)
+    averaging: AveragingConfig = field(default_factory=AveragingConfig)
     log_every: int = 10
     save_every: int = 1000
     eval_thresholds: Sequence[float] = (0.1, 0.2)
     checkpoint_dir: Optional[str] = None
     mesh_fsdp: int = 1
     mesh_tp: int = 1
-    metrics_path: Optional[str] = None
+    metrics_path: Optional[str] = None  # JSONL scalar log (MetricsWriter)
 
 
 def _vla_param_groups(model, train_vlm: bool) -> Dict[str, str]:
@@ -211,20 +221,23 @@ def _vla_param_groups(model, train_vlm: bool) -> Dict[str, str]:
             for name, _ in model.named_parameters()}
 
 
+class _InferAction(torch.nn.Module):
+    """The model's infer_action as a forward, for functional_call."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args):
+        return self.model.infer_action(*args)
+
+
 class VLATrainer:
     def __init__(self, model, cfg: VLATrainConfig,
                  generator: Optional[torch.Generator] = None):
         """model: a port PiZeroVLA on its device; generator: the source of
         flow times and noise (a fresh one seeded 0 on the model's device
         when None)."""
-        if cfg.optimizer_8bit:
-            raise NotImplementedError("8-bit AdamW is not ported yet")
-        if cfg.averaging is not None and getattr(cfg.averaging, "mode",
-                                                 None) is not None:
-            raise NotImplementedError("model averaging is not ported yet")
-        if cfg.checkpoint_dir or cfg.metrics_path:
-            raise NotImplementedError(
-                "checkpointing and the metrics log are not ported yet")
         if cfg.mesh_fsdp != 1 or cfg.mesh_tp != 1:
             raise NotImplementedError("the port trains on one device")
         self.model, self.cfg = model, cfg
@@ -247,31 +260,92 @@ class VLATrainer:
             named[n].requires_grad_(lab != "frozen")
         self.step_fn = make_train_step(
             make_flow_loss(model, cfg.flow_sampling, generator), self.groups,
-            accum_steps=cfg.accum_steps)
+            accum_steps=cfg.accum_steps,
+            optimizer="adamw8bit" if cfg.optimizer_8bit else "adamw",
+            hwio=[p for n, p in named.items() if is_patch_conv(n)])
+        self.averaging = ModelAveraging(cfg.averaging)
+        self._infer = _InferAction(model)
 
     @property
     def step(self) -> int:
         return self.step_fn.count
 
-    def train_steps(self, batches: Iterator[Dict[str, torch.Tensor]],
-                    num_steps: int):
-        """Run up to num_steps steps; -> the last step's metrics."""
-        cfg = self.cfg
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def save(self, step: int) -> str:
+        """A checkpoint of step `step` under cfg.checkpoint_dir."""
+        from ..utils.checkpoint import save_checkpoint
+
+        return save_checkpoint(self.cfg.checkpoint_dir, step, self.model,
+                               self.step_fn)
+
+    def train_steps(self, batches: Iterator[Dict], num_steps: int):
+        """Run up to num_steps steps over numpy or tensor batches (moved to
+        the model's device); -> the last step's metrics."""
+        cfg, dev = self.cfg, self.model.device
         metrics = None
-        t0 = time.perf_counter()
+        timer = Timer()
+        writer = MetricsWriter(cfg.metrics_path) if cfg.metrics_path else None
         self.model.train()
-        for i, batch in enumerate(batches):
-            if i >= num_steps:
-                break
-            metrics = self.step_fn(batch)
-            step = i + 1
-            if step % cfg.log_every == 0:
-                logger.info("vla step %d loss %.4f gnorm %.3f (%.2fs/it)",
-                            step, float(metrics["loss"]),
-                            float(metrics["grad_norm"]),
-                            (time.perf_counter() - t0) / cfg.log_every)
-                t0 = time.perf_counter()
+        try:
+            for i, batch in enumerate(batches):
+                if i >= num_steps:
+                    break
+                metrics = self.step_fn(_to_device(batch, dev))
+                step = i + 1  # the JAX trainer's count: from 1 in every call
+                self.averaging.update(step, self.params())
+                if step % cfg.log_every == 0:
+                    loss = float(metrics["loss"])
+                    gnorm = float(metrics["grad_norm"])
+                    logger.info("vla step %d loss %.4f gnorm %.3f "
+                                "(%.2fs/it)", step, loss, gnorm,
+                                timer() / cfg.log_every)
+                    if writer is not None:
+                        writer.write(step, loss=loss, grad_norm=gnorm)
+                if cfg.checkpoint_dir and step % cfg.save_every == 0:
+                    self.save(step)
+        finally:
+            if writer is not None:
+                writer.close()
         return metrics
 
-    def evaluate(self, batch, rng=None):
-        raise NotImplementedError("VLATrainer.evaluate is not ported yet")
+    def eval_actions(self, params: Dict[str, torch.Tensor],
+                     batch: Dict[str, torch.Tensor],
+                     noise: torch.Tensor) -> torch.Tensor:
+        """infer_action under `params` ({name: tensor}, the model's own for
+        any name it lacks) -> actions [B, horizon, action_dim]."""
+        with torch.no_grad():
+            return torch.func.functional_call(
+                self._infer, {f"model.{k}": v for k, v in params.items()},
+                tuple(batch[k] for k in ("input_ids", "pixel_values",
+                                         "text_mask", "proprios")) + (noise,))
+
+    def eval_fn(self, params, batch, noise):
+        """-> (action accuracy at cfg.eval_thresholds, L1) against
+        actions[:, -horizon_steps:] (the JAX trainer's _eval_fn)."""
+        pred = self.eval_actions(params, batch, noise)
+        gt = batch["actions"][:, -self.model.cfg.horizon_steps:]
+        return (action_accuracy(gt, pred, self.cfg.eval_thresholds),
+                action_l1(gt, pred))
+
+    def evaluate(self, batch: Dict, generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, Any]:
+        """Actions from infer_action under the averaged parameters (the live
+        ones without an average) and noise N(0, I) drawn from `generator`
+        (a fresh one seeded 42 on the model's device when None)."""
+        dev, mcfg = self.model.device, self.model.cfg
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(42)
+        batch = _to_device(batch, dev)
+        b = batch["input_ids"].shape[0]
+        noise = torch.randn((b, mcfg.num_action_tokens, mcfg.action_dim),
+                            generator=generator, device=dev)
+        params = self.averaging.params_for_eval(self.params())
+        self.model.eval()
+        try:
+            accs, l1 = self.eval_fn(params, batch, noise)
+        finally:
+            self.model.train()
+        return {"action_accuracy": accs.cpu().numpy(), "l1": float(l1)}

@@ -12,6 +12,8 @@ changes: the patch-embedding conv kernels (InternViT's and SigLIP's) go
 from HWIO to torch's OIHW. `to_jax_params` is its inverse for float
 parameters: a port model's state -> the JAX `params` tree of numpy arrays
 (fp32), the input of utils/hf_convert's exporters.
+`adam8bit_state_from_jax` carries the moments of a JAX 8-bit AdamW state
+(train/optim8bit.py) across as the port's per-parameter AdamW8bit state.
 Nothing here imports jax.
 """
 
@@ -26,6 +28,13 @@ import torch
 # (vision_model.patch_embedding) conv kernels
 _PATCH = ("embeddings.patch_embedding.kernel",
           "vision_model.patch_embedding.kernel")
+
+
+def is_patch_conv(name: str) -> bool:
+    """A port parameter name of a patch-embedding conv weight (OIHW here,
+    HWIO in the JAX tree)."""
+    return name.endswith("weight") and (
+        name[:-len("weight")] + "kernel").endswith(_PATCH)
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -67,8 +76,7 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict:
         if not t.is_floating_point():
             raise TypeError(f"{name}: {t.dtype} is not a float parameter")
         t = t.detach()
-        if name.endswith("weight") and (
-                name[:-len("weight")] + "kernel").endswith(_PATCH):
+        if is_patch_conv(name):
             name, t = name[:-len("weight")] + "kernel", t.permute(2, 3, 1, 0)
         *path, leaf = name.split(".")
         node = tree
@@ -76,3 +84,41 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(k, {})
         node[leaf] = t.float().cpu().contiguous().numpy()
     return tree
+
+
+def adam8bit_state_from_jax(moments: Mapping, count: int
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The moments of a JAX Adam8bitState (a params-shaped nested dict whose
+    leaves are an Adam8bitLeaf's (m_q, m_scale, v_q, v_scale), or a small
+    leaf's fp32 (m, v), as numpy) and its count -> {port parameter name:
+    train/optim8bit.AdamW8bit state}. The 8-bit blocks are copied as they
+    are: a patch conv's stay in the JAX leaf's HWIO order, in which
+    AdamW8bit(hwio=...) steps them; a small leaf's moments take the port's
+    layout."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, leaf in _flatten(moments):
+        if name.endswith(_PATCH):
+            name = name[:-len("kernel")] + "weight"
+        st = {"step": torch.tensor(float(count))}
+        if len(leaf) == 4:
+            for k, a in zip(("m_q", "m_scale", "v_q", "v_scale"), leaf):
+                st[k] = _to_torch(a)
+        else:
+            for k, a in zip(("m", "v"), leaf):
+                t = _to_torch(a)
+                st[k] = t.permute(3, 2, 0, 1).contiguous() if is_patch_conv(
+                    name) else t
+        out[name] = st
+    return out
+
+
+def load_optimizer_state(optimizer, model,
+                         states: Mapping[str, Dict[str, torch.Tensor]]):
+    """Put {parameter name: state} into `optimizer`'s per-parameter state,
+    each tensor on its parameter's device (the count stays on the host)."""
+    named = dict(model.named_parameters())
+    for name, st in states.items():
+        p = named[name]
+        optimizer.state[p] = {k: v if k == "step" else v.to(p.device)
+                              for k, v in st.items()}
+    return optimizer
