@@ -21,8 +21,10 @@ width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
 model (phases 12-16), of the PaliGemma VLA (phases 17-19), of the
 Vlaser-2B serving engine (phases 20-22, run first), of the Vlaser-2B
 SFT train step (phases 23-26, after 19), of the training entry points
-(phases 27-31, after 26) and of the VLA recipe's 8-bit trainer (phases
-32-34, right after 11) with random weights from seeded generators:
+(phases 27-31, after 26), of the VLA recipe's 8-bit trainer (phases
+32-34, right after 11) and of the VLM's serving and evaluation entry
+points (phases 35-37, right after 22) with random weights from seeded
+generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -256,6 +258,47 @@ EMA 0.999 from step 0 and a metrics log):
      twin over every leaf, AdamW8bit.step with its host work, fused fp32
      AdamW over the same parameters (another function, for reference) and
      the peak memory of a step without the EMA.
+The VLM's serving and evaluation entry points (one Vlaser-2B, bf16 N(0,
+0.02^2), through serve_vlm's config stage with the byte tokenizer's image
+tokens and its quantize stage: w8a8; the byte tokenizer encodes every
+prompt, its 237-token template included, and each decoded id shows as its
+decimal; it has no EOS, so every completion runs to its budget):
+  35. beam search: VlaserChat(num_beams=K) on 13 seeded tiles, a 320-token
+     message, 64 new tokens, K 2 and 4 (bucket 256): make_beam_generate_fn
+     with K = 1 against make_generate_fn's greedy decoder on the same
+     prompt (every logit row before the first difference bit for bit equal,
+     the tokens equal unless they first differ at a top-2 margin within the
+     fp32 rounding of the beam's summed log-probabilities); one call of each
+     K with the launch counters zeroed just before and read just after, held
+     to the counts the code implies (the plain prefill: the ViT layer by
+     layer, 4 w8a8 Dense and flash a layer; the LLM's w8a8, flash and
+     RMSNorm; the K-row steps none); call ms, tok/s of the best beam, the
+     prefill, a beam step, the cache reorder against its bound, peak memory;
+     then the fp32 gate on tiny_vlm (phase 21's setup), K 2 and 3, card
+     against the host's run of the same weights, an EOS never reached and
+     one emitted mid-beam: tokens and lengths equal;
+  36. serve_vlm's stages (--engine, the CLI's defaults, max_len 640: a
+     320-token message behind the template) behind ChatHTTPServer on
+     127.0.0.1: a warm-up burst, then 2 bursts of 16 concurrent requests
+     (messages of phase 20's lengths, 64-320 tokens, max_tokens 16 / 32 /
+     64, every 4th streaming), each response 200, each completion its
+     max_tokens long, usage.max_new_tokens the request's, each stream's
+     deltas concatenating to its final text, fewer batches than requests;
+     requests/s, p50 / p95 latency, the time to the first SSE delta,
+     useful tok/s beside phase 20's; the bursts' launches (7 int8_gemm on
+     3 quantize_rows and 1 quantize_silu_mul a prefill layer); then 4
+     sequential requests, one streaming (the shim), to serve_vlm's
+     VlaserChat backend (the fused runner, 256 tokens), launches held to
+     the derived counts; then the fp32 gate: tiny_vlm behind the server,
+     16 concurrent requests, 4 streaming, equal to EngineChat.chat_many on
+     the same items token for token;
+  37. eval_vlm's stages on the same model (phase 27's HF checkpoint is
+     written later in the run; its load is phase 27's gate): 64 seeded
+     text-only multiple-choice items (4 choices, questions of 40-300
+     tokens) through the generic route (--batch 8, --max_new_tokens 16)
+     with VlaserChat at 1 and 2 beams and --engine, and through
+     RUNNERS["scienceqa"] (run_mc_benchmark): the JAX CLI's result keys,
+     items/s, launches (accuracy on random weights means nothing).
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -3565,6 +3608,669 @@ def engine_profile_phase(torch, np, dev, cfg, tag, report):
     torch.cuda.empty_cache()
 
 
+# -- the VLM's serving and evaluation entry points: phases 35-37 -------------
+BEAM_TILES, BEAM_TEXT, BEAM_NEW = 13, 320, 64  # phase 35 at full width
+BEAM_KS = (2, 4)
+BEAM_BUCKET = 256  # VlaserChat's bucket
+TINY_BEAM_NEW = 10  # the fp32 beam gate on tiny_vlm
+SERVE_TEXT = ENGINE_BUCKETS  # phase 20's lengths: the messages' byte tokens
+SERVE_MAX = (16, 32, 64)  # phase 20's max_new: the requests' max_tokens
+SERVE_REQS, SERVE_STREAM_EVERY = 16, 4  # every 4th request streams
+# the engine's slot budget: phase 20's 448 cannot hold a 320-token message
+# behind the byte tokenizer's 237-token template plus 64 new tokens
+SERVE_MAX_LEN = 640
+SERVE_BURSTS = 2  # timed bursts, after one warm-up burst
+SERVE_SEQUENTIAL = 4  # requests to the VlaserChat backend, one streaming
+EVAL_ITEMS, EVAL_TEXT, EVAL_NEW, EVAL_BATCH = 64, (40, 300), 16, 8
+
+
+class DecimalByteTokenizer:
+    """The byte tokenizer of the port's CLIs (256 byte ids plus the 9
+    InternVL tokens that ensure_special_tokens adds) for every prompt; its
+    decode writes each id as its decimal, as bench.py's stub tokenizer does:
+    a random 151,674-word model emits ids the byte tokenizer has no text for,
+    and the server's SSE deltas, the gates on them and the token counts need
+    every token to show in the text. EOS (the template's <|im_end|>) is not
+    among its tokens: every completion runs to its budget."""
+
+    def __init__(self):
+        from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+        from vlaser_tpu_torch.utils.tools import ensure_special_tokens
+
+        self._tok = ByteTokenizer()
+        ensure_special_tokens(self._tok)
+        self.pad_token_id = self._tok.pad_token_id
+
+    def __len__(self):
+        return len(self._tok)
+
+    def __call__(self, text, add_special_tokens=False, **kw):
+        return self._tok(text)
+
+    def convert_tokens_to_ids(self, tokens):
+        return self._tok.convert_tokens_to_ids(tokens)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def _recording(torch, model, name, logs, fn):
+    """Run fn() under inference_mode with model.prefill / decode_step
+    recording, under logs[name], the logits each gives for the next token
+    (the prompt's last row, then each step's row 0); -> fn's result."""
+    rec = logs.setdefault(name, [])
+    prefill, step = model.prefill, model.decode_step
+
+    def rec_prefill(input_ids, pixel_values, seg_ids, cache, **kw):
+        out = prefill(input_ids, pixel_values, seg_ids, cache, **kw)
+        last = int((seg_ids[0] != 0).sum()) - 1
+        rec.append(out[0][0, last].float().clone())
+        return out
+
+    def rec_step(token, cache, positions=None, seg_ids=None):
+        out = step(token, cache, positions, seg_ids)
+        rec.append(out[0][0, 0].float().clone())
+        return out
+
+    model.prefill, model.decode_step = rec_prefill, rec_step
+    try:
+        with torch.inference_mode():
+            return fn()
+    finally:
+        del model.prefill, model.decode_step
+
+
+def beam_greedy_gate(torch, model, ids, seg, tiles, eos, tag):
+    """Phase 35's gate: make_beam_generate_fn with K = 1 against the plain
+    make_generate_fn greedy decoder on the same prompt. Both run the same
+    prefill and decode_step, so every logit row before the streams' first
+    difference must be bit for bit equal; the tokens must be equal, unless
+    they first differ where the greedy logits' top-2 margin is within the
+    fp32 rounding of the beam's summed log-probabilities (a tie the two
+    comparisons break apart)."""
+    from vlaser_tpu_torch.inference.beam_search import make_beam_generate_fn
+    from vlaser_tpu_torch.inference.sampling import make_generate_fn
+
+    kw = dict(max_new_tokens=BEAM_NEW, eos_token_ids=eos,
+              pad_token_id=model.cfg.pad_token_id)
+    logs = {}
+    g_tok, g_num = _recording(torch, model, "greedy", logs, lambda: (
+        make_generate_fn(model, **kw)(ids, seg, tiles)))
+    b_tok, b_num = _recording(torch, model, "beam", logs, lambda: (
+        make_beam_generate_fn(model, num_beams=1, **kw)(ids, seg, tiles)))
+    g, b = g_tok[0].tolist(), b_tok[0].tolist()
+    first = next((i for i in range(BEAM_NEW) if g[i] != b[i]), None)
+    upto = BEAM_NEW if first is None else first + 1
+    same = [torch.equal(x, y) for x, y in zip(logs["greedy"][:upto],
+                                              logs["beam"][:upto])]
+    if not all(same):
+        raise RuntimeError(f"beam K = 1: logits differ from greedy's at rows "
+                           f"{[i for i, s in enumerate(same) if not s][:5]}")
+    if first is None:
+        if g_num.tolist() != b_num.tolist():
+            raise RuntimeError(f"beam K = 1 lengths {b_num.tolist()} != "
+                               f"greedy's {g_num.tolist()}")
+        print(f"beam K = 1 vs greedy: {BEAM_NEW} tokens equal, the {upto} "
+              f"logit rows bit for bit equal {tag}", flush=True)
+        return
+    lg = logs["greedy"][first]
+    top = lg.topk(2).values
+    margin = float(top[0] - top[1])
+    score = sum(float(torch.log_softmax(logs["greedy"][i], -1)[g[i]])
+                for i in range(first))
+    bound = 4 * (abs(score) + 16) * 2.0 ** -23
+    print(f"beam K = 1 vs greedy: equal through token {first}, logit rows "
+          f"bit for bit equal through it; there the greedy top-2 margin is "
+          f"{margin:.3g} against the rounding bound {bound:.3g} of the "
+          f"summed log-probabilities {score:.2f} {tag}", flush=True)
+    if margin > bound:
+        raise RuntimeError(f"beam K = 1 differs from greedy at token {first} "
+                           f"(margin {margin} > {bound})")
+
+
+def beam_fp32_gate(torch, np, dev, tag):
+    """Phase 35 at fp32: make_beam_generate_fn on tiny_vlm (phase 21's
+    setup: fp32 compute and cache, seeded weights), K = 2 and 3, on the card
+    against the port's own CPU run of the same weights and two text rows
+    (the second right-padded): with an EOS the model never reaches (-1), and
+    with one it emits mid-beam (the token at TINY_BEAM_NEW // 2 of the first
+    row's unreachable-EOS beam, as test_golden_vs_reference.py picks it).
+    Tokens and lengths must be equal."""
+    from vlaser_tpu_torch.inference.beam_search import make_beam_generate_fn
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+
+    card = _tiny_fp32_vlm(torch, dev, 35)
+    host = InternVLChatModel(card.cfg, compute_dtype=torch.float32,
+                             device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    host.requires_grad_(False)
+    rng = np.random.default_rng(35)
+    ids = rng.integers(5, 400, (2, 9))
+    seg = np.ones((2, 9), np.int32)
+    ids[1, 6:], seg[1, 6:] = 0, 0
+    cases = []
+    for K in (2, 3):
+        def run(model, eos):
+            gen = make_beam_generate_fn(
+                model, max_new_tokens=TINY_BEAM_NEW, num_beams=K,
+                eos_token_ids=[eos], pad_token_id=0,
+                cache_dtype=torch.float32)
+            d = model.device
+            with torch.inference_mode():
+                t, n = gen(torch.as_tensor(ids, device=d),
+                           torch.as_tensor(seg, device=d), None)
+            return t.cpu().tolist(), n.cpu().tolist()
+
+        want = run(host, -1)
+        for eos in (-1, want[0][0][TINY_BEAM_NEW // 2]):
+            want = run(host, eos)
+            got = run(card, eos)
+            cases.append((K, eos, want[1], got == want))
+    print(f"beam fp32 gate (tiny_vlm, card vs the host's run): (K, EOS, "
+          f"lengths, equal) {cases} {tag}", flush=True)
+    if not all(c[3] for c in cases):
+        raise RuntimeError("beam search on the card differs from the host")
+    if not any(min(c[2]) < TINY_BEAM_NEW for c in cases if c[1] != -1):
+        raise RuntimeError("the mid-beam EOS case finished no hypothesis")
+    del card, host
+
+
+def beam_phase(torch, np, dev, model, tok, tag):
+    """Phase 35: VlaserChat(num_beams=K) at full width (13 seeded tiles, a
+    BEAM_TEXT-token message, BEAM_NEW new tokens, K in BEAM_KS), the K = 1
+    gate, derived launch counts of one call of each K, the stage times and
+    peak memory; then the fp32 gate. -> launches of the counted calls."""
+    from vlaser_tpu_torch.image.tiling import normalize_uint8
+    from vlaser_tpu_torch.inference import beam_search as bs
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.tokenizer.conversation import build_chat_query
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    llm, vcfg = cfg.llm, cfg.vision
+    L, Lv = llm.num_layers, vcfg.num_layers
+    rng = np.random.default_rng(35)
+    img = vcfg.image_size
+    tiles = torch.from_numpy(normalize_uint8(rng.integers(
+        0, 256, (BEAM_TILES, img, img, 3), dtype=np.uint8))).to(dev)
+    question = _text(rng, BEAM_TEXT)
+    chats = {K: VlaserChat(model, tok, max_new_tokens=BEAM_NEW, num_beams=K,
+                           bucket=BEAM_BUCKET) for K in BEAM_KS}
+    if any(c._fused_gen is not None for c in chats.values()):
+        raise RuntimeError("a beam VlaserChat routed to the fused runner")
+    chat = chats[BEAM_KS[0]]
+    query = build_chat_query(cfg.template, "<image>\n" + question,
+                             [BEAM_TILES], cfg.num_image_token)
+    ids, seg = chat._encode([query])
+    n, n_valid = ids.shape[1], int(seg.sum())
+    beam_greedy_gate(torch, model, ids, seg, tiles, [chat.eos_token_id], tag)
+
+    # derived from the code: the plain prefill runs the ViT layer by layer
+    # (no fused stack): 4 w8a8 Dense a layer, each quantizing its own input,
+    # its attention on flash at the 13-tile logits' size; the LLM prefill's
+    # 7 w8a8 Dense a layer on 4 quantizations, its attention and its 2L + 1
+    # norms on their kernels at the JAX dispatch's row thresholds. The
+    # BEAM_NEW - 1 steps at K rows take none: weight-only Dense under 128
+    # rows, reference attention and RMSNorm
+    per_call = _add({"quantize_rows": 4 * Lv, "int8_gemm": 4 * Lv},
+                    _prefill_want(llm, n, n + BEAM_NEW))
+    if _uses_flash(BEAM_TILES, vcfg.seq_len, vcfg.num_heads):
+        _add(per_call, {"flash_attention_fwd": Lv})
+    launches, rows = {}, {}
+    for K, c in chats.items():
+        with torch.inference_mode():
+            c.chat(question, tiles)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t1 = time.perf_counter()
+            resp = c.chat(question, tiles)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        got = {k: v for k, v in _read_counts().items() if v}
+        _add(launches, got)
+        rows[K] = dict(ms=ms, peak=torch.cuda.max_memory_allocated() / 2**30,
+                       launches=got, resp=resp)
+        if got != per_call:
+            raise RuntimeError(f"beam K = {K} launches {got} != {per_call}")
+        if len(resp.split()) != BEAM_NEW:  # no EOS among the byte tokens
+            raise RuntimeError(f"beam K = {K} answered {len(resp.split())} "
+                               f"tokens, not {BEAM_NEW}")
+    # stage times: the prefill alone, the cache reorder at the largest K
+    with torch.inference_mode():
+        make = lambda b: KVCache.create(L, b, n + BEAM_NEW, llm.num_kv_heads,
+                                        llm.head_dim, torch.bfloat16, dev)
+        prefill_ms = _ms(torch, lambda: model.prefill(ids, tiles, seg,
+                                                      make(1)), 2)
+        K = BEAM_KS[-1]
+        cache, spare = make(K), make(K)
+        order = torch.arange(K, device=dev).flip(0)
+        reorder_ms = _kernel_ms(torch, lambda: bs._reorder_cache(
+            cache, order, spare), 10)
+        nbytes = 2 * 2 * cache.k.numel() * cache.k.element_size()
+        del cache, spare
+    for K, r in rows.items():
+        step = (r["ms"] - prefill_ms) / (BEAM_NEW - 1)
+        print(f"beam search K = {K} (VlaserChat, {BEAM_TILES} tiles, prompt "
+              f"{n_valid} tokens in a bucket of {n}, {BEAM_NEW} new): "
+              f"{r['ms']:.1f} ms a call (host clock around synchronize), "
+              f"{1e3 * BEAM_NEW / r['ms']:.1f} tok/s of the best beam, "
+              f"~{step:.2f} ms a beam step ((call - prefill) / "
+              f"{BEAM_NEW - 1}), peak {r['peak']:.2f} GiB; launches "
+              f"{r['launches']} (derived {per_call}); answer "
+              f"{r['resp'][:40]!r} {tag}", flush=True)
+    print(f"beam stages: prefill {prefill_ms:.2f} ms ({n} rows, 13 tiles, "
+          f"CUDA events); cache reorder at K = {K} {reorder_ms:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB read + written, bound "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms) {tag}", flush=True)
+    beam_fp32_gate(torch, np, dev, tag)
+    print(f"phase 35 took {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return launches
+
+
+def _prefill_want(llm, n, skv):
+    """Launches of one batch-1 LLM prefill of n rows over a cache of skv
+    slots: the w8a8 Dense at >= ACT_QUANT_MIN_ROWS rows, flash and RMSNorm
+    at the JAX dispatch's thresholds (kernels/flash_attention.attention_fn,
+    kernels/rmsnorm.rms_norm)."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+    from vlaser_tpu_torch.models.layers import ACT_QUANT_MIN_ROWS
+
+    L, want = llm.num_layers, {}
+    if n >= ACT_QUANT_MIN_ROWS:
+        want.update(quantize_rows=3 * L, quantize_silu_mul=L,
+                    int8_gemm=7 * L)
+    if n >= fa.SQ_MIN or llm.num_heads * n * skv * 4 > fa.LOGITS_BYTES_MIN:
+        want["flash_attention_fwd"] = L
+    if n >= rmsnorm.MIN_ROWS and llm.hidden_size <= rmsnorm.MAX_HIDDEN:
+        want["_rms_fwd"] = 2 * L + 1
+    return want
+
+
+def _post_chat(url, payload):
+    """One /v1/chat/completions POST -> (status, body, seconds to the first
+    SSE content delta or None, seconds to the end). A streamed body comes
+    back as its list of deltas."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/chat/completions", json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = None
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status = r.status
+            if not payload.get("stream"):
+                return status, json.loads(r.read()), None, \
+                    time.perf_counter() - t0
+            deltas = []
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                chunk = json.loads(line[len("data: "):])
+                d = chunk["choices"][0]["delta"].get("content")
+                if d:
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    deltas.append(d)
+            return status, deltas, first, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()[:300], None, time.perf_counter() - t0
+
+
+def _burst(url, payloads):
+    """POST every payload at once (one thread each, released together) ->
+    (results in payload order, wall seconds)."""
+    import threading
+
+    out = [None] * len(payloads)
+    gate = threading.Barrier(len(payloads) + 1)
+
+    def fire(i):
+        gate.wait()
+        out[i] = _post_chat(url, payloads[i])
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def _serve_payloads(rng, n_text, max_tokens):
+    """One message a request, of n_text[i] seeded bytes (byte tokens);
+    every SERVE_STREAM_EVERY-th request streams."""
+    return [{"messages": [{"role": "user", "content": _text(rng, t)}],
+             "max_tokens": m, "stream": i % SERVE_STREAM_EVERY ==
+             SERVE_STREAM_EVERY - 1}
+            for i, (t, m) in enumerate(zip(n_text, max_tokens))]
+
+
+def _served(chat):
+    """Wrap chat.chat_many to keep each question's final text."""
+    finals = {}
+    many = chat.chat_many
+
+    def recorded(items, on_token=None):
+        texts = many(items, on_token=on_token)
+        finals.update((it[0], t) for it, t in zip(items, texts))
+        return texts
+
+    chat.chat_many = recorded
+    return finals
+
+
+def _check_burst(results, payloads, finals, cap, what):
+    """Every response 200; no completion longer than its max_tokens (every
+    one runs to it: the byte tokenizer has no EOS), usage.max_new_tokens
+    the request's; each stream's deltas concatenate to its final text.
+    -> completions' tokens."""
+    n_tok = 0
+    for (status, body, _, _), p in zip(results, payloads):
+        if status != 200:
+            raise RuntimeError(f"{what}: HTTP {status}: {body}")
+        want = min(p["max_tokens"], cap)
+        final = finals[p["messages"][0]["content"]]
+        if p["stream"]:
+            text = "".join(body).strip()
+            if text != final:
+                raise RuntimeError(f"{what}: stream deltas {text[:60]!r} != "
+                                   f"the final text {final[:60]!r}")
+        else:
+            text = body["choices"][0]["message"]["content"]
+            if text != final or body["usage"]["max_new_tokens"] != want:
+                raise RuntimeError(f"{what}: response {text[:40]!r} / usage "
+                                   f"{body['usage']} for max_tokens {want}")
+        if len(text.split()) != want:
+            raise RuntimeError(f"{what}: {len(text.split())} tokens for "
+                               f"max_tokens {want}")
+        n_tok += want
+    return n_tok
+
+
+def serve_fp32_gate(torch, np, dev, tag):
+    """Phase 36's gate: tiny_vlm at fp32 (compute and cache) behind
+    ChatHTTPServer on EngineChat; 16 concurrent requests (4 streaming) must
+    complete as EngineChat.chat_many does on the same items, token for
+    token."""
+    from vlaser_tpu_torch.serve.chat_server import ChatHTTPServer
+    from vlaser_tpu_torch.serve.engine_chat import EngineChat
+
+    tiny = _tiny_fp32_vlm(torch, dev, 36)
+    tok = DecimalByteTokenizer()
+    chat = EngineChat(tiny, tok, max_new_tokens=11, num_slots=4, max_len=320,
+                      cache_dtype=torch.float32)
+    rng = np.random.default_rng(36)
+    payloads = _serve_payloads(
+        rng, [int(rng.integers(8, 40)) for _ in range(SERVE_REQS)],
+        [(4, 7, 11)[i % 3] for i in range(SERVE_REQS)])
+    finals = _served(chat)
+    srv = ChatHTTPServer(chat, host="127.0.0.1", port=0)
+    srv.start_background()
+    try:
+        results, _ = _burst(f"http://127.0.0.1:{srv.port}", payloads)
+        _check_burst(results, payloads, finals, 11, "fp32 server")
+    finally:
+        srv.shutdown()
+    with torch.inference_mode():
+        want = chat.chat_many([(p["messages"][0]["content"], None, None,
+                                None, p["max_tokens"]) for p in payloads])
+    got = ["".join(b).strip() if p["stream"] else
+           b["choices"][0]["message"]["content"]
+           for (_, b, _, _), p in zip(results, payloads)]
+    bad = sum(g != w for g, w in zip(got, want))
+    print(f"server fp32 gate (tiny_vlm, EngineChat, {SERVE_REQS} concurrent "
+          f"requests, {SERVE_REQS // SERVE_STREAM_EVERY} streaming): {bad} "
+          f"completions differ from chat_many's; {srv.batches_served} "
+          f"batches {tag}", flush=True)
+    if bad:
+        raise RuntimeError(f"server fp32 gate: {bad} completions differ")
+    del tiny, chat
+
+
+def serve_phase(torch, np, dev, model, tok, tag, report):
+    """Phase 36: serve_vlm's stages (--engine --host 127.0.0.1 --port 0, the
+    CLI's defaults otherwise; max_len SERVE_MAX_LEN) and ChatHTTPServer at
+    full width: a warm-up burst, then SERVE_BURSTS timed bursts of 16
+    concurrent requests, launch counters around them; SERVE_SEQUENTIAL
+    sequential requests to serve_vlm's VlaserChat backend; the fp32 gate.
+    -> launches of the timed bursts and the sequential requests."""
+    from vlaser_tpu_torch.scripts import serve_vlm
+    from vlaser_tpu_torch.tokenizer.conversation import build_chat_query
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    overhead = len(tok(build_chat_query(cfg.template, "", [],
+                                        cfg.num_image_token))["input_ids"])
+    args = serve_vlm.build_parser().parse_args(
+        ["--engine", "--host", "127.0.0.1", "--port", "0"])
+    chat = serve_vlm.build_chat(args, model, tok, max_len=SERVE_MAX_LEN)
+    finals = _served(chat)
+    srv = serve_vlm.build_server(args, chat)
+    srv.start_background()
+    url = f"http://127.0.0.1:{srv.port}"
+    rng = np.random.default_rng(36)
+    n_text = [SERVE_TEXT[i % len(SERVE_TEXT)] for i in range(SERVE_REQS)]
+    max_tok = [SERVE_MAX[i % len(SERVE_MAX)] for i in range(SERVE_REQS)]
+    launches, runs = {}, []
+    try:
+        for b in range(SERVE_BURSTS + 1):
+            payloads = _serve_payloads(rng, n_text, max_tok)
+            before = srv.batches_served
+            if b == 1:
+                _zero_counts()
+            results, wall = _burst(url, payloads)
+            n_tok = _check_burst(results, payloads, finals,
+                                 args.max_new_tokens, "server burst")
+            batches = srv.batches_served - before
+            if batches >= SERVE_REQS:
+                raise RuntimeError(f"{batches} batches for {SERVE_REQS} "
+                                   "requests: no cross-request batching")
+            if b:
+                runs.append((wall, n_tok, batches, results))
+        got = {k: v for k, v in _read_counts().items() if v}
+    finally:
+        srv.shutdown()
+    _add(launches, got)
+    need = ("int8_gemm", "quantize_rows", "quantize_silu_mul")
+    q = got.get("quantize_rows", 0)
+    if not all(got.get(k) for k in need) or got["int8_gemm"] * 3 != 7 * q \
+            or got["quantize_silu_mul"] * 3 != q:
+        raise RuntimeError(f"server bursts' launches {got}: each admission "
+                           "prefill layer takes 7 int8_gemm on 3 "
+                           "quantize_rows and 1 quantize_silu_mul")
+    engine_tok_s = report.get("engine", {}).get("engine", {}).get("tok_s")
+    for i, (wall, n_tok, batches, results) in enumerate(runs):
+        lat = sorted(r[3] for r in results)
+        ttft = [r[2] for r in results if r[2] is not None]
+        print(f"server burst {i + 1} (serve_vlm --engine, EngineChat 16 "
+              f"slots, max_len {SERVE_MAX_LEN}; {SERVE_REQS} requests, "
+              f"messages of {min(n_text)}-{max(n_text)} byte tokens behind "
+              f"a {overhead}-token template, max_tokens {SERVE_MAX}, "
+              f"{len(ttft)} streaming): {wall * 1e3:.1f} ms wall, "
+              f"{SERVE_REQS / wall:.2f} requests/s, latency p50 "
+              f"{statistics.median(lat) * 1e3:.1f} / p95 "
+              f"{lat[int(0.95 * (len(lat) - 1))] * 1e3:.1f} ms, time to the "
+              f"first SSE delta {[round(t * 1e3, 1) for t in ttft]} ms, "
+              f"{n_tok} useful tokens -> {n_tok / wall:.1f} tok/s (phase "
+              f"20's engine: "
+              + (f"{engine_tok_s:.1f}" if engine_tok_s else "not run")
+              + f" tok/s), {batches} batches {tag}", flush=True)
+    print(f"server bursts' launches ({SERVE_BURSTS} bursts): {got} {tag}",
+          flush=True)
+
+    # the static backend: serve_vlm without --engine (VlaserChat, fused
+    # runner on the card), sequential requests, one streaming (the shim)
+    sargs = serve_vlm.build_parser().parse_args(
+        ["--host", "127.0.0.1", "--port", "0"])
+    static = serve_vlm.build_chat(sargs, model, tok)
+    if static._fused_gen is None:
+        raise RuntimeError("serve_vlm's VlaserChat did not take the fused "
+                           "runner")
+    srv = serve_vlm.build_server(sargs, static)
+    srv.start_background()
+    url = f"http://127.0.0.1:{srv.port}"
+    texts = [_text(rng, 64 * (i + 1)) for i in range(SERVE_SEQUENTIAL - 1)]
+    seq = [{"messages": [{"role": "user", "content": t}]} for t in texts]
+    seq.append({"stream": True, **seq[0]})
+    try:
+        _post_chat(url, seq[0])  # warm-up
+        _zero_counts()
+        out = [_post_chat(url, p) for p in seq]
+        got = {k: v for k, v in _read_counts().items() if v}
+    finally:
+        srv.shutdown()
+    _add(launches, got)
+    if any(o[0] != 200 for o in out):
+        raise RuntimeError(f"static server: {[o[:2] for o in out]}")
+    shim = out[-1][1]
+    if len(shim) != 1 or shim[0] != out[0][1]["choices"][0]["message"][
+            "content"]:
+        raise RuntimeError("the stream shim's one delta differs from the "
+                           "same request's answer")
+    # derived from the code: per request the fused runner's prefill of n
+    # rows over an n + new cache (7 w8a8 Dense a layer on 4 quantizations at
+    # >= ACT_QUANT_MIN_ROWS rows; attention and the 2L + 1 norms on their
+    # kernels at the JAX dispatch's thresholds) and one fused stack a token
+    # after the first
+    new = sargs.max_new_tokens
+    want = {"fused_int8_stack": SERVE_SEQUENTIAL * (new - 1)}
+    for p in seq:
+        n = static._encode([build_chat_query(
+            cfg.template, p["messages"][0]["content"], [],
+            cfg.num_image_token)])[0].shape[1]
+        _add(want, _prefill_want(cfg.llm, n, n + new))
+    if got != want:
+        raise RuntimeError(f"static server launches {got}, want {want}")
+    print(f"static server (serve_vlm, VlaserChat fused runner, "
+          f"{new} new tokens): {SERVE_SEQUENTIAL} sequential requests "
+          f"{[round(o[3] * 1e3, 1) for o in out]} ms, the last streamed "
+          f"(one delta, equal to the first's answer); launches {got} "
+          f"(derived {want}) {tag}",
+          flush=True)
+    del chat, static
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_fp32_gate(torch, np, dev, tag)
+    print(f"phase 36 took {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return launches
+
+
+def _eval_items(np, root):
+    """EVAL_ITEMS seeded text-only multiple-choice items: a question of
+    EVAL_TEXT byte tokens, 4 choices, the answer letter. -> the path."""
+    rng = np.random.default_rng(37)
+    path = os.path.join(root, "mc.jsonl")
+    with open(path, "w") as f:
+        for _ in range(EVAL_ITEMS):
+            n = int(rng.integers(EVAL_TEXT[0], EVAL_TEXT[1] + 1))
+            f.write(json.dumps({
+                "question": _text(rng, n).strip() + "?",
+                "choices": [_text(rng, 12).strip() for _ in range(4)],
+                "answer": "ABCD"[int(rng.integers(4))]}) + "\n")
+    return path
+
+
+def eval_phase(torch, np, dev, model, tok, tag, work):
+    """Phase 37: eval_vlm's stages on the phases' seeded model (the HF
+    checkpoint of phase 27 is written later in the run; its load is phase
+    27's): the generic route (load_jsonl_benchmark -> evaluate_benchmark,
+    --batch 8, --max_new_tokens EVAL_NEW) through VlaserChat with 1 and 2
+    beams and --engine, and RUNNERS["scienceqa"] (run_mc_benchmark, the
+    runner that takes text-only rows); each run's launches counted from 0.
+    -> their launches."""
+    import contextlib
+    import io
+
+    from vlaser_tpu_torch.scripts import eval_vlm
+
+    t0 = time.perf_counter()
+    path = _eval_items(np, work)
+    base = ["--data", path, "--batch", str(EVAL_BATCH), "--max_new_tokens",
+            str(EVAL_NEW)]
+    variants = (("VlaserChat, 1 beam", ["--benchmark", "mcq"]),
+                ("VlaserChat, 2 beams", ["--benchmark", "mcq", "--num_beams",
+                                         "2"]),
+                ("--engine", ["--benchmark", "mcq", "--engine"]),
+                ("RUNNERS['scienceqa']", ["--benchmark", "scienceqa"]))
+    keys = {"mcq": ["accuracy", "benchmark", "num_evaluated"],
+            "scienceqa": ["accuracy", "benchmark", "num_evaluated"]}
+    need = ("int8_gemm", "quantize_rows", "quantize_silu_mul")
+    launches = {}
+    for name, extra in variants:
+        ap = eval_vlm.build_parser()
+        args = ap.parse_args(base + extra)
+        args.quantize = eval_vlm.quantize_mode(ap, args)
+        chat = eval_vlm.build_chat(args, model, tok)
+        _zero_counts()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            key, out = eval_vlm.run(args, chat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = {k: v for k, v in _read_counts().items() if v}
+        _add(launches, got)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            printed = eval_vlm.report(args, key, out)
+        printed = {"benchmark": key, **printed}
+        if sorted(printed) != keys[key] or out["num_evaluated"] != \
+                EVAL_ITEMS or json.loads(buf.getvalue()) != printed:
+            raise RuntimeError(f"eval_vlm {name}: results {printed}")
+        lack = [k for k in need if not got.get(k)]
+        if lack:
+            raise RuntimeError(f"eval_vlm {name} never launched {lack}")
+        print(f"eval_vlm {name}: {EVAL_ITEMS} items in {wall:.2f} s -> "
+              f"{EVAL_ITEMS / wall:.1f} items/s; accuracy "
+              f"{printed['accuracy']:.3f} (random weights: means nothing); "
+              f"launches {got} {tag}", flush=True)
+        del chat
+    print(f"phase 37 took {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return launches
+
+
+def vlm_entry_phases(torch, np, dev, cfg, tag, report):
+    """Phases 35-37 on one seeded Vlaser-2B (bf16 N(0, 0.02^2) through
+    serve_vlm's config and quantize stages: w8a8) with the byte tokenizer.
+    -> launches of their main paths."""
+    from vlaser_tpu_torch.scripts import serve_vlm
+
+    t0 = time.perf_counter()
+    tok = DecimalByteTokenizer()
+    args = serve_vlm.build_parser().parse_args([])
+    cfg = serve_vlm.build_config(args, tok, cfg)
+    model = serve_vlm.quantize(args, _chat_model(torch, dev, cfg, 14))
+    torch.cuda.synchronize()
+    print(f"entry-point model: Vlaser-2B ({cfg.llm.vocab_size} words, the "
+          f"byte tokenizer's image tokens {cfg.img_context_token_id} / "
+          f"{cfg.img_start_token_id} / {cfg.img_end_token_id}), w8a8, "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    launches = beam_phase(torch, np, dev, model, tok, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, serve_phase(torch, np, dev, model, tok, tag, report))
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        _add(launches, eval_phase(torch, np, dev, model, tok, tag, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phases 35-37 took {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    return launches
+
+
 # -- PaliGemma: phases 17-19 -------------------------------------------------
 # q and k x this in the kernel phase: the logits' std near 50, where Gemma's
 # cap of 50 bites (at N(0, 0.02^2) weights it never does)
@@ -5656,6 +6362,9 @@ def main() -> int:
     launches = engine_phases(torch, np, dev, vlaser_2b(), tag, report)
     gc.collect()
     torch.cuda.empty_cache()
+    # the entry points' phases serve over HTTP: host-bound too
+    _add(launches, vlm_entry_phases(torch, np, dev, vlaser_2b(), tag,
+                                    report))
     # the profiler's first trace in a process can miss its first kernels
     _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up", tag,
              quiet=True)

@@ -80,6 +80,21 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.kernels.adam8bit",
     "vlaser_tpu_torch.data.rlds",
     "vlaser_tpu_torch.scripts.train_vla",
+    "vlaser_tpu_torch.inference.beam_search",
+    "vlaser_tpu_torch.serve.chat_server",
+    "vlaser_tpu_torch.eval",
+    "vlaser_tpu_torch.eval.vlm_benchmarks",
+    "vlaser_tpu_torch.eval.mc_protocols",
+    "vlaser_tpu_torch.eval.vqa_metrics",
+    "vlaser_tpu_torch.eval.math_verify",
+    "vlaser_tpu_torch.eval.grounding_bbox",
+    "vlaser_tpu_torch.eval.ptb_tokenizer",
+    "vlaser_tpu_torch.eval.caption_metrics",
+    "vlaser_tpu_torch.eval.point_eval",
+    "vlaser_tpu_torch.eval.embodied_benchmarks",
+    "vlaser_tpu_torch.eval.protocol_runners",
+    "vlaser_tpu_torch.scripts.serve_vlm",
+    "vlaser_tpu_torch.scripts.eval_vlm",
 )
 
 
@@ -524,3 +539,28 @@ def test_train_vla_cli_defaults_to_the_card(tmp_path):
     with pytest.raises(NotImplementedError, match="one device"):
         train_vla.main(["--model_path", "x", "--rlds_dir", "y", "--fsdp",
                         "2", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli", ["serve_vlm", "eval_vlm"])
+def test_serving_clis_default_to_the_card(tmp_path, cli):
+    """serve_vlm / eval_vlm given no --device raise on a box without a card
+    before they build a model, in a process that loads no jax, no
+    vlaser_tpu and no PIL (a text-only run needs none)."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    argv = ["--tiny"] + (["--benchmark", "mcq", "--data", "x.jsonl"]
+                         if cli == "eval_vlm" else [])
+    code = ("import sys\n"
+            f"from vlaser_tpu_torch.scripts import {cli} as m\n"
+            "try:\n"
+            f"    m.main({argv!r})\n"
+            "except RuntimeError as e:\n"
+            "    assert '--device cpu' in str(e), e\n"
+            "    bad = [k for k in sys.modules if k.split('.')[0] in\n"
+            "           ('jax', 'flax', 'jaxlib', 'vlaser_tpu', 'PIL')]\n"
+            "    assert not bad, bad\n"
+            "    print('refused')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "refused" in out.stdout

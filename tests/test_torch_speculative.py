@@ -158,7 +158,8 @@ def test_spec_right_padded_prompt(vlm):
 
 def test_chat_speculative_matches_plain_and_jax(vlm):
     """VlaserChat(speculative_draft_len=4) answers what the plain chat and
-    JAX's speculative chat answer; beams still raise."""
+    JAX's speculative chat answer; speculative decoding with beams raises
+    (JAX asserts num_beams == 1 there)."""
     cfg, jm, v, tm = vlm
     ids, px = _image_ids(vlm)
     kw = dict(max_new_tokens=12, bucket=64)
@@ -172,8 +173,8 @@ def test_chat_speculative_matches_plain_and_jax(vlm):
     for q, pix in (("describe the scene", px), ("hello there", None)):
         got = spec.chat(q, pix)
         assert got == plain.chat(q, pix) == jchat.chat(q, pix)
-    with pytest.raises(NotImplementedError):
-        VlaserChat(tm, ToyTok(), num_beams=2)
+    with pytest.raises(ValueError):
+        VlaserChat(tm, ToyTok(), num_beams=2, speculative_draft_len=4)
 
 
 # -- the speculative engine vs the JAX engine ---------------------------------

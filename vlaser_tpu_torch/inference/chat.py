@@ -17,7 +17,9 @@ device and the cache is bf16 (the JAX gate is a TPU backend); True forces
 it (on CPU tensors that means the kernels' plain versions); False turns it
 off. speculative_draft_len > 0 takes the prompt-lookup speculative
 decoder (`inference/speculative.py`: greedy, single stream, the same tokens
-as greedy decode). Beam search is not ported yet.
+as greedy decode). num_beams > 1 takes the beam searcher
+(`inference/beam_search.py`, greedy beams, never the fused runner); as in
+JAX, that route ignores repetition_penalty.
 """
 
 from __future__ import annotations
@@ -69,8 +71,6 @@ class VlaserChat:
         `core.quant.quantize_for_serving` for the fused runner). Sampling
         draws from a generator seeded with 0 on the model's device (the JAX
         chat's PRNGKey(0))."""
-        if num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
         self.model, self.tokenizer = model, tokenizer
         self.cfg = model.cfg
         self.bucket, self.system_message = bucket, system_message
@@ -88,12 +88,22 @@ class VlaserChat:
             # stream (chat(), not batch_chat)
             from .speculative import make_speculative_generate_fn
 
-            if temperature != 0.0 or repetition_penalty != 1.0:
-                raise ValueError(
-                    "speculative decode is greedy (no penalty or sampling)")
+            if (num_beams != 1 or temperature != 0.0
+                    or repetition_penalty != 1.0):
+                raise ValueError("speculative decode is greedy (no beams, "
+                                 "penalty or sampling)")
             self._gen = make_speculative_generate_fn(
                 model, draft_len=speculative_draft_len,
                 cache_dtype=cache_dtype, **gen_kw)
+            return
+        if num_beams > 1:
+            from .beam_search import make_beam_generate_fn
+
+            if temperature != 0.0:
+                raise ValueError("beam search is greedy (do_sample=False)")
+            self._gen = make_beam_generate_fn(
+                model, num_beams=num_beams, cache_dtype=cache_dtype,
+                **gen_kw)
             return
         self._gen = make_generate_fn(
             model, temperature=temperature, top_k=top_k,

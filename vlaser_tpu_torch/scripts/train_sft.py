@@ -64,7 +64,7 @@ def resolve_device(name: Optional[str]) -> torch.device:
     """The card unless `name` asks for another device; no card raises."""
     if name is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass --device cpu to train "
+            raise RuntimeError("no CUDA device; pass --device cpu to run "
                                "on the CPU")
         name = "cuda"
     return torch.device(name)
