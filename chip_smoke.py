@@ -22,8 +22,10 @@ model (phases 12-16), of the PaliGemma VLA (phases 17-19), of the
 Vlaser-2B serving engine (phases 20-22, run first), of the Vlaser-2B
 SFT train step (phases 23-26, after 19), of the training entry points
 (phases 27-31, after 26), of the VLA recipe's 8-bit trainer (phases
-32-34, right after 11) and of the VLM's serving and evaluation entry
-points (phases 35-37, right after 22) with random weights from seeded
+32-34, right after 11), of the VLM's serving and evaluation entry
+points (phases 35-37, right after 22), of the closed-loop evaluations
+(phases 38-39, right after 37) and of the RoboTwin parallel-decoding VLA's
+training (phase 40, right after 26) with random weights from seeded
 generators:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
@@ -299,6 +301,52 @@ decimal; it has no EOS, so every completion runs to its budget):
      with VlaserChat at 1 and 2 beams and --engine, and through
      RUNNERS["scienceqa"] (run_mc_benchmark): the JAX CLI's result keys,
      items/s, launches (accuracy on random weights means nothing).
+The closed-loop evaluations (mock environments copied from the JAX
+package's tests: SAPIEN, SimplerEnv and RoboTwin are not on the card's
+machine):
+  38. eval_simpler's stages on a seeded Vlaser-2B-VLA (bf16 N(0, 0.02^2)),
+     --robot fractal (EDRSimplerAdapter over a statistics JSON the phase
+     writes), act_steps 4: 4 mock episodes of 24 env steps (seeded frames at
+     448 px and poses that do not depend on the actions) through EvalRunner
+     on the plain server (--no-fused: the unquantized model's
+     infer_action), then on the fused server (--fused: the same model
+     quantized in place with quantize_for_serving(target="policy"), w8a8),
+     then run_variant_aggregation over 2 variants with the
+     BridgeSimplerAdapter; every control step's raw action chunk, fused
+     against plain, within PARITY_TOL; the fused runs' launches held to the
+     policy calls x phase 6's per-step counts (the plain run's: none); ms a
+     control step (CUDA events, host included), env steps/s, success;
+  39. deploy_robotwin's stages on a seeded ParallelDecodingVLA
+     (train_robotwin's config stage: vlaser_2b at 224 px, select_layer -2,
+     its vocabulary grown by the 12 RoboTwin markers and 512 <state_i> to
+     152,198 words, the byte tokenizer inside it; fp32 parameters, bf16
+     compute) behind PolicyHTTPServer on 127.0.0.1: 32 sequential /act
+     requests and a burst of 8 concurrent ones with 224-px uint8 frames,
+     every response 200 and bit-equal to the in-process policy_fn on the
+     same input; the round trip's p50 / p95; the control step (median of
+     10, CUDA events, host included); eval_policy over 4 mock episodes with
+     one expert failure; launches held to none (at B 1 the JAX dispatch
+     keeps attention and RMSNorm on the eager reference).
+The RoboTwin parallel-decoding VLA's training (train_robotwin's recipe:
+batch 8, fp32 parameters with bf16 compute, AdamW, the ViT frozen; 8
+in-memory samples with _make_synthetic_episodes' fields at 224 px through
+collate_robotwin, as the card's machine has no h5py):
+  40. 4 steps on the auto route (the JAX dispatch: no kernel at 8 x 236
+     LLM rows or 8 x 257 ViT rows; launches held to none); the step split
+     and peak memory; then from the same init one step on the auto route
+     and one with the flash and RMSNorm kernel routes forced: the forced
+     step's loss within LOSS_REL and grad_norm within GNORM_REL of the auto
+     step's, every gradient finite, the text padding rows' input gradients
+     exactly 0 (the live rows' not), launches held to the derived counts
+     (23 ViT and 28 LLM flash forwards and backwards, 57 RMSNorm forwards
+     and backwards); a B 1 forward, forced against auto, within
+     PARITY_TOL, its launches held; the forced step's checkpoint (~23 GB,
+     under a temporary directory) restored into a fresh model and step bit
+     for bit; flash forward and backward at the ViT (B 8 x 257, 16 x 64)
+     and the LLM shape (B 8 x 236, 12 / 2 x 128, non-causal, the batch's
+     text padding as segment 0) against the plain version with controls and
+     timed beside SDPA under the same mask, and _rms_fwd / _rms_bwd at
+     1,888 x 1,536.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -4271,6 +4319,668 @@ def vlm_entry_phases(torch, np, dev, cfg, tag, report):
     return launches
 
 
+# -- closed-loop evaluation: phases 38-39 (right after 37) ------------------
+SIM_EPISODES, SIM_STEPS, SIM_ACT = 4, 24, 4  # episodes, env steps, act_steps
+SIM_VARIANTS = 2
+# a statistics JSON as a dataset's is laid out (bench.py's serving bounds)
+SIM_STATS = {
+    "action": {"p01": [-0.05] * 6 + [0.0], "p99": [0.05] * 6 + [1.0],
+               "mean": [0.0] * 7, "std": [1.0] * 7},
+    "proprio": {"p01": [-0.5] * 6 + [0.0], "p99": [0.5] * 6 + [1.0],
+                "mean": [0.0] * 7, "std": [1.0] * 7}}
+RT_REQUESTS, RT_BURST, RT_EPISODES = 32, 8, 4
+RT_BATCH, RT_STEPS = 8, 4  # train_robotwin's --batch; auto-route steps
+RT_FAIL_SEEDS = {5}  # seed % 7 of the one episode the scripted expert fails
+# The RoboTwin models take random_init_'s draws (norms 1 + N(0, 0.1^2)),
+# with the head's output layer scaled by this: the policy emits joint
+# deltas, ~0.15 at most here instead of ~1.5. Measured on the CPU at full
+# width (the kernels' plain twins): two correct bf16 routes through the
+# 23 ViT and 28 LLM layers differ by ~5% of the actions (0.07 at |a| 1.5,
+# 0.007 at 0.15), while the b1 gate's controls move them by 0.06-0.26 at
+# 0.15; with N(0, 0.02^2) everywhere (bench.py's serving draws) the
+# controls move them by <= 1.5e-3 and the gate would be blind.
+RT_HEAD_SCALE = 0.1
+RT_WORDS = ("beat", "the", "block", "with", "hammer", "place", "cup", "on",
+            "mat", "lift", "pot", "handover", "mic", "stack", "bowls")
+
+
+class MockSimplerEnv:
+    """A gym-like stand-in for a SimplerEnv task (the JAX test's mock,
+    tests/test_eval.py, at the policy's frame size): every episode's frames
+    and end-effector poses come from its seed and not from the actions; an
+    episode is truncated at `horizon` env steps and succeeds there when its
+    seed is even."""
+
+    class _Unwrapped:
+        _seed = 0
+
+        def seed(self, s):
+            self._seed = s
+
+        def get_language_instruction(self):
+            return "pick coke can"
+
+    def __init__(self, np, size, horizon):
+        self.np, self.size, self.horizon = np, size, horizon
+        self.unwrapped = self._Unwrapped()
+        self.t, self.steps = 0, 0
+
+    def reset(self, options=None):
+        self.t = 0
+        self.rng = self.np.random.default_rng(self.unwrapped._seed)
+        return self._obs(), {}
+
+    def _obs(self):
+        np, rng = self.np, self.rng
+        q = rng.standard_normal(4)
+        eef = np.concatenate([rng.uniform(-0.3, 0.3, 3), q / np.linalg.norm(q),
+                              rng.uniform(0, 1, 1)])
+        return {"agent": {"eef_pos": eef},
+                "frame": rng.integers(0, 256, (self.size, self.size, 3),
+                                      dtype=np.uint8)}
+
+    def step(self, action):
+        if action.shape != (7,) or not self.np.isfinite(action).all():
+            raise RuntimeError(f"bad env action {action}")
+        self.t += 1
+        self.steps += 1
+        truncated = self.t >= self.horizon
+        success = truncated and self.unwrapped._seed % 2 == 0
+        return self._obs(), float(success), success, truncated, {
+            "success": success}
+
+
+class MockRoboTwinEnv:
+    """The JAX test's RoboTwin mock (tests/test_eval.py) at the deploy
+    policy's sizes: 224-px frames and 14 joints from the episode's seed,
+    the scripted expert failing where seed % 7 is in `fail`, success after 3
+    joint steps."""
+
+    def __init__(self, np, size, fail):
+        self.np, self.size, self.fail = np, size, set(fail)
+        self.moved, self.calls = 0, 0
+
+    def reset_with_seed(self, seed):
+        self.seed, self.moved = seed, 0
+        self.rng = self.np.random.default_rng(seed)
+
+    def play_expert_once(self):
+        return (self.seed % 7) not in self.fail
+
+    def get_observation(self):
+        self.calls += 1
+        return {"image": self.rng.integers(0, 256, (self.size, self.size, 3),
+                                           dtype=self.np.uint8),
+                "qpos": self.rng.uniform(-1, 1, 14).astype(self.np.float32),
+                "instruction": "beat the block with the hammer"}
+
+    def step_qpos(self, q):
+        if q.shape != (14,) or not self.np.isfinite(q).all():
+            raise RuntimeError(f"bad joint target {q}")
+        self.moved += 1
+
+    def check_success(self):
+        return self.moved >= 3
+
+
+def robotwin_tokenizer(vocab_size, img_context_id):
+    """The byte tokenizer of the port's CLIs inside Vlaser-2B's vocabulary:
+    bytes keep ids 0-255, <IMG_CONTEXT> is the config's id, and the tokens
+    train_robotwin's config stage adds take ids from `vocab_size` on, as
+    they do in Vlaser-2B's own tokenizer (12 RoboTwin markers, then 512
+    <state_i>: state_token_start 151,686 of 152,198 words)."""
+    from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+    from vlaser_tpu_torch.tokenizer.conversation import IMG_CONTEXT_TOKEN
+
+    class Tok(ByteTokenizer):
+        def __init__(self):
+            super().__init__()
+            self._specials[IMG_CONTEXT_TOKEN] = img_context_id
+            self.added = 0
+
+        def __len__(self):
+            return vocab_size + self.added
+
+        def add_tokens(self, tokens, special_tokens=True):
+            n = 0
+            for t in tokens:
+                if t not in self._specials:
+                    self._specials[t] = vocab_size + self.added
+                    self.added += 1
+                    n += 1
+            return n
+
+    return Tok()
+
+
+def _rt_setup(torch, dev, vlm_cfg, seed):
+    """The RoboTwin config, builder and a seeded model through
+    train_robotwin's stages: vlaser_2b at 224 px, select_layer -2, the
+    vocabulary grown as the JAX CLI grows it."""
+    from vlaser_tpu_torch.scripts import train_robotwin
+
+    args = train_robotwin.build_parser().parse_args(
+        ["--batch", str(RT_BATCH), "--steps", str(RT_STEPS)])
+    tok = robotwin_tokenizer(vlm_cfg.llm.vocab_size,
+                             vlm_cfg.img_context_token_id)
+    cfg, start = train_robotwin.build_config(args, tok, vlm_cfg)
+    builder = train_robotwin.build_builder(cfg, tok, start)
+    model = train_robotwin.build_model(args, cfg, dev, seed=seed)
+    with torch.no_grad():  # joint-delta outputs: see RT_HEAD_SCALE
+        model.action_head.fc2.kernel.mul_(RT_HEAD_SCALE)
+        model.action_head.fc2.bias.mul_(RT_HEAD_SCALE)
+    return args, tok, cfg, start, builder, model
+
+
+def _rt_samples(np, n, size, chunk, seed):
+    """In-memory samples with _make_synthetic_episodes' fields at `size`
+    px (the card's machine has no h5py): uint8 frames, qpos and action
+    chunks in [-1, 1], instructions of 2-9 words (text padding behind the
+    short ones, the long ones cut at max_text_tokens)."""
+    rng = np.random.default_rng(seed)
+    return [{"image": rng.integers(0, 255, (size, size, 3), np.uint8),
+             "qpos": rng.uniform(-1, 1, 14).astype(np.float32),
+             "actions": rng.uniform(-1, 1, (chunk, 14)).astype(np.float32),
+             "instruction": " ".join(rng.choice(RT_WORDS,
+                                                rng.integers(2, 10)))}
+            for _ in range(n)]
+
+
+def simpler_phase(torch, np, dev, cfg, tag, work):
+    """Phase 38: eval_simpler's stages on a seeded Vlaser-2B-VLA (bf16
+    N(0, 0.02^2)), --robot fractal: the plain server (--no-fused) and then
+    the fused w8a8 server over the same SIM_EPISODES mock episodes, every
+    control step's raw action chunk within PARITY_TOL of the other's; then
+    run_variant_aggregation over SIM_VARIANTS variants with the Bridge
+    adapter. -> launches of the fused runs, held to the policy calls x
+    phase 6's per-step counts."""
+    from vlaser_tpu_torch.eval.simpler_eval import (EvalConfig,
+                                                    run_variant_aggregation)
+    from vlaser_tpu_torch.models.layers import init_normal_
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts import eval_simpler
+
+    t0 = time.perf_counter()
+    stats = os.path.join(work, "dataset_statistics.json")
+    with open(stats, "w") as f:
+        json.dump(SIM_STATS, f)
+    flags = ["--model_path", work, "--ckpt", os.path.join(work, "vla.pt"),
+             "--stats", stats, "--episodes", str(SIM_EPISODES),
+             "--act_steps", str(SIM_ACT)]
+    parse = eval_simpler.build_parser().parse_args
+    bf = torch.bfloat16
+    model = PiZeroVLA(cfg, param_dtype=bf, compute_dtype=bf, device=dev)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+    init_normal_(model, gen, std=0.02)
+    proc = eval_simpler.build_processor(cfg, SmokeTokenizer(cfg.vlm))
+    img = cfg.vlm.vision.image_size
+    frame = lambda env, obs: obs["frame"]
+    L = cfg.vlm.llm.num_layers
+    per_call = {"fused_vit_stack_w8a8": 1,
+                "fused_int8_stack": cfg.num_inference_steps,
+                "quantize_rows": 3 * L, "quantize_silu_mul": L,
+                "int8_gemm": 7 * L}
+    runs = {}
+    launches = {}
+    for route in ("plain", "fused"):
+        args = parse(flags + ["--robot", "fractal"]
+                     + (["--no-fused"] if route == "plain" else []))
+        adapter = eval_simpler.build_adapter(args, cfg)
+        server = eval_simpler.build_server(args, model, adapter, proc, dev)
+        chunks, ms = [], []
+        infer, step = server._infer, server.step
+
+        def recording(*a, infer=infer, chunks=chunks):
+            out = infer(*a)
+            chunks.append(out[0].float())
+            return out
+
+        def timed(obs, image, step=step, ms=ms):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step(obs, image)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+            return out
+
+        server._infer, server.step = recording, timed
+        env = MockSimplerEnv(np, img, SIM_STEPS)
+        torch.cuda.synchronize()
+        _zero_counts()
+        w0 = time.perf_counter()
+        summary = eval_simpler.run(args, server, env=env, get_image=frame)
+        wall = time.perf_counter() - w0
+        agg = None
+        if route == "fused":  # the sweep, on the Bridge adapter
+            server.adapter = eval_simpler.build_adapter(
+                parse(flags + ["--robot", "bridge"]), cfg)
+            agg = run_variant_aggregation(
+                EvalConfig(task=args.task, n_eval_episode=1,
+                           act_steps=SIM_ACT),
+                server, [{"lighting": i} for i in range(SIM_VARIANTS)],
+                env_factory=lambda v: MockSimplerEnv(np, img, SIM_STEPS),
+                get_image=frame)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read_counts().items() if v}
+        calls = len(chunks)
+        want = ({} if route == "plain" else
+                {k: calls * v for k, v in per_call.items()})
+        runs[route] = (summary, chunks)
+        sweep = "" if agg is None else (
+            f"; run_variant_aggregation (BridgeSimplerAdapter) over "
+            f"{len(agg['per_variant'])} variants: success "
+            f"{agg['variant_aggregation_success']}")
+        print(f"eval_simpler {route} (--robot fractal, EDRSimplerAdapter): "
+              f"{summary}; {calls} policy calls, control step "
+              f"{statistics.median(ms):.2f} ms median ({min(ms):.2f}-"
+              f"{max(ms):.2f}, CUDA events, host included), "
+              f"{env.steps / wall:.1f} env steps/s over {env.steps} steps "
+              f"({wall:.2f} s wall){sweep} {tag}", flush=True)
+        _held(got, want, f"eval_simpler {route}")
+        if route == "fused":
+            launches = got
+    (sp, cp), (sf, cf) = runs["plain"], runs["fused"]
+    if sp != sf or sp["n_episodes"] != SIM_EPISODES:
+        raise RuntimeError(f"eval_simpler: plain {sp} != fused {sf}")
+    n = SIM_EPISODES * SIM_STEPS // SIM_ACT
+    if len(cp) != n or len(cf) != n + SIM_VARIANTS * SIM_STEPS // SIM_ACT:
+        raise RuntimeError(f"eval_simpler: {len(cp)} / {len(cf)} calls")
+    errs = [float((a - b).abs().max()) for a, b in zip(cp, cf)]
+    finite = all(bool(c.isfinite().all()) for c in cp + cf)
+    print(f"eval_simpler parity: every control step's actions, fused (w8a8) "
+          f"vs plain (bf16), max abs {max(errs):.3e} (bound {PARITY_TOL}), "
+          f"all finite {finite}; phase 38 took "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if not (finite and max(errs) <= PARITY_TOL):
+        raise RuntimeError("eval_simpler: fused and plain actions disagree")
+    del model, runs
+    return launches
+
+
+def _act_burst(url, jobs):
+    """Concurrent act_request calls; -> [(action, seconds)] in order."""
+    import threading
+
+    from vlaser_tpu_torch.serve.deploy_server import act_request
+
+    out, errs = [None] * len(jobs), []
+
+    def run(i, img, text, qpos):
+        try:
+            t = time.perf_counter()
+            a = act_request(url, img, text, qpos)
+            out[i] = (a, time.perf_counter() - t)
+        except Exception as e:  # raised below, after every thread ended
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, *j))
+               for i, j in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise RuntimeError(f"/act burst failed: {errs[0]!r}")
+    return out
+
+
+def robotwin_deploy_phase(torch, np, dev, vlm_cfg, tag):
+    """Phase 39: deploy_robotwin's stages at full width (a seeded model:
+    no checkpoint in the repository) behind PolicyHTTPServer on 127.0.0.1:
+    RT_REQUESTS sequential /act requests and a burst of RT_BURST, every
+    action bit-equal to the in-process policy_fn on the same input; the
+    control step's time; eval_policy over RT_EPISODES mock episodes with
+    one expert failure. -> launches of the served path (none: at B 1 the
+    JAX dispatch keeps attention and RMSNorm off the kernels)."""
+    from vlaser_tpu_torch.eval.robotwin_eval import (RoboTwinEvalConfig,
+                                                     eval_policy)
+    from vlaser_tpu_torch.scripts import deploy_robotwin
+
+    t0 = time.perf_counter()
+    args, tok, cfg, start, builder, model = _rt_setup(torch, dev, vlm_cfg, 39)
+    model.requires_grad_(False)
+    dargs = deploy_robotwin.build_parser().parse_args(
+        ["--host", "127.0.0.1", "--port", "0"])
+    policy = deploy_robotwin.build_policy(model, builder, tok)
+    policy_fn = deploy_robotwin.make_policy_fn(policy, cfg)
+    srv = deploy_robotwin.build_server(dargs, policy_fn)
+    img = cfg.vlm.vision.image_size
+    spans = cfg.layout()
+    torch.cuda.synchronize()
+    print(f"robotwin deploy model: ParallelDecodingVLA, vlaser_2b at {img} px"
+          f" (select_layer {cfg.vlm.select_layer}, {cfg.vlm.vision.seq_len} "
+          f"ViT tokens), vocab {cfg.vlm.llm.vocab_size} (state_token_start "
+          f"{start}), {spans['total'][1]} LLM tokens, fp32 params / bf16 "
+          f"compute, {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    rng = np.random.default_rng(39)
+    jobs = [(rng.integers(0, 256, (img, img, 3), dtype=np.uint8),
+             " ".join(rng.choice(RT_WORDS, rng.integers(2, 10))),
+             rng.uniform(-1, 1, 14).astype(np.float32))
+            for _ in range(RT_REQUESTS + RT_BURST)]
+    srv.start_background()
+    url = f"http://127.0.0.1:{srv.port}"
+    try:
+        _act_burst(url, jobs[:1])  # a warm-up request
+        torch.cuda.synchronize()
+        _zero_counts()
+        seq = []
+        for job in jobs[:RT_REQUESTS]:
+            seq.extend(_act_burst(url, [job]))
+        b0 = time.perf_counter()
+        burst = _act_burst(url, jobs[RT_REQUESTS:])
+        burst_s = time.perf_counter() - b0
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read_counts().items() if v}
+    finally:
+        srv.shutdown()
+    differ = sum(not np.array_equal(a, policy_fn(*job))
+                 for (a, _), job in zip(seq + burst, jobs))
+    rt = sorted(s * 1e3 for _, s in seq)
+    pct = lambda q: rt[min(len(rt) - 1, int(q * len(rt)))]
+    bad = [a.shape for a, _ in seq + burst
+           if a.shape != (cfg.action_chunk, 14) or a.dtype != np.float32
+           or not np.isfinite(a).all()]
+    print(f"deploy_robotwin: {RT_REQUESTS} sequential /act (224-px uint8, "
+          f"qpos, 2-9 words), round trip p50 {pct(0.5):.2f} / p95 "
+          f"{pct(0.95):.2f} ms; a burst of {RT_BURST} in {burst_s * 1e3:.1f} "
+          f"ms ({RT_BURST / burst_s:.1f} requests/s); every response 200, "
+          f"{differ} of {len(jobs)} differ from the in-process policy_fn "
+          f"(bit for bit) {tag}", flush=True)
+    _held(got, {}, "deploy_robotwin /act")
+    if bad or differ:
+        raise RuntimeError(f"deploy_robotwin: {differ} actions differ, bad "
+                           f"shapes {bad[:3]}")
+    image, text, qpos = jobs[1]
+    ms = []
+    for _ in range(10):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        policy.get_actions(image, qpos, text)
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    env = MockRoboTwinEnv(np, img, RT_FAIL_SEEDS)
+    e0 = time.perf_counter()
+    summary = eval_policy(RoboTwinEvalConfig(test_num=RT_EPISODES, step_lim=8,
+                                             chunk_exec=8), env, policy)
+    ep_s = time.perf_counter() - e0
+    skipped = sum(bool(e.get("skipped")) for e in summary["episodes"])
+    print(f"robotwin control step (RoboTwinPolicy.get_actions, B 1): "
+          f"{statistics.median(ms):.2f} ms median of 10 ({min(ms):.2f}-"
+          f"{max(ms):.2f}, CUDA events, host included); eval_policy over "
+          f"{RT_EPISODES} mock episodes: evaluated {summary['evaluated']}, "
+          f"skipped {skipped}, success rate {summary['success_rate']}, "
+          f"{env.calls} forwards, {RT_EPISODES / ep_s:.2f} episodes/s; "
+          f"phase 39 took {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if (summary["evaluated"] != RT_EPISODES - 1 or skipped != 1
+            or summary["success_rate"] != 1.0):
+        raise RuntimeError(f"eval_policy: {summary}")
+    del model, policy, policy_fn
+    return got
+
+
+def closed_loop_phases(torch, np, dev, cfg_vla, cfg_vlm, tag):
+    """Phases 38-39. -> launches of their main paths."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_sim_")
+    try:
+        launches = simpler_phase(torch, np, dev, cfg_vla, tag, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, robotwin_deploy_phase(torch, np, dev, cfg_vlm, tag))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phases 38-39 took {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    return launches
+
+
+# -- RoboTwin training: phase 40 (after 26) ---------------------------------
+def _rt_want(cfg, B, grad=True):
+    """A forced-route pass's launches: one flash forward per ViT layer run
+    (select_layer -2 stops one early) and per LLM layer, the two norms of
+    every LLM layer and the final norm (the ViT's are LayerNorms), and with
+    a gradient one backward each (every norm's output reaches a slot, and
+    the frozen ViT still takes gradients)."""
+    v = cfg.vlm.vision
+    n_vit = v.num_layers + cfg.vlm.select_layer + 1
+    L = cfg.vlm.llm.num_layers
+    vit_rms = n_vit * ((2 if v.qk_normalization else 0)
+                       + (2 if v.norm_type != "layer_norm" else 0))
+    fwd = {"flash_attention_fwd": n_vit + L, "_rms_fwd": 2 * L + 1 + vit_rms}
+    if grad:
+        fwd.update(flash_attention_bwd=n_vit + L, _rms_bwd=2 * L + 1 + vit_rms)
+    return fwd
+
+
+def _rt_grad_norm(torch, model):
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad.float())
+         for p in model.parameters() if p.grad is not None])).item()
+
+
+def robotwin_train_phase(torch, np, dev, vlm_cfg, tag, report, work):
+    """Phase 40: train_robotwin's recipe at full width (batch RT_BATCH, fp32
+    parameters with bf16 compute, AdamW, the ViT frozen) on in-memory
+    samples through collate_robotwin: RT_STEPS steps on the auto route
+    (the JAX dispatch: no kernel at these shapes), then from the same init
+    one step with the flash and RMSNorm kernel routes forced, held to the
+    auto route (step-1 loss LOSS_REL, grad_norm GNORM_REL, every gradient
+    finite, the text padding rows' input gradients exactly 0) and to the
+    derived launch counts, and a forced B 1 forward against the auto one
+    (PARITY_TOL); the flash kernels at the two shapes against SDPA; the
+    step split and peak memory; a 1-step checkpoint restored bit for bit.
+    -> launches of the forced-route passes."""
+    from vlaser_tpu_torch.scripts import train_robotwin
+    from vlaser_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+
+    t0 = time.perf_counter()
+    args, tok, cfg, start, builder, model = _rt_setup(torch, dev, vlm_cfg, 40)
+    img = cfg.vlm.vision.image_size
+    samples = _rt_samples(np, RT_BATCH, img, cfg.action_chunk, 40)
+    nb = next(train_robotwin.make_batches(samples, RT_BATCH, builder, tok))
+    batch = train_robotwin.to_device(nb, dev)
+    s, e = cfg.layout()["text"]
+    pad = nb["text_mask"][:, s:e] == 0
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in model.parameters())
+    print(f"robotwin train model: {n_param / 1e9:.3f} G parameters (fp32), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device; batch "
+          f"{RT_BATCH} x {nb['input_ids'].shape[1]} tokens, text padding "
+          f"rows {int(pad.sum())} of {pad.size}; "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+
+    # -- the auto route: train_robotwin's step, RT_STEPS steps ---------------
+    step = train_robotwin.build_step(args, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    ms, losses, gnorms = _timed_steps(torch, step, batch, RT_STEPS)
+    torch.cuda.synchronize()
+    _held({k: v for k, v in _read_counts().items() if v}, {},
+          "train_robotwin auto route")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train_robotwin, auto route: {RT_STEPS} steps, losses "
+          f"{[round(v, 6) for v in losses]}, grad norms "
+          f"{[round(v, 4) for v in gnorms]}, step ms "
+          f"{[round(v, 2) for v in ms]} (CUDA events, host included), peak "
+          f"{peak:.2f} GiB {tag}", flush=True)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise RuntimeError("train_robotwin: a non-finite loss or norm")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss = model.loss(batch["input_ids"], batch["pixel_values"],
+                      batch["text_mask"], batch["actions"])
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    step.optimizer.step()
+    ev[3].record()
+    ev[3].synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    print(f"train_robotwin step split (CUDA events): forward {split[0]:.2f} "
+          f"ms, backward {split[1]:.2f} ms (the frozen ViT's included), "
+          f"AdamW {split[2]:.2f} ms {tag}", flush=True)
+    del loss, step
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+
+    # -- the forced kernel routes, from the same init ------------------------
+    grab = {}
+
+    def keep(mod, a, out):
+        out.retain_grad()
+        grab["emb"] = out
+
+    gate = {}
+    launches = {}
+    for impl in ("auto", "kernel"):
+        with torch.no_grad():
+            model.load_state_dict(init)
+        model.set_impl(impl, impl)
+        step = train_robotwin.build_step(args, model)
+        hook = model.embed_tokens.register_forward_hook(keep)
+        torch.cuda.synchronize()
+        _zero_counts()
+        m = step(batch)
+        torch.cuda.synchronize()
+        hook.remove()
+        got = {k: v for k, v in _read_counts().items() if v}
+        g = grab.pop("emb").grad
+        finite = all(bool(p.grad.isfinite().all()) for p in model.parameters()
+                     if p.grad is not None) and bool(g.isfinite().all())
+        pad_max = float(g[:, s:e][torch.from_numpy(pad).to(dev)].abs().max())
+        live_max = float(g[:, s:e][~torch.from_numpy(pad).to(dev)].abs().max())
+        gate[impl] = (m["loss"].item(), m["grad_norm"].item())
+        print(f"train_robotwin step 1, {impl} route: loss {gate[impl][0]:.6f}, "
+              f"grad_norm {gate[impl][1]:.4f}, every gradient finite "
+              f"{finite}, text padding rows' input gradient max "
+              f"{pad_max} (live text rows {live_max:.3e}) {tag}", flush=True)
+        _held(got, {} if impl == "auto" else _rt_want(cfg, RT_BATCH),
+              f"train_robotwin {impl} route, one step")
+        if not finite or pad_max != 0.0 or live_max == 0.0:
+            raise RuntimeError(f"train_robotwin {impl} route: non-finite or "
+                               "leaking padding gradients")
+        if impl == "kernel":
+            launches = got
+            ck = os.path.join(work, "robotwin")
+            w0 = time.perf_counter()
+            save_checkpoint(ck, 1, model, step)
+            save_s = time.perf_counter() - w0
+            live = _train_state(torch, model, step, None)
+        del step, m, g
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+    (la, na), (lk, nk) = gate["auto"], gate["kernel"]
+    loss_rel, norm_rel = abs(lk - la) / abs(la), abs(nk - na) / na
+    print(f"train_robotwin gate, kernel vs auto route: loss rel diff "
+          f"{loss_rel:.3e} (bound {LOSS_REL}), grad_norm rel diff "
+          f"{norm_rel:.3e} (bound {GNORM_REL}) {tag}", flush=True)
+    if not (loss_rel <= LOSS_REL and norm_rel <= GNORM_REL):
+        raise RuntimeError("train_robotwin: kernel route disagrees")
+
+    # -- B 1, no gradient: forced against auto, on the most padded row -------
+    row = int(pad.sum(1).argmax())
+    b1 = {k: v[row:row + 1] for k, v in batch.items()}
+    fwd = lambda mask: model(b1["input_ids"], b1["pixel_values"], mask)
+    outs = {}
+    for impl in ("auto", "kernel"):
+        model.set_impl(impl, impl)
+        torch.cuda.synchronize()
+        _zero_counts()
+        with torch.no_grad():
+            outs[impl] = fwd(b1["text_mask"])
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read_counts().items() if v}
+        _held(got, {} if impl == "auto" else _rt_want(cfg, 1, grad=False),
+              f"robotwin B 1 forward, {impl} route")
+        if impl == "kernel":
+            _add(launches, got)
+    dropped = b1["text_mask"].clone()
+    dropped[:, s:e] = 0
+    with torch.no_grad():  # controls on the kernel route: must break it
+        ctl = {"padding attended": fwd(torch.ones_like(dropped)),
+               "text dropped": fwd(dropped)}
+    model.set_impl("auto")
+    err = float((outs["kernel"] - outs["auto"]).abs().max())
+    ctl = {k: float((v - outs["auto"]).abs().max()) for k, v in ctl.items()}
+    print(f"robotwin B 1 actions (row {row}, {int(pad[row].sum())} padded "
+          f"text rows), kernel vs auto route: max abs {err:.3e} (bound "
+          f"{PARITY_TOL}), |a| max {float(outs['auto'].abs().max()):.3f}; "
+          f"controls { {k: f'{v:.3e}' for k, v in ctl.items()} } {tag}",
+          flush=True)
+    if not (err <= PARITY_TOL and bool(outs["kernel"].isfinite().all())):
+        raise RuntimeError("robotwin B 1: kernel route disagrees")
+    if min(ctl.values()) <= PARITY_TOL:
+        raise RuntimeError(f"robotwin B 1: a control passes the gate {ctl}")
+
+    # -- the checkpoint of the forced step, restored into a fresh trainer ----
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, _, _, _, fresh = _rt_setup(torch, dev, vlm_cfg, 41)
+    fstep = train_robotwin.build_step(args, fresh)
+    w0 = time.perf_counter()
+    restore_checkpoint(ck, fresh, fstep)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - w0
+    bad = _state_diff(torch, live, _train_state(torch, fresh, fstep, None))
+    gb = _dir_gb(ck)
+    print(f"train_robotwin checkpoint (1 step): {gb:.2f} GB, save "
+          f"{save_s:.1f} s, restore {load_s:.1f} s, entries differing from "
+          f"the live trainer {len(bad)} {bad[:3]} {tag}", flush=True)
+    if bad:
+        raise RuntimeError("train_robotwin checkpoint does not restore")
+    del fresh, fstep, live
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the kernels at this path's shapes, against SDPA under its mask ------
+    g = torch.Generator(device=dev)
+    g.manual_seed(40)
+    vcfg, llm = cfg.vlm.vision, cfg.vlm.llm
+    i32 = dict(dtype=torch.int32, device=dev)
+    ones = torch.ones(RT_BATCH, vcfg.seq_len, **i32)
+    seg = batch["text_mask"].to(torch.int32)
+    for name, S, H, KVH, D, sg in (
+            ("robotwin_vit", vcfg.seq_len, vcfg.num_heads, vcfg.num_heads,
+             vcfg.head_dim, ones),
+            ("robotwin_llm", seg.shape[1], llm.num_heads, llm.num_kv_heads,
+             llm.head_dim, seg)):
+        f, b = _flash_case(torch, dev, g, tag, name.replace("_", " "),
+                           RT_BATCH, S, S, H, KVH, D, sg, None, sg, None)
+        report["flash_attention_fwd"][name] = f
+        report["flash_attention_bwd"][name] = b
+    f, b = rms_train_case(torch, g, dev, RT_BATCH * seg.shape[1],
+                          llm.hidden_size, llm.rms_norm_eps, " (robotwin)",
+                          tag)
+    report["_rms_fwd"]["robotwin"], report["_rms_bwd"]["robotwin"] = f, b
+    del model, batch
+    print(f"phase 40 took {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return launches
+
+
+def robotwin_train_phases(torch, np, dev, cfg, tag, report):
+    work = tempfile.mkdtemp(prefix="chip_smoke_rt_")  # checkpoint: ~23 GB
+    try:
+        return robotwin_train_phase(torch, np, dev, cfg, tag, report, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- PaliGemma: phases 17-19 -------------------------------------------------
 # q and k x this in the kernel phase: the logits' std near 50, where Gemma's
 # cap of 50 bites (at N(0, 0.02^2) weights it never does)
@@ -6365,6 +7075,11 @@ def main() -> int:
     # the entry points' phases serve over HTTP: host-bound too
     _add(launches, vlm_entry_phases(torch, np, dev, vlaser_2b(), tag,
                                     report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the closed-loop harnesses: host-bound as well
+    _add(launches, closed_loop_phases(torch, np, dev, vlaser_2b_vla(),
+                                      vlaser_2b(), tag))
     # the profiler's first trace in a process can miss its first kernels
     _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up", tag,
              quiet=True)
@@ -6413,6 +7128,8 @@ def main() -> int:
     _add(launches, sft_phases(torch, np, dev, vlaser_2b(), tag, report))
     gc.collect()
     torch.cuda.empty_cache()
+    _add(launches, robotwin_train_phases(torch, np, dev, vlaser_2b(), tag,
+                                         report))
     work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoints: ~27 GB
     try:
         _add(launches, cli_phases(torch, np, dev, vlaser_2b(), tag, work))

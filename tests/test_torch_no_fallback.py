@@ -95,6 +95,17 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.eval.protocol_runners",
     "vlaser_tpu_torch.scripts.serve_vlm",
     "vlaser_tpu_torch.scripts.eval_vlm",
+    "vlaser_tpu_torch.policy.parallel_decoding",
+    "vlaser_tpu_torch.eval.robotwin_eval",
+    "vlaser_tpu_torch.serve.deploy_server",
+    "vlaser_tpu_torch.data.hdf5_dataset",
+    "vlaser_tpu_torch.data.robotwin_qa_dataset",
+    "vlaser_tpu_torch.scripts.train_robotwin",
+    "vlaser_tpu_torch.scripts.deploy_robotwin",
+    "vlaser_tpu_torch.eval.variant_configs",
+    "vlaser_tpu_torch.eval.simpler_eval",
+    "vlaser_tpu_torch.scripts.eval_simpler",
+    "vlaser_tpu_torch.eval.llm_judge",
 )
 
 
@@ -564,3 +575,31 @@ def test_serving_clis_default_to_the_card(tmp_path, cli):
                          text=True, timeout=120, env=env, cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "refused" in out.stdout
+
+
+def test_robotwin_and_simpler_entry_points_default_to_the_card(tmp_path):
+    """ParallelDecodingVLA with no device takes the card, and so do the
+    RoboTwin and SimplerEnv CLIs without --device; without a card they
+    raise instead of running on the CPU."""
+    from vlaser_tpu_torch.core.config import tiny_vlm
+    from vlaser_tpu_torch.policy.parallel_decoding import (
+        ParallelDecodingConfig, ParallelDecodingVLA)
+    from vlaser_tpu_torch.scripts import (deploy_robotwin, eval_simpler,
+                                          train_robotwin)
+
+    cfg = ParallelDecodingConfig(vlm=tiny_vlm(), action_chunk=4, action_dim=6,
+                                 state_dim=6, state_vocab_size=16,
+                                 max_text_tokens=8, head_hidden=32)
+    if torch.cuda.is_available():
+        assert ParallelDecodingVLA(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelDecodingVLA(cfg)
+    assert ParallelDecodingVLA(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_robotwin.main(["--tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        deploy_robotwin.main(["--tiny", "--port", "0"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        eval_simpler.main(["--model_path", str(tmp_path), "--ckpt", "x.pt",
+                           "--stats", "s.json"])

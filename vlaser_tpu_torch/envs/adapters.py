@@ -1,13 +1,15 @@
 """SimplerEnv adapters: observations -> model inputs, actions -> env actions
-(the base adapter and `BridgeSimplerAdapter` of vlaser_tpu/envs/adapters.py,
-copied unchanged; host-side numpy).
+(the base adapter, `BridgeSimplerAdapter` and `EDRSimplerAdapter` of
+vlaser_tpu/envs/adapters.py, copied unchanged; host-side numpy).
 
 - normalize/denormalize bound (p01/p99 -> [-1, 1]) and gaussian, from
   dataset statistics;
 - `preprocess`: LANCZOS resize, uint8 frame, proprio normalization;
   `postprocess`: denormalize all but the gripper, euler -> axis-angle,
   the robot's gripper rule;
-- Bridge (WidowX): top-down rotation frame, binary gripper 2*(a>0.5)-1.
+- Bridge (WidowX): top-down rotation frame, binary gripper 2*(a>0.5)-1;
+- EDR (Google Robot / fractal): euler proprio from the xyzw quaternion,
+  gripper closedness, a sticky gripper held for 15 actions.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .geometry import euler2axangle, mat2euler, quat2mat
+from .geometry import euler2axangle, mat2euler, quat2euler, quat2mat
 
 
 def normalize_bound(x, low, high, clip_min=-1.0, clip_max=1.0):
@@ -132,3 +134,46 @@ class BridgeSimplerAdapter(SimplerAdapter):
 
     def postprocess_gripper(self, action: float) -> float:
         return 2.0 * (action > 0.5) - 1.0
+
+
+class EDRSimplerAdapter(SimplerAdapter):
+    """Google Robot / fractal: euler proprio from xyzw quat, gripper
+    closedness, sticky gripper with 15 repeats (simpler.py:259-286)."""
+
+    STICKY_REPEAT = 15
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.reset()
+
+    def reset(self):
+        self.sticky_action_is_on = False
+        self.gripper_action_repeat = 0
+        self.sticky_gripper_action = 0.0
+
+    def preprocess_proprio(self, obs: Dict) -> np.ndarray:
+        eef = np.asarray(obs["agent"]["eef_pos"])
+        quat_xyzw = np.roll(eef[3:7], -1)
+        if self.proprio_dim == 7:
+            # xyzw -> wxyz for our quat2euler
+            rot = quat2euler(np.roll(quat_xyzw, 1))
+            rot = np.asarray(rot)
+        else:
+            rot = quat_xyzw
+        gripper_closedness = 1.0 - eef[7]
+        return np.concatenate([eef[:3], rot, [gripper_closedness]])
+
+    def postprocess_gripper(self, action: float) -> float:
+        action = action * 2.0 - 1.0  # [0,1] -> [-1,1], -1 close
+        relative = -action
+        if abs(relative) > 0.5 and not self.sticky_action_is_on:
+            self.sticky_action_is_on = True
+            self.sticky_gripper_action = relative
+        if self.sticky_action_is_on:
+            self.gripper_action_repeat += 1
+            relative = self.sticky_gripper_action
+        if self.gripper_action_repeat == self.STICKY_REPEAT:
+            self.sticky_action_is_on = False
+            self.gripper_action_repeat = 0
+            self.sticky_gripper_action = 0.0
+        return relative

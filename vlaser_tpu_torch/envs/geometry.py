@@ -1,6 +1,6 @@
 """Rotation conversions (sxyz euler convention, quaternions w-x-y-z),
 host-side numpy: the functions of vlaser_tpu/envs/geometry.py that
-`envs.adapters.BridgeSimplerAdapter` reaches, copied unchanged.
+`envs.adapters` and `eval.variant_configs` reach, copied unchanged.
 """
 
 from __future__ import annotations
@@ -91,6 +91,10 @@ def mat2quat(M: np.ndarray) -> np.ndarray:
 
 def euler2quat(ai: float, aj: float, ak: float) -> np.ndarray:
     return mat2quat(euler2mat(ai, aj, ak))
+
+
+def quat2euler(q: np.ndarray) -> Tuple[float, float, float]:
+    return mat2euler(quat2mat(q))
 
 
 def euler2axangle(ai: float, aj: float, ak: float) -> Tuple[np.ndarray, float]:

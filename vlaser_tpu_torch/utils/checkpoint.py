@@ -72,6 +72,19 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def restore_params(directory: str, model, step: Optional[int] = None
+                   ) -> int:
+    """Load only the model's state of step `step` (the latest when None)
+    into `model`, as a server restores a trained policy. -> the step."""
+    directory = os.path.abspath(directory)
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    model.load_state_dict(load_safetensors(
+        os.path.join(directory, str(step), PARAMS)))
+    return step
+
+
 def restore_checkpoint(directory: str, model, train_step,
                        step: Optional[int] = None) -> Optional[Dict]:
     """Load step `step` (the latest when None) into `model` (in place: the
