@@ -24,9 +24,12 @@ SFT train step (phases 23-26, after 19), of the training entry points
 (phases 27-31, after 26), of the VLA recipe's 8-bit trainer (phases
 32-34, right after 11), of the VLM's serving and evaluation entry
 points (phases 35-37, right after 22), of the closed-loop evaluations
-(phases 38-39, right after 37) and of the RoboTwin parallel-decoding VLA's
-training (phase 40, right after 26) with random weights from seeded
-generators:
+(phases 38-39, right after 37), of the RoboTwin parallel-decoding VLA's
+training (phase 40, right after 26) and of the dense families beyond
+Vlaser-2B (phases 41-43, right after 39: Vlaser-8B chat, InternVL3.5-2B,
+then the Vlaser-8B-VLA control step) with random weights from seeded
+generators; each group's wall seconds are printed on a line of its own
+("phase wall: ..."):
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -309,8 +312,10 @@ machine):
      writes), act_steps 4: 4 mock episodes of 24 env steps (seeded frames at
      448 px and poses that do not depend on the actions) through EvalRunner
      on the plain server (--no-fused: the unquantized model's
-     infer_action), then on the fused server (--fused: the same model
-     quantized in place with quantize_for_serving(target="policy"), w8a8),
+     infer_action), then on the fused server (--fused over the same model
+     quantized in place with quantize_for_serving(target="policy"), w8a8,
+     before build_server, whose own weight-only int8 then leaves it as it
+     is),
      then run_variant_aggregation over 2 variants with the
      BridgeSimplerAdapter; every control step's raw action chunk, fused
      against plain, within PARITY_TOL; the fused runs' launches held to the
@@ -347,6 +352,41 @@ collate_robotwin, as the card's machine has no h5py):
      text padding as segment 0) against the plain version with controls and
      timed beside SDPA under the same mask, and _rms_fwd / _rms_bwd at
      1,888 x 1,536.
+The dense families beyond Vlaser-2B (no profiler session before them):
+  41. Vlaser-8B chat (InternViT-300M + Qwen2.5-7B: 28 q / 4 kv heads x
+     128, intermediate 18,944; scripts/train_sft.random_init_'s draws;
+     quantize_for_serving defaults, vlm w8a8): VlaserChat's route must be
+     the fused runner; 3 counted 13-tile chat calls (launches held to the
+     derived counts; no RMSNorm kernel at hidden 3,584, as the JAX dispatch
+     keeps), stage times, decode tok/s and peak memory; fused_int8_stack
+     R 1 over 384 and 3,592 slots against its twin with controls, the
+     layer's 7 GEMMs and quantizers at 384 and 3,584 rows (the 18,944-wide
+     down projection input: quantize_rows and the silu-mul past 16,384
+     values a row) with controls and torch._int_mm, the causal flash
+     prefill at 28 / 4 heads with controls and SDPA; then bench.py's
+     _bench_decode_8b on its draws (int8, 1 tile, a 320-token prompt, 32
+     new tokens): vlm8b_decode_tok_per_sec, the teacher-forced parity gate
+     and its 'ln1 ignored' control;
+  43. InternVL3.5-2B (InternViT-300M + Qwen3-1.7B: per-head q/k RMSNorm,
+     tied embeddings; random_init_'s draws, the q/k kernels x4, which only
+     the norms undo; vlm w8a8): a 224 px frame through a 448 px-config
+     ViT (the bicubically resized position embeddings) against the same
+     function on the CPU in fp32, with a control; VlaserChat's route must
+     be the plain generator and use_fused=True must raise; 3 counted
+     13-tile chat calls (flash, _rms_fwd, both quantizers and the GEMM
+     each launched, no fused stack); the 13-tile prefill's logits on the
+     kernel route against every kernel off (control: the q/k norms
+     dropped); EngineChat.chat_many over 4 items against the plain
+     generator (equal, or apart first at a near-tie);
+  42. the Vlaser-8B-VLA control step (vlaser_8b_vla, bench.py's draws):
+     PolicyServer(fused=True) at batch 1 on the weight-only int8 tree (3
+     counted steps, fused vs plain <= PARITY_TOL, ms a step),
+     fused_int8_stack at R 5 / 4 on the 8B expert (768 -> 3,584 q, 5,600
+     intermediate) against its twin with controls; the w8a8 tree: the
+     PolicyServer at batch 1 and make_batched_infer_action at batch 8 (3
+     counted calls each), bench.py's gates (fused vs plain, w8a8 vs bf16,
+     fused-ViT K/V, batched vs plain), ms a step, peak memory; one b1 step
+     under torch.profiler (idle share).
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -529,7 +569,22 @@ def _counters():
             "adamw8bit": (adam8bit, "launch_count")}
 
 
+MAIN_SPLIT = {}  # fused_int8_stack's launches on the main paths, by rows
+
+
+def _count_split():
+    """Add fused_int8_stack's launches by row count since the last
+    _zero_counts() (a main path's) to MAIN_SPLIT."""
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    for rows, n in fused_decode.rows_launch_count.items():
+        MAIN_SPLIT[rows] = MAIN_SPLIT.get(rows, 0) + n
+
+
 def _zero_counts():
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    fused_decode.rows_launch_count.clear()
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
 
@@ -711,15 +766,91 @@ class SmokeTokenizer:
         return {"input_ids": ids}
 
 
+def denoise_stack_phase(torch, dev, model, rnd, tag, profile=True):
+    """fused_int8_stack at the denoise rows (R = 1 + 4 over the prompt, R =
+    4 over the prompt and the proprio token) on the VLA's expert weights
+    with visible norms (rnd draws them) and K/V ~N(0, 2^2), against its
+    twin with controls (_stack_gate: input unchanged, attention dropped,
+    MLP dropped, rope dropped); timed beside the twin, with the kernel's
+    phase trace and, with `profile`, one call's launches under the
+    profiler. -> report (ms_r5 / ms_r4, bound at R = 4)."""
+    from vlaser_tpu_torch.kernels import fused_decode, ops
+    from vlaser_tpu_torch.policy.fused_infer import pack_expert_stack
+
+    cfg = model.cfg
+    ecfg, bf = cfg.expert, torch.bfloat16
+    stack = pack_expert_stack(model)
+    L, R = ecfg.num_layers, cfg.num_action_tokens
+    stack["ln1"] = 1 + 0.1 * rnd(*stack["ln1"].shape)
+    stack["ln2"] = 1 + 0.1 * rnd(*stack["ln2"].shape)
+    names = ("ln1", "ln2", "bq", "bk", "bv", "wq", "sq", "wk", "sk", "wv",
+             "sv", "wo", "so", "wg", "sg", "wu", "su", "wd", "sd")
+    n_p, S = cfg.num_proprio_tokens, cfg.max_image_text_tokens
+    eps = ecfg.rms_norm_eps
+    dec = {"max_abs_err": 0.0}
+    for rows, ext in ((n_p + R, S), (R, S + n_p)):
+        x = rnd(rows, ecfg.hidden_size).to(bf)
+        pos = torch.arange(1, rows + 1, dtype=torch.float32, device=dev)
+        cos, sin = ops.rope_cos_sin(pos, ecfg.head_dim, ecfg.rope_theta)
+        cos, sin = cos.to(bf), sin.to(bf)
+        selfm = torch.zeros(rows, rows, device=dev)
+        if rows > R:
+            selfm[:n_p, n_p:] = fused_decode.NEG_INF
+        extm = torch.zeros(1, ext, device=dev)
+        extm[0, 300:S] = fused_decode.NEG_INF  # padded prompt tail
+        kv = (L, ext, ecfg.num_kv_heads, ecfg.head_dim)
+        k_e, v_e = (2 * rnd(*kv)).to(bf), (2 * rnd(*kv)).to(bf)
+
+        def run(fn, cs=cos, sn=sin, **over):
+            w = {**stack, **over}
+            return fn(x, cs, sn, selfm, extm, *[w[k] for k in names],
+                      k_e, v_e, eps=eps)
+
+        tag_r = f"fused_int8_stack R={rows} ext={ext}"
+        e = _stack_gate(torch, tag_r, run, x, cos, sin, {
+            "attention dropped": dict(so=0 * stack["so"]),
+            "MLP dropped": dict(sd=0 * stack["sd"])})
+        dec["max_abs_err"] = max(dec["max_abs_err"], e)
+        plain = lambda: run(fused_decode.fused_int8_stack_plain)
+        torch.cuda.synchronize()
+        ms = _kernel_ms(torch, lambda: run(fused_decode.fused_int8_stack),
+                        20)
+        plain_ms = _kernel_ms(torch, plain, 3)
+        prof = ""
+        if profile:
+            p = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
+                         tag_r, tag, quiet=True)
+            prof = (f"one call under the profiler: {p['launches']} kernel "
+                    f"launch(es), device busy {p['busy']:.3f} ms, ")
+        phases = _stack_phases(
+            torch, lambda: run(fused_decode.fused_int8_stack), L, dev)
+        print(f"fused_int8_stack R={rows} time: kernel {ms:.3f} ms, "
+              f"plain twin {plain_ms:.3f} ms; {prof}grid "
+              f"{fused_decode.grid_blocks(rows, False, dev)} blocks; "
+              f"us a layer by phase {phases} {tag}", flush=True)
+        dec[f"ms_r{rows}"], dec[f"plain_ms_r{rows}"] = ms, plain_ms
+        if rows == R:
+            w_bytes = sum(stack[k].numel() * stack[k].element_size()
+                          for k in names)
+            nbytes = (w_bytes + 2 * k_e.numel() * 2 + x.numel() * 2 * 3
+                      + L * rows * ecfg.num_kv_heads * ecfg.head_dim * 4)
+            flops = 2 * rows * sum(stack[k].numel() for k in names
+                                   if k[0] == "w")
+            dec["bound_ms"], dec["bound_by"] = _bound(flops, nbytes,
+                                                      PEAK_BF16)
+    dec["ms"], dec["plain_ms"] = dec[f"ms_r{R}"], dec[f"plain_ms_r{R}"]
+    dec["library_ms"] = None
+    return dec
+
+
 # -- serving: phases 1-3 ------------------------------------------------------
 def serving_phases(torch, np, dev, cfg, tag, report):
     """-> launches of the server run."""
     from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.envs.adapters import BridgeSimplerAdapter
     from vlaser_tpu_torch.image.tiling import normalize_uint8
-    from vlaser_tpu_torch.kernels import fused_decode, fused_vit, ops
+    from vlaser_tpu_torch.kernels import fused_vit
     from vlaser_tpu_torch.models.layers import init_normal_
-    from vlaser_tpu_torch.policy.fused_infer import pack_expert_stack
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
     from vlaser_tpu_torch.policy.processing import InternVLAProcessor
     from vlaser_tpu_torch.serve.policy_server import PolicyServer
@@ -790,65 +921,9 @@ def serving_phases(torch, np, dev, cfg, tag, report):
 
     # -- kernel phase: fused_int8_stack vs its twin (R=5 / R=4) -------------
     with torch.inference_mode():
-        stack = pack_expert_stack(model)
-        L, R = ecfg.num_layers, cfg.num_action_tokens
-        stack["ln1"] = 1 + 0.1 * rnd(*stack["ln1"].shape)
-        stack["ln2"] = 1 + 0.1 * rnd(*stack["ln2"].shape)
-        names = ("ln1", "ln2", "bq", "bk", "bv", "wq", "sq", "wk", "sk", "wv",
-                 "sv", "wo", "so", "wg", "sg", "wu", "su", "wd", "sd")
-        n_p, S = cfg.num_proprio_tokens, cfg.max_image_text_tokens
-        eps = ecfg.rms_norm_eps
-        dec = {"max_abs_err": 0.0}
-        for rows, ext in ((n_p + R, S), (R, S + n_p)):
-            x = rnd(rows, ecfg.hidden_size).to(bf)
-            pos = torch.arange(1, rows + 1, dtype=torch.float32, device=dev)
-            cos, sin = ops.rope_cos_sin(pos, ecfg.head_dim, ecfg.rope_theta)
-            cos, sin = cos.to(bf), sin.to(bf)
-            selfm = torch.zeros(rows, rows, device=dev)
-            if rows > R:
-                selfm[:n_p, n_p:] = fused_decode.NEG_INF
-            extm = torch.zeros(1, ext, device=dev)
-            extm[0, 300:S] = fused_decode.NEG_INF  # padded prompt tail
-            kv = (L, ext, ecfg.num_kv_heads, ecfg.head_dim)
-            k_e, v_e = (2 * rnd(*kv)).to(bf), (2 * rnd(*kv)).to(bf)
-
-            def run(fn, cs=cos, sn=sin, **over):
-                w = {**stack, **over}
-                return fn(x, cs, sn, selfm, extm, *[w[k] for k in names],
-                          k_e, v_e, eps=eps)
-
-            tag_r = f"fused_int8_stack R={rows} ext={ext}"
-            e = _stack_gate(torch, tag_r, run, x, cos, sin, {
-                "attention dropped": dict(so=0 * stack["so"]),
-                "MLP dropped": dict(sd=0 * stack["sd"])})
-            dec["max_abs_err"] = max(dec["max_abs_err"], e)
-            plain = lambda: run(fused_decode.fused_int8_stack_plain)
-            torch.cuda.synchronize()
-            ms = _kernel_ms(torch, lambda: run(fused_decode.fused_int8_stack),
-                            20)
-            plain_ms = _kernel_ms(torch, plain, 3)
-            prof = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
-                            tag_r, tag, quiet=True)
-            phases = _stack_phases(
-                torch, lambda: run(fused_decode.fused_int8_stack), L, dev)
-            print(f"fused_int8_stack R={rows} time: kernel {ms:.3f} ms, "
-                  f"plain twin {plain_ms:.3f} ms; one call under the "
-                  f"profiler: {prof['launches']} kernel launch(es), device "
-                  f"busy {prof['busy']:.3f} ms, grid "
-                  f"{fused_decode.grid_blocks(rows, False, dev)} blocks; "
-                  f"us a layer by phase {phases} {tag}", flush=True)
-            dec[f"ms_r{rows}"], dec[f"plain_ms_r{rows}"] = ms, plain_ms
-            if rows == R:
-                w_bytes = sum(stack[k].numel() * stack[k].element_size()
-                              for k in names)
-                nbytes = (w_bytes + 2 * k_e.numel() * 2 + x.numel() * 2 * 3
-                          + L * rows * ecfg.num_kv_heads * ecfg.head_dim * 4)
-                flops = 2 * rows * sum(stack[k].numel() for k in names
-                                       if k[0] == "w")
-                dec["bound_ms"], dec["bound_by"] = _bound(flops, nbytes,
-                                                          PEAK_BF16)
-        dec["ms"], dec["plain_ms"] = dec[f"ms_r{R}"], dec[f"plain_ms_r{R}"]
-        dec["library_ms"] = None
+        dec = denoise_stack_phase(torch, dev, model, rnd, tag)
+        n_p, R = cfg.num_proprio_tokens, cfg.num_action_tokens
+        S = cfg.max_image_text_tokens
         report["fused_int8_stack"] = dec
 
     # -- server phase: the fused PolicyServer, counters around it ------------
@@ -874,6 +949,7 @@ def serving_phases(torch, np, dev, cfg, tag, report):
     chunks = [server.step(obs, f) for f in frames]
     torch.cuda.synchronize()
     launches = {k: v for k, v in _read_counts().items() if v}
+    _count_split()
     for i, c in enumerate(chunks):
         print(f"step {i}: env actions {c.shape} finite "
               f"{bool(np.isfinite(c).all())} first {np.round(c[0], 4).tolist()}",
@@ -1636,6 +1712,7 @@ def w8a8_phases(torch, np, dev, cfg, tag, report):
     chunks = [server.step(obs, f) for f in frames]
     torch.cuda.synchronize()
     got = {k: v for k, v in _read_counts().items() if v}
+    _count_split()
     want = {k: STEPS * v for k, v in per_step.items()}
     print(f"w8a8 server: {STEPS} steps, actions finite "
           f"{all(bool(np.isfinite(c).all()) for c in chunks)}, first "
@@ -2685,26 +2762,35 @@ class ChatStubTokenizer:
         return " ".join(str(int(i)) for i in ids)
 
 
-def _chat_model(torch, dev, cfg, seed):
+def _chat_model(torch, dev, cfg, seed, visible_norms=False,
+                compute=None):
     """Vlaser-2B (or `cfg`) with bf16 weights N(0, 0.02^2) from a seeded
-    generator, as bench.py draws them; float, not yet quantized."""
+    generator, as bench.py draws them; with `visible_norms`, as
+    scripts/train_sft.random_init_ draws them (norms 1 + N(0, 0.1^2), ViT
+    layer scales ~0.1). Computes in `compute` (bf16 unless given). Float,
+    not yet quantized."""
     from vlaser_tpu_torch.models.layers import init_normal_
     from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
 
-    bf = torch.bfloat16
-    model = InternVLChatModel(cfg, param_dtype=bf, compute_dtype=bf,
+    model = InternVLChatModel(cfg, param_dtype=torch.bfloat16,
+                              compute_dtype=compute or torch.bfloat16,
                               device=dev)
     model.requires_grad_(False)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if visible_norms:
+        return random_init_(model, gen)
     return init_normal_(model, gen, std=0.02)
 
 
-def decode_kernel_phase(torch, model, dev, cache_lens, tag):
+def decode_kernel_phase(torch, model, dev, cache_lens, tag,
+                        modes=("int8", "bf16"), profile=True):
     """Phase 12: fused_int8_stack in the decode configuration (R = 1, the
-    model's LLM stack, fp32 rope tables) over caches of each length, int8
-    and bf16-weight modes, against its twin with controls; timed, with the
-    attention kernel's share of a call from the profiler."""
+    model's LLM stack, fp32 rope tables) over caches of each length, in
+    each weight mode of `modes`, against its twin with controls; timed,
+    with the kernel's phase trace and, with `profile`, one call's launches
+    and device time from the profiler."""
     from vlaser_tpu_torch.inference.fused_runner import (STACK_ARGS,
                                                          pack_qwen2_stack)
     from vlaser_tpu_torch.kernels import fused_decode, ops
@@ -2720,11 +2806,12 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
     stack["ln2"] = 1 + 0.1 * rnd(*stack["ln2"].shape)
     stacks = {"int8": stack, "bf16": dict(stack)}
     for k in STACK_ARGS:  # the same weights dequantized, unit scales
-        if k[0] == "w":
+        if k[0] == "w" and "bf16" in modes:
             w, sname = stack[k], "s" + k[1:]
             stacks["bf16"][k] = (w.float() * stack[sname]).to(bf)
             stacks["bf16"][sname] = torch.ones_like(stack[sname])
-    out = {"int8": {}, "bf16": {}, "attention": {}}
+    stacks = {m: stacks[m] for m in modes}
+    out = {**{m: {} for m in modes}, "attention": {}}
     for E in cache_lens:
         x = rnd(1, llm.hidden_size).to(bf)
         pos = torch.tensor([E - 40.0], device=dev)
@@ -2771,20 +2858,24 @@ def decode_kernel_phase(torch, model, dev, cache_lens, tag):
             flops = (2 * sum(st[k].numel() for k in STACK_ARGS if k[0] == "w")
                      + 4 * L * llm.num_heads * D * (E + 1))
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_FP32)
-            prof = _profile(torch, lambda: run(fused_decode.fused_int8_stack),
-                            what, tag, quiet=True)
-            phases = _stack_phases(
-                torch, lambda: run(fused_decode.fused_int8_stack), L, dev)
-            print(f"{what} time: kernel {ms:.3f} ms, plain twin "
-                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-                  f"one call under the profiler: {prof['launches']} kernel "
-                  f"launch(es), device busy {prof['busy']:.3f} ms; us a "
-                  f"layer by phase {phases} {tag}", flush=True)
             out[mode][E] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=None, launches_per_call=prof[
-                                    "launches"], profiled_busy_ms=prof["busy"],
-                                phase_us=phases)
+                                library_ms=None)
+            prof = ""
+            if profile:
+                p = _profile(torch, lambda: run(
+                    fused_decode.fused_int8_stack), what, tag, quiet=True)
+                prof = (f"one call under the profiler: {p['launches']} "
+                        f"kernel launch(es), device busy {p['busy']:.3f} "
+                        f"ms; ")
+                out[mode][E].update(launches_per_call=p["launches"],
+                                    profiled_busy_ms=p["busy"])
+            phases = _stack_phases(
+                torch, lambda: run(fused_decode.fused_int8_stack), L, dev)
+            out[mode][E]["phase_us"] = phases
+            print(f"{what} time: kernel {ms:.3f} ms, plain twin "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                  f"{prof}us a layer by phase {phases} {tag}", flush=True)
         out["attention"][E] = decode_attention_alone(
             torch, dev, llm, k_e[0], v_e[0], extm, g, tag)
         del k_e, v_e, past
@@ -3027,6 +3118,7 @@ def chat_phases(torch, np, dev, cfg, tag, report):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
     got = {k: v for k, v in _read_counts().items() if v}
+    _count_split()
     want = {k: STEPS * v for k, v in per_call.items()}
     print(f"chat: {CHAT_TILES} tiles, prompt {n_valid} tokens in a bucket of "
           f"{n}, {CHAT_NEW} new tokens; {STEPS} calls "
@@ -3117,7 +3209,7 @@ def _margin(logits):
             DECODE_REL * logits.float().abs().max().item())
 
 
-def decode_parity_phase(torch, dev, cfg, tag):
+def decode_parity_phase(torch, dev, cfg, tag, new=DECODE_NEW):
     """Phase 16, bench.py's decode configuration: 1 tile, a 320-token prompt
     with 256 image tokens, 64 new tokens, quantize_for_serving(target="vlm",
     mode="int8"); the fused generator and the plain make_generate_fn on the
@@ -3127,7 +3219,9 @@ def decode_parity_phase(torch, dev, cfg, tag):
     Where the two greedy streams first differ, the plain top-2 margin there
     (token 0: the plain prefill's logits; token t: teacher-forced step t - 1)
     must be within the bound: a near-tie, else the fused path is at fault.
-    Times the fused generate (tok/s as bench.py counts it) and a step."""
+    Times the fused generate (tok/s as bench.py counts it) and a step.
+    `new`: the tokens to generate. -> tok/s, times, mismatches, the worst
+    step's share of the bound."""
     from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.inference import fused_runner as fr
     from vlaser_tpu_torch.inference.kv_cache import KVCache
@@ -3136,7 +3230,7 @@ def decode_parity_phase(torch, dev, cfg, tag):
     llm, L = cfg.llm, cfg.llm.num_layers
     model = quantize_for_serving(_chat_model(torch, dev, cfg, 14),
                                  target="vlm", mode="int8")
-    N, NEW, img = DECODE_PROMPT, DECODE_NEW, cfg.vision.image_size
+    N, NEW, img = DECODE_PROMPT, new, cfg.vision.image_size
     ids = torch.full((1, N), 7, dtype=torch.int64, device=dev)
     ids[:, 1:1 + cfg.num_image_token] = cfg.img_context_token_id
     seg = torch.ones((1, N), dtype=torch.int32, device=dev)
@@ -3225,6 +3319,8 @@ def decode_parity_phase(torch, dev, cfg, tag):
           f"-> {1e3 * NEW / ms:.1f} tok/s ({NEW} / the whole generate), "
           f"plain generate {plain_ms:.1f} ms; fused decode step "
           f"{step_ms:.3f} ms per token (CUDA events) {tag}", flush=True)
+    return dict(tok_s=1e3 * NEW / ms, generate_ms=ms, step_ms=step_ms,
+                mismatches=mismatches, worst=worst)
 
 
 # -- the continuous-batching engine: phases 20-22 ----------------------------
@@ -4175,6 +4271,7 @@ def serve_phase(torch, np, dev, model, tok, tag, report):
         _zero_counts()
         out = [_post_chat(url, p) for p in seq]
         got = {k: v for k, v in _read_counts().items() if v}
+        _count_split()
     finally:
         srv.shutdown()
     _add(launches, got)
@@ -4489,11 +4586,14 @@ def _rt_samples(np, n, size, chunk, seed):
 def simpler_phase(torch, np, dev, cfg, tag, work):
     """Phase 38: eval_simpler's stages on a seeded Vlaser-2B-VLA (bf16
     N(0, 0.02^2)), --robot fractal: the plain server (--no-fused) and then
-    the fused w8a8 server over the same SIM_EPISODES mock episodes, every
+    the fused w8a8 server (the model quantized w8a8 before build_server,
+    whose weight-only int8 of the JAX CLI then leaves it as it is) over the
+    same SIM_EPISODES mock episodes, every
     control step's raw action chunk within PARITY_TOL of the other's; then
     run_variant_aggregation over SIM_VARIANTS variants with the Bridge
     adapter. -> launches of the fused runs, held to the policy calls x
     phase 6's per-step counts."""
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.eval.simpler_eval import (EvalConfig,
                                                     run_variant_aggregation)
     from vlaser_tpu_torch.models.layers import init_normal_
@@ -4528,6 +4628,8 @@ def simpler_phase(torch, np, dev, cfg, tag, work):
         args = parse(flags + ["--robot", "fractal"]
                      + (["--no-fused"] if route == "plain" else []))
         adapter = eval_simpler.build_adapter(args, cfg)
+        if route == "fused":  # w8a8, which build_server's int8 leaves as is
+            quantize_for_serving(model, target="policy")
         server = eval_simpler.build_server(args, model, adapter, proc, dev)
         chunks, ms = [], []
         infer, step = server._infer, server.step
@@ -4566,6 +4668,7 @@ def simpler_phase(torch, np, dev, cfg, tag, work):
                 get_image=frame)
         torch.cuda.synchronize()
         got = {k: v for k, v in _read_counts().items() if v}
+        _count_split()
         calls = len(chunks)
         want = ({} if route == "plain" else
                 {k: calls * v for k, v in per_call.items()})
@@ -6959,6 +7062,636 @@ def stack_ab_phase(torch, dev, parent, cfg, tag):
     return res
 
 
+# -- the dense families beyond Vlaser-2B: phases 41-43 ----------------------
+DECODE8B_NEW = 32  # bench.py's _bench_decode_8b: 1 tile, 320 tokens, 32 new
+QK_GAIN = 4.0  # phase 43's q/k kernels x4: the per-head norms undo it
+# phase 43: kernel vs reference prefill logits, x max |logits|: two correct
+# bf16 routes through 28 random layers part this far (0.140 on an H100 at
+# the 13-tile prefill; the QLoRA gate's final hidden states 0.2,
+# HIDDEN_REL), while dropping the q/k norms moves them by 1.3
+PREFILL_REL = 0.25
+VIT_INTERP_PX = 224  # phase 43: a 224 px frame into the 448 px ViT
+INTERP_EMB_REL, INTERP_OUT_REL = 1e-2, 5e-2  # bf16 on the card vs fp32
+ENGINE8_MSGS = ((64, None, 16), (128, None, 32), (192, None, 16),
+                (96, 1, 32))  # phase 43's chat_many: text chars, tiles, new
+
+
+def _chat_request(torch, np, dev, cfg, chat, tiles_n, seed):
+    """Phase 14's 13-tile request on `chat`'s config: -> (question, tiles,
+    ids, seg)."""
+    from vlaser_tpu_torch.image.tiling import normalize_uint8
+    from vlaser_tpu_torch.tokenizer.conversation import build_chat_query
+
+    question = "What is shown in this image?"
+    img = cfg.vision.image_size
+    tiles = torch.from_numpy(normalize_uint8(np.random.default_rng(
+        seed).integers(0, 256, (tiles_n, img, img, 3),
+                       dtype=np.uint8))).to(dev)
+    query = build_chat_query(cfg.template, "<image>\n" + question, [tiles_n],
+                             cfg.num_image_token)
+    ids, seg = chat._encode([query])
+    return question, tiles, ids, seg
+
+
+def _counted_calls(torch, fn, what, tag):
+    """A warm-up call of fn, then STEPS calls with the launch counters zeroed
+    just before and read just after: -> (counts, wall ms of each call, the
+    last result)."""
+    first = fn()
+    torch.cuda.synchronize()
+    _zero_counts()
+    times = []
+    for _ in range(STEPS):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    got = {k: v for k, v in _read_counts().items() if v}
+    _count_split()
+    print(f"{what}: {STEPS} calls {[round(t, 1) for t in times]} ms (median "
+          f"{statistics.median(times):.1f} ms, host clock around "
+          f"synchronize); launches {got} {tag}", flush=True)
+    return got, times, out, first
+
+
+def vlaser8b_chat_phase(torch, np, dev, tag, extra):
+    """Phase 41, Vlaser-8B chat (InternViT-300M + Qwen2.5-7B, 151,674 words,
+    random_init_'s draws, quantize_for_serving defaults: vlm, w8a8): 3
+    counted 13-tile VlaserChat.chat calls on the fused runner, launches held
+    to the derived counts; stage times and peak memory; then the kernels at
+    the 8B's shapes against their plain versions with controls
+    (fused_int8_stack R 1 at 384 / 3,592 slots, the layer's quantizers with
+    the 18,944-wide silu-mul, int8_gemm at 384 / 3,584 rows, the causal
+    flash prefill at 28 / 4 heads); then bench.py's _bench_decode_8b
+    (decode_parity_phase at its draws, int8: 1 tile, a 320-token prompt, 32
+    new tokens, teacher-forced against the plain decoder). No profiler.
+    -> launches of the 3 chat calls."""
+    from vlaser_tpu_torch.core.config import vlaser_8b
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.inference import fused_runner as fr
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    t0 = time.perf_counter()
+    cfg = vlaser_8b()
+    llm, L = cfg.llm, cfg.llm.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = quantize_for_serving(_chat_model(torch, dev, cfg, 41,
+                                             visible_norms=True))
+    torch.cuda.synchronize()
+    n_param = sum(t.numel() for t in model.state_dict().values())
+    print(f"Vlaser-8B chat model: quantize_for_serving defaults (vlm, w8a8), "
+          f"{n_param / 1e9:.3f} G elements, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    chat = VlaserChat(model, ChatStubTokenizer(cfg.img_context_token_id),
+                      max_new_tokens=CHAT_NEW)
+    print(f"Vlaser-8B VlaserChat route: {chat.route} {tag}", flush=True)
+    if chat.route != "fused":
+        raise RuntimeError("the Vlaser-8B chat did not take the fused runner")
+    question, tiles, ids, seg = _chat_request(torch, np, dev, cfg, chat,
+                                              CHAT_TILES, 12)
+    n, n_valid = ids.shape[1], int(seg.sum())
+    E = n + CHAT_NEW
+    # derived from the code, as phase 14's: the act_quant ViT stack; 7 w8a8
+    # Dense a layer on 4 quantizations; flash at the prefill's rows; the
+    # RMSNorm kernel only at hidden <= 2,048 (the JAX dispatch: not here)
+    per_call = {"fused_vit_stack_w8a8": 1, "quantize_rows": 3 * L,
+                "quantize_silu_mul": L, "int8_gemm": 7 * L,
+                "fused_int8_stack": CHAT_NEW - 1}
+    if n >= fa.SQ_MIN:
+        per_call["flash_attention_fwd"] = L
+    if n >= rmsnorm.MIN_ROWS and llm.hidden_size <= rmsnorm.MAX_HIDDEN:
+        per_call["_rms_fwd"] = 2 * L + 1
+    with torch.inference_mode():
+        got, times, r, first = _counted_calls(
+            torch, lambda: chat.chat(question, tiles),
+            f"Vlaser-8B chat, {CHAT_TILES} tiles, prompt {n_valid} tokens in "
+            f"a bucket of {n}, {CHAT_NEW} new tokens", tag)
+    want = {k: STEPS * v for k, v in per_call.items()}
+    print(f"Vlaser-8B chat launches derived {want}; response {r[:60]!r} "
+          f"{tag}", flush=True)
+    if got != want:
+        raise RuntimeError(f"Vlaser-8B chat launches {got} != {want}")
+    if not (isinstance(r, str) and r == first):
+        raise RuntimeError("Vlaser-8B chat answered differently")
+    with torch.inference_mode():
+        vit_stack = fr.pack_vit_stack(model.vision_model)
+        feats = fr.fused_visual_features(model, tiles, vit_stack)
+        mk = lambda: KVCache.create(L, 1, E, llm.num_kv_heads, llm.head_dim,
+                                    torch.bfloat16, dev)
+        logits, _, cache = model.prefill(ids, None, seg, mk(),
+                                         visual_features=feats)
+        if not (bool(logits.isfinite().all())
+                and logits.shape == (1, n, llm.vocab_size)):
+            raise RuntimeError("Vlaser-8B prefill gave bad logits")
+        stack = fr.pack_qwen2_stack(model.language_model)
+        head = fr.head_of(model.language_model)
+        token = logits[0, n_valid - 1].argmax(-1)[None]
+        del logits
+        vit_ms = _ms(torch, lambda: fr.fused_visual_features(
+            model, tiles, vit_stack), 3)
+        prefill_ms = _ms(torch, lambda: model.prefill(
+            ids, None, seg, mk(), visual_features=feats), 3)
+        step_ms = _ms(torch, lambda: fr.fused_decode_step(
+            stack, model.language_model.embed_tokens, head, llm, token,
+            cache, seg.sum(1)), 10)
+        hidden = torch.randn(1, llm.hidden_size, device=dev).to(torch.bfloat16)
+        head_ms = _kernel_ms(torch, lambda: fr._head_logits(head, hidden), 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"Vlaser-8B chat stages, each timed alone (CUDA events): ViT "
+          f"({CHAT_TILES} tiles, fused act_quant) {vit_ms:.3f} ms, prefill "
+          f"({n} rows) {prefill_ms:.3f} ms, decode {step_ms:.3f} ms per token "
+          f"({1e3 / step_ms:.1f} tok/s; int8 lm_head {head_ms:.3f} ms of it); "
+          f"chat median {statistics.median(times):.1f} ms; peak device memory "
+          f"{peak:.2f} GiB {tag}", flush=True)
+    del cache, feats, stack
+
+    # -- the kernels at the 8B's shapes, against their plain versions -------
+    dec = decode_kernel_phase(torch, model, dev,
+                              (DECODE_PROMPT + DECODE_NEW, E), tag,
+                              modes=("int8",), profile=False)
+    lay = model.language_model.model.layers
+    rows = (DECODE_PROMPT + DECODE_NEW, n)
+    gem = gemm_phase(torch, _gemm_sites(lay.self_attn, lay.mlp), rows, dev,
+                     tag)
+    flash = flash_prefill_phase(torch, dev, llm, n_valid, n, E, tag)
+    for Ek, rep in dec["int8"].items():
+        extra["fused_int8_stack"][f"vlaser8b_decode_e{Ek}"] = rep
+    for Ek, rep in dec["attention"].items():
+        extra["fused_int8_stack"][f"vlaser8b_attention_alone_e{Ek}"] = rep
+    for m, (k1, k2, k3) in gem.items():
+        extra["quantize_rows"][f"vlaser8b_{m}"] = k1
+        extra["int8_gemm"][f"vlaser8b_{m}"] = k2
+        extra["quantize_silu_mul"][f"vlaser8b_{m}"] = k3
+    extra["flash_attention_fwd"]["vlaser8b_prefill"] = flash
+    del chat, model, tiles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- bench.py's _bench_decode_8b: int8, 1 tile, 32 new tokens, bench.py's
+    # draws (phase 16's, whose 'ln1 ignored' control needs them) ----------
+    par = decode_parity_phase(torch, dev, cfg, tag, new=DECODE8B_NEW)
+    print(f"vlm8b_decode_tok_per_sec {par['tok_s']:.1f} (fused generate, "
+          f"{DECODE8B_NEW} tokens over a {DECODE_PROMPT}-token prompt; "
+          f"vlm_decode_tok_mismatches {par['mismatches']}) {tag}", flush=True)
+    extra["fused_int8_stack"]["vlaser8b_decode_parity"] = par
+    return got
+
+
+def vlaser8b_vla_phase(torch, np, dev, tag, extra):
+    """Phase 42, the Vlaser-8B-VLA control step (vlaser_8b_vla: the 8B
+    mixture and the 768-wide expert with 28 q / 4 kv heads, bench.py's
+    N(0, 0.02^2) draws): PolicyServer(fused=True) at batch 1 on the int8
+    tree (3 counted steps, fused vs plain <= PARITY_TOL), fused_int8_stack
+    at R 5 / 4 on the 8B expert against its twin with controls; then the
+    w8a8 tree: PolicyServer at batch 1 and make_batched_infer_action at
+    batch 8 (3 counted calls each, launches held to the derived counts),
+    bench.py's gates (fused vs plain 2e-2, w8a8 vs bf16 2.5e-2, fused-ViT
+    K/V 0.2, batched vs plain 2e-2), ms a step and peak memory; last, one
+    b1 step under torch.profiler (idle share). -> launches of the three
+    main paths."""
+    from vlaser_tpu_torch.core.config import vlaser_8b_vla
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.envs.adapters import BridgeSimplerAdapter
+    from vlaser_tpu_torch.kernels.fused_vit import (fused_vit_stack,
+                                                    pack_vit_stack)
+    from vlaser_tpu_torch.models.layers import init_normal_
+    from vlaser_tpu_torch.policy.fused_infer import make_batched_infer_action
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.policy.processing import InternVLAProcessor
+    from vlaser_tpu_torch.serve.policy_server import PolicyServer
+
+    t0 = time.perf_counter()
+    cfg = vlaser_8b_vla()
+    bf = torch.bfloat16
+    L, steps = cfg.vlm.llm.num_layers, cfg.num_inference_steps
+
+    def build():
+        model = PiZeroVLA(cfg, param_dtype=bf, compute_dtype=bf, device=dev)
+        model.requires_grad_(False)
+        return init_normal_(model, torch.Generator(device=dev).manual_seed(
+            42), std=0.02)
+
+    model = build()
+    S, img = cfg.max_image_text_tokens, cfg.vlm.vision.image_size
+    A = (cfg.num_action_tokens, cfg.action_dim)
+    proc = InternVLAProcessor(SmokeTokenizer(cfg.vlm),
+                              num_image_tokens=cfg.vlm.num_image_token,
+                              max_seq_len=S, pad_token_id=cfg.vlm.pad_token_id)
+    prompt = "put the carrot on the plate"
+    p = proc([prompt], np.zeros((1, 1, img, img, 3), np.uint8))
+    ids1 = torch.from_numpy(p["input_ids"]).to(dev)
+    mask1 = torch.from_numpy(p["attention_mask"]).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(42)
+    px8 = torch.rand((B8, img, img, 3), generator=g, device=dev)
+    nz8 = torch.randn((B8, *A), generator=g, device=dev)
+    pr8 = torch.zeros((B8, cfg.cond_steps, cfg.proprio_dim), device=dev)
+    ids8, mask8 = ids1.expand(B8, -1).contiguous(), mask1.expand(
+        B8, -1).contiguous()
+    in1 = (ids1, px8[:1], mask1, pr8[:1], nz8[:1])
+    in8 = (ids8, px8, mask8, pr8, nz8)
+    with torch.inference_mode():
+        a_bf16 = model.infer_action(*in1)  # the unquantized model
+    stats = {"action": {"p01": [-0.05] * 6 + [0.0], "p99": [0.05] * 6 + [1.0],
+                        "mean": [0.0] * 7, "std": [1.0] * 7},
+             "proprio": {"p01": [-0.5] * 6 + [0.0], "p99": [0.5] * 6 + [1.0],
+                         "mean": [0.0] * 7, "std": [1.0] * 7}}
+    adapter = BridgeSimplerAdapter(dataset_statistics=stats,
+                                   image_size=(img, img))
+    rng = np.random.default_rng(42)
+    frames = [rng.integers(0, 256, (img, img, 3), dtype=np.uint8)
+              for _ in range(STEPS)]
+    obs = {"agent": {"eef_pos": np.array([0.1, 0.0, 0.2, 1, 0, 0, 0, 0.5],
+                                         np.float32)}}
+
+    def serve(what, per_step):
+        server = PolicyServer(model, None, adapter, proc, act_steps=4,
+                              seed=0, fused=True, device=dev)
+        server.reset(prompt)
+        torch.cuda.synchronize()
+        _zero_counts()
+        chunks = [server.step(obs, f) for f in frames]
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read_counts().items() if v}
+        _count_split()
+        want = {k: STEPS * v for k, v in per_step.items()}
+        print(f"Vlaser-8B-VLA {what} server: {STEPS} steps, actions finite "
+              f"{all(bool(np.isfinite(c).all()) for c in chunks)}; launches "
+              f"{got} (derived {want}) {tag}", flush=True)
+        if not all(c.shape == (4, 7) and np.isfinite(c).all()
+                   for c in chunks):
+            raise RuntimeError(f"the {what} server returned bad actions")
+        if got != want:
+            raise RuntimeError(f"{what} server launches {got} != {want}")
+        with torch.inference_mode():
+            diff = (server._infer(*in1) - model.infer_action(*in1)).abs()
+        d = diff.max().item()
+        print(f"Vlaser-8B-VLA {what} parity: fused vs plain, batch 1: "
+              f"max_abs_diff {d:.3e} (bound {PARITY_TOL}) {tag}", flush=True)
+        if not d <= PARITY_TOL:
+            raise RuntimeError(f"the {what} fused path disagrees")
+        return server, got
+
+    # -- weight-only int8 (POLICY_PATTERNS): the bf16 ViT stack --------------
+    quantize_for_serving(model, target="policy", mode="int8")
+    print(f"Vlaser-8B-VLA int8 model: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    server, launches = serve("int8", {"fused_vit_stack": 1,
+                                      "fused_int8_stack": steps})
+    with torch.inference_mode():
+        int8_ms = _ms(torch, lambda: server._infer(*in1), 10)
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+        dec = denoise_stack_phase(torch, dev, model, rnd, tag, profile=False)
+    extra["fused_int8_stack"]["vlaser8b_expert"] = dec
+    del server, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- w8a8 (the serving default): b1 and the batched path at batch 8 -----
+    model = build()
+    quantize_for_serving(model, target="policy")
+    per_step = {"fused_vit_stack_w8a8": 1, "fused_int8_stack": steps,
+                "quantize_rows": 3 * L, "quantize_silu_mul": L,
+                "int8_gemm": 7 * L}
+    server, got = serve("w8a8", per_step)
+    _add(launches, got)
+    batched = make_batched_infer_action(model)
+    per_step8 = {"fused_vit_stack_w8a8": 1, "quantize_rows": 3 * L,
+                 "quantize_silu_mul": L, "int8_gemm": 7 * L}
+    if B8 * S >= 2048 and cfg.vlm.llm.hidden_size <= 2048:
+        per_step8["_rms_fwd"] = 2 * L
+    torch.cuda.synchronize()
+    _zero_counts()
+    with torch.inference_mode():
+        outs8 = [batched(*in8) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _read_counts().items() if v}
+    want = {k: STEPS * v for k, v in per_step8.items()}
+    print(f"Vlaser-8B-VLA w8a8 batched path: {STEPS} calls at batch {B8}; "
+          f"launches {got} (derived {want}) {tag}", flush=True)
+    if not all(o.isfinite().all() and o.shape == (B8, cfg.horizon_steps,
+                                                  cfg.action_dim)
+               for o in outs8):
+        raise RuntimeError("the 8B batched path returned bad actions")
+    if got != want:
+        raise RuntimeError(f"8B batched path launches {got} != {want}")
+    _add(launches, got)
+    with torch.inference_mode():
+        a_plain = model.infer_action(*in1)
+        vit = pack_vit_stack(model.vision_model)
+        vcfg = cfg.vlm.vision
+        vkw = dict(num_heads=vcfg.num_heads, eps=vcfg.layer_norm_eps,
+                   qk_norm=vcfg.qk_normalization)
+        emb = model.vit_embed(in1[1])
+        hidden = fused_vit_stack(emb[0].to(bf).contiguous(), **vit, **vkw)
+        kv_f = model.vlm_prefix_from_embeds(
+            model.fuse_vit_features(ids1, hidden[None].to(emb.dtype)), mask1)
+        kv_p = model.vlm_prefix_from_embeds(
+            model._image_text_embeds(ids1, in1[1]), mask1)
+        a8_f, a8_p = batched(*in8), model.infer_action(*in8)
+        torch.cuda.synchronize()
+    gates = (("w8a8 vs the bf16 model (plain)",
+              (a_plain - a_bf16).abs().max().item(), W8A8_VS_BF16_TOL),
+             ("fused-ViT prefix K/V vs plain", max(
+                 (kv_f[i].float() - kv_p[i].float()).abs().max().item()
+                 for i in (0, 1)), VIT_KV_TOL),
+             ("batched vs plain, batch 8", (a8_f - a8_p).abs().max().item(),
+              PARITY_B8_TOL))
+    for name, d, tol in gates:
+        print(f"Vlaser-8B-VLA w8a8 parity: {name}: max_abs_diff {d:.3e} "
+              f"(bound {tol}) {tag}", flush=True)
+    if any(not d <= tol for _, d, tol in gates):
+        raise RuntimeError("a Vlaser-8B-VLA parity gate failed")
+    del kv_f, kv_p, a8_p
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        step_ms = _ms(torch, lambda: server._infer(*in1), 10)
+        step8_ms = _ms(torch, lambda: batched(*in8), 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_a = cfg.horizon_steps
+    print(f"Vlaser-8B-VLA control step (median, CUDA events): int8 batch 1 "
+          f"{int8_ms:.3f} ms; w8a8 batch 1 {step_ms:.3f} ms "
+          f"({1e3 * n_a / step_ms:.1f} actions/s), batch {B8} "
+          f"{step8_ms:.3f} ms ({1e3 * B8 * n_a / step8_ms:.1f} actions/s); "
+          f"peak device memory {peak:.2f} GiB {tag}", flush=True)
+    with torch.inference_mode():
+        _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up",
+                 tag, quiet=True)
+        prof = _profile(torch, lambda: server._infer(*in1),
+                        "Vlaser-8B-VLA w8a8 batch-1 step", tag)
+    extra["fused_int8_stack"]["vlaser8b_vla"] = dict(
+        int8_b1_ms=int8_ms, w8a8_b1_ms=step_ms, w8a8_b8_ms=step8_ms,
+        peak_gib=peak, b1_idle=1 - prof["busy"] / prof["wall"])
+    del server, batched, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextmanager
+def _reference_route(torch, model, qk_norm=True):
+    """Within: the model's attention and RMSNorm on their eager references
+    and the w8a8 quantizer and GEMM on their plain versions (every kernel
+    off, on the same CUDA tensors); qk_norm=False also drops the LLM's
+    per-head q/k norms (the control of phase 43's gate)."""
+    import dataclasses
+
+    from vlaser_tpu_torch.kernels import w8a8
+    from vlaser_tpu_torch.models.layers import set_rms_impl
+
+    lay = model.language_model.model.layers
+    names = ("quantize_rows", "quantize_silu_mul", "int8_gemm")
+    saved = {k: getattr(w8a8, k) for k in names}
+    cfg = lay.cfg
+    try:
+        for k in names:
+            setattr(w8a8, k, getattr(w8a8, k + "_plain"))
+        model.set_attn_impl("reference")
+        set_rms_impl(model, "reference")
+        lay.cfg = dataclasses.replace(cfg, qk_norm=qk_norm and cfg.qk_norm)
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(w8a8, k, f)
+        model.set_attn_impl("auto")
+        set_rms_impl(model, "auto")
+        lay.cfg = cfg
+
+
+def vit_interp_check(torch, np, dev, vcfg, tag):
+    """Phase 43 (part): one VIT_INTERP_PX frame through a 448 px-config
+    InternViT-300M (random_init_'s draws, the position embedding N(0, 1) as
+    the JAX init draws it; bf16 on the card), its 16 x 16 grid's position
+    embeddings resized bicubically from the 32 x 32 they were trained at,
+    against the same function on the CPU in fp32: the embeddings within
+    INTERP_EMB_REL and the encoder's output within INTERP_OUT_REL of max
+    |fp32|; control: the grid's embeddings cut to the first rows (no
+    resize) must break the embeddings' bound."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.image.tiling import normalize_uint8
+    from vlaser_tpu_torch.models.internvit import InternVisionModel
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
+
+    bf, f32 = torch.bfloat16, torch.float32
+    holder = torch.nn.Module()  # random_init_ draws a model's vision_model
+    holder.vision_model = vit = InternVisionModel(
+        vcfg, param_dtype=bf, compute_dtype=bf, device=dev)
+    vit.requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    random_init_(holder, gen)
+    with torch.no_grad():
+        pos = vit.embeddings.position_embedding
+        pos.copy_(torch.randn(pos.shape, generator=gen, device=dev))
+    cpu = InternVisionModel(vcfg, param_dtype=f32, compute_dtype=f32,
+                            device="cpu")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in
+                         vit.state_dict().items()})
+    px = VIT_INTERP_PX
+    x = torch.from_numpy(normalize_uint8(np.random.default_rng(43).integers(
+        0, 256, (1, px, px, 3), dtype=np.uint8)))
+    with torch.inference_mode():
+        emb, out = vit.embed(x.to(dev)), vit(x.to(dev))
+        emb_c, out_c = cpu.embed(x), cpu(x)
+        n, e = emb_c.shape[1], cpu.embeddings
+        patch = F.conv2d(x.permute(0, 3, 1, 2), e.patch_embedding.weight,
+                         stride=vcfg.patch_size).flatten(2).transpose(1, 2)
+        cut = emb_c.clone()  # the grid's first rows, not resized
+        cut[:, 1:] = (patch + e.patch_embedding.bias
+                      + e.position_embedding[:, 1:n])
+    rel = lambda a, b: ((a.float().cpu() - b).abs().max()
+                        / b.abs().max()).item()
+    r_emb, r_out, r_cut = rel(emb, emb_c), rel(out, out_c), rel(cut, emb_c)
+    print(f"ViT position-embedding interpolation: a {px} px frame into the "
+          f"{vcfg.image_size} px InternViT-300M ({n} tokens), card (bf16) vs "
+          f"CPU (fp32): embeddings {r_emb:.3e} (bound {INTERP_EMB_REL}), "
+          f"encoder output {r_out:.3e} (bound {INTERP_OUT_REL}) x max |fp32|;"
+          f" control 'grid cut, not resized' {r_cut:.3e} (must exceed the "
+          f"embeddings' bound) {tag}", flush=True)
+    if not (r_emb <= INTERP_EMB_REL and r_out <= INTERP_OUT_REL
+            and r_cut > INTERP_EMB_REL and bool(out.isfinite().all())):
+        raise RuntimeError("the interpolated ViT disagrees with the CPU")
+    return dict(emb_rel=r_emb, out_rel=r_out, control_rel=r_cut)
+
+
+def _qwen3_model(torch, dev, cfg, compute):
+    """Phase 43's InternVL3.5-2B: bf16 weights from random_init_'s draws
+    (seed 43) with the q/k kernels x QK_GAIN, computing in `compute`."""
+    model = _chat_model(torch, dev, cfg, 43, visible_norms=True,
+                        compute=compute)
+    att = model.language_model.model.layers.self_attn
+    with torch.no_grad():
+        att.q_proj.kernel.mul_(QK_GAIN)
+        att.k_proj.kernel.mul_(QK_GAIN)
+    return model
+
+
+def internvl35_phase(torch, np, dev, tag, extra):
+    """Phase 43, InternVL3.5-2B (InternViT-300M + Qwen3-1.7B: per-head q/k
+    RMSNorm, tied embeddings; random_init_'s draws with the q/k kernels x
+    QK_GAIN, which only the norms undo; quantize_for_serving defaults: vlm,
+    w8a8): the ViT's interpolated position embeddings (vit_interp_check);
+    VlaserChat's route (the plain generator: the fused decode stack has no
+    q/k norm; use_fused=True must raise); 3 counted 13-tile chat calls,
+    each of flash, _rms_fwd, quantize_rows, quantize_silu_mul and
+    int8_gemm launched and no fused stack; _rms_fwd at the q/k norm's rows
+    (3,584 x 16 of 128) and the layer norms' (3,584 x 2,048) and the causal
+    flash prefill at 16 / 8 heads against their plain versions with
+    controls; the 13-tile prefill on the kernel route against every kernel
+    off, layer 0's output (LAYER0_REL) and the logits (PREFILL_REL, x max
+    |logits| over the valid rows; control: the q/k norms dropped must
+    break both); then, on the same int8 weights computing in fp32 (fp32
+    cache), EngineChat.chat_many over ENGINE8_MSGS equal to the plain
+    generator's answers token for token. No profiler. -> launches of the
+    chat calls and the engine's run."""
+    from vlaser_tpu_torch.core.config import internvl3_5_2b
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.serve.engine_chat import EngineChat
+
+    t0 = time.perf_counter()
+    cfg = internvl3_5_2b()
+    llm, L = cfg.llm, cfg.llm.num_layers
+    vit_interp_check(torch, np, dev, cfg.vision, tag)
+    model = quantize_for_serving(_qwen3_model(torch, dev, cfg,
+                                              torch.bfloat16))
+    torch.cuda.synchronize()
+    tok = ChatStubTokenizer(cfg.img_context_token_id)
+    chat = VlaserChat(model, tok, max_new_tokens=CHAT_NEW)
+    try:
+        VlaserChat(model, tok, max_new_tokens=CHAT_NEW, use_fused=True)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"InternVL3.5-2B (Qwen3-1.7B, qk_norm) chat model: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s; VlaserChat route "
+          f"{chat.route}; use_fused=True refused: {refused!r} {tag}",
+          flush=True)
+    if chat.route != "plain" or refused is None:
+        raise RuntimeError("a qk-norm chat took or offered the fused runner")
+    question, tiles, ids, seg = _chat_request(torch, np, dev, cfg, chat,
+                                              CHAT_TILES, 12)
+    n, n_valid = ids.shape[1], int(seg.sum())
+    with torch.inference_mode():
+        got, times, r, first = _counted_calls(
+            torch, lambda: chat.chat(question, tiles),
+            f"InternVL3.5-2B chat (plain generator), {CHAT_TILES} tiles, "
+            f"prompt {n_valid} tokens, {CHAT_NEW} new tokens", tag)
+    need = ("flash_attention_fwd", "_rms_fwd", "quantize_rows",
+            "quantize_silu_mul", "int8_gemm")
+    if [k for k in need if not got.get(k)] or any(
+            k.startswith("fused_") for k in got) or r != first:
+        raise RuntimeError(f"InternVL3.5-2B chat launches {got}")
+    launches = dict(got)
+
+    # -- the kernels at the Qwen3 prefill's shapes ---------------------------
+    g = torch.Generator(device=dev).manual_seed(43)
+    extra["_rms_fwd"]["internvl35_qk_norm"] = rms_serving(
+        torch, g, dev, n * llm.num_heads, llm.head_dim, llm.rms_norm_eps,
+        "Qwen3 q_norm over 16 heads a row", tag)
+    extra["_rms_fwd"]["internvl35_prefill"] = rms_serving(
+        torch, g, dev, n, llm.hidden_size, llm.rms_norm_eps,
+        "Qwen3-1.7B prefill", tag)
+    extra["flash_attention_fwd"]["internvl35_prefill"] = flash_prefill_phase(
+        torch, dev, llm, n_valid, n, n + CHAT_NEW, tag)
+
+    # -- the prefill: kernel route vs every kernel off, at layer 0 (the
+    # ViT's features and one LLM layer) and at the logits ------------------
+    lay = model.language_model.model.layers
+
+    def prefill():
+        out = []
+        hook = lay.register_forward_hook(
+            lambda m, a, o: out.append(o) if not out else None)
+        cache = KVCache.create(L, 1, n, llm.num_kv_heads, llm.head_dim,
+                               torch.bfloat16, dev)
+        try:
+            with torch.inference_mode():
+                logits = model.prefill(ids, tiles, seg, cache)[0]
+        finally:
+            hook.remove()
+        return out[0][0, :n_valid].float(), logits[0, :n_valid]
+
+    got_h, got_l = prefill()
+    with _reference_route(torch, model):
+        ref_h, ref_l = prefill()
+    with _reference_route(torch, model, qk_norm=False):
+        ctrl_h, ctrl_l = prefill()
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()
+    l2 = lambda a: ((a - ref_l).norm() / ref_l.norm()).item()
+    err0, ctrl0 = rel(got_h, ref_h), rel(ctrl_h, ref_h)
+    err, ctrl = rel(got_l, ref_l), rel(ctrl_l, ref_l)
+    print(f"InternVL3.5-2B 13-tile prefill, kernel route vs every kernel "
+          f"off: layer 0's output {err0:.3e} x its max (bound LAYER0_REL "
+          f"{LAYER0_REL}; control 'q/k norms dropped' {ctrl0:.3e}); logits "
+          f"[{n_valid}, {llm.vocab_size}] {err:.3e} x max |logits| (bound "
+          f"{PREFILL_REL}; relative L2 {l2(got_l):.3e}); control {ctrl:.3e} "
+          f"(must exceed the bound; relative L2 {l2(ctrl_l):.3e}) {tag}",
+          flush=True)
+    if not (err0 <= LAYER0_REL < ctrl0 and err <= PREFILL_REL < ctrl
+            and bool(got_l.isfinite().all())):
+        raise RuntimeError("the qk-norm prefill disagrees with its reference")
+    del got_l, ref_l, ctrl_l, got_h, ref_h, ctrl_h
+
+    del chat, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- EngineChat against the plain generator, at fp32 compute and cache
+    # (phase 21's setting: in bf16 the engine's batch-4 decode and the
+    # plain generator's batch-1 decode round apart, and the streams part at
+    # near-ties), on the same int8 weights --------------------------------
+    model = quantize_for_serving(_qwen3_model(torch, dev, cfg, torch.float32))
+    rng = np.random.default_rng(20)
+    words = ("pick", "place", "the", "red", "block", "on", "cup", "left")
+    items = []
+    for chars, n_tiles, new in ENGINE8_MSGS:
+        text = ""
+        while len(text) < chars:
+            text += words[rng.integers(len(words))] + " "
+        items.append((text[:chars], tiles[:n_tiles] if n_tiles else None,
+                      None, None, new))
+    eng = EngineChat(model, tok, max_new_tokens=max(m[2] for m in
+                                                    ENGINE8_MSGS),
+                     num_slots=4, max_len=768, cache_dtype=torch.float32)
+    _zero_counts()
+    w0 = time.perf_counter()
+    with torch.inference_mode():
+        answers = eng.chat_many(items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    _add(launches, {k: v for k, v in _read_counts().items() if v})
+    apart = []
+    for (text, px, _, _, new), a in zip(items, answers):
+        plain = VlaserChat(model, tok, max_new_tokens=new,
+                           cache_dtype=torch.float32)
+        with torch.inference_mode():
+            b = plain.chat(text, px)
+        if a != b:  # the first token index where the streams part
+            ta, tb = a.split(), b.split()
+            apart.append((len(text), next(
+                (i for i in range(min(len(ta), len(tb))) if ta[i] != tb[i]),
+                min(len(ta), len(tb)))))
+    print(f"InternVL3.5-2B EngineChat.chat_many (fp32 compute and cache): "
+          f"{len(items)} items in {wall:.2f} s wall; "
+          f"{len(items) - len(apart)} equal to the plain generator token for "
+          f"token {tag}", flush=True)
+    if apart:
+        raise RuntimeError(f"EngineChat's greedy streams leave the plain "
+                           f"generator's (item chars, token): {apart}")
+    del eng, model, tiles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -7013,8 +7746,8 @@ def _profile(torch, fn, label, tag, quiet=False):
             print(f"  {g}: {ms:.1f} ms ({100 * ms / busy:.1f}%)", flush=True)
         for ms, n, key in sorted(kernels, reverse=True)[:12]:
             print(f"  {ms:9.2f} ms {n:5d}x {key}", flush=True)
-    return {"busy": busy, "groups": groups, "kernels": by_name,
-            "launches": launches, "launch_keys": keys}
+    return {"busy": busy, "wall": wall_ms, "groups": groups,
+            "kernels": by_name, "launches": launches, "launch_keys": keys}
 
 
 def main() -> int:
@@ -7067,23 +7800,45 @@ def main() -> int:
         return 0
     _build_report(_build)
     report = {}
+    # the kernels at the 8B and Qwen3 shapes, filed beside each kernel's
+    # other entries at the end (phases 41-43 run before the phases that
+    # make those entries)
+    extra = {k: {} for k in ("fused_int8_stack", "quantize_rows",
+                             "quantize_silu_mul", "int8_gemm",
+                             "flash_attention_fwd", "_rms_fwd")}
+
+    def phase(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase wall: {label} {time.perf_counter() - t:.1f} s {tag}",
+              flush=True)
+        return out
+
     # first: its wall times are host-bound, and a profiler session leaves
     # later launches in the process slower (PERF.md)
-    launches = engine_phases(torch, np, dev, vlaser_2b(), tag, report)
-    gc.collect()
-    torch.cuda.empty_cache()
+    launches = phase("20-22 engine", engine_phases, torch, np, dev,
+                     vlaser_2b(), tag, report)
     # the entry points' phases serve over HTTP: host-bound too
-    _add(launches, vlm_entry_phases(torch, np, dev, vlaser_2b(), tag,
-                                    report))
-    gc.collect()
-    torch.cuda.empty_cache()
+    _add(launches, phase("35-37 entry points", vlm_entry_phases, torch, np,
+                         dev, vlaser_2b(), tag, report))
     # the closed-loop harnesses: host-bound as well
-    _add(launches, closed_loop_phases(torch, np, dev, vlaser_2b_vla(),
-                                      vlaser_2b(), tag))
+    _add(launches, phase("38-39 closed loop", closed_loop_phases, torch, np,
+                         dev, vlaser_2b_vla(), vlaser_2b(), tag))
+    # the dense families beyond Vlaser-2B; their chat and engine timings
+    # are host-bound, and 42 profiles one step last
+    _add(launches, phase("41 Vlaser-8B chat", vlaser8b_chat_phase, torch, np,
+                         dev, tag, extra))
+    _add(launches, phase("43 InternVL3.5-2B", internvl35_phase, torch, np,
+                         dev, tag, extra))
+    _add(launches, phase("42 Vlaser-8B-VLA", vlaser8b_vla_phase, torch, np,
+                         dev, tag, extra))
     # the profiler's first trace in a process can miss its first kernels
     _profile(torch, lambda: torch.ones(8, device=dev).add_(1), "warm-up", tag,
              quiet=True)
-    stack_launch_phase(torch, dev, vlaser_2b().llm, tag)
+    phase("stack launches", stack_launch_phase, torch, dev, vlaser_2b().llm,
+          tag)
     if args.ab:  # before the slices, so that their failure keeps it
         flash_ab_phase(torch, dev, args.ab, tag)
         gc.collect()
@@ -7097,53 +7852,48 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     cfg = vlaser_2b_vla()
-    _add(launches, serving_phases(torch, np, dev, cfg, tag, report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    _add(launches, w8a8_phases(torch, np, dev, cfg, tag, report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    flash_phase(torch, dev, cfg, tag, report)
-    rms_phase(torch, dev, cfg, tag, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    _add(launches, train_phase(torch, np, dev, cfg, tag, report))
-    gc.collect()
-    torch.cuda.empty_cache()
+    _add(launches, phase("1-3 int8 serving", serving_phases, torch, np, dev,
+                         cfg, tag, report))
+    _add(launches, phase("4-8 w8a8 serving", w8a8_phases, torch, np, dev,
+                         cfg, tag, report))
+    phase("9 flash", flash_phase, torch, dev, cfg, tag, report)
+    phase("10 RMSNorm", rms_phase, torch, dev, cfg, tag, report)
+    _add(launches, phase("11 train", train_phase, torch, np, dev, cfg, tag,
+                         report))
     work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoint: ~15 GB
     try:
-        _add(launches, vla8bit_phases(torch, np, dev, cfg, tag, report,
-                                      work))
+        _add(launches, phase("32-34 VLA 8-bit", vla8bit_phases, torch, np,
+                             dev, cfg, tag, report, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    _add(launches, chat_phases(torch, np, dev, vlaser_2b(), tag, report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    _add(launches, pali_phases(torch, np, dev, pizero_paligemma(), tag,
-                               report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    _add(launches, sft_phases(torch, np, dev, vlaser_2b(), tag, report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    _add(launches, robotwin_train_phases(torch, np, dev, vlaser_2b(), tag,
-                                         report))
+    _add(launches, phase("12-16 chat", chat_phases, torch, np, dev,
+                         vlaser_2b(), tag, report))
+    _add(launches, phase("17-19 PaliGemma", pali_phases, torch, np, dev,
+                         pizero_paligemma(), tag, report))
+    _add(launches, phase("23-26 SFT", sft_phases, torch, np, dev,
+                         vlaser_2b(), tag, report))
+    _add(launches, phase("40 RoboTwin train", robotwin_train_phases, torch,
+                         np, dev, vlaser_2b(), tag, report))
     work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoints: ~27 GB
     try:
-        _add(launches, cli_phases(torch, np, dev, vlaser_2b(), tag, work))
+        _add(launches, phase("27-31 CLIs", cli_phases, torch, np, dev,
+                             vlaser_2b(), tag, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    engine_profile_phase(torch, np, dev, vlaser_2b(), tag, report)
+    phase("engine profile", engine_profile_phase, torch, np, dev,
+          vlaser_2b(), tag, report)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]
     if bad:
         raise RuntimeError(f"the port imported {bad[:4]}")
 
     for name, r in report.pop("engine_kernels").items():
         report[name]["engine"] = r
+    for name, shapes in extra.items():
+        report[name].update(shapes)
+    split = {f"r{r}": n for r, n in sorted(MAIN_SPLIT.items())}
+    report["fused_int8_stack"]["launches_by_rows"] = split
+    print(f"fused_int8_stack launches on the main paths by rows: {split} "
+          f"(of {launches.get('fused_int8_stack', 0)}) {tag}", flush=True)
     kernels = []
     for name, src, rep in (
             ("fused_vit_stack", "fused_vit.cu", "kernels/fused_vit.py:455"),

@@ -59,12 +59,13 @@ def test_fused_vit_kernel_matches_twin(cuda, B, S, qk_norm):
     _check(got, fused_vit.fused_vit_stack_plain(x, **vecs, **mats, **kw))
 
 
-def _stack_args(cuda, R, E, step0, wdtype, rope, seed=1, H=4, KVH=2):
+def _stack_args(cuda, R, E, step0, wdtype, rope, seed=1, H=4, KVH=2, C=256,
+                inter=640):
     from vlaser_tpu_torch.core.quant import quantize_int8
     from vlaser_tpu_torch.kernels import fused_decode, ops
 
     g = torch.Generator(device=cuda).manual_seed(seed)
-    L, C, inter, D = 2, 256, 640, 128
+    L, D = 2, 128
     r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=cuda) * sc
     bf = torch.bfloat16
     ws = {}
@@ -116,6 +117,22 @@ def test_fused_int8_kernel_matches_twin(cuda, R, E, step0, wdtype, rope):
     assert fused_decode.launch_count == n + 1
     ref = fused_decode.fused_int8_stack_plain(*args)
     for a, b in zip(got, ref):
+        _check(a, b)
+
+
+@pytest.mark.parametrize("R,E,C,inter", [
+    (1, 3592, 3584, 18944),  # Qwen2.5-7B's decode (2 of its 28 layers)
+    (4, 385, 768, 5600), (5, 385, 768, 5600)])  # the 8B expert's denoise
+def test_fused_int8_kernel_at_the_8b_shapes(cuda, R, E, C, inter):
+    """28 q / 4 kv heads x 128 (a group of 7), q width 3,584: the decode's
+    18,944-wide MLP and the expert's 768 -> 3,584 q projection."""
+    from vlaser_tpu_torch.kernels import fused_decode
+
+    args = _stack_args(cuda, R, E, R == 5, "int8", "f32" if R == 1 else
+                       "bf16", H=28, KVH=4, C=C, inter=inter)
+    got = fused_decode.fused_int8_stack(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, fused_decode.fused_int8_stack_plain(*args)):
         _check(a, b)
 
 
@@ -271,6 +288,10 @@ def _meta_case(B, S, pad, levels, device):
         (1, 20, 20, 4, 2, 128, 3, False, False, 0, None, None, 1.0),
         (1, 4, 281, 8, 1, 256, 0, False, False, 0, 50.0, None, 7.0),
         (2, 256, 256, 16, 16, 72, 0, False, False, 0, None, None, 1.0),
+        # Qwen2.5-7B's group of 7 (28 / 4 heads), causal with a padded
+        # tail, and the same group packed into a short tile (Sq < 64)
+        (1, 700, 700, 28, 4, 128, 30, False, True, 0, None, None, 1.0),
+        (1, 5, 300, 28, 4, 128, 0, False, False, 0, None, None, 1.0),
     ])
 def test_flash_attention_kernels_match_plain(cuda, B, Sq, Skv, H, KVH, D, pad,
                                              levels, causal, off, cap, win,
@@ -639,10 +660,30 @@ def test_quantize_ln_prologue_matches_fp32_layer_norm(cuda, dtype):
     assert torch.equal(q[:384], first)
 
 
+@pytest.mark.parametrize("K", [16400, 18944, 32768])
+def test_wide_bf16_rows_bit_equal_to_plain(cuda, K):
+    """bf16 rows past 16,384 values (Qwen2.5-7B's 18,944-wide down
+    projection input; up to 512 threads x 8 chunks of 8) through both
+    quantizers, int8 rows and am bit for bit at every row count."""
+    from vlaser_tpu_torch.kernels import w8a8
+
+    for M in QUANT_ROWS:
+        x = _quant_input(cuda, M, K, torch.bfloat16, 15)
+        q, am = w8a8.quantize_rows(x)
+        torch.cuda.synchronize()
+        p_q, p_am = w8a8.quantize_rows_plain(x)
+        assert torch.equal(q, p_q) and torch.equal(am, p_am), M
+        g = _quant_input(cuda, M, K, torch.bfloat16, 16)
+        q, am = w8a8.quantize_silu_mul(g, x)
+        torch.cuda.synchronize()
+        p_q, p_am = w8a8.quantize_silu_mul_plain(g, x)
+        assert torch.equal(q, p_q) and torch.equal(am, p_am), M
+
+
 def test_quantizers_refuse_bad_rows(cuda):
     """K % 16, K / groups % 8, a misaligned row start, mismatched g / u
-    and rows beyond a block's threads x chunks (16,384 values) raise;
-    nothing falls back to the CPU."""
+    and rows beyond a block's threads x chunks (32,768 bf16 or 16,384 fp32
+    values) raise before any launch; nothing falls back to the CPU."""
     from vlaser_tpu_torch.kernels import w8a8
 
     bf = torch.bfloat16
@@ -661,9 +702,12 @@ def test_quantizers_refuse_bad_rows(cuda):
         w8a8.quantize_silu_mul(a, torch.zeros(4, 32, dtype=bf, device=cuda))
     with pytest.raises(TypeError):
         w8a8.quantize_silu_mul(a.float(), a.float())
-    with pytest.raises(RuntimeError):  # 2,050 chunks of 8 > 512 x 4
-        w8a8.quantize_rows(torch.zeros(2, 16400, dtype=bf, device=cuda))
-    with pytest.raises(RuntimeError):  # 2,050 chunks of 8 > 256 x 8
+    with pytest.raises(ValueError, match="32,768"):  # > 512 x 8 chunks
+        w8a8.quantize_rows(torch.zeros(2, 32784, dtype=bf, device=cuda))
+    with pytest.raises(ValueError, match="32,768"):
+        w8a8.quantize_silu_mul(*[torch.zeros(2, 32784, dtype=bf,
+                                             device=cuda)] * 2)
+    with pytest.raises(ValueError, match="16,384"):  # > 256 x 8 chunks
         w8a8.quantize_rows(torch.zeros(2, 16400, device=cuda))
 
 

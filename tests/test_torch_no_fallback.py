@@ -145,6 +145,39 @@ def test_port_never_imports_jax():
     assert "clean" in out.stdout
 
 
+def test_the_8b_and_qwen3_families_never_import_jax():
+    """The slice of the dense families beyond Vlaser-2B: its configs, the
+    8B VLA and InternVL3.5-2B laid out on the meta device, a qk-norm
+    mixture's refusal of the fused routes and the ViT's bicubic resize
+    leave no jax and no vlaser_tpu in sys.modules."""
+    code = (
+        "import sys, torch\n"
+        "from vlaser_tpu_torch.core import config as c\n"
+        "from vlaser_tpu_torch.kernels import ops\n"
+        "from vlaser_tpu_torch.models.vlm import InternVLChatModel\n"
+        "from vlaser_tpu_torch.policy import fused_infer\n"
+        "from vlaser_tpu_torch.policy.pizero import PiZeroVLA\n"
+        "PiZeroVLA(c.vlaser_8b_vla(), device='meta')\n"
+        "InternVLChatModel(c.internvl3_5_2b(), device='meta')\n"
+        "q3 = PiZeroVLA(c.tiny_qwen3_vla(), device='cpu')\n"
+        "for make in (fused_infer.make_fused_infer_action,\n"
+        "             fused_infer.make_batched_infer_action):\n"
+        "    try:\n"
+        "        make(q3)\n"
+        "        raise SystemExit('a fused route took a qk-norm mixture')\n"
+        "    except NotImplementedError:\n"
+        "        pass\n"
+        "ops.bicubic_resize_2d(torch.zeros(1, 4, 4, 2), 2, 3)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'jaxlib', 'vlaser_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=_env(), cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "clean" in out.stdout
+
+
 def test_cpu_wrappers_take_the_twin_and_launch_nothing():
     from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.kernels import fused_decode, fused_vit

@@ -365,7 +365,8 @@ def _cli_args(tmp_path, *extra):
 def test_eval_simpler_stages(tmp_path, robot, fused):
     """The CLI's stages at tiny_vla (its model stage needs a .pt, so the
     test hands in a seeded model): the adapter class, the fused server's
-    w8a8 quantization, EvalRunner over the JAX test's mock env."""
+    weight-only int8 quantization (the JAX CLI's), EvalRunner over the JAX
+    test's mock env."""
     from vlaser_tpu_torch.core.quant import is_quantized
     from vlaser_tpu_torch.models.layers import init_normal_
 
@@ -384,9 +385,37 @@ def test_eval_simpler_stages(tmp_path, robot, fused):
     server = pcli.build_server(args, model, adapter, proc, "cpu")
     assert server.serving_path == ("fused" if fused else "plain")
     assert is_quantized(model) is fused
+    assert not any(n.endswith("kernel_aq") for n in model.state_dict())
     out = pcli.run(args, server, env=MockSimplerEnv(), get_image=FRAME)
     assert out["n_episodes"] == 2 and out["success_rate"] == 1.0
     with open(tmp_path / "out.json") as f:
         assert json.load(f) == out
     with pytest.raises(SystemExit, match=r"\.pt"):
         pcli.load_model(argparse.Namespace(ckpt="orbax_dir"), cfg, "cpu")
+
+
+def test_fused_cli_serves_the_jax_cli_tree(tiny, tmp_path):
+    """eval_simpler --fused quantizes as the JAX CLI does
+    (scripts/eval_simpler.py: quantize_variables(params, POLICY_PATTERNS)):
+    the tree the port's build_server leaves in the model is the JAX tree,
+    the same leaves, each bit for bit."""
+    from vlaser_tpu.core.quant import POLICY_PATTERNS, quantize_variables
+    from vlaser_tpu_torch.models.layers import load_state
+
+    jq = from_jax_variables(jax.tree_util.tree_map(
+        np.asarray, quantize_variables(tiny["params"], POLICY_PATTERNS)))
+    cfg = torch_tiny_vla(max_image_text_tokens=32)
+    model = load_state(TorchVLA(cfg, compute_dtype=torch.float32,
+                                device="cpu"), tiny["state"])
+    args = _cli_args(tmp_path)
+    proc = TorchProcessor(TinyTok(), num_image_tokens=cfg.vlm.num_image_token,
+                          max_seq_len=32, pad_token_id=0)
+    pcli.build_server(args, model, pcli.build_adapter(args, cfg), proc, "cpu")
+    got = model.state_dict()
+    assert sorted(got) == sorted(jq)
+    quantized = [k for k in jq if k.endswith(("kernel_q", "embedding_q"))]
+    assert "embed_tokens.embedding_q" in quantized
+    assert "joint.layers.vlm.mlp.gate_proj.kernel_q" in quantized
+    for k, want in jq.items():
+        assert got[k].dtype == want.dtype, k
+        assert torch.equal(got[k], want), k

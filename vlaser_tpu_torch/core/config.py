@@ -1,6 +1,10 @@
 """Model configurations of the port: the dataclasses and the named
 factories it uses, copied from vlaser_tpu/core/config.py (fields and
-defaults unchanged; the 6B/8B and larger configs are not copied).
+defaults unchanged): the Vlaser-2B and Vlaser-8B families, InternVL3.5-2B
+(Qwen3-1.7B, per-head q/k RMSNorm) and PaliGemma. The InternViT-6B, MoE and
+larger configs are not copied. The tiny configs at the end are the CPU
+tests' (`tiny_*` of the JAX package, and the port's own cuts of the 8B and
+Qwen3 families, which the JAX package has none of).
 
 The port's modules read a config only through attribute access, so they
 take the JAX package's config objects as well as these: a test may build a
@@ -9,6 +13,7 @@ config on the JAX side and hand the same object to both packages.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -175,10 +180,40 @@ def qwen2_5_1_5b(vocab_size: int = 151936) -> LLMConfig:
                      num_kv_heads=2, head_dim=128, rope_theta=1_000_000.0)
 
 
+def qwen3_1_7b(vocab_size: int = 151936) -> LLMConfig:
+    """Qwen3-1.7B, the InternVL3.5-2B language backbone: per-head q/k
+    RMSNorm before rope, no q/k/v bias, tied embeddings."""
+    return LLMConfig(vocab_size=vocab_size, hidden_size=2048,
+                     intermediate_size=6144, num_layers=28, num_heads=16,
+                     num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0,
+                     attention_bias=False, qk_norm=True,
+                     tie_word_embeddings=True)
+
+
+def internvl3_5_2b(vocab_size: int = 151936) -> VLMConfig:
+    """InternVL3.5-2B: InternViT-300M + Qwen3-1.7B."""
+    return VLMConfig(vision=internvit_300m(), llm=qwen3_1_7b(vocab_size))
+
+
+def qwen2_5_7b(vocab_size: int = 151936) -> LLMConfig:
+    return LLMConfig(vocab_size=vocab_size, hidden_size=3584,
+                     intermediate_size=18944, num_layers=28, num_heads=28,
+                     num_kv_heads=4, head_dim=128, rope_theta=1_000_000.0)
+
+
 def action_expert_2b() -> LLMConfig:
     """768-wide expert sharing the head layout of Qwen2.5-1.5B."""
     return LLMConfig(vocab_size=0, hidden_size=768, intermediate_size=8960,
                      num_layers=28, num_heads=12, num_kv_heads=2,
+                     head_dim=128, rope_theta=1_000_000.0, has_embed=False,
+                     has_lm_head=False)
+
+
+def action_expert_8b() -> LLMConfig:
+    """The Vlaser-8B-VLA expert: 768 wide, the head layout of Qwen2.5-7B
+    (28 q / 4 kv heads x 128), intermediate 5600."""
+    return LLMConfig(vocab_size=0, hidden_size=768, intermediate_size=5600,
+                     num_layers=28, num_heads=28, num_kv_heads=4,
                      head_dim=128, rope_theta=1_000_000.0, has_embed=False,
                      has_lm_head=False)
 
@@ -188,10 +223,21 @@ def vlaser_2b(vocab_size: int = 151674) -> VLMConfig:
     return VLMConfig(vision=internvit_300m(), llm=qwen2_5_1_5b(vocab_size))
 
 
+def vlaser_8b(vocab_size: int = 151674) -> VLMConfig:
+    """Vlaser-8B = InternViT-300M + Qwen2.5-7B."""
+    return VLMConfig(vision=internvit_300m(), llm=qwen2_5_7b(vocab_size))
+
+
 def vlaser_2b_vla(vocab_size: int = 151674 + 256) -> VLAConfig:
     """Vlaser-2B-VLA: VLM mixture + 768-wide expert (256 action tokens
     appended to the vocab)."""
     return VLAConfig(vlm=vlaser_2b(vocab_size), expert=action_expert_2b())
+
+
+def vlaser_8b_vla(vocab_size: int = 151674 + 256) -> VLAConfig:
+    """Vlaser-8B-VLA: the Vlaser-8B mixture + the 8B expert, as the JAX
+    package builds it (`vlaser_tpu/utils/memory_budget.py:86-87`)."""
+    return VLAConfig(vlm=vlaser_8b(vocab_size), expert=action_expert_8b())
 
 
 def gemma_2b() -> LLMConfig:
@@ -305,3 +351,51 @@ def tiny_vla(max_image_text_tokens: int = 16) -> VLAConfig:
                      max_image_text_tokens=max_image_text_tokens,
                      horizon_steps=4, cond_steps=1, action_dim=7,
                      proprio_dim=7, num_inference_steps=4)
+
+
+# The port's own tiny cuts of the 8B and Qwen3 families. The 8B's: a group
+# of 7 q heads a kv head, and an expert whose q width (7 x 16) is wider than
+# its hidden size, as the 8B expert's 3,584 against 768.
+def tiny_llm_8b(vocab_size: int = 512) -> LLMConfig:
+    return LLMConfig(vocab_size=vocab_size, hidden_size=64,
+                     intermediate_size=160, num_layers=2, num_heads=7,
+                     num_kv_heads=1, head_dim=16, rope_theta=10_000.0)
+
+
+def tiny_expert_8b() -> LLMConfig:
+    return LLMConfig(vocab_size=0, hidden_size=32, intermediate_size=48,
+                     num_layers=2, num_heads=7, num_kv_heads=1, head_dim=16,
+                     rope_theta=10_000.0, has_embed=False, has_lm_head=False)
+
+
+def tiny_vlm_8b() -> VLMConfig:
+    return dataclasses.replace(tiny_vlm(), llm=tiny_llm_8b())
+
+
+def tiny_vla_8b(max_image_text_tokens: int = 16) -> VLAConfig:
+    return dataclasses.replace(tiny_vla(max_image_text_tokens),
+                               vlm=tiny_vlm_8b(), expert=tiny_expert_8b())
+
+
+def tiny_qwen3_llm(vocab_size: int = 512) -> LLMConfig:
+    return LLMConfig(vocab_size=vocab_size, hidden_size=64,
+                     intermediate_size=128, num_layers=2, num_heads=4,
+                     num_kv_heads=2, head_dim=16, rope_theta=10_000.0,
+                     attention_bias=False, qk_norm=True,
+                     tie_word_embeddings=True)
+
+
+def tiny_qwen3_vlm() -> VLMConfig:
+    return dataclasses.replace(tiny_vlm(), llm=tiny_qwen3_llm())
+
+
+def tiny_qwen3_vla(max_image_text_tokens: int = 16) -> VLAConfig:
+    """A qk-norm VLA: both mixtures Qwen3-style, qk_norm on and no q/k/v
+    bias (the JAX package's oracle sets both so,
+    tests/test_golden_vla_vs_reference.py)."""
+    cfg = tiny_vla(max_image_text_tokens)
+    q3 = dict(qk_norm=True, attention_bias=False)
+    return dataclasses.replace(
+        cfg, vlm=dataclasses.replace(cfg.vlm, llm=dataclasses.replace(
+            cfg.vlm.llm, **q3)),
+        expert=dataclasses.replace(cfg.expert, **q3))

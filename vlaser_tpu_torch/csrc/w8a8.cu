@@ -88,7 +88,8 @@ constexpr int QBLOCK = 256;  // threads of a block of quantize_kernel, at most
 constexpr int QNV = 6;       // its chunks a thread the layout aims at
 constexpr int QMAX_NV = 8;   // ... at most (rows up to 16,384 values)
 constexpr int PBLOCK = 512;  // threads of a block of quantize_packed_kernel
-constexpr int PMAX_NV = 4;   // its chunks a thread, at most (16,384 values)
+constexpr int PMAX_NV = 8;   // its chunks a thread, at most (32,768 values;
+                             // rows past 16,384 take 5-8: Qwen2.5-7B's 18,944)
 constexpr int FILL = 1024 * SMS;  // threads that keep the card's loads in flight
 
 __device__ __forceinline__ void qload8(const bf16* p, float v[8]) {
@@ -661,14 +662,16 @@ static int q_rows_a_block(int M, int tpr, int most) {
 
 // bf16 rows, plain or silu-mul: a row spreads over as many warps as leave
 // a thread nv = clamp(M * (K / 8) / FILL, 1, most) chunks (few rows:
-// short chains of work a thread), at most PBLOCK threads; most is PMAX_NV,
-// or 3 for the silu-mul, whose arithmetic gains from more threads (3,584 x
-// 8,960: 3 chunks a thread 3% faster than 4, 2 slower).
+// short chains of work a thread), at most PBLOCK threads; most is 4, or 3
+// for the silu-mul, whose arithmetic gains from more threads (3,584 x
+// 8,960: 3 chunks a thread 3% faster than 4, 2 slower). A row of more than
+// PBLOCK x 4 chunks (16,384 values) keeps PBLOCK threads and gives each of
+// them up to PMAX_NV chunks.
 static int q_packed(const bf16* x, const bf16* u, int M, int K, int8_t* q,
                     float* am, cudaStream_t st) {
   const int nch = K / 8;
   const long long fill = (long long)M * nch / FILL;
-  const int most = u ? 3 : PMAX_NV;
+  const int most = u ? 3 : 4;
   const int want = fill < 1 ? 1 : fill > most ? most : (int)fill;
   int tpr = 32 * ((nch + 32 * want - 1) / (32 * want));
   if (tpr > PBLOCK) tpr = PBLOCK;
@@ -685,9 +688,7 @@ static int q_packed(const bf16* x, const bf16* u, int M, int K, int8_t* q,
       quantize_packed_kernel<false, N><<<grid, block, 0, st>>>(x, u, M, K, \
                                                                tpr, q, am); \
     break;
-  switch (nv) {
-    Q_LAUNCH(1) Q_LAUNCH(2) Q_LAUNCH(3) Q_LAUNCH(4)
-  }
+  switch (nv) { Q_CASES(Q_LAUNCH) }
 #undef Q_LAUNCH
   RETURN_IF_ERR();
   return 0;

@@ -15,7 +15,13 @@ sampled, penalised and batched requests take `sampling.make_generate_fn`.
 use_fused "auto" routes to the fused runner when the model sits on a CUDA
 device and the cache is bf16 (the JAX gate is a TPU backend); True forces
 it (on CPU tensors that means the kernels' plain versions); False turns it
-off. speculative_draft_len > 0 takes the prompt-lookup speculative
+off. An LLM with Qwen3's per-head q/k RMSNorm (`qk_norm`) never takes the
+fused runner, whose decode stack does not compute it: "auto" keeps the
+plain generator and True raises ValueError, both decided from the config
+before any launch (the JAX chat sends such a quantized LLM to its fused
+runner, which drops the norms). `route` says which generator a
+single-stream call takes: "fused", "plain", "speculative" or "beam".
+speculative_draft_len > 0 takes the prompt-lookup speculative
 decoder (`inference/speculative.py`: greedy, single stream, the same tokens
 as greedy decode). num_beams > 1 takes the beam searcher
 (`inference/beam_search.py`, greedy beams, never the fused runner); as in
@@ -95,6 +101,7 @@ class VlaserChat:
             self._gen = make_speculative_generate_fn(
                 model, draft_len=speculative_draft_len,
                 cache_dtype=cache_dtype, **gen_kw)
+            self.route = "speculative"
             return
         if num_beams > 1:
             from .beam_search import make_beam_generate_fn
@@ -104,19 +111,26 @@ class VlaserChat:
             self._gen = make_beam_generate_fn(
                 model, num_beams=num_beams, cache_dtype=cache_dtype,
                 **gen_kw)
+            self.route = "beam"
             return
         self._gen = make_generate_fn(
             model, temperature=temperature, top_k=top_k,
             repetition_penalty=repetition_penalty, cache_dtype=cache_dtype,
             **gen_kw)
+        self.route = "plain"
+        if use_fused is True and self.cfg.llm.qk_norm:
+            raise ValueError("use_fused=True: the fused decode stack does not "
+                             "compute the LLM's per-head q/k RMSNorm "
+                             "(qk_norm)")
         fused_ok = use_fused is True or (
             use_fused == "auto" and self.device.type == "cuda"
-            and cache_dtype == torch.bfloat16)
+            and cache_dtype == torch.bfloat16 and not self.cfg.llm.qk_norm)
         if (fused_ok and temperature == 0.0 and repetition_penalty == 1.0
                 and _llm_is_quantized(model)):
             from .fused_runner import make_fused_generate_fn
 
             self._fused_gen = make_fused_generate_fn(model, **gen_kw)
+            self.route = "fused"
 
     def _encode(self, queries: Sequence[str]) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:

@@ -9,9 +9,11 @@ kernels at >= 2048 rows), and every decode step is ONE
 `kernels.fused_decode.fused_int8_stack` call over the whole KV cache, its
 empty and padded slots masked. The embedding lookup, the final norm and the
 int8 logits head stay outside the kernel, as in JAX. Requires an
-int8-quantized LLM (`core.quant.quantize_for_serving`). The stacks are
-packed from the model's weights when the fn is made: reload weights -> make
-a new fn.
+int8-quantized LLM (`core.quant.quantize_for_serving`) without a per-head
+q/k RMSNorm: `fused_int8_stack` does not compute Qwen3's, so a qk-norm LLM
+raises NotImplementedError (the JAX runner takes one and drops the norms).
+The stacks are packed from the model's weights when the fn is made: reload
+weights -> make a new fn.
 """
 
 from __future__ import annotations
@@ -139,6 +141,9 @@ def make_fused_generate_fn(model, *, max_new_tokens: int,
     generator=None) -> (tokens [1, max_new_tokens], emitted counts [1]),
     greedy (the generator is not used)."""
     llm = model.cfg.llm
+    if llm.qk_norm:
+        raise NotImplementedError(
+            "the fused decode stack has no per-head q/k RMSNorm (qk_norm)")
     lm = model.language_model
     stack = pack_qwen2_stack(lm)
     vit_stack = pack_vit_stack(model.vision_model)

@@ -35,6 +35,7 @@ from . import _build
 
 NEG_INF = -1e30
 launch_count = 0  # kernel launches through the CUDA route
+rows_launch_count = {}  # the same launches by row count R
 trace = None  # an int64 CUDA tensor of 1 + 8 L: the next stack call records
 # block 0's clock (ns) as it starts and as each of a layer's 8 phases ends
 PHASES = ("q/k/v", "rope", "attention", "o", "residual 1", "gate/up", "down",
@@ -294,6 +295,7 @@ def _launch(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
               I, E, int(wdt == bf), int(cdt == f32), chunk, eps, stream)
     _build.check(code, "int8_stack_forward")
     launch_count += 1
+    rows_launch_count[R] = rows_launch_count.get(R, 0) + 1
     return x_out, k_self, v_self
 
 

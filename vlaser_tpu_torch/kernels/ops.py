@@ -3,8 +3,9 @@ pixel-shuffle, masks and the reference attention.
 
 Each follows the JAX function's numerics (fp32 statistics inside bf16
 flows, the same rounding points) so the CPU tests can hold the two packages
-to fp32 tolerances. `bicubic_resize_2d` is not ported yet: the 448px serving
-tile never interpolates its position embedding.
+to fp32 tolerances. `bicubic_resize_2d` resizes the ViT's position
+embeddings where the input grid is not the config's: torch-parity bicubic
+matrices (a = -0.75) built in numpy, applied as two fp32 products.
 """
 
 from __future__ import annotations
@@ -15,6 +16,42 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _cubic_weight(x: float, a: float = -0.75) -> float:
+    ax = abs(x)
+    if ax <= 1.0:
+        return (a + 2.0) * ax ** 3 - (a + 3.0) * ax ** 2 + 1.0
+    if ax < 2.0:
+        return a * ax ** 3 - 5.0 * a * ax ** 2 + 8.0 * a * ax - 4.0 * a
+    return 0.0
+
+
+def bicubic_resize_matrix(n_in: int, n_out: int):
+    """Torch-parity bicubic (a = -0.75, align_corners=False, the border
+    replicated) as a dense [n_out, n_in] fp32 numpy matrix."""
+    import numpy as np
+
+    m = np.zeros((n_out, n_in), np.float64)
+    scale = n_in / n_out
+    for i in range(n_out):
+        x = (i + 0.5) * scale - 0.5
+        x0 = math.floor(x)
+        for t in range(-1, 3):
+            idx = x0 + t
+            m[i, min(max(idx, 0), n_in - 1)] += _cubic_weight(x - idx)
+    return m.astype(np.float32)
+
+
+def bicubic_resize_2d(grid: torch.Tensor, out_h: int,
+                      out_w: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, out_h, out_w, C] fp32, torch-bicubic parity."""
+    h, w = grid.shape[1], grid.shape[2]
+    dev = grid.device
+    mh = torch.from_numpy(bicubic_resize_matrix(h, out_h)).to(dev)
+    mw = torch.from_numpy(bicubic_resize_matrix(w, out_w)).to(dev)
+    g = torch.einsum("oh,bhwc->bowc", mh, grid.float())
+    return torch.einsum("pw,bowc->bopc", mw, g)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,

@@ -28,8 +28,9 @@ inside its layer loop) for tests.
 On a CUDA tensor each wrapper launches its kernel of `csrc/w8a8.cu` and
 counts the launch; on a CPU tensor it runs the plain version; any other
 device raises, as does a failed build or launch. The quantizer takes rows
-of K % 16 == 0 (and K / groups % 8 == 0, at most 16,384 values a group)
-starting on 16-byte boundaries; anything else raises. The plain product
+of K % 16 == 0 (and K / groups % 8 == 0, at most MAX_GROUP values a group:
+32,768 of bf16, 16,384 of fp32) starting on 16-byte boundaries; anything
+else raises. The plain product
 runs in float64, which is exact for int8 operands (K x 127^2 < 2^53), so
 the kernel's and the plain version's products agree bit for bit given the
 same int8 rows.
@@ -52,6 +53,10 @@ EPI_F32, EPI_BF16, EPI_BIAS_F32, EPI_BIAS_GELU_F32, EPI_BIAS_LS_RESIDUAL = \
 quant_launch_count = 0  # quantize_rows launches through the CUDA route
 silu_quant_launch_count = 0  # quantize_silu_mul launches
 gemm_launch_count = 0   # int8 GEMM launches through the CUDA route
+# values of a row group the quantizer's kernels hold in registers, by input
+# dtype (csrc/w8a8.cu: 512 threads x PMAX_NV 8 chunks of 8 bf16 values;
+# 256 x QMAX_NV 8 of fp32)
+MAX_GROUP = {torch.bfloat16: 32768, torch.float32: 16384}
 
 
 def quantize_rows_plain(x2, groups: int = 1):
@@ -161,17 +166,19 @@ def _route(x, what):
 
 def _quant_rows_arg(x, what, dtypes, groups=1):
     """The quantizer's input on the card: a contiguous 2-d tensor of one of
-    `dtypes` whose rows the kernel takes (K % 16, K / groups % 8, 16-byte
-    aligned); else raises."""
+    `dtypes` whose rows the kernel takes (K % 16, K / groups % 8, at most
+    MAX_GROUP[dtype] values a group, 16-byte aligned); else raises."""
     if x.dtype not in dtypes or x.dim() != 2:
         raise TypeError(f"{what}: x must be {' or '.join(map(str, dtypes))} "
                         f"[M, K]")
     x = x.contiguous()
     M, K = x.shape
+    most = MAX_GROUP[x.dtype]
     if M == 0 or K % 16 or K % groups or (K // groups) % 8 \
-            or x.data_ptr() % 16:
+            or K // groups > most or x.data_ptr() % 16:
         raise ValueError(f"{what}: {M} rows of K={K} in {groups} groups "
-                         f"(need K % 16 == 0, K / groups % 8 == 0, 16-byte "
+                         f"(need K % 16 == 0, K / groups % 8 == 0, at most "
+                         f"{most:,} values a group of {x.dtype}, 16-byte "
                          f"aligned rows)")
     return x
 

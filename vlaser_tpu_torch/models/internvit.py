@@ -7,8 +7,9 @@ layers together. `forward` is the layer loop: the training path and the
 oracle of the fused serving stack. Its attention goes through
 `kernels.flash_attention.attention(impl=attn_impl)`; `remat=True` wraps each
 layer in `torch.utils.checkpoint` (the JAX `nn.remat`), so the backward
-recomputes a layer's activations instead of keeping them. Bicubic
-position-embedding interpolation (non-native grids) is not ported yet.
+recomputes a layer's activations instead of keeping them. An input whose
+patch grid is not the config's gets its patch position embeddings resized
+bicubically (`ops.bicubic_resize_2d`, the CLS row kept), as in JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import ops
 from ..kernels.flash_attention import attention
 from .layers import Block, Dense, LayerNorm, RMSNorm
 
@@ -50,13 +52,15 @@ class InternVisionEmbeddings(Block):
         emb = emb.permute(0, 2, 3, 1) + pe.bias.to(cd)
         b, h, w, c = emb.shape
         n_side = cfg.num_patches_per_side
+        pos = self.position_embedding
         if (h, w) != (n_side, n_side):
-            raise NotImplementedError(
-                "position-embedding interpolation is not ported yet")
+            grid = pos[:, 1:].reshape(1, n_side, n_side, c)
+            patch = ops.bicubic_resize_2d(grid, h, w).reshape(1, h * w, c)
+            pos = torch.cat([pos[:, :1], patch.to(pos.dtype)], dim=1)
         patches = emb.reshape(b, h * w, c)
         cls = self.class_embedding.expand(b, 1, c).to(patches.dtype)
         x = torch.cat([cls, patches], dim=1)
-        return x + self.position_embedding.to(x.dtype)
+        return x + pos.to(x.dtype)
 
 
 class _Attn(nn.Module):

@@ -16,7 +16,11 @@ ViT takes one 448 px tile per sample and the full LayerNorm InternViT
 encoder: anything else (the paligemma backbone's SigLIP included) raises
 NotImplementedError on both paths (the JAX batched
 path falls back to its compiled plain `infer_action` there; a caller of
-the port that wants the plain encoder calls `model.infer_action`).
+the port that wants the plain encoder calls `model.infer_action`). So does
+a qk-norm (Qwen3) mixture: `fused_int8_stack` has no per-head q/k RMSNorm,
+and the JAX b1 path, which sends such an expert through it, drops the
+norms. The batched path refuses it too, so that the fused serving route
+takes exactly the configs its kernels compute.
 """
 
 from __future__ import annotations
@@ -78,18 +82,29 @@ def _encode_actions(enc, action, time_emb):
         _dense(enc.linear_2, emb)))
 
 
+def _refuse(cfg, what):
+    """NotImplementedError for a config the fused serving route does not
+    compute."""
+    vcfg = cfg.vlm.vision
+    if not (cfg.backbone == "internvl"
+            and cfg.vlm.select_layer in (-1, vcfg.num_layers)
+            and supports_fused_vit(vcfg)):
+        raise NotImplementedError(
+            f"{what} needs the internvl backbone's full LayerNorm ViT "
+            "(fused_vit_stack)")
+    if cfg.expert.qk_norm or cfg.vlm.llm.qk_norm:
+        raise NotImplementedError(
+            f"{what}: a qk-norm (Qwen3) mixture; fused_int8_stack has no "
+            "per-head q/k RMSNorm")
+
+
 def make_fused_infer_action(model):
     """-> fn(input_ids, pixel_values, text_mask, proprios, noise) with
     `PiZeroVLA.infer_action` semantics, batch 1. The stacks are packed from
     the model's weights now: reload weights -> make a new fn."""
     cfg = model.cfg
     expert, vcfg = cfg.expert, cfg.vlm.vision
-    if not (cfg.backbone == "internvl"
-            and cfg.vlm.select_layer in (-1, vcfg.num_layers)
-            and supports_fused_vit(vcfg)):
-        raise NotImplementedError(
-            "fused path needs the internvl backbone's full LayerNorm ViT "
-            "(fused_vit_stack)")
+    _refuse(cfg, "fused path")
     n_p, R = cfg.num_proprio_tokens, cfg.num_action_tokens
     steps = cfg.num_inference_steps
     delta_t = 1.0 / steps
@@ -182,16 +197,12 @@ def make_batched_infer_action(model):
     `PiZeroVLA.infer_action` semantics for B samples, one tile each: the
     ViT through the batched fused stack, then the joint prefix and the
     Euler steps in plain PyTorch. A config the fused ViT does not run (a
-    cut encoder, RMSNorm or bias-free ViT) raises NotImplementedError.
-    The stack is packed from the model's weights now."""
+    cut encoder, RMSNorm or bias-free ViT) or a qk-norm mixture raises
+    NotImplementedError. The stack is packed from the model's weights
+    now."""
     cfg = model.cfg
     vcfg = cfg.vlm.vision
-    if (cfg.backbone != "internvl"
-            or cfg.vlm.select_layer not in (-1, vcfg.num_layers)
-            or not supports_fused_vit(vcfg)):
-        raise NotImplementedError(
-            "batched path needs the internvl backbone's full LayerNorm ViT "
-            "(fused_vit_stack)")
+    _refuse(cfg, "batched path")
     vit_stack = pack_vit_stack(model.vision_model)
     bf = torch.bfloat16
 

@@ -4,11 +4,12 @@ mixture and the action expert attend in one shared attention per layer.
 Both mixtures hold their layer weights stacked [L, ...] under
 `layers.vlm` / `layers.expert` (the JAX scan layout); the expert stack is
 what `policy.fused_infer.pack_expert_stack` hands to the fused kernel.
-Modes ported: `train`, `vlm_prefix`, `prefix`, `suffix`, for Qwen2 and
-Gemma mixtures (the PaliGemma VLA: tanh-GELU MLPs, plus-one RMSNorms in the
+Modes ported: `train`, `vlm_prefix`, `prefix`, `suffix`, for Qwen2, Qwen3
+and Gemma mixtures (Qwen3, the InternVL3.5 backbone: a per-head q/k RMSNorm
+before rope; the PaliGemma VLA: tanh-GELU MLPs, plus-one RMSNorms in the
 layers, the VLM's attention softcap on every mode; the final per-mixture
 norms are plain RMSNorms, as in JAX). The other modes (`vlm_only`,
-`vlm_cached`), adaLN and Qwen3's qk-norm are not ported yet.
+`vlm_cached`) and adaLN are not ported yet.
 Attention applies the VLA block mask (equal nonzero segments, kv_level <=
 q_level) through `kernels.flash_attention.attention_fn(impl=attn_impl)`,
 routed once per call: with "auto" the flash kernel takes a CUDA tensor
@@ -52,9 +53,9 @@ class MixtureBlock(nn.Module):
     def __init__(self, cfg, L, pd=torch.float32, cd=torch.bfloat16,
                  device=None):
         super().__init__()
-        if cfg.qk_norm or cfg.mlp_act not in _ACT:
+        if cfg.mlp_act not in _ACT:
             raise NotImplementedError(
-                "Qwen3 qk-norm mixtures are not ported yet")
+                f"mixture MLP activation {cfg.mlp_act!r} is not ported")
         self.cfg = cfg
         C, eps, one = cfg.hidden_size, cfg.rms_norm_eps, cfg.rms_plus_one
         self.input_layernorm = RMSNorm(C, eps, (L,), pd, device, one)
@@ -64,6 +65,9 @@ class MixtureBlock(nn.Module):
         self.k_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)
         self.v_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)
         self.o_proj = Dense(cfg.q_dim, C, False, (L,), pd, cd, device)
+        if cfg.qk_norm:  # Qwen3: per-head RMSNorm over head_dim before rope
+            self.q_norm = RMSNorm(cfg.head_dim, eps, (L,), pd, device)
+            self.k_norm = RMSNorm(cfg.head_dim, eps, (L,), pd, device)
         self.mlp = MixtureMLP(cfg, L, pd, cd, device)
 
     def qkv(self, x, cos, sin, l):
@@ -74,6 +78,8 @@ class MixtureBlock(nn.Module):
         q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q, l), self.k_norm(k, l)
         return ops.apply_rope(q, cos, sin), ops.apply_rope(k, cos, sin), v
 
     def post_attn(self, x, attn_out, l):

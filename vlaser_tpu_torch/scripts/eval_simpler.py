@@ -11,12 +11,14 @@ The flags are the JAX CLI's, plus --device (the card unless it says
 each a function here: the tokenizer and the config, the model (PiZeroVLA
 in bf16; a torch `.pt` through utils/tools.convert_pizero_torch_checkpoint),
 the adapter (Bridge or EDR, from --stats), the processor, the server and
-the run. --fused (the default) quantizes with
-quantize_for_serving(target="policy"), the serving default that the JAX
-PolicyServer documents (w8a8; the JAX CLI itself quantizes weight-only
-with POLICY_PATTERNS), and serves through the fused PolicyServer path (the
-Hopper ViT, int8 GEMM and decoder-stack kernels); --no-fused takes the
-plain `infer_action` of the unquantized model. SimplerEnv, SAPIEN and
+the run. --fused (the default) quantizes as the JAX CLI does, weight-only
+int8 over POLICY_PATTERNS (quantize_for_serving(mode="int8",
+target="policy"): the joint mixtures' kernels and the token embedding), and
+serves through the fused PolicyServer path (the Hopper ViT and
+decoder-stack kernels, the ViT in bf16); --no-fused takes the plain
+`infer_action` of the unquantized model. A caller that wants the w8a8
+policy quantizes the model itself before build_server, which leaves an
+already-quantized model as it is. SimplerEnv, SAPIEN and
 gymnasium are imported only where an environment is built
 (eval/simpler_eval.py), the tokenizer's `transformers` only in
 `load_tokenizer`.
@@ -45,9 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--video_dir", default=None)
     ap.add_argument("--results", default=None)
     ap.add_argument("--fused", action="store_true", default=True,
-                    help="w8a8-quantize the policy and serve through the "
-                         "fused ViT / denoise kernels (batch 1); --no-fused "
-                         "for the plain infer_action")
+                    help="int8-quantize the policy (weight-only, the JAX "
+                         "CLI's POLICY_PATTERNS) and serve through the fused "
+                         "ViT / denoise kernels (batch 1); --no-fused for "
+                         "the plain infer_action")
     ap.add_argument("--no-fused", dest="fused", action="store_false")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -109,12 +112,14 @@ def build_processor(cfg, tokenizer):
 
 def build_server(args, model, adapter, processor, device):
     """PolicyServer over the model: under --fused the model is quantized
-    in place for serving first (w8a8, target "policy")."""
+    in place for serving first, as the JAX CLI quantizes it (weight-only
+    int8 over POLICY_PATTERNS; a model already quantized stays as it
+    is)."""
     from ..core.quant import quantize_for_serving
     from ..serve.policy_server import PolicyServer
 
     if args.fused:
-        quantize_for_serving(model, target="policy")
+        quantize_for_serving(model, mode="int8", target="policy")
     return PolicyServer(model, None, adapter, processor, args.act_steps,
                         fused=args.fused, device=device)
 
