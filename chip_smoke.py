@@ -25,11 +25,13 @@ SFT train step (phases 23-26, after 19), of the training entry points
 32-34, right after 11), of the VLM's serving and evaluation entry
 points (phases 35-37, right after 22), of the closed-loop evaluations
 (phases 38-39, right after 37), of the RoboTwin parallel-decoding VLA's
-training (phase 40, right after 26) and of the dense families beyond
+training (phase 40, right after 26), of the dense families beyond
 Vlaser-2B (phases 41-43, right after 39: Vlaser-8B chat, InternVL3.5-2B,
-then the Vlaser-8B-VLA control step) with random weights from seeded
-generators; each group's wall seconds are printed on a line of its own
-("phase wall: ..."):
+then the Vlaser-8B-VLA control step) and of the native image loader and
+the Qwen3-MoE family (phases 44-45, between 43 and 42) with random weights
+from seeded generators; each group's wall seconds are printed on a line of
+its own ("phase wall: ..."). The native image libraries
+(vlaser_tpu_torch/native, g++) build beside nvcc:
 
 Serving, weight-only int8 (bf16 weights N(0, 0.02^2),
 quantize_for_serving(mode="int8")):
@@ -387,6 +389,40 @@ The dense families beyond Vlaser-2B (no profiler session before them):
      counted calls each), bench.py's gates (fused vs plain, w8a8 vs bf16,
      fused-ViT K/V, batched vs plain), ms a step, peak memory; one b1 step
      under torch.profiler (idle share).
+The native image loader and the Qwen3-MoE family (no profiler session
+before them):
+  44. the native loader on this machine: the toolchain (g++, jpeglib.h,
+     libjpeg) and the build; the image-ops library against its float64
+     numpy twin on the committed fixtures' stored pixels (resize to 448 x
+     448, to the 4:3 fixture's 4 x 3 grid and to their own size; normalize;
+     the tile crop; control: the pixels flipped), the 4:3 fixture's 13
+     tiles, two runs bit-equal. Where libjpeg is present, also the fixture
+     JPEGs decoded against their stored pixels (control: flipped),
+     load_image_tiles_native's 13 tiles (two runs and 1 vs 4 threads
+     bit-equal), NativeImageLoader over 64 jobs and
+     ConversationDataset(use_native_loader=True) with PIL never imported;
+     without it a line says that the JPEG half is not built. ms a 13-tile
+     image and images/s;
+  45. InternVL3.5-30B-A3B (InternViT-300M + Qwen3-30B-A3B: 48 layers,
+     hidden 2,048, 32 / 4 heads x 128, 128 experts top-8 of 768, capacity
+     factor 1.25; 30.85 G parameters) built on the card in bf16 from
+     random_init_'s draws (the experts one layer slice at a time, the q/k
+     kernels x4), quantize_for_serving defaults (vlm, w8a8; the router and
+     experts stay bf16): VlaserChat on phase 44's 13 tiles (route: the
+     plain generator), 3 counted chats of 8 tokens (launches held to the
+     derived counts of flash, _rms_fwd, quantize_rows and int8_gemm; no
+     silu-mul, no fused stack), a 32-token chat; the stage split, decode tok/s beside the
+     every-expert and routed-expert bounds, the MoE layer's ms at the
+     prefill's T and at T 1, peak memory. Gates: layer 0's MoE at the
+     prefill's T against an fp32 slot-count oracle (MOE_REL; controls:
+     renormalization dropped, capacity ignored, experts 0 and 1 swapped;
+     dropped slots printed); the cached decode against one full forward
+     over 32 teacher-forced tokens at capacity None (PREFILL_REL, greedy
+     tokens apart only at near-ties) and at 1.25 (the first divergence
+     printed); the 4 attention GEMMs and their quantizer, _rms_fwd and
+     flash at the prefill's shapes with controls; EngineChat.chat_many over
+     4 text items at fp32 compute, capacity None, equal to the plain
+     generator.
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -1084,7 +1120,7 @@ def _gemm_sites(att, mlp):
 QUANT_SITES = ("q_proj", "o_proj", "gate_proj")
 
 
-def gemm_phase(torch, sites, rows_list, dev, tag):
+def gemm_phase(torch, sites, rows_list, dev, tag, silu_mul=True):
     """K1 (quantize_rows) and K2 (int8_gemm) at one layer's 7 GEMM shapes
     (layer 0's int8 weights of `sites`) for each row count, against the
     plain versions, with controls; timed against the plain versions and
@@ -1092,8 +1128,9 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
     (_cold_ms). Each report's ms, plain_ms and bound_ms sum the 7 shapes
     (as in every run since the port began); K1's "main_path" sums the 3
     inputs the main path quantizes with it (QUANT_SITES). Then the layer's
-    4-launch quantization and K3 (quantize_silu_mul, layer_quant_phase).
-    -> {rows: (K1, K2, K3 reports)}."""
+    4-launch quantization and K3 (quantize_silu_mul, layer_quant_phase),
+    unless `silu_mul` is False (a layer without a dense MLP: `sites` its 4
+    attention GEMMs, K3 None). -> {rows: (K1, K2, K3 reports)}."""
     from vlaser_tpu_torch.kernels import w8a8
 
     g = torch.Generator(device=dev)
@@ -1103,7 +1140,8 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
         # sums over the 7 shapes; "by": bound ms per bounding resource
         k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": None}
-        main = {"inputs": len(QUANT_SITES), "ms": 0.0, "plain_ms": 0.0,
+        main = {"inputs": sum(n in QUANT_SITES for n, _ in sites),
+                "ms": 0.0, "plain_ms": 0.0,
                 "bound_ms": 0.0}
         k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": 0.0, "torch_w8a8_ms": 0.0}
@@ -1191,16 +1229,19 @@ def gemm_phase(torch, sites, rows_list, dev, tag):
             by = rep.pop("by")
             rep["bound_by"] = max(by, key=by.get)
         k1["main_path"] = main
-        print(f"w8a8 one layer's 7 prefix GEMMs at {rows} rows: quantize_rows "
-              f"{k1['ms']:.4f} ms at the 7 shapes (bound "
-              f"{k1['bound_ms']:.4f}; at the main path's 3 inputs "
+        print(f"w8a8 one layer's {len(sites)} prefix GEMMs at {rows} rows: "
+              f"quantize_rows {k1['ms']:.4f} ms at the {len(sites)} shapes "
+              f"(bound "
+              f"{k1['bound_ms']:.4f}; at the main path's {main['inputs']} inputs "
               f"{main['ms']:.4f}, bound {main['bound_ms']:.4f}), int8_gemm "
               f"{k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, "
               f"{k2['bound_by']}), torch._int_mm {k2['library_ms']:.4f} ms "
               f"{tag}", flush=True)
-        k3, k1["layer"] = layer_quant_phase(
-            torch, rows, dict(sites)["q_proj"].kernel_q.shape[-2],
-            dict(sites)["down_proj"].kernel_q.shape[-2], dev, tag)
+        k3 = None
+        if silu_mul:
+            k3, k1["layer"] = layer_quant_phase(
+                torch, rows, dict(sites)["q_proj"].kernel_q.shape[-2],
+                dict(sites)["down_proj"].kernel_q.shape[-2], dev, tag)
         out[rows] = (k1, k2, k3)
     return out
 
@@ -7692,6 +7733,616 @@ def internvl35_phase(torch, np, dev, tag, extra):
     return launches
 
 
+# -- the native image loader and the Qwen3-MoE family: phases 44-45 --------
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "vlaser_tpu_torch", "native", "fixtures")
+FIXTURE_NAMES = ("scene_4x3", "tall", "gray")
+# phase 44: the native resize against its float64 numpy twin, in
+# ImageNet-normalized units (the C++ builds its weights and sums in fp32:
+# up to 8.4e-5 apart on the 4 x 3 upscale, 0.005 of a level); another
+# libjpeg than the one that decoded the stored pixels may differ by an IDCT
+# rounding step: a few levels at most
+RESIZE_TOL, DECODE_TOL = 1e-3, 4.0
+LOADER_JOBS = 64
+MOE_REL = 3e-2  # phase 45: one MoE layer in bf16 vs the fp32 oracle, x max
+MOE_NEW = 32  # phase 45: the second chat's new tokens, and the teacher force
+ENGINE_MOE_MSGS = ((48, 12), (96, 16), (64, 8), (128, 12))  # chars, new
+
+
+def native_build_job():
+    """The native libraries' build, run beside nvcc (main): the toolchain
+    (g++, jpeglib.h, libjpeg), the image-ops library, and the JPEG loader
+    where the toolchain has libjpeg. -> report."""
+    from vlaser_tpu_torch.native import build as nb
+
+    t0 = time.perf_counter()
+    out = {"toolchain": nb.jpeg_toolchain(), "image_ops": nb.build()}
+    tc = out["toolchain"]
+    out["jpeg"] = bool(tc["jpeglib_h"] and tc["libjpeg"])
+    if out["jpeg"]:
+        out["dataloader"] = nb.build_dataloader()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _np_resize_matrix(np, n_in, n_out):
+    """image_ops.cpp's bicubic (a = -0.5) weights for one axis as a dense
+    float64 [n_out, n_in] matrix (taps clamped at the border, each output's
+    taps normalized to sum 1)."""
+    scale = n_in / n_out
+    fs = max(scale, 1.0)
+    radius = 2 * fs
+    taps = int(math.ceil(radius)) * 2 + 1
+    m = np.zeros((n_out, n_in))
+    for o in range(n_out):
+        center = (o + 0.5) * scale - 0.5
+        s0 = int(math.floor(center - radius + 0.5))
+        x = np.abs((s0 + np.arange(taps) - center) / fs)
+        w = np.where(x < 1, (1.5 * x - 2.5) * x * x + 1,
+                     np.where(x < 2, (((x - 5) * x + 8) * x - 4) * -0.5, 0.0))
+        w = w / w.sum() if w.sum() != 0 else w
+        np.add.at(m[o], np.clip(s0 + np.arange(taps), 0, n_in - 1), w)
+    return m
+
+
+def _np_chain(np, px, oh, ow, normalize=True):
+    """resize_batch's twin in float64: uint8 [H, W, 3] -> [oh, ow, 3]."""
+    from vlaser_tpu_torch.image.tiling import IMAGENET_MEAN, IMAGENET_STD
+
+    my = _np_resize_matrix(np, px.shape[0], oh)
+    mx = _np_resize_matrix(np, px.shape[1], ow)
+    out = np.tensordot(my, px.astype(np.float64), (1, 0))  # [oh, W, 3]
+    out = np.tensordot(mx, out, (1, 1)).transpose(1, 0, 2)  # [oh, ow, 3]
+    if normalize:
+        out = (out / 255.0 - IMAGENET_MEAN.astype(np.float64)) / (
+            IMAGENET_STD.astype(np.float64))
+    return out
+
+
+def _tiles_from_pixels(np, px, size=448, max_num=12):
+    """load_image_tiles_native's chain after the decode, on the image-ops
+    library: the grid from the pixels' aspect, one resize to it with the
+    crop (tile_image), then the thumbnail."""
+    from vlaser_tpu_torch.image import native
+    from vlaser_tpu_torch.image.tiling import (candidate_ratios,
+                                               find_closest_aspect_ratio)
+
+    h, w = px.shape[:2]
+    gw, gh = find_closest_aspect_ratio(w / h, candidate_ratios(1, max_num),
+                                       w, h, size)
+    tiles = native.tile_image(px, (gw, gh), size)
+    thumb = native.resize_batch(px[None], (size, size))
+    return np.concatenate([tiles, thumb]), (gw, gh)
+
+
+def native_loader_phase(torch, np, tag, built):
+    """Phase 44, the native image loader on this machine: the toolchain and
+    the build (`built`, from native_build_job); the image-ops half against
+    its float64 numpy twin on each fixture's stored pixels (resize to the
+    4:3 fixture's 4 x 3 grid and its thumbnail, normalize, the tile crop;
+    control: the pixels flipped left to right); the 4:3 fixture's 13 tiles
+    from its pixels, two runs bit-equal. Where libjpeg is present: each
+    fixture JPEG decoded at its own size against its stored pixels
+    (DECODE_TOL; control flipped), load_image_tiles_native's 13 tiles equal
+    to the pixel chain's, bit-equal over two runs and at 1 and 4 loader
+    threads; NativeImageLoader over LOADER_JOBS jobs (every id once);
+    ConversationDataset(use_native_loader=True) over a JSONL that names the
+    fixtures, with PIL never imported. Without libjpeg the JPEG half is not
+    built and a line says so. Rates: images/s and ms a 13-tile image. ->
+    (the 13 tiles [13, 448, 448, 3] float32, report)."""
+    from vlaser_tpu_torch.image import native
+
+    tc = built["toolchain"]
+    print(f"native toolchain: {tc['gxx']}; jpeglib.h "
+          f"{'present' if tc['jpeglib_h'] else 'absent'}, libjpeg "
+          f"{'links' if tc['libjpeg'] else 'absent'}; built image_ops"
+          f"{' and the JPEG loader' if built['jpeg'] else ''} in "
+          f"{built['seconds']:.1f} s (beside nvcc) -> "
+          f"{os.path.dirname(built['image_ops'])} {tag}", flush=True)
+    if not built["jpeg"]:
+        print("native loader: the JPEG half (dataloader.cpp) is NOT built on "
+              "this machine: no jpeglib.h / libjpeg. Phase 44 holds the "
+              "image-ops half (resize, normalize, tile) on the fixtures' "
+              "stored pixels, which phase 45 chats from", flush=True)
+    rep = {"jpeg": built["jpeg"], "build_s": built["seconds"]}
+    worst = 0.0
+    for name in FIXTURE_NAMES:
+        px = np.load(os.path.join(FIXTURES, name + ".npy"))
+        h, w = px.shape[:2]
+        for oh, ow in ((448, 448), (3 * 448, 4 * 448), (h, w)):
+            got = native.resize_batch(px[None], (oh, ow))[0]
+            ref = _np_chain(np, px, oh, ow)
+            err = float(np.abs(got - ref).max())
+            ctrl = float(np.abs(native.resize_batch(
+                np.ascontiguousarray(px[:, ::-1])[None], (oh, ow))[0]
+                - ref).max())
+            worst = max(worst, err)
+            if not (err <= RESIZE_TOL < ctrl):
+                raise RuntimeError(f"native resize {name} -> {oh}x{ow}: "
+                                   f"{err:.3e} (control {ctrl:.3e})")
+        norm = native.normalize_batch(px)
+        nref = _np_chain(np, px, h, w)  # normalize at the identity resize
+        if float(np.abs(norm - nref).max()) > RESIZE_TOL:
+            raise RuntimeError(f"native normalize {name} disagrees")
+    px = np.load(os.path.join(FIXTURES, "scene_4x3.npy"))
+    tiles, grid = _tiles_from_pixels(np, px)
+    big = _np_chain(np, px, grid[1] * 448, grid[0] * 448)
+    crop = big.reshape(grid[1], 448, grid[0], 448, 3).transpose(
+        0, 2, 1, 3, 4).reshape(-1, 448, 448, 3)
+    t_err = float(np.abs(tiles[:-1] - crop).max())
+    again, _ = _tiles_from_pixels(np, px)
+    print(f"native image ops vs their float64 numpy twin on the 3 fixtures' "
+          f"pixels (resize to 448 x 448, to the 4 x 3 grid and to their own "
+          f"size; normalize): worst {worst:.3e} (bound {RESIZE_TOL}; control "
+          f"'pixels flipped' breaks it at every shape); the 4:3 fixture's "
+          f"{len(tiles)} tiles (grid {grid[0]} x {grid[1]} + thumbnail) "
+          f"{t_err:.3e} from the twin's crop, two runs bit-equal "
+          f"{np.array_equal(tiles, again)} {tag}", flush=True)
+    if not (tiles.shape == (13, 448, 448, 3) and t_err <= RESIZE_TOL
+            and np.array_equal(tiles, again)):
+        raise RuntimeError("the native tile chain disagrees")
+    rep["resize_err"] = worst
+
+    def rate(fn, reps=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    ms_pixels = rate(lambda: _tiles_from_pixels(np, px))
+    rep["tiles_from_pixels_ms"] = ms_pixels
+    if built["jpeg"]:
+        _jpeg_half(np, tiles, rep, tag)
+    ms = rep.get("tiles_from_jpeg_ms", ms_pixels)
+    print(f"native loader rate: {ms:.2f} ms a 13-tile image ("
+          f"{1e3 / ms:.1f} images/s; "
+          f"{'JPEG decode included' if built['jpeg'] else 'from decoded pixels, no JPEG decode on this machine'}"
+          f"), host threads of the image-ops library {os.cpu_count()} "
+          f"{tag}", flush=True)
+    return tiles, rep
+
+
+def _jpeg_half(np, tiles, rep, tag):
+    """Phase 44's JPEG half (the machine has libjpeg)."""
+    from vlaser_tpu_torch.data import native_loader as nl
+
+    worst, ctrl = 0.0, float("inf")
+    for name in FIXTURE_NAMES:
+        path = os.path.join(FIXTURES, name + ".jpg")
+        want = np.load(os.path.join(FIXTURES, name + ".npy"))
+        if nl.probe_jpeg(path) != want.shape[:2]:
+            raise RuntimeError(f"probe_jpeg {name}: {nl.probe_jpeg(path)}")
+        got = nl.load_image_batch([path], want.shape[:2], normalize=False)[0]
+        worst = max(worst, float(np.abs(got - want).max()))
+        ctrl = min(ctrl, float(np.abs(got - want[:, ::-1]).max()))
+    path = os.path.join(FIXTURES, "scene_4x3.jpg")
+    runs = []
+    for threads in (4, 4, 1):
+        nl._close_shared()
+        nl._shared = nl.NativeImageLoader(num_threads=threads)
+        runs.append(nl.load_image_tiles_native(path, 448, 1, 12))
+    nl._close_shared()
+    same = all(np.array_equal(runs[0], r) for r in runs[1:])
+    t_err = float(np.abs(runs[0] - tiles).max())
+    print(f"native JPEG decode of the 3 fixtures at their own size vs the "
+          f"stored pixels: worst {worst:.3f} levels (bound {DECODE_TOL}; "
+          f"control 'flipped' {ctrl:.1f}); load_image_tiles_native on the "
+          f"4:3 fixture: {runs[0].shape}, two runs and 1 vs 4 threads "
+          f"bit-equal {same}, {t_err:.3e} from the pixel chain {tag}",
+          flush=True)
+    if not (worst <= DECODE_TOL < ctrl and same
+            and runs[0].shape == (13, 448, 448, 3)
+            and t_err <= DECODE_TOL / 255 / 0.224 * 2):
+        raise RuntimeError("the native JPEG decode disagrees")
+    loader = nl.NativeImageLoader(num_threads=4, capacity=8)
+    paths = [os.path.join(FIXTURES, n + ".jpg") for n in FIXTURE_NAMES]
+    t0 = time.perf_counter()
+    for i in range(LOADER_JOBS):
+        loader.submit(i, paths[i % 3], (448, 448))
+    seen = []
+    for _ in range(LOADER_JOBS):
+        jid, arr = loader.get(timeout_ms=60_000)
+        seen.append(jid)
+    wall = time.perf_counter() - t0
+    loader.close()
+    if sorted(seen) != list(range(LOADER_JOBS)):
+        raise RuntimeError(f"NativeImageLoader ids {sorted(seen)[:8]}...")
+    work = tempfile.mkdtemp(prefix="chip_smoke_jsonl_")
+    try:
+        import json as _json
+
+        from vlaser_tpu_torch.data.chat_dataset import (ChatDatasetConfig,
+                                                        ConversationDataset)
+        from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+        from vlaser_tpu_torch.utils.tools import ensure_special_tokens
+
+        jsonl = os.path.join(work, "d.jsonl")
+        with open(jsonl, "w") as f:
+            for p in paths:
+                f.write(_json.dumps({"image": p, "conversations": [
+                    {"from": "human", "value": "<image>\nwhat is this?"},
+                    {"from": "gpt", "value": "a fixture"}]}) + "\n")
+        tok = ByteTokenizer()
+        ensure_special_tokens(tok)
+        ds = ConversationDataset(ChatDatasetConfig(
+            jsonl_path=jsonl, image_root="", num_image_token=256,
+            image_size=448, max_dynamic_patch=12, use_native_loader=True),
+            tok)
+        shapes = [ds[i]["pixel_values"].shape[0] for i in range(len(ds))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    pil = "PIL" in sys.modules
+    print(f"NativeImageLoader: {LOADER_JOBS} jobs over 4 threads, every id "
+          f"once, {LOADER_JOBS / wall:.1f} images/s at 448 x 448; "
+          f"ConversationDataset(use_native_loader=True) over the 3 fixtures: "
+          f"tiles {shapes}, PIL imported {pil} {tag}", flush=True)
+    if pil or shapes[0] != 13:
+        raise RuntimeError("the dataset's native route took PIL or "
+                           "mis-tiled")
+    rep["decode_err"] = worst
+    rep["loader_images_s"] = LOADER_JOBS / wall
+    nl._shared = None
+
+    def one():
+        nl.load_image_tiles_native(path, 448, 1, 12)
+
+    one()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one()
+    rep["tiles_from_jpeg_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    nl._close_shared()
+
+
+def _moe_oracle(torch, cfg, x, gate, wg, wu, wd):
+    """One MoE layer in fp32, independent of models/moe.py's scatter: the
+    router in fp32, the capacity applied by a per-expert count over the
+    slots in token-major order on the host, then each expert's fp32 MLP over
+    the tokens it keeps, added with their weights. -> (y [T, H] fp32,
+    slots dropped)."""
+    import torch.nn.functional as F
+
+    xt = x.reshape(-1, x.shape[-1]).float()
+    T, E, k = xt.shape[0], cfg.num_experts, cfg.num_experts_per_tok
+    probs = torch.softmax(xt @ gate.float(), -1)
+    w, e = probs.topk(k, -1)
+    if cfg.norm_topk_prob:
+        w = w / w.sum(-1, keepdim=True)
+    C = T if cfg.moe_capacity_factor is None else min(
+        max(k, int(cfg.moe_capacity_factor * T * k / E)), T)
+    flat = e.reshape(-1).cpu().numpy()
+    count = [0] * E
+    keep = []
+    for s_, ex in enumerate(flat.tolist()):
+        keep.append(count[ex] < C)
+        count[ex] += 1
+    keep_t = torch.tensor(keep, device=x.device)
+    y = torch.zeros_like(xt)
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    wf = w.reshape(-1)
+    ef = e.reshape(-1)
+    for ex in range(E):
+        sel = ((ef == ex) & keep_t).nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        xs = xt[tok[sel]]
+        h = F.silu(xs @ wg[ex].float()) * (xs @ wu[ex].float())
+        y.index_add_(0, tok[sel], (h @ wd[ex].float()) * wf[sel, None])
+    return y, len(keep) - sum(keep)
+
+
+def moe_layer_gate(torch, cfg, x, w, tag):
+    """Phase 45's MoE layer gate at the prefill's T: moe_forward (bf16, on
+    the card) against _moe_oracle (fp32), MOE_REL x max |oracle|; controls
+    (renormalization dropped, capacity ignored, expert 0's weights swapped
+    with expert 1's) must break it. -> report."""
+    import dataclasses as dc
+
+    from vlaser_tpu_torch.models import moe
+
+    gate, wg, wu, wd = w
+    y = moe.moe_forward(cfg, x, gate, wg, wu, wd, torch.bfloat16)[0]
+    ref, dropped = _moe_oracle(torch, cfg, x, *w)
+    ref_max = ref.abs().max().item()
+    rel = lambda a: (a.reshape(ref.shape).float() - ref).abs().max().item() \
+        / ref_max
+    err = rel(y)
+    swap = lambda t: torch.cat([t[1:2], t[0:1], t[2:]])
+    ctrls = {
+        "renormalization dropped": rel(moe.moe_forward(
+            dc.replace(cfg, norm_topk_prob=False), x, *w,
+            torch.bfloat16)[0]),
+        "capacity ignored": rel(moe.moe_forward(
+            dc.replace(cfg, moe_capacity_factor=None), x, *w,
+            torch.bfloat16)[0]),
+        "experts 0 and 1 swapped": rel(moe.moe_forward(
+            cfg, x, gate, swap(wg), swap(wu), swap(wd), torch.bfloat16)[0])}
+    T = x.shape[0] * x.shape[1]
+    slots = T * cfg.num_experts_per_tok
+    print(f"MoE layer 0 at the prefill's T = {T} (C = "
+          f"{moe.capacity(cfg, T)} a expert of an expected "
+          f"{slots / cfg.num_experts:.1f}): bf16 on the card vs the fp32 "
+          f"slot-count oracle {err:.3e} x max |oracle| (bound {MOE_REL}); "
+          f"slots dropped {dropped} of {slots} ({dropped / slots:.2%}); "
+          f"controls (must exceed the bound): "
+          f"{ {k: round(v, 4) for k, v in ctrls.items()} } {tag}", flush=True)
+    if not (err <= MOE_REL and min(ctrls.values()) > MOE_REL and dropped > 0
+            and bool(y.isfinite().all())):
+        raise RuntimeError("the MoE layer disagrees with its oracle")
+    return {"rel": err, "dropped": dropped, "slots": slots, "T": T,
+            "controls": ctrls}
+
+
+def _teacher_forced(torch, model, ids, seg, tiles, stream, new):
+    """The cached decode (the model's prefill, then one decode_step a
+    token of `stream`) against one full forward over the prompt and the
+    stream: -> (worst step's max |a - b| / max |b|, steps whose greedy
+    tokens differ with their top-2 margins and bounds, the first such
+    step or None)."""
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+
+    llm = model.cfg.llm
+    n_valid = int(seg.sum())
+    with torch.inference_mode():
+        full_ids = torch.cat([ids[:, :n_valid], stream[:, :new - 1]], 1)
+        full = model(full_ids, tiles, None)[0][0, n_valid - 1:]
+        cache = KVCache.create(llm.num_layers, 1, ids.shape[1] + new,
+                               llm.num_kv_heads, llm.head_dim,
+                               torch.bfloat16, ids.device)
+        logits, _, cache = model.prefill(ids, tiles, seg, cache)
+        rows = [logits[0, n_valid - 1]]
+        del logits
+        for t in range(new - 1):
+            lg, _, cache = model.decode_step(
+                stream[:, t:t + 1], cache,
+                torch.tensor([[n_valid + t]], device=ids.device))
+            rows.append(lg[0, 0])
+        got = torch.stack(rows).float()
+        full = full.float()
+    worst, flips = 0.0, []
+    for t in range(new):
+        worst = max(worst, ((got[t] - full[t]).abs().max()
+                            / full[t].abs().max()).item())
+        if got[t].argmax() != full[t].argmax():
+            flips.append((t,) + _margin(full[t]))
+    return worst, flips
+
+
+def moe_chat_phase(torch, np, dev, tag, extra, tiles_np):
+    """Phase 45, InternVL3.5-30B-A3B (InternViT-300M + Qwen3-30B-A3B: 48
+    layers, 32 / 4 heads x 128, 128 experts top-8 of 768, capacity factor
+    1.25) at full width and depth, built on the card in bf16 from
+    random_init_'s draws with the q/k kernels x QK_GAIN (phase 43's),
+    quantize_for_serving defaults (vlm, w8a8: the attention, embedding, head
+    and ViT int8; the router and experts bf16, as in JAX). VlaserChat on
+    phase 44's 13 tiles: the route (the plain generator), 3 counted chats
+    of CHAT_NEW tokens (launches held to the derived counts: flash,
+    _rms_fwd, quantize_rows and int8_gemm; no silu-mul and no fused stack),
+    then MOE_NEW tokens; the
+    stage split; decode tok/s beside its bounds (every expert read, the
+    routed experts read); the MoE layer's ms at the prefill's T and at T 1;
+    peak memory. Gates: moe_layer_gate at the prefill's T; the cached
+    decode against the full forward over MOE_NEW teacher-forced tokens at
+    capacity None (greedy tokens equal, or apart at a near-tie within
+    DECODE_REL; logits within PREFILL_REL) and at 1.25 (the first
+    divergence printed: the reference's rule); the kernels at the prefill's
+    shapes (flash at 32 / 4 x 128, the 4 attention GEMMs and their
+    quantizer, _rms_fwd at the layer and q/k norm rows) against their plain
+    versions with controls; then, on the same int8 weights computing in
+    fp32 at capacity None, EngineChat.chat_many over ENGINE_MOE_MSGS equal
+    to the plain generator's streams. No profiler. -> launches of the
+    chat calls and the engine's run."""
+    import dataclasses as dc
+
+    from vlaser_tpu_torch.core.config import internvl3_5_30b_a3b
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.inference.chat import VlaserChat
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.inference.sampling import make_generate_fn
+    from vlaser_tpu_torch.models import moe
+    from vlaser_tpu_torch.serve.engine_chat import EngineChat
+    from vlaser_tpu_torch.tokenizer.conversation import build_chat_query
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the 30B build: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"reserved {tag}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = internvl3_5_30b_a3b()
+    llm, L = cfg.llm, cfg.llm.num_layers
+    model = quantize_for_serving(_qwen3_model(torch, dev, cfg,
+                                              torch.bfloat16))
+    torch.cuda.synchronize()
+    n_param = sum(t.numel() for t in model.state_dict().values())
+    mlp = model.language_model.model.layers.mlp
+    tok = ChatStubTokenizer(cfg.img_context_token_id)
+    chat = VlaserChat(model, tok, max_new_tokens=CHAT_NEW)
+    try:
+        VlaserChat(model, tok, max_new_tokens=CHAT_NEW, use_fused=True)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"InternVL3.5-30B-A3B chat model: {n_param / 1e9:.3f} G elements, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, built "
+          f"and quantized in {time.perf_counter() - t0:.1f} s; experts "
+          f"{mlp.experts_gate_proj.dtype}; VlaserChat route {chat.route}; "
+          f"use_fused=True refused: {refused is not None} {tag}", flush=True)
+    if chat.route != "plain" or refused is None:
+        raise RuntimeError("the MoE chat took or offered the fused runner")
+    tiles = torch.from_numpy(tiles_np).to(dev)
+    question = "What is shown in this image?"
+    query = build_chat_query(cfg.template, "<image>\n" + question,
+                             [len(tiles_np)], cfg.num_image_token)
+    ids, seg = chat._encode([query])
+    n, n_valid = ids.shape[1], int(seg.sum())
+    with torch.inference_mode():
+        got, times, r, first = _counted_calls(
+            torch, lambda: chat.chat(question, tiles),
+            f"InternVL3.5-30B-A3B chat (plain generator), {len(tiles_np)} "
+            f"tiles of a fixture JPEG's pixels, prompt {n_valid} tokens in a "
+            f"bucket of {n}, {CHAT_NEW} new tokens", tag)
+    # derived from the code: the ViT's layer loop (13 x 1,025 rows) takes
+    # flash and 4 w8a8 Dense a layer, each quantizing its own input; an LLM
+    # layer at the prefill's rows takes flash, q/k/v on one quantization and
+    # o on another, and _rms_fwd for its 2 norms and the q/k norms (>= 2,048
+    # rows), plus the final norm; the MoE layer and the 1-row decode steps
+    # launch none (no silu-mul, no fused stack)
+    Lv = cfg.vision.num_layers
+    want = {k: STEPS * v for k, v in (
+        ("flash_attention_fwd", Lv + L), ("quantize_rows", 4 * Lv + 2 * L),
+        ("int8_gemm", 4 * Lv + 4 * L), ("_rms_fwd", 4 * L + 1))}
+    print(f"InternVL3.5-30B-A3B chat launches derived {want} {tag}",
+          flush=True)
+    if got != want or r != first:
+        raise RuntimeError(f"InternVL3.5-30B-A3B chat launches {got}")
+    launches = dict(got)
+    long_chat = VlaserChat(model, tok, max_new_tokens=MOE_NEW)
+    with torch.inference_mode():
+        long_ms = _ms(torch, lambda: long_chat.chat(question, tiles), 1)
+        vit_ms = _ms(torch, lambda: model.extract_feature(tiles), 3)
+        prefill_ms = _ms(torch, lambda: model.prefill(ids, tiles, seg, (
+            KVCache.create(L, 1, n + CHAT_NEW, llm.num_kv_heads,
+                           llm.head_dim, torch.bfloat16, dev))), 3)
+    chat_ms = statistics.median(times)
+    tok_ms = (long_ms - chat_ms) / (MOE_NEW - CHAT_NEW)
+
+    # -- the MoE layer at the prefill's T and at T 1, and its gate ----------
+    seen = []
+    hook = mlp.register_forward_hook(
+        lambda m, a, o: seen.append(a[0]) if a[1] == 0 and not seen else None)
+    gen = make_generate_fn(model, max_new_tokens=MOE_NEW,
+                           eos_token_ids=[llm.vocab_size], pad_token_id=0)
+    try:
+        with torch.inference_mode():
+            stream, _ = gen(ids, seg, tiles)
+    finally:
+        hook.remove()
+    x = seen[0]
+    w = tuple(t[0] for t in (mlp.gate, mlp.experts_gate_proj,
+                             mlp.experts_up_proj, mlp.experts_down_proj))
+    with torch.inference_mode():
+        gate_rep = moe_layer_gate(torch, llm, x, w, tag)
+        layer_ms = _kernel_ms(torch, lambda: moe.moe_forward(
+            llm, x, *w, torch.bfloat16), 5)
+        x1 = x[:, :1].contiguous()
+        layer1_ms = _kernel_ms(torch, lambda: moe.moe_forward(
+            llm, x1, *w, torch.bfloat16), 20)
+    del x, seen
+    expert_b = 3 * llm.hidden_size * llm.moe_intermediate_size * 2
+    all_b = L * llm.num_experts * expert_b
+    active_b = L * llm.num_experts_per_tok * expert_b
+    fixed_b = (L * (2 * llm.hidden_size * (llm.q_dim + llm.kv_dim)
+                    + llm.hidden_size * llm.num_experts * 2)
+               + llm.hidden_size * llm.vocab_size)  # int8 attention + head
+    b_all = (all_b + fixed_b) / PEAK_BYTES * 1e3
+    b_act = (active_b + fixed_b) / PEAK_BYTES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"InternVL3.5-30B-A3B chat: {chat_ms:.1f} ms (median of "
+          f"{STEPS}, {CHAT_NEW} tokens), {long_ms:.1f} ms with {MOE_NEW}; "
+          f"stages, each timed alone: ViT (13 tiles, the layer loop, w8a8) "
+          f"{vit_ms:.1f} ms, prefill with the ViT ({n} rows) "
+          f"{prefill_ms:.1f} ms; decode {tok_ms:.2f} ms a token (the two "
+          f"chats' difference over {MOE_NEW - CHAT_NEW} tokens) ({1e3 / tok_ms:.1f} tok/s) against the bounds "
+          f"{b_all:.2f} ms with every expert read ({(all_b + fixed_b) / 1e9:.1f}"
+          f" GB a token, as the dispatch runs all {llm.num_experts}) and "
+          f"{b_act:.2f} ms with the {llm.num_experts_per_tok} routed ones "
+          f"({(active_b + fixed_b) / 1e9:.2f} GB); one MoE layer {layer_ms:.3f}"
+          f" ms at T = {gate_rep['T']}, {layer1_ms:.3f} ms at T = 1 "
+          f"(bound {all_b / L / PEAK_BYTES * 1e3:.3f} ms: its "
+          f"{all_b / L / 1e9:.2f} GB of experts); peak device memory "
+          f"{peak:.2f} GiB {tag}", flush=True)
+
+    # -- the cached decode against the full forward, at None and at 1.25 ---
+    res = {}
+    for cap in (None, llm.moe_capacity_factor):
+        mlp.cfg = dc.replace(llm, moe_capacity_factor=cap)
+        res[cap] = _teacher_forced(torch, model, ids, seg, tiles, stream,
+                                   MOE_NEW)
+    mlp.cfg = llm
+    worst, flips = res[None]
+    near = all(m <= b for _, m, b in flips)
+    w125, f125 = res[llm.moe_capacity_factor]
+    print(f"cached decode vs one full forward, teacher-forced over "
+          f"{MOE_NEW} tokens: capacity None: worst step {worst:.3e} x max "
+          f"|logits| (bound PREFILL_REL {PREFILL_REL}), greedy tokens apart "
+          f"at {len(flips)} steps {[t for t, _, _ in flips]}, each a "
+          f"near-tie within DECODE_REL: {near}; capacity 1.25 (the named "
+          f"config, the reference's rule): worst step {w125:.3e}, first "
+          f"divergence of the greedy tokens at step "
+          f"{f125[0][0] if f125 else None} (of {len(f125)}) {tag}",
+          flush=True)
+    if not (worst <= PREFILL_REL and near):
+        raise RuntimeError("the MoE cached decode leaves the full forward")
+
+    # -- the kernels at the prefill's shapes --------------------------------
+    lay = model.language_model.model.layers
+    att = lay.self_attn
+    sites = (("q_proj", att.q_proj), ("k_proj", att.k_proj),
+             ("v_proj", att.v_proj), ("o_proj", att.o_proj))
+    (k1, k2, _), = gemm_phase(torch, sites, (n,), dev, tag,
+                              silu_mul=False).values()
+    extra["quantize_rows"]["internvl35_30b_prefill"] = k1
+    extra["int8_gemm"]["internvl35_30b_prefill"] = k2
+    g = torch.Generator(device=dev).manual_seed(45)
+    extra["_rms_fwd"]["internvl35_30b_qk_norm"] = rms_serving(
+        torch, g, dev, n * llm.num_heads, llm.head_dim, llm.rms_norm_eps,
+        "Qwen3-30B-A3B q_norm over 32 heads a row", tag)
+    extra["_rms_fwd"]["internvl35_30b_prefill"] = rms_serving(
+        torch, g, dev, n, llm.hidden_size, llm.rms_norm_eps,
+        "Qwen3-30B-A3B prefill", tag)
+    extra["flash_attention_fwd"]["internvl35_30b_prefill"] = \
+        flash_prefill_phase(torch, dev, llm, n_valid, n, n + CHAT_NEW, tag)
+    del chat, long_chat, gen, model, stream, lay, att, sites, mlp, w, x1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- EngineChat against the plain generator at fp32 compute and cache
+    # (phase 43's setting), capacity None, on the same int8 weights --------
+    cfg0 = dc.replace(cfg, llm=dc.replace(llm, moe_capacity_factor=None))
+    model = quantize_for_serving(_qwen3_model(torch, dev, cfg0,
+                                              torch.float32))
+    rng = np.random.default_rng(45)
+    words = ("pick", "place", "the", "red", "block", "on", "cup", "left")
+    items = []
+    for chars, new in ENGINE_MOE_MSGS:
+        text = ""
+        while len(text) < chars:
+            text += words[rng.integers(len(words))] + " "
+        items.append((text[:chars], None, None, None, new))
+    eng = EngineChat(model, tok, max_new_tokens=max(m[1] for m in
+                                                    ENGINE_MOE_MSGS),
+                     num_slots=4, max_len=512, cache_dtype=torch.float32)
+    _zero_counts()
+    w0 = time.perf_counter()
+    with torch.inference_mode():
+        answers = eng.chat_many(items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    _add(launches, {k: v for k, v in _read_counts().items() if v})
+    apart = []
+    for (text, _, _, _, new), a in zip(items, answers):
+        plain = VlaserChat(model, tok, max_new_tokens=new,
+                           cache_dtype=torch.float32)
+        with torch.inference_mode():
+            b = plain.chat(text, None)
+        if a != b:
+            apart.append((len(text), a[:40], b[:40]))
+    print(f"InternVL3.5-30B-A3B EngineChat.chat_many (fp32 compute and cache,"
+          f" capacity None): {len(items)} items in {wall:.2f} s wall; "
+          f"{len(items) - len(apart)} equal to the plain generator token for "
+          f"token {tag}", flush=True)
+    if apart:
+        raise RuntimeError(f"EngineChat's greedy streams leave the plain "
+                           f"generator's: {apart}")
+    del eng, model, tiles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -7789,11 +8440,16 @@ def main() -> int:
     print("python", sys.version.split()[0], "torch", torch.__version__,
           "cuda", torch.version.cuda, flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    _build.library()
+    with ThreadPoolExecutor(1) as pool:  # g++ beside nvcc
+        native = pool.submit(native_build_job)
+        _build.library()
+        native = native.result()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
-          f"{_build.last_build_seconds:.1f} s) -> {_build.BUILD_DIR}",
-          flush=True)
+          f"{_build.last_build_seconds:.1f} s, g++ {native['seconds']:.1f} s"
+          f") -> {_build.BUILD_DIR}", flush=True)
 
     if args.engine_wall:
         engine_wall(torch, np, dev, vlaser_2b(), args.profile_first, tag)
@@ -7832,6 +8488,11 @@ def main() -> int:
                          dev, tag, extra))
     _add(launches, phase("43 InternVL3.5-2B", internvl35_phase, torch, np,
                          dev, tag, extra))
+    # the native loader's 13 tiles, then the 30B MoE chat on them
+    tiles, _ = phase("44 native loader", native_loader_phase, torch, np, tag,
+                     native)
+    _add(launches, phase("45 InternVL3.5-30B-A3B", moe_chat_phase, torch, np,
+                         dev, tag, extra, tiles))
     _add(launches, phase("42 Vlaser-8B-VLA", vlaser8b_vla_phase, torch, np,
                          dev, tag, extra))
     # the profiler's first trace in a process can miss its first kernels

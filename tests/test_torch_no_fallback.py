@@ -106,6 +106,10 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.eval.simpler_eval",
     "vlaser_tpu_torch.scripts.eval_simpler",
     "vlaser_tpu_torch.eval.llm_judge",
+    "vlaser_tpu_torch.models.moe",
+    "vlaser_tpu_torch.native.build",
+    "vlaser_tpu_torch.image.native",
+    "vlaser_tpu_torch.data.native_loader",
 )
 
 
@@ -176,6 +180,70 @@ def test_the_8b_and_qwen3_families_never_import_jax():
                          text=True, timeout=120, env=_env(), cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "clean" in out.stdout
+
+
+def test_the_moe_and_native_slice_never_imports_jax():
+    """The native image loader and the Qwen3-MoE family: building and
+    loading both native libraries, tiling a fixture JPEG, InternVL3.5-30B-A3B
+    laid out on the meta device, a tiny MoE LLM's forward with its router
+    loss and a Phi3 longrope table leave no jax and no vlaser_tpu in
+    sys.modules."""
+    code = (
+        "import sys, torch\n"
+        "from vlaser_tpu_torch.core import config as c\n"
+        "from vlaser_tpu_torch.data import native_loader\n"
+        "from vlaser_tpu_torch.image import native\n"
+        "from vlaser_tpu_torch.kernels import ops\n"
+        "from vlaser_tpu_torch.models import moe\n"
+        "from vlaser_tpu_torch.models.qwen2 import Qwen2ForCausalLM\n"
+        "from vlaser_tpu_torch.models.vlm import InternVLChatModel\n"
+        "t = native_loader.load_image_tiles_native(\n"
+        "    'vlaser_tpu_torch/native/fixtures/scene_4x3.jpg')\n"
+        "assert t.shape == (13, 448, 448, 3)\n"
+        "assert native.available()\n"
+        "InternVLChatModel(c.internvl3_5_30b_a3b(), device='meta')\n"
+        "lm = Qwen2ForCausalLM(c.tiny_qwen3_moe_llm(), device='cpu')\n"
+        "with moe.collect_router_stats(lm) as st:\n"
+        "    lm(input_ids=torch.ones(1, 5, dtype=torch.long))\n"
+        "moe.router_aux_loss(*st[0])\n"
+        "ops.rope_cos_sin_su(torch.arange(40)[None], 16, 1e4, (1.0,) * 8,\n"
+        "                    (2.0,) * 8, 32, 128)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'jaxlib', 'vlaser_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=_env(), cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "clean" in out.stdout
+
+
+def test_the_native_build_writes_nothing_under_the_jax_package(tmp_path):
+    """The port's g++ builds (image ops and the JPEG loader), forced into a
+    fresh directory, write their libraries there and leave every file under
+    vlaser_tpu/ as it was: no new .so, none touched."""
+    from pathlib import Path
+
+    from vlaser_tpu_torch.native import build
+
+    jax_pkg = Path(REPO) / "vlaser_tpu"
+    before = {p: p.stat().st_mtime_ns for p in jax_pkg.rglob("*")
+              if p.is_file()}
+    code = ("import sys; from pathlib import Path\n"
+            "from vlaser_tpu_torch.native import build as b\n"
+            "b.BUILD_DIR = Path(sys.argv[1])\n"
+            "print(b.build()); print(b.build_dataloader())\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, timeout=120,
+                         env=_env(), cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    libs = [Path(p) for p in out.stdout.split()]
+    assert len(libs) == 2 and all(p.parent == tmp_path and p.exists()
+                                  for p in libs)
+    after = {p: p.stat().st_mtime_ns for p in jax_pkg.rglob("*")
+             if p.is_file()}
+    assert after == before
+    assert build.BUILD_DIR == Path(REPO) / "vlaser_tpu_torch" / "_build"
 
 
 def test_cpu_wrappers_take_the_twin_and_launch_nothing():

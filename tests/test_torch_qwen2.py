@@ -118,9 +118,9 @@ def test_cached_prefill_and_decode_match_jax(variant):
 
 
 def test_unported_variants_raise():
-    for over in (dict(num_experts=4), dict(rms_plus_one=True),
-                 dict(rope_short_factor=(1.0,) * 8,
-                      rope_long_factor=(1.0,) * 8),
+    # MoE layers and Phi3 longrope are ported (tests/test_torch_moe.py)
+    for over in (dict(context_parallel_axis="context"),
+                 dict(rms_plus_one=True),
                  dict(attn_softcap=50.0), dict(mlp_act="gelu_tanh")):
         cfg = dataclasses.replace(tiny_llm(), **over)
         with pytest.raises(NotImplementedError):

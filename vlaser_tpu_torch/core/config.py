@@ -1,10 +1,11 @@
 """Model configurations of the port: the dataclasses and the named
 factories it uses, copied from vlaser_tpu/core/config.py (fields and
 defaults unchanged): the Vlaser-2B and Vlaser-8B families, InternVL3.5-2B
-(Qwen3-1.7B, per-head q/k RMSNorm) and PaliGemma. The InternViT-6B, MoE and
-larger configs are not copied. The tiny configs at the end are the CPU
-tests' (`tiny_*` of the JAX package, and the port's own cuts of the 8B and
-Qwen3 families, which the JAX package has none of).
+(Qwen3-1.7B, per-head q/k RMSNorm), InternVL3.5-30B-A3B (Qwen3-30B-A3B,
+sparse MoE) and PaliGemma. The InternViT-6B and the larger dense configs
+are not copied. The tiny configs at the end are the CPU tests' (`tiny_*`
+of the JAX package, and the port's own cuts of the 8B, Qwen3 and
+Qwen3-MoE families, which the JAX package has none of).
 
 The port's modules read a config only through attribute access, so they
 take the JAX package's config objects as well as these: a test may build a
@@ -193,6 +194,24 @@ def qwen3_1_7b(vocab_size: int = 151936) -> LLMConfig:
 def internvl3_5_2b(vocab_size: int = 151936) -> VLMConfig:
     """InternVL3.5-2B: InternViT-300M + Qwen3-1.7B."""
     return VLMConfig(vision=internvit_300m(), llm=qwen3_1_7b(vocab_size))
+
+
+def qwen3_moe_30b_a3b(vocab_size: int = 151936) -> LLMConfig:
+    """Qwen3-30B-A3B, the InternVL3.5 MoE language backbone: 128 experts,
+    top-8, 768-wide experts (models/moe.py), capacity factor 1.25."""
+    return LLMConfig(vocab_size=vocab_size, hidden_size=2048,
+                     intermediate_size=6144,  # unused on MoE layers
+                     num_layers=48, num_heads=32, num_kv_heads=4,
+                     head_dim=128, rope_theta=1_000_000.0,
+                     attention_bias=False, qk_norm=True, num_experts=128,
+                     num_experts_per_tok=8, moe_intermediate_size=768,
+                     norm_topk_prob=True, moe_capacity_factor=1.25)
+
+
+def internvl3_5_30b_a3b(vocab_size: int = 151936) -> VLMConfig:
+    """InternVL3.5-30B-A3B: InternViT-300M + Qwen3-30B-A3B (MoE)."""
+    return VLMConfig(vision=internvit_300m(),
+                     llm=qwen3_moe_30b_a3b(vocab_size))
 
 
 def qwen2_5_7b(vocab_size: int = 151936) -> LLMConfig:
@@ -399,3 +418,19 @@ def tiny_qwen3_vla(max_image_text_tokens: int = 16) -> VLAConfig:
         cfg, vlm=dataclasses.replace(cfg.vlm, llm=dataclasses.replace(
             cfg.vlm.llm, **q3)),
         expert=dataclasses.replace(cfg.expert, **q3))
+
+
+def tiny_qwen3_moe_llm(capacity: Optional[float] = 1.25,
+                       vocab_size: int = 512) -> LLMConfig:
+    """A Qwen3-MoE cut: 8 experts, top-2, 16-wide experts, q/k norms, an
+    untied head, capacity factor `capacity` (None: lossless)."""
+    return LLMConfig(vocab_size=vocab_size, hidden_size=32,
+                     intermediate_size=64, num_layers=2, num_heads=4,
+                     num_kv_heads=2, head_dim=8, rope_theta=10_000.0,
+                     attention_bias=False, qk_norm=True, num_experts=8,
+                     num_experts_per_tok=2, moe_intermediate_size=16,
+                     norm_topk_prob=True, moe_capacity_factor=capacity)
+
+
+def tiny_qwen3_moe_vlm(capacity: Optional[float] = 1.25) -> VLMConfig:
+    return dataclasses.replace(tiny_vlm(), llm=tiny_qwen3_moe_llm(capacity))

@@ -15,9 +15,9 @@ Parity surface:
   max_packed_tokens buffers that carries segment ids for the flash kernel
   and a resumable cursor.
 The packer and `length_grouped_indices` draw from Python's `random` with
-the JAX package's seeds, so both packages emit the same batches. Not
-ported: `use_native_loader` (the C++ JPEG loader, data/native_loader.py)
-raises NotImplementedError.
+the JAX package's seeds, so both packages emit the same batches.
+`use_native_loader` sends a JPEG through the C++ loader
+(data/native_loader.py) instead of PIL.
 """
 
 from __future__ import annotations
@@ -253,8 +253,10 @@ class ConversationDataset:
                   text_only=text_only)
 
     def _load_tiles(self, image_paths: List[str]) -> np.ndarray:
-        from PIL import Image
-
+        """Each image's dynamic tiles, concatenated. With use_native_loader
+        a JPEG goes through the C++ loader (data/native_loader.py) and PIL
+        is imported only for another format, so a JSONL of JPEGs loads on a
+        machine without PIL."""
         cfg = self.cfg
         all_tiles = []
         # multi-image items cap tiles per image (finetune.py:475-523)
@@ -262,9 +264,18 @@ class ConversationDataset:
         for p in image_paths:
             full = os.path.join(cfg.image_root, p)
             if cfg.use_native_loader:
-                raise NotImplementedError(
-                    "use_native_loader: data/native_loader.py is not ported "
-                    "yet")
+                from .native_loader import load_image_tiles_native
+
+                tiles = load_image_tiles_native(
+                    full, cfg.image_size, cfg.min_dynamic_patch, max_num,
+                    use_thumbnail=cfg.use_thumbnail and cfg.dynamic_image_size,
+                    dynamic=cfg.dynamic_image_size,
+                )
+                if tiles is not None:
+                    all_tiles.append(tiles)
+                    continue
+            from PIL import Image
+
             img = Image.open(full).convert("RGB")
             tiles = load_image_tiles(
                 img, cfg.image_size, cfg.min_dynamic_patch, max_num,

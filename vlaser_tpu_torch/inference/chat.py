@@ -15,11 +15,11 @@ sampled, penalised and batched requests take `sampling.make_generate_fn`.
 use_fused "auto" routes to the fused runner when the model sits on a CUDA
 device and the cache is bf16 (the JAX gate is a TPU backend); True forces
 it (on CPU tensors that means the kernels' plain versions); False turns it
-off. An LLM with Qwen3's per-head q/k RMSNorm (`qk_norm`) never takes the
-fused runner, whose decode stack does not compute it: "auto" keeps the
-plain generator and True raises ValueError, both decided from the config
-before any launch (the JAX chat sends such a quantized LLM to its fused
-runner, which drops the norms). `route` says which generator a
+off. An LLM with Qwen3's per-head q/k RMSNorm (`qk_norm`) or sparse MoE
+layers (`num_experts > 0`) never takes the fused runner, whose decode
+stack computes neither: "auto" keeps the plain generator and True raises
+ValueError, both decided from the config before any launch (the JAX chat
+sends such a quantized LLM to its fused runner, which drops the norms). `route` says which generator a
 single-stream call takes: "fused", "plain", "speculative" or "beam".
 speculative_draft_len > 0 takes the prompt-lookup speculative
 decoder (`inference/speculative.py`: greedy, single stream, the same tokens
@@ -118,13 +118,15 @@ class VlaserChat:
             repetition_penalty=repetition_penalty, cache_dtype=cache_dtype,
             **gen_kw)
         self.route = "plain"
-        if use_fused is True and self.cfg.llm.qk_norm:
+        llm = self.cfg.llm
+        stack_ok = not llm.qk_norm and llm.num_experts == 0
+        if use_fused is True and not stack_ok:
             raise ValueError("use_fused=True: the fused decode stack does not "
                              "compute the LLM's per-head q/k RMSNorm "
-                             "(qk_norm)")
+                             "(qk_norm) or sparse MoE layers (num_experts)")
         fused_ok = use_fused is True or (
             use_fused == "auto" and self.device.type == "cuda"
-            and cache_dtype == torch.bfloat16 and not self.cfg.llm.qk_norm)
+            and cache_dtype == torch.bfloat16 and stack_ok)
         if (fused_ok and temperature == 0.0 and repetition_penalty == 1.0
                 and _llm_is_quantized(model)):
             from .fused_runner import make_fused_generate_fn

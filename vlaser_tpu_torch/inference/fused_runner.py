@@ -141,9 +141,10 @@ def make_fused_generate_fn(model, *, max_new_tokens: int,
     generator=None) -> (tokens [1, max_new_tokens], emitted counts [1]),
     greedy (the generator is not used)."""
     llm = model.cfg.llm
-    if llm.qk_norm:
+    if llm.qk_norm or llm.num_experts > 0:
         raise NotImplementedError(
-            "the fused decode stack has no per-head q/k RMSNorm (qk_norm)")
+            "the fused decode stack has no per-head q/k RMSNorm (qk_norm) "
+            "and no sparse MoE layer (num_experts)")
     lm = model.language_model
     stack = pack_qwen2_stack(lm)
     vit_stack = pack_vit_stack(model.vision_model)

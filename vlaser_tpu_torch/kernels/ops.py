@@ -86,6 +86,28 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int,
     return torch.cos(emb), torch.sin(emb)
 
 
+def rope_cos_sin_su(positions: torch.Tensor, head_dim: int, theta: float,
+                    short_factor, long_factor, original_max_position: int,
+                    max_position: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phi3 su/longrope rotary (modeling_phi3.py:139-178): per-frequency
+    extension factors (short while every position lies in the original
+    context, long beyond it) and a sqrt(1 + ln(scale) / ln(orig))
+    amplitude on cos/sin when the context is extended."""
+    dev = positions.device
+    base = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                  device=dev) / head_dim)
+    short = torch.tensor(short_factor, dtype=torch.float32, device=dev)
+    long = torch.tensor(long_factor, dtype=torch.float32, device=dev)
+    use_long = (positions.max() + 1) > original_max_position
+    inv_freq = 1.0 / (torch.where(use_long, long, short) * base)
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    scale = max_position / original_max_position
+    scaling = (math.sqrt(1 + math.log(scale) / math.log(original_max_position))
+               if scale > 1.0 else 1.0)
+    return torch.cos(emb) * scaling, torch.sin(emb) * scaling
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x [B, S, H, D]; cos/sin [B, S, D] (or [S, D]). Rotate-half."""

@@ -314,14 +314,18 @@ def _leaves(mod: nn.Module):
 def init_normal_(model: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
     """Fill every floating parameter and buffer with N(0, std^2) draws from
-    `generator` (drawn in fp32 on the tensor's device, then cast)."""
+    `generator` (drawn in fp32 on the tensor's device, then cast). A tensor
+    of more than 2^31 elements (the stacked MoE experts) is drawn one
+    leading slice at a time: a whole fp32 draw would not fit beside it."""
     for _, mod in model.named_modules():
         for _, t in list(_leaves(mod)):
             if t is None or not t.is_floating_point():
                 continue
-            r = torch.randn(t.shape, generator=generator, dtype=torch.float32,
-                            device=t.device)
-            t.copy_((r * std).to(t.dtype))
+            parts = t.unbind(0) if t.numel() > 2 ** 31 else (t,)
+            for part in parts:
+                r = torch.randn(part.shape, generator=generator,
+                                dtype=torch.float32, device=t.device)
+                part.copy_((r * std).to(t.dtype))
     return model
 
 

@@ -1,0 +1,144 @@
+"""Sparse Mixture-of-Experts MLP with Qwen3-MoE semantics (port of
+vlaser_tpu/models/moe.py).
+
+- Routing in fp32, as HF `Qwen3MoeSparseMoeBlock`: softmax over the router
+  logits, top-k of the probabilities, optional renormalization
+  (`norm_topk_prob`).
+- Dispatch is the JAX package's scatter/gather: each (token, slot) writes
+  its activation into an [E, C, H] buffer at its position within its
+  expert (a cumsum over the slots in token-major order, so earlier tokens
+  win capacity); the experts run as one batched gate/up/down product; each
+  token gathers its k results back and sums them with its fp32 weights,
+  then casts to the activation dtype.
+- Capacity: `moe_capacity_factor=None` is lossless (C = T, HF parity);
+  otherwise C = min(max(k, int(factor * T * k / E)), T), where T is the
+  tokens of one call. A slot past C is dropped: it writes zeros into row
+  C - 1 of its expert and combines with weight 0. C depends on T, so with
+  a factor the output of a token depends on the other tokens of its call
+  (how a prompt is chunked), as in JAX.
+- The load-balancing loss (HF `load_balancing_loss_func`): each call of a
+  layer yields router_f (the mean over tokens of the top-k one-hot counts,
+  summed over the slots) and router_p (the mean softmax probability), both
+  [E]. The JAX module sows them into `intermediates`; here a caller that
+  wants them opens `collect_router_stats(model)`, and `router_aux_loss`
+  combines a stack's [L, E] vectors.
+
+Weights keep the JAX names and layout, stacked [L, ...] as the port's
+other layer weights: `gate` [L, H, E], `experts_gate_proj` /
+`experts_up_proj` [L, E, H, F], `experts_down_proj` [L, E, F, H]. None is
+named `kernel`, so the serving quantizer leaves them float, as the JAX one
+does. The batched product is `torch.bmm` (the JAX package computes it in
+XLA, outside any Pallas kernel).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Block
+
+
+def router_aux_loss(router_f: torch.Tensor,
+                    router_p: torch.Tensor) -> torch.Tensor:
+    """HF load_balancing_loss_func over a stack's vectors: router_f /
+    router_p [L, E] (or [E]) -> E * sum_e mean_L(f) * mean_L(p), a 0-dim
+    fp32 tensor (HF concatenates every layer's logits before averaging,
+    which equals this layer mean)."""
+    f = torch.atleast_2d(router_f).mean(0)
+    p = torch.atleast_2d(router_p).mean(0)
+    return f.shape[-1] * (f * p).sum()
+
+
+def capacity(cfg, tokens: int) -> int:
+    """The slots a expert holds in a call of `tokens` tokens."""
+    if cfg.moe_capacity_factor is None:
+        return tokens  # lossless: an expert can at most receive every token
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    return min(max(k, int(cfg.moe_capacity_factor * tokens * k / E)), tokens)
+
+
+def moe_forward(cfg, x: torch.Tensor, gate, wg, wu, wd,
+                compute_dtype) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """One MoE layer on x [B, S, H] with one layer's weights -> (y [B, S, H]
+    in x's dtype, router_f [E], router_p [E])."""
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    b, s, H = x.shape
+    T = b * s
+    xt = x.reshape(T, H)
+    probs = torch.softmax(xt.float() @ gate.float(), dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    if cfg.norm_topk_prob:
+        topw = topw / topw.sum(-1, keepdim=True)
+    router_f = F.one_hot(topi, E).float().sum(1).mean(0)
+    router_p = probs.mean(0)
+
+    C = capacity(cfg, T)
+    flat_e = topi.reshape(T * k)  # slot order (t0 s0), (t0 s1), (t1 s0)...
+    # each slot's position within its expert: the earlier slots routed there
+    oh = F.one_hot(flat_e, E)
+    pos = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1)
+    keep = pos < C
+    cd = compute_dtype
+    xk = xt.to(cd).repeat_interleave(k, 0) * keep[:, None].to(cd)
+    safe_pos = torch.where(keep, pos, C - 1)
+    buf = xk.new_zeros((E, C, H)).index_put_((flat_e, safe_pos), xk,
+                                             accumulate=True)
+    h = F.silu(torch.bmm(buf, wg.to(cd))) * torch.bmm(buf, wu.to(cd))
+    ye = torch.bmm(h, wd.to(cd))  # [E, C, H]
+    w = topw.reshape(T * k) * keep.float()
+    y = (ye[flat_e, safe_pos].float() * w[:, None]).reshape(T, k, H).sum(1)
+    return y.to(x.dtype).reshape(b, s, H), router_f, router_p
+
+
+class MoEMLP(Block):
+    """Every layer's sparse MLP, weights stacked [L, ...]; forward(x, l)
+    runs layer l's."""
+
+    def __init__(self, cfg, L: int, param_dtype=torch.float32,
+                 compute_dtype=torch.bfloat16, device=None):
+        super().__init__(param_dtype, device, stacked=True)
+        E, H = cfg.num_experts, cfg.hidden_size
+        Fi = cfg.moe_intermediate_size or cfg.intermediate_size
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self._alloc("gate", (L, H, E))
+        self._alloc("experts_gate_proj", (L, E, H, Fi))
+        self._alloc("experts_up_proj", (L, E, H, Fi))
+        self._alloc("experts_down_proj", (L, E, Fi, H))
+        # a list while collect_router_stats is open: (router_f, router_p)
+        # of each call, in call order
+        self.router_stats: Optional[List] = None
+
+    def forward(self, x, l: int):
+        y, f, p = moe_forward(
+            self.cfg, x, self.leaf("gate", l),
+            self.leaf("experts_gate_proj", l), self.leaf("experts_up_proj", l),
+            self.leaf("experts_down_proj", l), self.compute_dtype)
+        if self.router_stats is not None:
+            self.router_stats.append((f, p))
+        return y
+
+
+@contextlib.contextmanager
+def collect_router_stats(model):
+    """Within the block, every MoEMLP of `model` records its router
+    vectors. The yielded list is filled when the block ends: one
+    (router_f [n, E], router_p [n, E]) pair a MoE stack that ran, n its
+    layer calls, the input of router_aux_loss (the JAX `intermediates`
+    entries of the same forward)."""
+    stacks = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    for m in stacks:
+        m.router_stats = []
+    out: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    try:
+        yield out
+    finally:
+        for m in stacks:
+            rec, m.router_stats = m.router_stats, None
+            if rec:
+                out.append((torch.stack([f for f, _ in rec]),
+                            torch.stack([p for _, p in rec])))

@@ -13,12 +13,14 @@ reference takes the rest (decode steps, short prompts). RMSNorm takes its
 kernel at >= 2048 rows in the same way (`models.layers.RMSNorm`).
 
 Ported: Qwen2 (q/k/v bias, GQA, rope, SiLU MLP), Qwen3's per-head q/k
-RMSNorm, tied or untied heads, the sliding window (`sliding_window`: on
-the causal path every layer's attention sees keys at most that many
-slots back, flash-attn's left window, as in JAX). Not ported (they raise
-NotImplementedError): MoE layers, context parallelism, Phi3 longrope
-(`rope_cos_sin_su`), the Gemma family's options (plus-one RMSNorm,
-tanh-GELU MLP, embedding scale, softcap, query pre-attention scale).
+RMSNorm, Qwen3-MoE's sparse MLP (`num_experts > 0`: every layer's MLP is
+`models.moe.MoEMLP`), Phi3 longrope (`rope_short_factor` set:
+`ops.rope_cos_sin_su`), tied or untied heads, the sliding window
+(`sliding_window`: on the causal path every layer's attention sees keys
+at most that many slots back, flash-attn's left window, as in JAX). Not
+ported (they raise NotImplementedError): context parallelism, the Gemma
+family's options (plus-one RMSNorm, tanh-GELU MLP, embedding scale,
+softcap, query pre-attention scale).
 `remat=True` wraps each decoder layer in `torch.utils.checkpoint` when a
 gradient is being taken without a cache (the JAX `nn.remat` over the
 scanned layer), so the backward recomputes a layer's activations instead
@@ -43,6 +45,7 @@ from ..kernels import ops
 from ..kernels.flash_attention import attention_fn
 from .layers import (Dense, Embed, RMSNorm, gated_mlp, layer_slices,
                      w8a8_group)
+from .moe import MoEMLP
 
 
 class Qwen2Attention(nn.Module):
@@ -83,7 +86,8 @@ class Qwen2Layers(nn.Module):
         self.input_layernorm = RMSNorm(C, eps, (L,), pd, device)
         self.self_attn = Qwen2Attention(cfg, L, pd, cd, device)
         self.post_attention_layernorm = RMSNorm(C, eps, (L,), pd, device)
-        self.mlp = Qwen2MLP(cfg, L, pd, cd, device)
+        self.mlp = (MoEMLP(cfg, L, pd, cd, device) if cfg.num_experts > 0
+                    else Qwen2MLP(cfg, L, pd, cd, device))
 
     def forward(self, x, l, cos, sin, attend, cache: Optional[KVCache],
                 q_offset):
@@ -113,15 +117,12 @@ class Qwen2Model(nn.Module):
                  compute_dtype=torch.bfloat16, device=None,
                  remat: bool = False):
         super().__init__()
-        if cfg.num_experts > 0 or cfg.context_parallel_axis is not None:
-            raise NotImplementedError(
-                "MoE layers and context parallelism are not ported yet")
-        if (cfg.rope_short_factor is not None or cfg.rms_plus_one
-                or cfg.mlp_act != "silu" or cfg.embed_scale
+        if cfg.context_parallel_axis is not None:
+            raise NotImplementedError("context parallelism is not ported yet")
+        if (cfg.rms_plus_one or cfg.mlp_act != "silu" or cfg.embed_scale
                 or cfg.attn_softcap is not None
                 or cfg.query_pre_attn_scalar is not None):
-            raise NotImplementedError(
-                "Phi3 longrope and the Gemma options are not ported yet")
+            raise NotImplementedError("the Gemma options are not ported yet")
         self.cfg, self.compute_dtype, self.remat = cfg, compute_dtype, remat
         self.layers = Qwen2Layers(cfg, param_dtype, compute_dtype, device)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, (),
@@ -136,7 +137,14 @@ class Qwen2Model(nn.Module):
         dev = inputs_embeds.device
         if seg_ids is None:
             seg_ids = torch.ones((b, s), dtype=torch.int32, device=dev)
-        cos, sin = ops.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        if cfg.rope_short_factor is not None:
+            cos, sin = ops.rope_cos_sin_su(
+                positions, cfg.head_dim, cfg.rope_theta,
+                cfg.rope_short_factor, cfg.rope_long_factor,
+                cfg.original_max_position, cfg.max_position_embeddings)
+        else:
+            cos, sin = ops.rope_cos_sin(positions, cfg.head_dim,
+                                        cfg.rope_theta)
         kw = dict(causal=causal, impl=attn_impl,
                   window=cfg.sliding_window if causal else None)
         q_offset = 0

@@ -47,18 +47,27 @@ def _model_kwargs(batch):
 
 def make_sft_loss(model, moe_aux_coef: float = 0.0):
     """-> loss_fn(batch) for the VLM SFT step: the model's full logits and
-    weighted_ce_loss. The router loss of MoE backbones (moe_aux_coef > 0)
-    waits for models/moe.py."""
-    if moe_aux_coef > 0.0:
-        raise NotImplementedError(
-            "moe_aux_coef > 0: MoE backbones (models/moe.py) are not ported "
-            "yet")
+    weighted_ce_loss. moe_aux_coef > 0 adds moe_aux_coef x the router
+    load-balancing loss of each MoE stack (models/moe.router_aux_loss over
+    its layers' router vectors, summed over the stacks), as the JAX loss
+    adds it from the sown `intermediates`."""
 
-    def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(batch):
         logits, _, _ = model(batch["input_ids"], batch.get("pixel_values"),
                              batch.get("image_flags"), **_model_kwargs(batch))
         return weighted_ce_loss(logits, batch["labels"],
                                 batch.get("loss_weight"))
+
+    if moe_aux_coef <= 0.0:
+        return forward
+
+    from ..models.moe import collect_router_stats, router_aux_loss
+
+    def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with collect_router_stats(model) as stacks:
+            ce = forward(batch)
+        aux = sum(router_aux_loss(f, p) for f, p in stacks)
+        return ce + moe_aux_coef * aux
 
     return loss_fn
 

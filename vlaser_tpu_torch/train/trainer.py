@@ -9,9 +9,10 @@ JAX step's global norm does, and get no update (optax.set_to_zero). With
 `checkpoint_dir` it saves (utils/checkpoint.py) every `save_every` steps,
 when a preemption guard stops the loop, and after the last step, each
 with `data_state_fn()`. Steps are counted across `train` calls and a
-restore (`step`), as the schedule counts them. Still to port, and raising
+restore (`step`), as the schedule counts them. `moe_aux_coef` adds the MoE
+router loss (train/losses.make_sft_loss). Still to port, and raising
 NotImplementedError when asked for: meshes of more than one device (the
-parallel layouts) and the MoE router loss (models/moe.py).
+parallel layouts).
 
 `VLATrainer` (the flow-matching VLA): two optimizer groups with their own
 cosine-warmup-restarts schedules: "action" = the expert mixture, its final
