@@ -27,8 +27,11 @@ points (phases 35-37, right after 22), of the closed-loop evaluations
 (phases 38-39, right after 37), of the RoboTwin parallel-decoding VLA's
 training (phase 40, right after 26), of the dense families beyond
 Vlaser-2B (phases 41-43, right after 39: Vlaser-8B chat, InternVL3.5-2B,
-then the Vlaser-8B-VLA control step) and of the native image loader and
-the Qwen3-MoE family (phases 44-45, between 43 and 42) with random weights
+then the Vlaser-8B-VLA control step), of the native image loader and
+the Qwen3-MoE family (phases 44-45, between 43 and 42) and of the VLA's
+text head, its adaLN-Zero and vision-in-expert ablations, InternViT-6B and
+the graft entry's twin (phases 46-49, after 27-31, before the engine's
+profiled run) with random weights
 from seeded generators; each group's wall seconds are printed on a line of
 its own ("phase wall: ..."). The native image libraries
 (vlaser_tpu_torch/native, g++) build beside nvcc:
@@ -423,6 +426,47 @@ before them):
      flash at the prefill's shapes with controls; EngineChat.chat_many over
      4 text items at fp32 compute, capacity None, equal to the plain
      generator.
+The VLA's text head and ablations (random_init_'s draws):
+  46. Vlaser-2B-VLA with use_lm_head (a 151,930-row bf16 head): infer_text
+     (TEXT_NEW greedy tokens) and forward_vlm at B 1 and 8 over right-padded
+     384-slot prompts (256 image slots), on the bf16 tree, then on the w8a8
+     policy tree: the cached stream against teacher-forced forward_vlm
+     (tokens apart only at near-ties, DECODE_REL; on the w8a8 tree, whose
+     decode rows are weight-only and forward_vlm's w8a8, the stream is its
+     own teacher-forced logits' argmax, those logits within W8A8_STREAM_REL
+     of forward_vlm's, tokens apart only where the difference allows,
+     controls at B 8); the w8a8 ViT's 4 GEMMs and their quantizer at B 1
+     and 8 tiles' rows against the plain versions (gemm_phase); the forced
+     kernel route against the dispatch route on the teacher-forced cached
+     logits and forward_vlm (TEXT_ROUTE_REL; controls on the bf16 tree at
+     B 8: causal dropped, padding segments ignored); 3 counted kernel-route infer_text
+     calls on the w8a8 tree at each batch, launches held to the derived
+     counts; prefill and per-token ms, tok/s, peak memory; flash at the
+     B 8 prefill and one-row decode shapes against its plain version;
+  47. Vlaser-2B-VLA with adaLN-Zero (time_hidden_size 256) and
+     vision-in-expert, fp32 parameters, bf16 compute, remat: B 1
+     infer_action against infer_action_naive (PARITY_TOL; controls: the
+     suffix's adaLN condition dropped, the action positions not shifted
+     past the expert image); one loss and
+     backward whose gradients on the VLM-side tower and mlp1 are exactly 0;
+     2 counted VLATrainer steps at B 32 (halved on out-of-memory, printed)
+     with the derived counts, step ms, peak memory; the w8a8 serving tree
+     (the gates' raw kernels int8): B 1 infer_action against the naive
+     oracle (the same controls) and 3 counted calls, the expert's 7 GEMMs
+     and its quantizers at its 257 prefix rows against the plain versions;
+     flash at the joint B 32 x 645 and RMSNorm
+     at the expert's rows against their plain versions (plain adaLN is held
+     on the CPU only, tests/test_torch_vla_variants.py);
+  48. InternViT-6B (45 layers x 3,200, 25 x 128; bf16): 13 tiles through
+     the layer loop, 3 counted calls (flash by the dispatch rule), ms and
+     TFLOP/s against the bf16 peak, peak memory; the flash route against
+     the eager reference at B 1 and 13 (PREFILL_REL of the change;
+     controls: attention scale dropped, attention dropped); flash at the 6B shape against its
+     plain version;
+  49. graft_entry.entry() once (actions [1, 4, 7], finite) and 100,000
+     Beta(2, 3) flow times drawn on the card's generator (KS distance).
+Every profiler session records device activity only (host ops made the
+trace's post-processing the bulk of the engine's profiled run, last).
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -1120,17 +1164,19 @@ def _gemm_sites(att, mlp):
 QUANT_SITES = ("q_proj", "o_proj", "gate_proj")
 
 
-def gemm_phase(torch, sites, rows_list, dev, tag, silu_mul=True):
+def gemm_phase(torch, sites, rows_list, dev, tag, silu_mul=True,
+               quant_sites=QUANT_SITES):
     """K1 (quantize_rows) and K2 (int8_gemm) at one layer's 7 GEMM shapes
     (layer 0's int8 weights of `sites`) for each row count, against the
     plain versions, with controls; timed against the plain versions and
     torch._int_mm, each K1 call on inputs cycled through COLD_BYTES
     (_cold_ms). Each report's ms, plain_ms and bound_ms sum the 7 shapes
-    (as in every run since the port began); K1's "main_path" sums the 3
-    inputs the main path quantizes with it (QUANT_SITES). Then the layer's
+    (as in every run since the port began); K1's "main_path" sums the
+    inputs the main path quantizes with it (`quant_sites`: a Qwen2 layer's
+    3, an InternViT layer's 4). Then the layer's
     4-launch quantization and K3 (quantize_silu_mul, layer_quant_phase),
-    unless `silu_mul` is False (a layer without a dense MLP: `sites` its 4
-    attention GEMMs, K3 None). -> {rows: (K1, K2, K3 reports)}."""
+    unless `silu_mul` is False (a layer without a dense SiLU MLP: `sites`
+    its GEMMs, K3 None). -> {rows: (K1, K2, K3 reports)}."""
     from vlaser_tpu_torch.kernels import w8a8
 
     g = torch.Generator(device=dev)
@@ -1140,7 +1186,7 @@ def gemm_phase(torch, sites, rows_list, dev, tag, silu_mul=True):
         # sums over the 7 shapes; "by": bound ms per bounding resource
         k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "by": {}, "library_ms": None}
-        main = {"inputs": sum(n in QUANT_SITES for n, _ in sites),
+        main = {"inputs": sum(n in quant_sites for n, _ in sites),
                 "ms": 0.0, "plain_ms": 0.0,
                 "bound_ms": 0.0}
         k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1180,7 +1226,7 @@ def gemm_phase(torch, sites, rows_list, dev, tag, silu_mul=True):
                        p_q, p_am, kq, torch.ones_like(ks)) - y).abs()}
             for c in ("row scale dropped", "column scale dropped"):
                 brk[c] = int((brk[c] > ONE_ROUNDING * p_y.abs()).sum())
-            if rows == rows_list[0] and name == "q_proj":
+            if rows == rows_list[0] and name == sites[0][0]:
                 print(f"  controls, elements breaking the check (must be > "
                       f"0): {brk}", flush=True)
             if min(brk.values()) == 0:
@@ -1209,7 +1255,7 @@ def gemm_phase(torch, sites, rows_list, dev, tag, silu_mul=True):
             b1_ms, b1_by = _bound_s(0, rows * K * 3 + rows * 4)
             b2_ms, b2_by = _bound(2 * rows * K * N, rows * K + K * N + N * 4
                                   + rows * 4 + rows * N * 2, PEAK_INT8)
-            if name in QUANT_SITES:
+            if name in quant_sites:
                 main["ms"] += t1
                 main["plain_ms"] += p1
                 main["bound_ms"] += b1_ms
@@ -3779,14 +3825,23 @@ def engine_profile_phase(torch, np, dev, cfg, tag, report):
     from vlaser_tpu_torch.serve.engine import ContinuousBatchingEngine, \
         Request
 
+    t0 = time.perf_counter()
     model = quantize_for_serving(_chat_model(torch, dev, cfg, 1))
     engine = ContinuousBatchingEngine(model, prefill_buckets=ENGINE_BUCKETS,
                                       **ENGINE_KW)
     reqs = _engine_requests(np, cfg, Request)
+    t1 = time.perf_counter()
     with torch.inference_mode():
         engine.run(reqs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
         prof = _profile(torch, lambda: engine.run(reqs),
                         "engine run (16 requests)", tag)
+    t3 = time.perf_counter()
+    print(f"engine profile phase: build {t1 - t0:.1f} s, warm run "
+          f"{t2 - t1:.1f} s, profiled run {prof['wall'] / 1e3:.1f} s, the "
+          f"profiler's own work {t3 - t2 - prof['wall'] / 1e3:.1f} s {tag}",
+          flush=True)
     report["engine"]["engine"]["profiled_busy_ms"] = prof["busy"]
     del engine, model
     gc.collect()
@@ -8343,6 +8398,878 @@ def moe_chat_phase(torch, np, dev, tag, extra, tiles_np):
     return launches
 
 
+# -- the VLA's text head, adaLN-Zero with vision-in-expert, InternViT-6B and
+# the graft entry: phases 46-49 ---------------------------------------------
+TEXT_NEW = 32  # phase 46: infer_text's new tokens
+TEXT_TAIL = 3  # phase 46: row r's prompt holds 44 - 3 r text tokens
+# phase 46: the kernel route vs the dispatch route, x max |logits|: on the
+# bf16 tree the two part by 2.0-3.0% (an H100 80GB HBM3 at 700 W); on the
+# w8a8 tree the int8 activations after them take it to 7.8-9.9%
+TEXT_ROUTE_REL = {"bf16": 0.1, "w8a8": PREFILL_REL}
+# phase 46: the w8a8 tree's cached logits (weight-only decode rows) vs
+# forward_vlm's (w8a8 rows), x max |forward_vlm logits|: they part by
+# 6.7-7.2% (an H100 80GB HBM3 at 700 W), the cached route with causality
+# dropped by 23%
+W8A8_STREAM_REL = 0.12
+ADA_B = 32  # phase 47: the train batch (cut on out-of-memory, printed)
+VIT6B_TILES = 13
+BETA_DRAWS = 100_000
+KS_CRIT = 1.95  # Kolmogorov-Smirnov: sqrt(n) D below this at the 0.1% level
+
+
+def _auto_flash(b, sq, skv, h):
+    """kernels/flash_attention.attention_fn's "auto" rule on the card."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+
+    return sq >= fa.SQ_MIN or b * h * sq * skv * 4 > fa.LOGITS_BYTES_MIN
+
+
+def _w8a8_want(rows_layers):
+    """Launches of the w8a8 route over (rows, ViT layers, mixture layers)
+    call sites: a ViT layer's 4 Dense quantize their own rows (4
+    quantize_rows, 4 int8_gemm); a mixture layer shares q/k/v's and
+    gate/up's rows and quantizes silu(g) * u in one kernel (3 quantize_rows,
+    1 quantize_silu_mul, 7 int8_gemm); only sites of at least
+    ACT_QUANT_MIN_ROWS rows."""
+    from vlaser_tpu_torch.models.layers import ACT_QUANT_MIN_ROWS
+
+    want = {"quantize_rows": 0, "quantize_silu_mul": 0, "int8_gemm": 0}
+    for rows, vit, mix in rows_layers:
+        if rows >= ACT_QUANT_MIN_ROWS:
+            want["quantize_rows"] += 4 * vit + 3 * mix
+            want["quantize_silu_mul"] += mix
+            want["int8_gemm"] += 4 * vit + 7 * mix
+    return want
+
+
+def _text_batch(torch, dev, cfg, B, seed):
+    """B right-padded prompts of cfg.max_image_text_tokens slots: the
+    num_image_token image slots first, then row r's 44 - TEXT_TAIL r text
+    tokens (the JAX entry's layout: 300 of 384 slots valid in row 0); one
+    tile a row. -> (ids, pixels, mask)."""
+    S, n_img = cfg.max_image_text_tokens, cfg.vlm.num_image_token
+    img = cfg.vlm.vision.image_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ids = torch.full((B, S), cfg.vlm.pad_token_id, dtype=torch.long,
+                     device=dev)
+    ids[:, :n_img] = cfg.vlm.img_context_token_id
+    mask = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for r in range(B):
+        n = n_img + 44 - TEXT_TAIL * r
+        ids[r, n_img:n] = torch.randint(100, 1100, (n - n_img,), generator=g,
+                                        device=dev)
+        mask[r, :n] = 1
+    return ids, torch.rand((B, img, img, 3), generator=g, device=dev), mask
+
+
+def _cached_text_logits(torch, model, ids, px, mask, stream):
+    """infer_text's computation teacher-forced on `stream` [B, NEW]: the
+    prefill's logits, then text_step's on stream[:, i] for i < NEW - 1.
+    -> [B, NEW, vocab] fp32."""
+    new = stream.shape[1]
+    with torch.inference_mode():
+        logits, state = model.text_prefill(ids, px, mask, new)
+        rows = [logits]
+        for i in range(new - 1):
+            rows.append(model.text_step(stream[:, i], i, state))
+        return torch.stack(rows, 1)
+
+
+def _forced_stream(torch, model, ids, px, mask, stream):
+    """forward_vlm over each row's valid prompt tokens followed by `stream`
+    (right-padded to one length): -> the logits [B, NEW, vocab] fp32 at the
+    positions that predict the stream's tokens."""
+    b, new = stream.shape
+    n = mask.sum(1)
+    full = torch.full((b, ids.shape[1] + new), 0, dtype=ids.dtype,
+                      device=ids.device)
+    fmask = torch.zeros_like(full, dtype=torch.int32)
+    for r in range(b):
+        k = int(n[r])
+        full[r, :k], full[r, k:k + new] = ids[r, :k], stream[r]
+        fmask[r, :k + new] = 1
+    with torch.inference_mode():
+        logits = model.forward_vlm(full, px, fmask)
+    idx = (n[:, None] - 1 + torch.arange(new, device=ids.device)[None])
+    return logits[torch.arange(b, device=ids.device)[:, None], idx]
+
+
+@contextmanager
+def _joint_attention(torch, **over):
+    """Within: the joint stack's attention built with `over` forced (a
+    control: causal=False, or segments all ones)."""
+    from vlaser_tpu_torch.policy import joint
+
+    orig = joint.attention_fn
+
+    def forced(*a, **kw):
+        if over.get("segments") == "ones":
+            kw["q_segment_ids"] = None
+            kw["kv_segment_ids"] = None
+        if "causal" in over:
+            kw["causal"] = over["causal"]
+        return orig(*a, **kw)
+
+    joint.attention_fn = forced
+    try:
+        yield
+    finally:
+        joint.attention_fn = orig
+
+
+def _stream_gate(torch, what, stream, forced, tag):
+    """The cached greedy stream against the argmax of the teacher-forced
+    logits: a token may differ only where the forced top-2 margin is within
+    DECODE_REL x max |logits| (a near-tie). -> tokens compared."""
+    checked, bad = 0, []
+    for r in range(stream.shape[0]):
+        for i in range(stream.shape[1]):
+            row = forced[r, i]
+            margin, bound = _margin(row)
+            if margin > bound:
+                checked += 1
+            if int(row.argmax()) != int(stream[r, i]) and margin > bound:
+                bad.append((r, i, margin, bound))
+    print(f"{what}: cached greedy stream vs teacher-forced forward_vlm "
+          f"argmax: {checked} of {stream.numel()} tokens outside a near-tie, "
+          f"{len(bad)} of them differ {tag}", flush=True)
+    if bad:
+        raise RuntimeError(f"{what}: the cached stream differs from "
+                           f"forward_vlm outside a near-tie: {bad[:4]}")
+    return checked
+
+
+def _w8a8_stream_gate(torch, model, what, ids, px, mask, stream, forced,
+                      tag, controls):
+    """The w8a8 tree's cached greedy stream. Its decode rows (B a step)
+    take the Dense's weight-only route and forward_vlm's rows the int8-
+    activation one (two quantizations, as in JAX), so the oracle is
+    bounded, not argmax-equal: the logits of the stream's own computation
+    teacher-forced on it (_cached_text_logits) must give the stream as
+    their argmax (near-ties within DECODE_REL aside) and lie within
+    W8A8_STREAM_REL x max |forced| of forward_vlm's (`forced`); a token may
+    leave forward_vlm's argmax only where forward_vlm's top-2 margin is
+    within twice that token's largest logit difference. Controls (causal
+    dropped, padding segments ignored, in the cached computation) must
+    break the bound. -> the largest difference over the bound."""
+    cached = _cached_text_logits(torch, model, ids, px, mask, stream)
+    bound = W8A8_STREAM_REL * forced.abs().max().item()
+    diff = (cached - forced).abs().amax(-1)  # [B, NEW]
+    err = diff.max().item()
+    wiring, apart, checked = [], [], 0
+    for r in range(stream.shape[0]):
+        for i in range(stream.shape[1]):
+            c, f, tok = cached[r, i], forced[r, i], int(stream[r, i])
+            margin, tie = _margin(c)
+            if int(c.argmax()) != tok and margin > tie:
+                wiring.append((r, i))
+            top2 = f.float().topk(2).values
+            m_f, d = (top2[0] - top2[1]).item(), diff[r, i].item()
+            if m_f > 2 * d:
+                checked += 1
+                if int(f.argmax()) != tok:
+                    apart.append((r, i, m_f, d))
+    print(f"{what}: the cached stream is its teacher-forced logits' argmax "
+          f"at all but {len(wiring)} tokens outside a near-tie; those logits "
+          f"vs forward_vlm's: max_abs_err {err:.4g} (bound {bound:.4g}, "
+          f"{W8A8_STREAM_REL} x max |logits|); {checked} of {stream.numel()} "
+          f"tokens' forward_vlm margin beyond twice their difference, "
+          f"{len(apart)} of them leave forward_vlm's argmax {tag}",
+          flush=True)
+    if wiring or apart or not (err <= bound and cached.isfinite().all()):
+        raise RuntimeError(f"{what}: the w8a8 cached stream leaves its "
+                           f"oracles: {wiring[:4]} {apart[:4]} {err:.4g}")
+    if controls:
+        for name, over in (("causal dropped", dict(causal=False)),
+                           ("padding segments ignored",
+                            dict(segments="ones"))):
+            with _joint_attention(torch, **over):
+                c = _cached_text_logits(torch, model, ids, px, mask, stream)
+            ratio = (c - forced).abs().max().item() / bound
+            print(f"  control '{name}': {ratio:.2f} x the bound (must "
+                  f"exceed 1)", flush=True)
+            if not ratio > 1:
+                raise RuntimeError(f"{what}: the bound cannot see '{name}'")
+    return err / bound
+
+
+def _route_gate(torch, model, what, ids, px, mask, stream, tag, rel,
+                controls=True):
+    """The forced kernel route (flash fwd in the ViT, at the prefill and at
+    every one-row decode step, scalar q_offset) against the dispatch route
+    (the eager reference at these sizes, as in JAX) on the teacher-forced
+    cached logits and on forward_vlm's valid rows: max |kernel - dispatch|
+    within rel x max |dispatch| (two bf16 routes through the ViT and 28
+    random layers part by a few % of max, more where int8 activations
+    follow them: the flash kernel itself is held tightly at these shapes by
+    _flash_case); controls (causal dropped, padding segments ignored) must
+    break one of the two bounds."""
+    def run():
+        with torch.inference_mode():
+            return (_cached_text_logits(torch, model, ids, px, mask, stream),
+                    model.forward_vlm(ids, px, mask)[mask.bool()])
+
+    ref = run()
+    model.set_attn_impl("kernel")
+    try:
+        got = run()
+        ctrl = {}
+        if controls:
+            for name, over in (("causal dropped", dict(causal=False)),
+                               ("padding segments ignored",
+                                dict(segments="ones"))):
+                with _joint_attention(torch, **over):
+                    ctrl[name] = run()
+    finally:
+        model.set_attn_impl("auto")
+    bounds = [rel * r.abs().max().item() for r in ref]
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    print(f"{what}: kernel route vs dispatch: cached logits max_abs_err "
+          f"{errs[0]:.4g} (bound {bounds[0]:.4g}), forward_vlm "
+          f"{errs[1]:.4g} (bound {bounds[1]:.4g}) {tag}", flush=True)
+    if not (all(e <= b for e, b in zip(errs, bounds))
+            and all(g.isfinite().all() for g in got)):
+        raise RuntimeError(f"{what}: the kernel route disagrees")
+    for name, c in ctrl.items():
+        ratio = max((x - r).abs().max().item() / b
+                    for x, r, b in zip(c, ref, bounds))
+        print(f"  control '{name}': {ratio:.2f} x the bound (must exceed "
+              f"1)", flush=True)
+        if not ratio > 1:
+            raise RuntimeError(f"{what}: the bound cannot see '{name}'")
+    return max(e / b for e, b in zip(errs, bounds))
+
+
+def vla_text_phase(torch, np, dev, tag, extra):
+    """Phase 46, the VLA's text head at full width: Vlaser-2B-VLA with
+    use_lm_head (28 layers x 1,536, a 151,930-row head), random_init_'s
+    draws; forward_vlm and infer_text (TEXT_NEW greedy tokens, no EOS) at
+    batch 1 and 8 over right-padded 384-slot prompts (256 image slots),
+    first on the bf16 tree, then on quantize_for_serving(target="policy")'s
+    w8a8 tree (the head stays bf16). Gates: the cached stream against
+    teacher-forced forward_vlm (near-ties only on the bf16 tree; on the
+    w8a8 tree _w8a8_stream_gate, controls at batch 8), the forced kernel
+    route against the dispatch route on each (TEXT_ROUTE_REL; controls on
+    the bf16 tree at batch 8); the w8a8 tree's ViT GEMMs and quantizer
+    against the plain versions at both batches' rows (gemm_phase). The main path: infer_text on the w8a8 tree under the forced kernel
+    route, counted from 0 and held to the derived counts. Flash at the
+    prefill and decode shapes against the plain version (_flash_case).
+    -> launches of the main path."""
+    import dataclasses
+
+    from vlaser_tpu_torch.core.config import vlaser_2b_vla
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
+
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(vlaser_2b_vla(), use_lm_head=True)
+    llm, S = cfg.vlm.llm, cfg.max_image_text_tokens
+    L, n_vit = llm.num_layers, cfg.vlm.vision.num_layers
+    s_vit = cfg.vlm.vision.seq_len
+    bf = torch.bfloat16
+    model = PiZeroVLA(cfg, param_dtype=bf, compute_dtype=bf, device=dev)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(46)
+    random_init_(model, gen)
+    print(f"VLA text head model: Vlaser-2B-VLA + lm_head "
+          f"{tuple(model.lm_head.kernel.shape)}, bf16, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    batches = {B: _text_batch(torch, dev, cfg, B, 46 + B) for B in (1, B8)}
+    launches, rep = {}, {}
+    for tree in ("bf16", "w8a8"):
+        if tree == "w8a8":
+            quantize_for_serving(model, target="policy")
+            # the quantized ViT's 4 Dense at the B 1 and B 8 tiles' rows
+            # (phase 47's two towers run the B 1 shapes)
+            enc = model.vision_model.encoder
+            vit_sites = (("qkv", enc.attn.qkv), ("proj", enc.attn.proj),
+                         ("fc1", enc.mlp.fc1), ("fc2", enc.mlp.fc2))
+            for rows, (k1, k2, _) in gemm_phase(
+                    torch, vit_sites, (s_vit, B8 * s_vit), dev, tag,
+                    silu_mul=False,
+                    quant_sites=[n for n, _ in vit_sites]).items():
+                extra["quantize_rows"][f"vla_text_vit_{rows}"] = k1
+                extra["int8_gemm"][f"vla_text_vit_{rows}"] = k2
+        for B, (ids, px, mask) in batches.items():
+            what = f"VLA text {tree} B={B}"
+            with torch.inference_mode():
+                stream = model.infer_text(ids, px, mask, TEXT_NEW,
+                                          eos_token_id=-1)
+            forced = _forced_stream(torch, model, ids, px, mask, stream)
+            if tree == "bf16":
+                _stream_gate(torch, what, stream, forced, tag)
+            else:
+                rep[f"w8a8_b{B}_stream_err_over_bound"] = _w8a8_stream_gate(
+                    torch, model, what, ids, px, mask, stream, forced, tag,
+                    controls=(B == B8))
+            del forced
+            ratio = _route_gate(torch, model, what, ids, px, mask, stream,
+                                tag, TEXT_ROUTE_REL[tree],
+                                controls=(tree == "bf16" and B == B8))
+            rep[f"{tree}_b{B}_route_err_over_bound"] = ratio
+            if tree != "w8a8":
+                continue
+            # the main path: the forced kernel route, counted from 0
+            model.set_attn_impl("kernel")
+            try:
+                run = lambda: model.infer_text(ids, px, mask, TEXT_NEW,
+                                               eos_token_id=-1)
+                got, times, out, _ = _counted_calls(
+                    torch, run, f"{what} infer_text (kernel route)", tag)
+                if not torch.equal(out, stream):
+                    print(f"  {what}: the kernel route's stream differs "
+                          f"from the dispatch route's at "
+                          f"{int((out != stream).sum())} tokens "
+                          f"(held by the route gate above)", flush=True)
+                # the forced route: every attention is flash (the ViT's,
+                # the prefill's and each decode step's); the prefill's rows
+                # take w8a8 and RMSNorm by their thresholds, the decode
+                # rows (B) neither
+                want = {"flash_attention_fwd": n_vit + L * TEXT_NEW,
+                        **_w8a8_want([(B * s_vit, n_vit, 0),
+                                      (B * S, 0, L)])}
+                vc = cfg.vlm.vision
+                want["_rms_fwd"] = (
+                    (2 * L + 1) * (B * S >= rmsnorm.MIN_ROWS)
+                    + 2 * n_vit * (vc.qk_normalization  # not the 300M's
+                                   and B * s_vit >= rmsnorm.MIN_ROWS
+                                   and vc.hidden_size <= rmsnorm.MAX_HIDDEN))
+                want = {k: STEPS * v for k, v in want.items() if v}
+                print(f"  derived {want}", flush=True)
+                if got != want:
+                    raise RuntimeError(f"{what} launches {got} != {want}")
+                _add(launches, got)
+                torch.cuda.reset_peak_memory_stats()
+                with torch.inference_mode():
+                    pre_ms = _ms(torch, lambda: model.infer_text(
+                        ids, px, mask, 1, eos_token_id=-1), 3)
+                    all_ms = _ms(torch, run, 3)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                model.set_attn_impl("auto")
+            tok_ms = (all_ms - pre_ms) / (TEXT_NEW - 1)
+            rep[f"w8a8_b{B}"] = dict(prefill_ms=pre_ms, token_ms=tok_ms,
+                                     tok_s=1e3 * B * TEXT_NEW / all_ms,
+                                     peak_gib=peak)
+            print(f"{what} (kernel route, CUDA events): prefill + first "
+                  f"token {pre_ms:.2f} ms, {tok_ms:.3f} ms a token, "
+                  f"infer_text {all_ms:.1f} ms -> "
+                  f"{1e3 * B * TEXT_NEW / all_ms:.1f} tok/s ({B} x "
+                  f"{TEXT_NEW}); peak device memory {peak:.2f} GiB {tag}",
+                  flush=True)
+        if tree == "bf16":
+            ids, px, mask = batches[B8]
+            with torch.inference_mode():
+                run = lambda: model.infer_text(ids, px, mask, TEXT_NEW,
+                                               eos_token_id=-1)
+                pre_ms = _ms(torch, lambda: model.infer_text(
+                    ids, px, mask, 1, eos_token_id=-1), 3)
+                all_ms = _ms(torch, run, 3)
+            rep["bf16_b8"] = dict(prefill_ms=pre_ms,
+                                  token_ms=(all_ms - pre_ms) / (TEXT_NEW - 1),
+                                  tok_s=1e3 * B8 * TEXT_NEW / all_ms)
+            print(f"VLA text bf16 B={B8} (dispatch route, CUDA events): "
+                  f"prefill + first token {pre_ms:.2f} ms, "
+                  f"{rep['bf16_b8']['token_ms']:.3f} ms a token, "
+                  f"{rep['bf16_b8']['tok_s']:.1f} tok/s {tag}", flush=True)
+    del model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # flash at the text head's shapes: the batch-8 prefill (causal over the
+    # 416-slot buffer, the padded tails and the decode slots masked) and
+    # one decode row at slot S + NEW / 2 (a group of 6 q heads a kv head
+    # packed into one tile)
+    g = torch.Generator(device=dev)
+    g.manual_seed(46)
+    i32 = dict(dtype=torch.int32, device=dev)
+    total = S + TEXT_NEW
+    _, _, mask8 = _text_batch(torch, dev, cfg, B8, 46 + B8)
+    off = S + TEXT_NEW // 2
+    kv_pre = torch.cat([mask8, torch.zeros(B8, TEXT_NEW, **i32)], 1)
+    kv_dec = kv_pre.clone()
+    kv_dec[:, S:] = 1  # every decode slot live: causality alone hides
+    # the slots past the query's (its controls: causal, q_offset dropped)
+    H, KVH, D = llm.num_heads, llm.num_kv_heads, llm.head_dim
+    # the prefill's query rows all live here: its pad rows (segment 0 on
+    # the path) then attend the pad keys that causality lets them see, so
+    # that the 'padding keys unmasked' control has something to break
+    for name, sq, q_seg, kv, o in (
+            ("text prefill", S, torch.ones(B8, S, **i32), kv_pre, 0),
+            ("text decode", 1, torch.ones(B8, 1, **i32), kv_dec, off)):
+        t_fwd, _ = _flash_case(torch, dev, g, tag, name, B8, sq, total, H,
+                               KVH, D, q_seg, None, kv, None, causal=True,
+                               off=o)
+        extra["flash_attention_fwd"][name.replace(" ", "_")] = t_fwd
+    extra["flash_attention_fwd"]["vla_text"] = rep
+    return launches
+
+
+@contextmanager
+def _suffix_without_cond(model):
+    """Within: the joint stack's cached suffix runs without its adaLN
+    condition (a control: plain norms, no gates)."""
+    orig = model.joint.forward
+
+    def forward(mode, *args):
+        return orig(mode, *(args[:9] if mode == "suffix" else args))
+
+    model.joint.forward = forward
+    try:
+        yield
+    finally:
+        del model.joint.forward
+
+
+@contextmanager
+def _actions_unshifted(model):
+    """Within: the action rows' rope positions ignore the expert image rows
+    ahead of them (a control)."""
+    orig, n = model._positions, model._n_expert_img
+
+    def positions(b, device):
+        vlm, pro, act = orig(b, device)
+        return vlm, pro, act - n
+
+    model._positions = positions
+    try:
+        yield
+    finally:
+        del model._positions
+
+
+def ada_vie_phase(torch, np, dev, tag, extra):
+    """Phase 47, adaLN-Zero with vision-in-expert at full width:
+    Vlaser-2B-VLA with adaptive_mode "adaln_zero", time_hidden_size 256 and
+    the second vision tower, fp32 parameters, bf16 compute, remat,
+    random_init_'s draws. Batch-1 infer_action against infer_action_naive
+    (<= PARITY_TOL; controls: the suffix's adaLN condition dropped, the
+    action positions unshifted); one loss + backward whose gradients on the VLM-side
+    tower and its mlp1 must be exactly 0 (None counts as 0) and on the
+    expert tower nonzero; 2 VLATrainer steps at batch ADA_B (halved on
+    out-of-memory, the cut printed), counted and held to the derived
+    counts; then quantize_for_serving(target="policy") (w8a8: the adaLN-Zero
+    gates' raw kernels int8, which the JAX package cannot serve) and a
+    counted batch-1 infer_action against infer_action_naive on that tree,
+    the expert's GEMMs at its prefix rows against the plain versions.
+    Flash at the joint shape and RMSNorm at the expert's rows against the
+    plain versions. -> launches of the counted runs."""
+    import dataclasses
+
+    from vlaser_tpu_torch.core.config import vlaser_2b_vla
+    from vlaser_tpu_torch.core.quant import quantize_for_serving
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
+    from vlaser_tpu_torch.train.trainer import VLATrainConfig, VLATrainer
+
+    from vlaser_tpu_torch.kernels import rmsnorm
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(vlaser_2b_vla(), adaptive_mode="adaln_zero",
+                              time_hidden_size=256, vision_in_expert=True)
+    L, n_vit = cfg.vlm.llm.num_layers, cfg.vlm.vision.num_layers
+    n_img = cfg.vlm.num_image_token
+    vc, llm, S_it = cfg.vlm.vision, cfg.vlm.llm, cfg.max_image_text_tokens
+    H, n_a = llm.num_heads, cfg.num_action_tokens
+    n_p = n_img + cfg.num_proprio_tokens
+    model = PiZeroVLA(cfg, param_dtype=torch.float32,
+                      compute_dtype=torch.bfloat16, device=dev, remat=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    random_init_(model, gen)
+    n_param = sum(p.numel() for p in model.parameters())
+    print(f"adaLN-Zero + vision-in-expert model: {n_param / 1e9:.3f} G "
+          f"parameters (fp32), {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB on device, {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    b1 = _train_batch(torch, np, dev, cfg, 1)
+    noise = torch.randn((1, cfg.num_action_tokens, cfg.action_dim),
+                        generator=gen, device=dev)
+    in1 = [b1[k] for k in ("input_ids", "pixel_values", "text_mask",
+                           "proprios")] + [noise]
+
+    def cached_vs_naive(what):
+        with torch.inference_mode():
+            a = model.infer_action(*in1)
+            n = model.infer_action_naive(*in1)
+        d, top = (a - n).abs().max().item(), n.abs().max().item()
+        print(f"adaLN-Zero + VIE {what}: infer_action vs infer_action_naive, "
+              f"batch 1: max_abs_diff {d:.3e} (bound {PARITY_TOL}: "
+              f"{PARITY_TOL / top:.2e} x max |actions| {top:.4f}), finite "
+              f"{bool(a.isfinite().all())} {tag}", flush=True)
+        if not (d <= PARITY_TOL and a.isfinite().all()
+                and a.shape == (1, cfg.horizon_steps, cfg.action_dim)):
+            raise RuntimeError(f"adaLN-Zero + VIE {what}: cached vs naive")
+        # controls, in the cached route only: each must break the bound
+        for name, fault in (("adaLN cond dropped in the suffix",
+                             _suffix_without_cond),
+                            ("action positions not shifted past the "
+                             "expert image", _actions_unshifted)):
+            with fault(model), torch.inference_mode():
+                c = model.infer_action(*in1)
+            ratio = (c - n).abs().max().item() / PARITY_TOL
+            print(f"  control '{name}': {ratio:.2f} x the bound (must "
+                  f"exceed 1)", flush=True)
+            if not ratio > 1:
+                raise RuntimeError(f"adaLN-Zero + VIE {what}: the bound "
+                                   f"cannot see '{name}'")
+        return a
+
+    a_float = cached_vs_naive("float tree")
+
+    # -- training: the gradient check, then the counted trainer steps -------
+    B = ADA_B
+    while True:
+        try:
+            batch = _train_batch(torch, np, dev, cfg, B)
+            trainer = VLATrainer(model, VLATrainConfig(), generator=gen)
+            t = torch.rand((B,), generator=gen, device=dev) * 0.999
+            x0 = torch.randn((B, cfg.num_action_tokens, cfg.action_dim),
+                             generator=gen, device=dev)
+            model.zero_grad(set_to_none=True)
+            loss = model(*[batch[k] for k in (
+                "input_ids", "pixel_values", "text_mask", "proprios",
+                "actions")], t, x0)
+            loss.backward()
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            trainer = batch = loss = None
+            model.zero_grad(set_to_none=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if B == 1:
+                raise
+            print(f"adaLN-Zero + VIE train: batch {B} exceeds the card; "
+                  f"halved (a cut of ADA_B {ADA_B})", flush=True)
+            B //= 2
+    zero = lambda mod: all(p.grad is None or not p.grad.any()
+                           for p in mod.parameters())
+    vlm_zero = zero(model.vision_model) and zero(model.mlp1)
+    tower = [p.grad for p in model.vision_model_expert.parameters()]
+    tower_ok = all(g_ is not None and g_.isfinite().all() for g_ in tower) \
+        and any(g_.any() for g_ in tower)
+    print(f"adaLN-Zero + VIE gradients (batch {B}, loss {loss.item():.5f}): "
+          f"the VLM-side tower and mlp1 exactly 0: {vlm_zero}; the expert "
+          f"tower finite and nonzero: {tower_ok} {tag}", flush=True)
+    if not (vlm_zero and tower_ok and math.isfinite(loss.item())):
+        raise RuntimeError("adaLN-Zero + VIE: the gradient check failed")
+    del loss, tower
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times, losses = [], []
+    for _ in range(2):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        m = trainer.train_steps(iter([batch]), 1)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # derived from the code, a step: the VLM-side ViT runs its flash forward
+    # once (its features are detached: no backward reaches it, so remat
+    # never recomputes it); the expert tower and every joint layer run one
+    # forward, one remat recompute and one backward. RMSNorm: each joint
+    # layer's 2 VLM norms (B x 384 rows) and 2 expert norms (B x 261 rows;
+    # the plain norm runs on every row, adaLN's is eager) forward twice,
+    # plus vlm_norm and expert_norm; backward on all but the VLM's last
+    # post-attention norm and vlm_norm, which never reach the loss
+    S_e = n_p + n_a
+    vit = n_vit * _auto_flash(B, vc.seq_len, vc.seq_len, vc.num_heads)
+    jnt = L * _auto_flash(B, S_it + S_e, S_it + S_e, H)
+    vlm_rms = B * S_it >= rmsnorm.MIN_ROWS
+    exp_rms = B * S_e >= rmsnorm.MIN_ROWS
+    # a ViT with q/k norms (not the 300M) runs 2 a layer in its 3 forward
+    # passes and in the expert tower's backward
+    vit_rms = 2 * n_vit * (vc.qk_normalization and B * vc.seq_len
+                           >= rmsnorm.MIN_ROWS
+                           and vc.hidden_size <= rmsnorm.MAX_HIDDEN)
+    want = {"flash_attention_fwd": 2 * (vit + 2 * (vit + jnt)),
+            "flash_attention_bwd": 2 * (vit + jnt),
+            "_rms_fwd": 2 * ((vlm_rms + exp_rms) * (4 * L + 1)
+                             + 3 * vit_rms),
+            "_rms_bwd": 2 * (vlm_rms * (2 * L - 1) + exp_rms * (2 * L + 1)
+                             + vit_rms)}
+    want = {k: v for k, v in want.items() if v}
+    print(f"adaLN-Zero + VIE train: 2 VLATrainer steps at batch {B}, losses "
+          f"{[round(v, 5) for v in losses]}, step ms "
+          f"{[round(v, 1) for v in times]} (CUDA events), peak device "
+          f"memory {peak:.2f} GiB; launches {got} (derived {want}) {tag}",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError("adaLN-Zero + VIE train: non-finite loss")
+    if got != want:
+        raise RuntimeError(f"adaLN-Zero + VIE train launches {got} != {want}")
+    launches = dict(got)
+    extra["flash_attention_bwd"]["adaln_zero_vie_train"] = dict(
+        batch=B, step_ms=statistics.median(times), peak_gib=peak)
+    del trainer, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the w8a8 serving tree: the int8 adaLN-Zero gates --------------------
+    model.requires_grad_(False)
+    quantize_for_serving(model, target="policy")
+    ex = model.joint.layers.expert
+    if "kernel_q" not in ex.post_adaptive_scale._buffers:
+        raise RuntimeError("the adaLN-Zero gate kernel was not quantized")
+    # the expert's 7 GEMMs and its quantizers at the prefix's expert rows
+    # ([expert image | proprio], batch 1), against the plain versions (the
+    # ViT towers' shapes are phase 46's at batch 1)
+    (k1, k2, k3), = gemm_phase(torch, _gemm_sites(ex, ex.mlp), (n_p,), dev,
+                               tag).values()
+    extra["quantize_rows"][f"ada_vie_expert_{n_p}"] = k1
+    extra["int8_gemm"][f"ada_vie_expert_{n_p}"] = k2
+    extra["quantize_silu_mul"][f"ada_vie_expert_{n_p}"] = k3
+    a_q = cached_vs_naive("w8a8 tree")
+    print(f"adaLN-Zero + VIE w8a8 vs the float tree (the trained weights "
+          f"moved by 2 steps: informational): max_abs_diff "
+          f"{(a_q - a_float).abs().max().item():.3e} {tag}", flush=True)
+    with torch.inference_mode():
+        got, times, out, _ = _counted_calls(
+            torch, lambda: model.infer_action(*in1),
+            "adaLN-Zero + VIE w8a8 infer_action, batch 1", tag)
+    # batch 1: both towers' ViT layers (1 x seq rows each), the prefix's
+    # VLM rows and expert rows ([expert image | proprio]) take w8a8 by the
+    # row threshold, the denoise's 4 action rows stay weight-only; flash
+    # and RMSNorm by their thresholds (none at these sizes on the card)
+    want = _w8a8_want([(vc.seq_len, 2 * n_vit, 0), (S_it, 0, L),
+                       (n_p, 0, L)])
+    steps = cfg.num_inference_steps
+    want["flash_attention_fwd"] = (
+        2 * n_vit * _auto_flash(1, vc.seq_len, vc.seq_len, vc.num_heads)
+        + L * _auto_flash(1, S_it + n_p, S_it + n_p, H)
+        + steps * L * _auto_flash(1, n_a, S_it + n_p + n_a, H))
+    want["_rms_fwd"] = L * 2 * ((S_it >= rmsnorm.MIN_ROWS)
+                                + (n_p >= rmsnorm.MIN_ROWS))
+    want = {k: STEPS * v for k, v in want.items() if v}
+    print(f"  derived {want}", flush=True)
+    if got != want or not out.isfinite().all():
+        raise RuntimeError(f"adaLN-Zero + VIE w8a8 launches {got} != {want}")
+    _add(launches, got)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the kernels at this path's shapes -----------------------------------
+    g = torch.Generator(device=dev)
+    g.manual_seed(47)
+    i32 = dict(dtype=torch.int32, device=dev)
+    llm, S_it = cfg.vlm.llm, cfg.max_image_text_tokens
+    S_j = S_it + S_e
+    seg = torch.ones(ADA_B, S_j, **i32)
+    seg[:, S_it - 60:S_it] = 0  # a padded prompt tail
+    lev = torch.zeros(ADA_B, S_j, **i32)
+    lev[:, S_it:S_it + n_img + 1] = 1
+    lev[:, S_it + n_img + 1:] = 2
+    t_fwd, t_bwd = _flash_case(torch, dev, g, tag, "adaLN-Zero VIE joint",
+                               ADA_B, S_j, S_j, llm.num_heads,
+                               llm.num_kv_heads, llm.head_dim, seg, lev,
+                               seg, lev)
+    extra["flash_attention_fwd"]["adaln_zero_vie_joint"] = t_fwd
+    extra["flash_attention_bwd"]["adaln_zero_vie_joint"] = t_bwd
+    f_rep, b_rep = rms_train_case(torch, g, dev, ADA_B * S_e,
+                                  cfg.expert.hidden_size,
+                                  cfg.expert.rms_norm_eps, " expert", tag)
+    extra["_rms_fwd"]["adaln_zero_vie_expert"] = f_rep
+    extra["_rms_bwd"]["adaln_zero_vie_expert"] = b_rep
+    return launches
+
+
+def _vit6b_flop(vcfg, tokens):
+    """Matmul flop of the InternViT layer loop over `tokens` rows of one
+    tile's sequence (QKV, projection, MLP, q.k and p.v)."""
+    C, I, S = vcfg.hidden_size, vcfg.intermediate_size, vcfg.seq_len
+    return vcfg.num_layers * tokens * (2 * C * (3 * C + C + 2 * I)
+                                       + 4 * S * C)
+
+
+def internvit6b_phase(torch, np, dev, tag, extra):
+    """Phase 48, InternViT-6B (45 layers x 3,200, 25 heads x 128, RMSNorm
+    blocks, bias-free QKV, flattened q/k norms; bf16, N(0, 0.02^2) draws,
+    norms 1 + N(0, 0.1^2), layer scales ~0.5 (attention) and ~0.1 (MLP))
+    through its layer loop:
+    VIT6B_TILES noise tiles under the dispatch route (flash: 13 x 1,025
+    rows pass JAX's logits threshold), counted; the flash route against the
+    eager reference at batch 1 and 13 on the final hidden states
+    (PREFILL_REL of what the stack changes), controls (attention scale
+    dropped, attention dropped) must break it; timed, with the achieved
+    matmul TFLOP/s against the bf16 peak; flash at the 6B shape against the
+    plain version (_flash_case). -> launches of the counted runs."""
+    from vlaser_tpu_torch.core.config import internvit_6b
+    from vlaser_tpu_torch.kernels import rmsnorm
+    from vlaser_tpu_torch.models import internvit
+    from vlaser_tpu_torch.models.layers import RMSNorm, init_normal_
+
+    t0 = time.perf_counter()
+    vcfg = internvit_6b()
+    bf = torch.bfloat16
+    model = internvit.InternVisionModel(vcfg, param_dtype=bf,
+                                        compute_dtype=bf, device=dev)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(48)
+    init_normal_(model, gen, std=0.02)
+    rnd = lambda t: torch.randn(t.shape, generator=gen, device=dev)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, RMSNorm):
+                m.weight.copy_(1 + 0.1 * rnd(m.weight))
+        # the attention branch's layer scale 0.5, the MLP's 0.1: attention
+        # then carries the stack, so that its controls show
+        enc = model.encoder
+        for p, scale in ((enc.ls1, 0.5), (enc.ls2, 0.1)):
+            p.copy_(scale * (1 + 0.1 * rnd(p)))
+    n_param = sum(p.numel() for p in model.parameters())
+    img = vcfg.image_size
+    px = torch.randn((VIT6B_TILES, img, img, 3), generator=gen, device=dev)
+    print(f"InternViT-6B: {n_param / 1e9:.3f} G parameters (bf16), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    launches = {}
+    with torch.inference_mode():
+        got, times, out13, _ = _counted_calls(
+            torch, lambda: model(px), f"InternViT-6B {VIT6B_TILES} tiles "
+            "(dispatch route)", tag)
+        # flash by the dispatch rule; RMSNorm (norm1, norm2 and the q/k
+        # norms a layer) only up to the kernel's width, which 3,200 is past
+        n = VIT6B_TILES * vcfg.seq_len
+        want = {"flash_attention_fwd": STEPS * vcfg.num_layers * _auto_flash(
+                    VIT6B_TILES, vcfg.seq_len, vcfg.seq_len, vcfg.num_heads),
+                "_rms_fwd": STEPS * 4 * vcfg.num_layers * (
+                    n >= rmsnorm.MIN_ROWS
+                    and vcfg.hidden_size <= rmsnorm.MAX_HIDDEN)}
+        want = {k: v for k, v in want.items() if v}
+        if got != want or not out13.isfinite().all():
+            raise RuntimeError(f"InternViT-6B launches {got} != {want}")
+        _add(launches, got)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _ms(torch, lambda: model(px), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flop = _vit6b_flop(vcfg, VIT6B_TILES * vcfg.seq_len)
+        tflops = flop / ms / 1e9
+        print(f"InternViT-6B {VIT6B_TILES} tiles: {ms:.1f} ms (CUDA events), "
+              f"{flop / 1e12:.1f} TFLOP of matmul -> {tflops:.1f} TFLOP/s "
+              f"({100 * tflops * 1e12 / PEAK_BF16:.1f}% of the bf16 peak; "
+              f"bound {1e3 * flop / PEAK_BF16:.1f} ms); peak device memory "
+              f"{peak:.2f} GiB {tag}", flush=True)
+        rep = dict(ms=ms, tflops=tflops, bound_ms=1e3 * flop / PEAK_BF16,
+                   peak_gib=peak)
+        for B in (1, VIT6B_TILES):
+            x = px[:B]
+            x_in = model.embed(x)
+            model.encoder.attn_impl = "reference"
+            ref = model(x)
+            model.encoder.attn_impl = "kernel"
+            try:
+                kern = model(x)
+                orig = internvit.attention
+                ctrl = {}
+                for name, fn in (
+                        ("attention scale dropped",
+                         lambda q, k, v, **kw: orig(q, k, v, **kw,
+                                                    scale=1.0)),
+                        ("attention dropped",
+                         lambda q, k, v, **kw: torch.zeros_like(q))):
+                    internvit.attention = fn
+                    try:
+                        ctrl[name] = model(x)
+                    finally:
+                        internvit.attention = orig
+            finally:
+                model.encoder.attn_impl = "auto"
+            # two bf16 routes through 45 random layers: PREFILL_REL of
+            # what the stack changes (the kernel alone: _flash_case below)
+            _gate(f"InternViT-6B flash route vs reference, B={B}", kern, ref,
+                  x_in, ctrl, bound=PREFILL_REL * (
+                      ref.float() - x_in.float()).abs().max().item())
+            del ref, kern, ctrl
+    del model, out13
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(48)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ones = torch.ones(VIT6B_TILES, vcfg.seq_len, **i32)
+    t_fwd, t_bwd = _flash_case(torch, dev, g, tag, "InternViT-6B",
+                               VIT6B_TILES, vcfg.seq_len, vcfg.seq_len,
+                               vcfg.num_heads, vcfg.num_heads, vcfg.head_dim,
+                               ones, None, ones, None)
+    t_fwd["layer_loop"] = rep
+    extra["flash_attention_fwd"]["internvit6b"] = t_fwd
+    extra["flash_attention_bwd"]["internvit6b"] = t_bwd
+    return launches
+
+
+def entry_beta_phase(torch, np, dev, tag):
+    """Phase 49: graft_entry.entry() once on the card (Vlaser-2B-VLA in
+    bf16 with zero parameters, the JAX entry's example batch: actions
+    [1, 4, 7], finite), then BETA_DRAWS flow times t ~ t_max (1 - z),
+    z ~ Beta(2, 3), drawn on the card's generator: the Kolmogorov-Smirnov
+    distance of z from Beta(2, 3)'s CDF 6 z^2 - 8 z^3 + 3 z^4, sqrt(n) D
+    below KS_CRIT."""
+    from vlaser_tpu_torch.graft_entry import entry
+    from vlaser_tpu_torch.policy.flow import sample_fm_time
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    with torch.inference_mode():
+        out = fn(*args)
+        ms = _ms(torch, lambda: fn(*args), 3)
+    print(f"graft entry twin: actions {tuple(out.shape)} {out.dtype} on "
+          f"{out.device}, finite {bool(out.isfinite().all())}, "
+          f"{ms:.1f} ms a call (CUDA events), built and run in "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if not (tuple(out.shape) == (1, 4, 7) and out.isfinite().all()
+            and out.device.type == "cuda"):
+        raise RuntimeError("the graft entry's twin returned bad actions")
+    del fn, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(49)
+    t = sample_fm_time(g, BETA_DRAWS, "beta", 2.0, 3.0, t_max=1.0,
+                       device=dev)
+    if t.device.type != "cuda":
+        raise RuntimeError("the Beta draws left the card")
+    z = np.sort(1.0 - t.double().cpu().numpy())
+    cdf = 6 * z ** 2 - 8 * z ** 3 + 3 * z ** 4
+    n = len(z)
+    d = max((np.arange(1, n + 1) / n - cdf).max(),
+            (cdf - np.arange(n) / n).max())
+    print(f"Beta(2, 3) flow times: {n} draws on the card, mean "
+          f"{z.mean():.5f} (exact 0.4), Kolmogorov-Smirnov D {d:.5f}, "
+          f"sqrt(n) D {d * n ** 0.5:.3f} (bound {KS_CRIT}) {tag}", flush=True)
+    if not d * n ** 0.5 < KS_CRIT:
+        raise RuntimeError("the Beta(2, 3) draws fail the KS test")
+
+
+def text_ablation_phases(torch, np, dev, tag, extra):
+    """Phases 46-49. -> launches of their main paths."""
+    launches = vla_text_phase(torch, np, dev, tag, extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, ada_vie_phase(torch, np, dev, tag, extra))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, internvit6b_phase(torch, np, dev, tag, extra))
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_beta_phase(torch, np, dev, tag)
+    return launches
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -8356,8 +9283,10 @@ def _profile_step(torch, trainer, batch, tag):
 
 
 def _profile(torch, fn, label, tag, quiet=False):
-    """One call of fn under torch.profiler: device time by kernel group
-    and the share of the call's wall time with no kernel running. -> {"busy":
+    """One call of fn under torch.profiler, device activity only (host ops
+    would only slow the call and the trace's post-processing): device time
+    by kernel group and the share of the call's wall time with no kernel
+    running. -> {"busy":
     device ms, "groups": ms by group, "kernels": ms by kernel name (its
     name before any template or argument list), "launches": kernels
     launched (copies and fills not counted), "launch_keys": launches by
@@ -8365,8 +9294,7 @@ def _profile(torch, fn, label, tag, quiet=False):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -8461,7 +9389,8 @@ def main() -> int:
     # make those entries)
     extra = {k: {} for k in ("fused_int8_stack", "quantize_rows",
                              "quantize_silu_mul", "int8_gemm",
-                             "flash_attention_fwd", "_rms_fwd")}
+                             "flash_attention_fwd", "flash_attention_bwd",
+                             "_rms_fwd", "_rms_bwd")}
 
     def phase(label, fn, *a):
         t = time.perf_counter()
@@ -8541,6 +9470,12 @@ def main() -> int:
                              vlaser_2b(), tag, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # the VLA's text head and ablations, InternViT-6B, the graft entry:
+    # after every phase that profiles the cooperative decoder stack (run
+    # before the warm-up session, they left its launches out of the next
+    # profiles)
+    _add(launches, phase("46-49 text head, adaLN-Zero, 6B ViT",
+                         text_ablation_phases, torch, np, dev, tag, extra))
     phase("engine profile", engine_profile_phase, torch, np, dev,
           vlaser_2b(), tag, report)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]

@@ -236,7 +236,8 @@ def test_schedule_matches_jax():
 
 def test_flow_time_sampler_statistics():
     """Beta(1.5, 1) through z = u^(1/alpha): E[t] = t_max (1 - 0.6); the
-    stratified uniform variant covers [0, 1) evenly."""
+    stratified uniform variant covers [0, 1) evenly; Beta(1.5, 2) through
+    two gamma draws: E[t] = t_max (1 - 1.5 / 3.5); a beta <= 0 raises."""
     g = torch.Generator().manual_seed(0)
     t = sample_fm_time(g, 20000, "beta", 1.5, 1.0, 0.999).numpy()
     assert t.min() >= 0.0 and t.max() <= 0.999
@@ -244,5 +245,7 @@ def test_flow_time_sampler_statistics():
     u = sample_fm_time(g, 1000, "uniform").numpy()
     assert u.min() >= 0 and u.max() < 1
     np.testing.assert_allclose(u.mean(), 0.5, atol=0.02)
-    with pytest.raises(NotImplementedError):
-        sample_fm_time(g, 4, "beta", 1.5, 2.0)
+    t2 = sample_fm_time(g, 20000, "beta", 1.5, 2.0, 0.999).numpy()
+    np.testing.assert_allclose(t2.mean(), 0.999 * (1 - 1.5 / 3.5), atol=0.01)
+    with pytest.raises(ValueError):
+        sample_fm_time(g, 4, "beta", 1.5, -1.0)

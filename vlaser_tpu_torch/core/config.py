@@ -2,10 +2,10 @@
 factories it uses, copied from vlaser_tpu/core/config.py (fields and
 defaults unchanged): the Vlaser-2B and Vlaser-8B families, InternVL3.5-2B
 (Qwen3-1.7B, per-head q/k RMSNorm), InternVL3.5-30B-A3B (Qwen3-30B-A3B,
-sparse MoE) and PaliGemma. The InternViT-6B and the larger dense configs
-are not copied. The tiny configs at the end are the CPU tests' (`tiny_*`
-of the JAX package, and the port's own cuts of the 8B, Qwen3 and
-Qwen3-MoE families, which the JAX package has none of).
+sparse MoE), PaliGemma, and the InternViT-6B tier (InternVL3-38B, -78B and
+the 100B class). The tiny configs at the end are the CPU tests' (`tiny_*`
+of the JAX package, and the port's own cuts of the 8B, Qwen3, Qwen3-MoE
+and InternViT-6B families, which the JAX package has none of).
 
 The port's modules read a config only through attribute access, so they
 take the JAX package's config objects as well as these: a test may build a
@@ -175,6 +175,15 @@ def internvit_300m(image_size: int = 448) -> VisionConfig:
                         norm_type="layer_norm")
 
 
+def internvit_6b(image_size: int = 448) -> VisionConfig:
+    """InternViT-6B: RMSNorm blocks, a bias-free QKV, and q/k RMSNorms over
+    the flattened (H*D) width."""
+    return VisionConfig(hidden_size=3200, intermediate_size=12800,
+                        num_layers=45, num_heads=25, image_size=image_size,
+                        qkv_bias=False, qk_normalization=True,
+                        norm_type="rms_norm")
+
+
 def qwen2_5_1_5b(vocab_size: int = 151936) -> LLMConfig:
     return LLMConfig(vocab_size=vocab_size, hidden_size=1536,
                      intermediate_size=8960, num_layers=28, num_heads=12,
@@ -218,6 +227,42 @@ def qwen2_5_7b(vocab_size: int = 151936) -> LLMConfig:
     return LLMConfig(vocab_size=vocab_size, hidden_size=3584,
                      intermediate_size=18944, num_layers=28, num_heads=28,
                      num_kv_heads=4, head_dim=128, rope_theta=1_000_000.0)
+
+
+def qwen2_5_32b(vocab_size: int = 151936) -> LLMConfig:
+    """Qwen2.5-32B, the InternVL3-38B language backbone."""
+    return LLMConfig(vocab_size=vocab_size, hidden_size=5120,
+                     intermediate_size=27648, num_layers=64, num_heads=40,
+                     num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0)
+
+
+def internvl3_38b(vocab_size: int = 151674) -> VLMConfig:
+    """InternVL3-38B = InternViT-6B + Qwen2.5-32B."""
+    return VLMConfig(vision=internvit_6b(), llm=qwen2_5_32b(vocab_size))
+
+
+def qwen2_5_72b(vocab_size: int = 151936) -> LLMConfig:
+    """Qwen2.5-72B, the InternVL3-78B language backbone."""
+    return LLMConfig(vocab_size=vocab_size, hidden_size=8192,
+                     intermediate_size=29568, num_layers=80, num_heads=64,
+                     num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0)
+
+
+def internvl3_78b(vocab_size: int = 151674) -> VLMConfig:
+    """InternVL3-78B = InternViT-6B + Qwen2.5-72B."""
+    return VLMConfig(vision=internvit_6b(), llm=qwen2_5_72b(vocab_size))
+
+
+def llm_100b_class(vocab_size: int = 151936) -> LLMConfig:
+    """A ~100B dense decoder (hidden 10240, 72 layers)."""
+    return LLMConfig(vocab_size=vocab_size, hidden_size=10240,
+                     intermediate_size=35840, num_layers=72, num_heads=80,
+                     num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0)
+
+
+def internvl_100b_class(vocab_size: int = 151674) -> VLMConfig:
+    """InternViT-6B + the 100B-class decoder."""
+    return VLMConfig(vision=internvit_6b(), llm=llm_100b_class(vocab_size))
 
 
 def action_expert_2b() -> LLMConfig:
@@ -344,6 +389,15 @@ def tiny_vision(image_size: int = 28) -> VisionConfig:
                         num_heads=4, patch_size=14, image_size=image_size,
                         qkv_bias=True, qk_normalization=True,
                         norm_type="layer_norm")
+
+
+def tiny_vision_6b(image_size: int = 28) -> VisionConfig:
+    """The port's cut of InternViT-6B's layout: RMSNorm blocks, a bias-free
+    QKV, flattened q/k RMSNorms, head dim 16."""
+    return VisionConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                        num_heads=2, patch_size=14, image_size=image_size,
+                        qkv_bias=False, qk_normalization=True,
+                        norm_type="rms_norm")
 
 
 def tiny_llm(vocab_size: int = 512) -> LLMConfig:

@@ -109,14 +109,18 @@ def fused_decode_step(stack, embed, head, cfg, token, cache: KVCache, pos):
     return _head_logits(head, hidden), cache
 
 
+def _vit_fusable(cfg) -> bool:
+    """Final-layer features of a LayerNorm ViT with a biased QKV."""
+    return (cfg.select_layer in (-1, cfg.vision.num_layers)
+            and supports_fused_vit(cfg.vision))
+
+
 def fused_vit_eligible(model, pixel_values) -> bool:
     """True when a prompt's tiles run the fused encoder stack: <= 13 tiles
     (the dynamic-preprocess cap), final-layer features, a LayerNorm ViT
     with a biased QKV."""
-    vcfg = model.cfg.vision
     return (pixel_values is not None and pixel_values.shape[0] <= 13
-            and model.cfg.select_layer in (-1, vcfg.num_layers)
-            and supports_fused_vit(vcfg))
+            and _vit_fusable(model.cfg))
 
 
 def fused_visual_features(model, pixel_values, vit_stack=None):
@@ -147,7 +151,10 @@ def make_fused_generate_fn(model, *, max_new_tokens: int,
             "and no sparse MoE layer (num_experts)")
     lm = model.language_model
     stack = pack_qwen2_stack(lm)
-    vit_stack = pack_vit_stack(model.vision_model)
+    # an encoder the fused stack does not compute (RMSNorm, bias-free: the
+    # InternViT-6B tier) is never packed; its tiles take the layer loop
+    vit_stack = (pack_vit_stack(model.vision_model)
+                 if _vit_fusable(model.cfg) else None)
     head = head_of(lm)
 
     @torch.no_grad()

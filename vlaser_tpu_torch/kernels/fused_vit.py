@@ -347,6 +347,9 @@ def pack_vit_stack(vision_model, dtype=torch.bfloat16) -> dict:
     Dense's `kernel_kmajor()`, one copy per model) with fp32 scales [L, N]
     and act_quant=True (the w8a8 stack); a partly quantized one is
     dequantized to `dtype` [L, K, N], as the JAX packer does."""
+    if not supports_fused_vit(vision_model.cfg):
+        raise NotImplementedError(
+            "fused_vit_stack takes LayerNorm blocks with a biased QKV")
     enc = vision_model.encoder
     att = enc.attn
     L, hidden = enc.norm1.weight.shape

@@ -241,6 +241,59 @@ class Dense(Block):
         return y
 
 
+def _cond_rows(cond):
+    """adaLN condition [B, T] -> [B, 1, T] (one row a sample, broadcast
+    over the sequence)."""
+    return cond[:, None, :] if cond.dim() == 2 else cond
+
+
+class AdaptiveRMSNorm(nn.Module):
+    """Time-conditioned RMSNorm (adaLN): the weight-free RMSNorm of x times
+    sigmoid(to_gamma(cond)) plus to_beta(cond)."""
+
+    def __init__(self, dim: int, eps: float, cond_dim: int,
+                 stack: Sequence[int] = (), param_dtype=torch.float32,
+                 compute_dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.dim, self.eps = dim, eps
+        self.to_gamma = Dense(cond_dim, dim, True, stack, param_dtype,
+                              compute_dtype, device)
+        self.to_beta = Dense(cond_dim, dim, False, stack, param_dtype,
+                             compute_dtype, device)
+
+    def forward(self, x, cond, layer: Optional[int] = None):
+        normed = ops.rms_norm(
+            x, torch.ones(self.dim, dtype=x.dtype, device=x.device), self.eps)
+        cond = _cond_rows(cond)
+        gamma = torch.sigmoid(self.to_gamma(cond, layer))
+        beta = self.to_beta(cond, layer)
+        return normed * gamma.to(normed.dtype) + beta.to(normed.dtype)
+
+
+class AdaptiveLayerscale(Dense):
+    """adaLN-Zero residual gate: x * sigmoid(cond @ kernel + bias), the
+    kernel zero and the bias -2 at init (gates open from ~0.12). The kernel
+    is a raw `kernel` leaf under a joint layer, so the serving quantizer
+    makes it int8: it is then dequantized as a Dense's weight-only route
+    does (kernel_q x kernel_scale in the compute dtype), whatever flags it
+    carries, since one row a sample never reaches the w8a8 row count."""
+
+    def __init__(self, cond_dim: int, dim: int, stack: Sequence[int] = (),
+                 param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                 device=None, bias_init: float = -2.0):
+        super().__init__(cond_dim, dim, True, stack, param_dtype,
+                         compute_dtype, device)
+        with torch.no_grad():
+            self.kernel.zero_()
+            self.bias.fill_(bias_init)
+
+    def forward(self, x, cond, layer: Optional[int] = None):
+        cd = self.compute_dtype
+        gamma = self._biased(torch.matmul(_cond_rows(cond).to(cd),
+                                          self.weight(layer)), layer)
+        return x * torch.sigmoid(gamma).to(x.dtype)
+
+
 def _int8_shared(x, denses) -> bool:
     """Whether `denses` may share x's int8 rows: each takes w8a8 at x and
     holds no LoRA adapter (whose term needs x), and no gradient is asked of

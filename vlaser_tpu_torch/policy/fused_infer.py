@@ -20,7 +20,11 @@ the port that wants the plain encoder calls `model.infer_action`). So does
 a qk-norm (Qwen3) mixture: `fused_int8_stack` has no per-head q/k RMSNorm,
 and the JAX b1 path, which sends such an expert through it, drops the
 norms. The batched path refuses it too, so that the fused serving route
-takes exactly the configs its kernels compute.
+takes exactly the configs its kernels compute. Both paths refuse the
+ablations as well: an adaLN / adaLN-Zero expert (the stack has no adaptive
+norms or gates) and a vision-in-expert model (the second tower's tokens
+are not in the packed prefix), where the JAX b1 path asserts (the JAX
+batched path asserts on vision-in-expert only).
 """
 
 from __future__ import annotations
@@ -96,6 +100,10 @@ def _refuse(cfg, what):
         raise NotImplementedError(
             f"{what}: a qk-norm (Qwen3) mixture; fused_int8_stack has no "
             "per-head q/k RMSNorm")
+    if cfg.adaptive_mode or cfg.vision_in_expert:
+        raise NotImplementedError(
+            f"{what}: the adaLN / vision-in-expert ablations are served by "
+            "the plain infer_action only")
 
 
 def make_fused_infer_action(model):
@@ -197,9 +205,9 @@ def make_batched_infer_action(model):
     `PiZeroVLA.infer_action` semantics for B samples, one tile each: the
     ViT through the batched fused stack, then the joint prefix and the
     Euler steps in plain PyTorch. A config the fused ViT does not run (a
-    cut encoder, RMSNorm or bias-free ViT) or a qk-norm mixture raises
-    NotImplementedError. The stack is packed from the model's weights
-    now."""
+    cut encoder, RMSNorm or bias-free ViT), a qk-norm mixture or an
+    ablation (adaLN, vision-in-expert) raises NotImplementedError. The
+    stack is packed from the model's weights now."""
     cfg = model.cfg
     vcfg = cfg.vlm.vision
     _refuse(cfg, "batched path")
