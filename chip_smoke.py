@@ -31,7 +31,8 @@ then the Vlaser-8B-VLA control step), of the native image loader and
 the Qwen3-MoE family (phases 44-45, between 43 and 42) and of the VLA's
 text head, its adaLN-Zero and vision-in-expert ablations, InternViT-6B and
 the graft entry's twin (phases 46-49, after 27-31, before the engine's
-profiled run) with random weights
+profiled run), of the data-generation pipelines (phases 50-52, right after
+37) and of the memory budget (phase 53, last) with random weights
 from seeded generators; each group's wall seconds are printed on a line of
 its own ("phase wall: ..."). The native image libraries
 (vlaser_tpu_torch/native, g++) build beside nvcc:
@@ -170,9 +171,10 @@ quantize_for_serving(model) with its defaults):
      320-token ones with a 448 px tile, max_new 16 / 32 / 64) through the
      engine (16 slots, max_len 448, buckets 64-320, chunk 64, pipeline
      depth 1), the engine with speculative_draft_len 4, the offline runner
-     and the static batch-8 make_generate_fn: useful tokens/s (median of
-     3 wall-clock runs after a warm-up), rows that differ from the solo
-     plain decode (bf16, informational) with the first divergence and the
+     and the static batch-8 make_generate_fn: useful tokens/s (ENGINE_REPS
+     wall-clock runs after a warm-up, their median), rows that differ from
+     the solo plain decode of ENGINE_ORACLE_ROWS of the requests (bf16,
+     informational) with the first divergence and the
      plain top-2 margin there, the schedule (decode steps queued against
      steps with a live row); launch counters zeroed before the solo
      decodes and read after the four paths: flash_attention_fwd,
@@ -289,11 +291,12 @@ decimal; it has no EOS, so every completion runs to its budget):
      one emitted mid-beam: tokens and lengths equal;
   36. serve_vlm's stages (--engine, the CLI's defaults, max_len 640: a
      320-token message behind the template) behind ChatHTTPServer on
-     127.0.0.1: a warm-up burst, then 2 bursts of 16 concurrent requests
-     (messages of phase 20's lengths, 64-320 tokens, max_tokens 16 / 32 /
-     64, every 4th streaming), each response 200, each completion its
-     max_tokens long, usage.max_new_tokens the request's, each stream's
-     deltas concatenating to its final text, fewer batches than requests;
+     127.0.0.1: a warm-up burst, then SERVE_BURSTS bursts of 16
+     concurrent requests (messages of phase 20's lengths, 64-320 tokens,
+     max_tokens 16 / 32 / 64, every 4th streaming), each response 200,
+     each completion its max_tokens long, usage.max_new_tokens the
+     request's, each stream's deltas concatenating to its final text,
+     fewer batches than requests;
      requests/s, p50 / p95 latency, the time to the first SSE delta,
      useful tok/s beside phase 20's; the bursts' launches (7 int8_gemm on
      3 quantize_rows and 1 quantize_silu_mul a prefill layer); then 4
@@ -303,7 +306,7 @@ decimal; it has no EOS, so every completion runs to its budget):
      16 concurrent requests, 4 streaming, equal to EngineChat.chat_many on
      the same items token for token;
   37. eval_vlm's stages on the same model (phase 27's HF checkpoint is
-     written later in the run; its load is phase 27's gate): 64 seeded
+     written later in the run; its load is phase 27's gate): 32 seeded
      text-only multiple-choice items (4 choices, questions of 40-300
      tokens) through the generic route (--batch 8, --max_new_tokens 16)
      with VlaserChat at 1 and 2 beams and --engine, and through
@@ -465,8 +468,34 @@ The VLA's text head and ablations (random_init_'s draws):
      plain version;
   49. graft_entry.entry() once (actions [1, 4, 7], finite) and 100,000
      Beta(2, 3) flow times drawn on the card's generator (KS distance).
-Every profiler session records device activity only (host ops made the
-trace's post-processing the bulk of the engine's profiled run, last).
+The data-generation pipelines (phases 50-52, right after 37 on its model
+and tokenizer; seeded uint8 448 px frames, each one tile without PIL):
+  50. generate_qa's stages on its default route (VlaserChat: the fused
+     act_quant ViT and the fused decode stack at R 1): 4 frames, --kind
+     general, 64 new tokens, launches held to the derived counts; then its
+     --filter stage on the items written and on 4 parsed items of a file
+     of their own (text-only scoring, launches derived); ms a frame, the
+     ViT / prefill / decode stages each timed alone, items written / kept;
+  51. generate_qa --engine --kind all: 8 frames x 3 kinds, 16 new tokens,
+     through the shared-image function (one image prefill a frame) and the
+     batched generate function (one a request), launches counted from 0:
+     wall, frames/s, useful tok/s, the ViT tiles each route prefilled (the
+     shared route at most one a frame), every request completed with a
+     token; the share of responses token-equal between the routes;
+  52. the MPO rollouts (sample_responses over EngineChat at temperature
+     0.7, top_p 0.9: 4 items x 4 samples in one engine run; pairs built,
+     written and read back by PreferenceDataset) and VisualPRM
+     (build_process_supervision: 1 item x 2 solutions, 2 continuations a
+     step, max_steps 3): generations/s and the counts.
+  53. (last of all) utils/memory_budget at one device for the train
+     recipes of 11 / 32-34, 26 and 47 beside the peaks they measured, and
+     the 8B-VLA, 30B-A3B, 38B and 78B rows against the card's memory;
+     gate: the Vlaser-2B-VLA budget's params_gib is the bytes of the fp32
+     PiZeroVLA built on the card; then log_device_memory and profile_trace
+     (host and device activity) around one small call, in this process
+     and in a fresh one, whose trace must hold the call's device kernel.
+Every other profiler session records device activity only (host ops made
+the trace's post-processing the bulk of the engine's profiled run).
 Any failed phase raises (non-zero exit, no result line). The line before
 the last lists every kernel; the last line is {"ok": true, "device": ...}.
 """
@@ -650,6 +679,8 @@ def _counters():
 
 
 MAIN_SPLIT = {}  # fused_int8_stack's launches on the main paths, by rows
+PEAKS = {}  # the train phases' peak device memory (GiB), batch and the GiB
+#             earlier phases left allocated, by phase
 
 
 def _count_split():
@@ -2300,6 +2331,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
 
     B = 32
     t0 = time.perf_counter()
+    left = torch.cuda.memory_allocated()  # by earlier phases
     model = PiZeroVLA(cfg, param_dtype=torch.float32,
                       compute_dtype=torch.bfloat16, device=dev, remat=True)
     gen = torch.Generator(device=dev)
@@ -2404,6 +2436,7 @@ def train_phase(torch, np, dev, cfg, tag, report):
     if launches != want:
         raise RuntimeError(f"train launches {launches} != {want}")
     report["train_peak_gib"] = peak
+    PEAKS["11"] = (peak, B, left / 2**30)
 
     # -- stage split of one more step (after the counters were read) ----------
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -2585,6 +2618,7 @@ def vla8bit_phases(torch, np, dev, cfg, tag, report, work):
         "--model_path", "-", "--rlds_dir", "-", "--adam8bit",
         "--checkpoint_dir", ckdir])
     t0 = time.perf_counter()
+    left = torch.cuda.memory_allocated()  # by earlier phases
     model = cli.build_model(args, cfg, dev)
     trainer = cli.build_trainer(
         args, model, averaging=AveragingConfig("ema", start=0,
@@ -2749,6 +2783,7 @@ def vla8bit_phases(torch, np, dev, cfg, tag, report, work):
     trainer.train_steps(iter([batch]), 1)
     torch.cuda.synchronize()
     peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    PEAKS["32-34"] = (peak_plain, B, left / 2**30)
     nbytes = _step_bytes(model)
     bound = nbytes / PEAK_BYTES * 1e3
     n0 = adam8bit.launch_count
@@ -3412,7 +3447,11 @@ def decode_parity_phase(torch, dev, cfg, tag, new=DECODE_NEW):
 
 # -- the continuous-batching engine: phases 20-22 ----------------------------
 ENGINE_BUCKETS = (64, 128, 192, 256, 320)  # bench.py's _bench_engine
-ENGINE_REPS = 3  # timed runs a path (after one warm-up run), median
+ENGINE_REPS = 1  # timed runs a path (after one warm-up run), median; cut
+#                  from 3 to keep the whole script under 1,000 s
+ENGINE_ORACLE_ROWS = 5  # requests the solo plain decode is run for (one of
+#                         each prompt bucket, the 320-token one with its
+#                         tile); cut from 16 for the same reason
 ENGINE_KW = dict(num_slots=16, max_len=448, eos_token_ids=[2],
                  pad_token_id=0, chunk_size=64, pipeline_depth=1)
 ENGINE_GATE_ROWS = ("bucketed", "offline", "spec", "prefix_cached",
@@ -3708,9 +3747,10 @@ def engine_phases(torch, np, dev, cfg, tag, report):
                  pad_token_id=0, chunk_size=64)),
              ("static batch-8 make_generate_fn", run_static))
     oracle = _solo_oracle(torch, np, model, EOS, torch.bfloat16)
-    want = {r.uid: oracle(r) for r in reqs}
-    print(f"engine: solo plain decodes of the 16 requests done "
-          f"({time.perf_counter() - t0:.0f} s into the phase) {tag}",
+    solo = reqs[:ENGINE_ORACLE_ROWS]
+    want = {r.uid: oracle(r) for r in solo}
+    print(f"engine: solo plain decodes of {len(solo)} of the 16 requests "
+          f"done ({time.perf_counter() - t0:.0f} s into the phase) {tag}",
           flush=True)
     # the kernels each path must launch: admission groups of <= 1,280 rows
     # stay under _rms_fwd's 2,048-row threshold; the offline runner's
@@ -3731,7 +3771,7 @@ def engine_phases(torch, np, dev, cfg, tag, report):
         got = out if isinstance(out, dict) else {
             c.uid: c.token_ids for c in out}
         n_tok = sum(len(t) for t in got.values())
-        bad, first, margin = _divergence(torch, np, model, reqs, got, want)
+        bad, first, margin = _divergence(torch, np, model, solo, got, want)
         stats = ""
         if name.startswith(("engine", "speculative")):
             e = engine if name == "engine" else spec
@@ -3743,8 +3783,8 @@ def engine_phases(torch, np, dev, cfg, tag, report):
                           f"{spec.spec_last_ema}")
         print(f"engine phase, {name}: {n_tok} useful tokens in {ms:.1f} ms "
               f"(median of {ENGINE_REPS}, wall, host included) -> "
-              f"{1e3 * n_tok / ms:.1f} tok/s; {bad} of 16 rows differ from "
-              f"the solo plain decode (bf16, informational)"
+              f"{1e3 * n_tok / ms:.1f} tok/s; {bad} of {len(solo)} rows "
+              f"differ from the solo plain decode (bf16, informational)"
               + (f", the first at uid {first[0]} token {first[1]}, plain "
                  f"top-2 margin there {margin:.5g}" if first else "")
               + f"; its own launches over {ENGINE_REPS + 1} runs {used}"
@@ -3859,9 +3899,11 @@ SERVE_REQS, SERVE_STREAM_EVERY = 16, 4  # every 4th request streams
 # the engine's slot budget: phase 20's 448 cannot hold a 320-token message
 # behind the byte tokenizer's 237-token template plus 64 new tokens
 SERVE_MAX_LEN = 640
-SERVE_BURSTS = 2  # timed bursts, after one warm-up burst
+SERVE_BURSTS = 1  # timed bursts, after one warm-up burst (2 until the
+#                   data-generation phases needed the time)
 SERVE_SEQUENTIAL = 4  # requests to the VlaserChat backend, one streaming
-EVAL_ITEMS, EVAL_TEXT, EVAL_NEW, EVAL_BATCH = 64, (40, 300), 16, 8
+# 32 items (64 until the data-generation phases needed the time)
+EVAL_ITEMS, EVAL_TEXT, EVAL_NEW, EVAL_BATCH = 32, (40, 300), 16, 8
 
 
 class DecimalByteTokenizer:
@@ -4480,9 +4522,10 @@ def eval_phase(torch, np, dev, model, tok, tag, work):
 
 
 def vlm_entry_phases(torch, np, dev, cfg, tag, report):
-    """Phases 35-37 on one seeded Vlaser-2B (bf16 N(0, 0.02^2) through
-    serve_vlm's config and quantize stages: w8a8) with the byte tokenizer.
-    -> launches of their main paths."""
+    """Phases 35-37, then the data-generation phases 50-52, on one seeded
+    Vlaser-2B (bf16 N(0, 0.02^2) through serve_vlm's config and quantize
+    stages: w8a8) with the byte tokenizer. -> launches of their main
+    paths."""
     from vlaser_tpu_torch.scripts import serve_vlm
 
     t0 = time.perf_counter()
@@ -4504,12 +4547,621 @@ def vlm_entry_phases(torch, np, dev, cfg, tag, report):
         _add(launches, eval_phase(torch, np, dev, model, tok, tag, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    print(f"phases 35-37 took {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, data_generation_phases(torch, np, dev, model, tok, tag))
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phases 35-37 took {time.perf_counter() - t0:.1f} s {tag}",
-          flush=True)
     return launches
+
+
+# -- data generation: phases 50-52 (right after 37, on its model) -------------
+QA_FRAMES, QA_NEW = 4, 64  # phase 50: generate_qa's default route
+QA_FILTER_ITEMS = 4  # phase 50: parsed items the --filter stage scores
+QA_ENGINE_FRAMES, QA_ENGINE_NEW = 8, 16  # phase 51: --engine --kind all
+MPO_ITEMS, MPO_SAMPLES, ROLLOUT_NEW = 4, 4, 32  # phase 52: MPO rollouts
+PRM_SOLUTIONS, PRM_MC, PRM_STEPS, PRM_NEW = 2, 2, 3, 16  # phase 52: VisualPRM
+
+
+def _qa_frames(np, n, size, seed):
+    """n seeded uint8 camera frames at the ViT's size, each with an
+    instruction, as generate_qa's frame reader yields them."""
+    rng = np.random.default_rng(seed)
+    return [{"image": rng.integers(0, 256, (size, size, 3), dtype=np.uint8),
+             "instruction": _text(rng, 40).strip()} for _ in range(n)]
+
+
+def _qa_args(extra, root):
+    from vlaser_tpu_torch.scripts import generate_qa
+
+    return generate_qa.build_parser().parse_args(
+        ["--episodes_dir", root, "--out", os.path.join(root, "qa.jsonl"),
+         "--images_dir", os.path.join(root, "qa_images")] + extra)
+
+
+def _no_empty(responses, what):
+    empty = [i for i, r in enumerate(responses) if not r]
+    if empty:
+        raise RuntimeError(f"{what}: requests {empty} returned no token")
+
+
+def _vit_prefills(engine):
+    """Count the tiles of every engine prefill that carries an image (the
+    ViT's input, an admission group's padding rows included) in
+    engine.vit_tiles / vit_calls; -> a function that undoes it."""
+    orig = engine._prefill
+    engine.vit_tiles = engine.vit_calls = 0
+
+    def counted(ids, seg, pixels, flags, true_lens):
+        if pixels is not None:
+            engine.vit_tiles += int(pixels.shape[0])
+            engine.vit_calls += 1
+        return orig(ids, seg, pixels, flags, true_lens)
+
+    engine._prefill = counted
+    return lambda: engine.__dict__.pop("_prefill")
+
+
+def qa_default_phase(torch, np, dev, model, tok, tag, work):
+    """Phase 50: generate_qa's stages on the default route (VlaserChat:
+    the fused ViT stack and the fused decode stack at R 1) over QA_FRAMES
+    seeded 448 px frames, --kind general, QA_NEW new tokens; then its
+    --filter stage over the same backend: on the items written (random
+    weights write no parseable QA) and on QA_FILTER_ITEMS parsed items of
+    a file of their own (text-only scoring requests). Launches counted
+    from 0 around each stage and held to the counts the code implies; ms a
+    frame, the ViT / prefill / decode stages each timed alone.
+    -> launches."""
+    from vlaser_tpu_torch.data.qa_generation import (FILTER_PROMPT,
+                                                     GENERAL_QA_PROMPT)
+    from vlaser_tpu_torch.inference import fused_runner as fr
+    from vlaser_tpu_torch.inference.kv_cache import KVCache
+    from vlaser_tpu_torch.scripts import generate_qa
+    from vlaser_tpu_torch.tokenizer.conversation import build_chat_query
+
+    cfg = model.cfg
+    llm, size, L = cfg.llm, cfg.vision.image_size, cfg.llm.num_layers
+    args = _qa_args(["--kind", "general", "--filter"], work)
+    chat = generate_qa.build_chat(args, model, tok, max_new_tokens=QA_NEW)
+    if chat.route != "fused":
+        raise RuntimeError(f"generate_qa's VlaserChat took {chat.route!r}")
+    gen_fn = generate_qa.make_generate_fn(args, chat, cfg)
+    if generate_qa.make_shared_image_fn(args, chat, cfg) is not None:
+        raise RuntimeError("--kind general built a shared-image function")
+    frames = _qa_frames(np, QA_FRAMES, size, 50)
+    gen_fn(np.stack([frames[0]["image"]]), ["warm up"])  # warm-up
+    torch.cuda.synchronize()
+
+    def query(prompt, tiles):
+        q = build_chat_query(cfg.template, ("<image>\n" if tiles else "")
+                             + prompt, [1] if tiles else [],
+                             cfg.num_image_token)
+        return chat._encode([q])
+
+    # derived from the code: a frame's chat is one fused act_quant ViT, the
+    # fused runner's prefill of its bucket over a bucket + QA_NEW cache and
+    # QA_NEW - 1 fused stack steps; a scoring request the same without ViT
+    want = {}
+    for f in frames:
+        ids, _ = query(GENERAL_QA_PROMPT.format(
+            instruction=f["instruction"]), True)
+        n = ids.shape[1]
+        _add(want, _add({"fused_vit_stack_w8a8": 1,
+                         "fused_int8_stack": QA_NEW - 1},
+                        _prefill_want(llm, n, n + QA_NEW)))
+    seen = []
+
+    def recording(images, prompts):
+        out = gen_fn(images, prompts)
+        seen.extend(out)
+        return out
+
+    _zero_counts()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        written = generate_qa.generate(args, recording, None, iter(frames))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = {k: v for k, v in _read_counts().items() if v}
+    _count_split()
+    _no_empty(seen, "generate_qa")
+    if len(seen) != QA_FRAMES or got != want:
+        raise RuntimeError(f"generate_qa: {len(seen)} responses, launches "
+                           f"{got} (derived {want})")
+    launches = dict(got)
+    kept, total = generate_qa.filter_items(args, chat)
+    # the --filter stage on parsed items: their own file, scored by the
+    # same backend (text only)
+    rng = np.random.default_rng(51)
+    items = [{"id": i, "image": f"qa_{i:06d}.jpg", "width": size,
+              "height": size, "conversations": [
+                  {"from": "human", "value": "<image>\n" + _text(rng, 60)},
+                  {"from": "gpt", "value": _text(rng, 160)}]}
+             for i in range(QA_FILTER_ITEMS)]
+    fargs = _qa_args(["--filter", "--out", os.path.join(work, "f.jsonl")],
+                     work)
+    with open(fargs.out, "w") as f:
+        for it in items:
+            f.write(json.dumps(it) + "\n")
+    fwant = {}
+    for it in items:
+        ids, _ = query(FILTER_PROMPT.format(
+            question=it["conversations"][0]["value"].replace("<image>\n", ""),
+            answer=it["conversations"][1]["value"]), False)
+        n = ids.shape[1]
+        _add(fwant, _add({"fused_int8_stack": QA_NEW - 1},
+                         _prefill_want(llm, n, n + QA_NEW)))
+    _zero_counts()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        fkept, ftotal = generate_qa.filter_items(fargs, chat)
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t1
+    fgot = {k: v for k, v in _read_counts().items() if v}
+    _count_split()
+    if ftotal != QA_FILTER_ITEMS or fgot != fwant:
+        raise RuntimeError(f"--filter: {ftotal} items, launches {fgot} "
+                           f"(derived {fwant})")
+    _add(launches, fgot)
+
+    # stage times, each alone (CUDA events around the call)
+    f0 = frames[0]
+    ids, seg = query(GENERAL_QA_PROMPT.format(
+        instruction=f0["instruction"]), True)
+    tiles = torch.from_numpy(generate_qa.frame_tiles(f0["image"],
+                                                     size)).to(dev)
+    n = ids.shape[1]
+    with torch.inference_mode():
+        vit_stack = fr.pack_vit_stack(model.vision_model)
+        feats = fr.fused_visual_features(model, tiles, vit_stack)
+        fresh = lambda: KVCache.create(L, 1, n + QA_NEW, llm.num_kv_heads,
+                                       llm.head_dim, torch.bfloat16, dev)
+        logits, _, cache = model.prefill(ids, None, seg, fresh(),
+                                         visual_features=feats)
+        token = logits[0, int(seg.sum()) - 1].argmax(-1)[None]
+        del logits
+        vit_ms = _ms(torch, lambda: fr.fused_visual_features(
+            model, tiles, vit_stack), 5)
+        prefill_ms = _ms(torch, lambda: model.prefill(
+            ids, None, seg, fresh(), visual_features=feats), 3)
+        step_ms = _ms(torch, lambda: fr.fused_decode_step(
+            fr.pack_qwen2_stack(model.language_model),
+            model.language_model.embed_tokens,
+            fr.head_of(model.language_model), llm, token, cache,
+            seg.sum(1)), 10)
+    del cache, feats
+    frame_ms = wall * 1e3 / QA_FRAMES
+    print(f"generate_qa (VlaserChat, fused; --kind general, {QA_FRAMES} "
+          f"frames of {size} px, prompts of {int(seg.sum())} tokens in a "
+          f"bucket of {n}, {QA_NEW} new tokens): {wall:.2f} s, "
+          f"{frame_ms:.1f} ms a frame, {QA_FRAMES * QA_NEW / wall:.1f} tok/s;"
+          f" stages each alone (CUDA events): ViT {vit_ms:.3f} ms, prefill "
+          f"{prefill_ms:.3f} ms, decode {step_ms:.3f} ms a token (sum "
+          f"{vit_ms + prefill_ms + (QA_NEW - 1) * step_ms:.1f} ms a frame); "
+          f"items written {written}, kept {kept}/{total} (random weights "
+          f"write no parseable QA); launches {got} (derived) {tag}",
+          flush=True)
+    print(f"generate_qa --filter on {QA_FILTER_ITEMS} parsed items "
+          f"(text-only scoring requests, {QA_NEW} new tokens): "
+          f"{fwall * 1e3:.1f} ms, {fwall * 1e3 / ftotal:.1f} ms an item, "
+          f"kept {fkept}/{ftotal}; launches {fgot} (derived) {tag}",
+          flush=True)
+    del chat
+    return launches
+
+
+def qa_engine_phase(torch, np, dev, model, tok, tag, work):
+    """Phase 51: generate_qa --engine --kind all over QA_ENGINE_FRAMES
+    seeded frames (3 kinds each), QA_ENGINE_NEW new tokens: once through
+    the shared-image function (EngineChat.batch_chat_shared_image: one
+    image prefill a frame, the kind-prompts against it), once through the
+    plain batched generate function (batch_chat: one image prefill a
+    request); the engine's image prefills counted (the ViT's tiles), each
+    route's launches counted from 0. Fails when a request returns no token,
+    a request is not completed, the shared route prefills more than one
+    tile a frame, or a route never launches the w8a8 kernels (the plain
+    route also flash: its admission groups' tiles). -> launches."""
+    from vlaser_tpu_torch.data.qa_generation import PROMPTS
+    from vlaser_tpu_torch.scripts import generate_qa
+
+    cfg = model.cfg
+    size = cfg.vision.image_size
+    args = _qa_args(["--engine", "--kind", "all"], work)
+    chat = generate_qa.build_chat(args, model, tok,
+                                  max_new_tokens=QA_ENGINE_NEW)
+    engine = chat.engine
+    frames = _qa_frames(np, QA_ENGINE_FRAMES, size, 51)
+    n_req = QA_ENGINE_FRAMES * len(PROMPTS)
+    routes = {"shared image": generate_qa.make_shared_image_fn(args, chat,
+                                                               cfg),
+              "batched": None}
+    if routes["shared image"] is None:
+        raise RuntimeError("--engine --kind all built no shared-image "
+                           "function")
+    gen_fn = generate_qa.make_generate_fn(args, chat, cfg)
+    # warm-up: one frame through each route
+    routes["shared image"](["warm up", "warm up twice"], frames[0]["image"])
+    gen_fn(np.stack([frames[0]["image"]] * 2), ["warm up", "again"])
+    torch.cuda.synchronize()
+    need = ("int8_gemm", "quantize_rows", "quantize_silu_mul")
+    launches, answers = {}, {}
+    for name, shared_fn in routes.items():
+        seen, admitted = [], [0]
+
+        def rec_gen(images, prompts):
+            out = gen_fn(images, prompts)
+            seen.extend(out)
+            admitted[0] += engine.stats["admitted_rows"]
+            return out
+
+        def rec_shared(prompts, image):
+            out = shared_fn(prompts, image)
+            seen.extend(out)
+            admitted[0] += engine.stats["admitted_rows"]
+            return out
+
+        undo = _vit_prefills(engine)
+        _zero_counts()
+        t1 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                written = generate_qa.generate(
+                    args, rec_gen, rec_shared if shared_fn else None,
+                    iter(frames))
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        wall = time.perf_counter() - t1
+        got = {k: v for k, v in _read_counts().items() if v}
+        _add(launches, got)
+        answers[name] = list(seen)
+        _no_empty(seen, f"generate_qa --engine ({name})")
+        n_tok = sum(len(r.split()) for r in seen)
+        lack = [k for k in need + (() if shared_fn else
+                                   ("flash_attention_fwd",))
+                if not got.get(k)]
+        if len(seen) != n_req or admitted[0] != n_req or lack:
+            raise RuntimeError(f"generate_qa --engine ({name}): "
+                               f"{len(seen)} responses, {admitted[0]} "
+                               f"admitted of {n_req}; never launched {lack}")
+        if shared_fn and engine.vit_tiles > QA_ENGINE_FRAMES:
+            raise RuntimeError(f"the shared-image route prefilled "
+                               f"{engine.vit_tiles} tiles for "
+                               f"{QA_ENGINE_FRAMES} frames")
+        print(f"generate_qa --engine --kind all, {name} route "
+              f"(EngineChat {engine.num_slots} slots; {QA_ENGINE_FRAMES} "
+              f"frames x {len(PROMPTS)} kinds = {n_req} requests, "
+              f"{QA_ENGINE_NEW} new tokens): {wall:.2f} s wall, "
+              f"{QA_ENGINE_FRAMES / wall:.2f} frames/s, {n_tok} useful "
+              f"tokens -> {n_tok / wall:.1f} tok/s; image prefills: "
+              f"{engine.vit_tiles} tiles in {engine.vit_calls} prefill "
+              f"calls; items written {written}; last run's schedule "
+              f"{engine.stats}; launches {got} {tag}", flush=True)
+    same = sum(a == b for a, b in zip(answers["shared image"],
+                                      answers["batched"]))
+    print(f"generate_qa --engine: {same}/{n_req} responses token-equal "
+          f"between the two routes (bf16 near-ties may flip: "
+          f"informational) {tag}", flush=True)
+    del chat, engine
+    return launches
+
+
+class _Prefetched:
+    """A pipeline's one-at-a-time callable, f(item, key) -> str, served
+    from batched EngineChat.chat_many runs: the first call of a key runs
+    `per_key` requests for it in one engine run, and each call pops one."""
+
+    def __init__(self, chat, make_item, per_key):
+        self.chat, self.make_item, self.per_key = chat, make_item, per_key
+        self.store, self.requests = {}, 0
+
+    def prefetch(self, pairs):
+        """Run the requests of several (item, key) pairs in one batch."""
+        pairs = [p for p in pairs if not self.store.get(repr(p[1]))]
+        items = [self.make_item(it, k) for it, k in pairs
+                 for _ in range(self.per_key)]
+        out = self.chat.chat_many(items)
+        _no_empty(out, "rollouts")
+        self.requests += len(items)
+        for j, (it, k) in enumerate(pairs):
+            self.store[repr(k)] = out[j * self.per_key:(j + 1) * self.per_key]
+
+    def __call__(self, item, key):
+        if not self.store.get(repr(key)):
+            self.prefetch([(item, key)])
+        return self.store[repr(key)].pop()
+
+
+def rollout_phase(torch, np, dev, model, tok, tag, work):
+    """Phase 52: the MPO and VisualPRM data pipelines over EngineChat
+    (generate_qa's --engine backend stage at temperature 0.7, top_p 0.9;
+    each request seeded by its uid). MPO: sample_responses over MPO_ITEMS
+    questions about seeded frames x MPO_SAMPLES samples (one engine run),
+    build_items_based_on_correctness, build_pairs and write_pairs_jsonl,
+    read back by PreferenceDataset; the first half of the items take their
+    gold answer from their first sample (random weights answer nothing
+    right otherwise), the rest one no sample gives. VisualPRM:
+    build_process_supervision on 1 item x PRM_SOLUTIONS solutions,
+    PRM_MC continuations a step prefix, max_steps PRM_STEPS, each prefix's
+    continuations one engine run. Generations/s and the counts.
+    -> launches."""
+    from vlaser_tpu_torch.data import reasoning_pipeline as rp
+    from vlaser_tpu_torch.data import visualprm_pipeline as prm
+    from vlaser_tpu_torch.data.preference_dataset import (
+        PreferenceDataset, PreferenceDatasetConfig)
+    from vlaser_tpu_torch.scripts import generate_qa
+    from vlaser_tpu_torch.tokenizer.byte_tokenizer import ByteTokenizer
+    from vlaser_tpu_torch.utils.tools import ensure_special_tokens
+
+    cfg = model.cfg
+    size = cfg.vision.image_size
+    args = _qa_args(["--engine", "--temperature", "0.7", "--top_p", "0.9"],
+                    work)
+    chat = generate_qa.build_chat(args, model, tok,
+                                  max_new_tokens=ROLLOUT_NEW)
+    frames = _qa_frames(np, MPO_ITEMS, size, 52)
+    tiles = [generate_qa.frame_tiles(f["image"], size) for f in frames]
+    rng = np.random.default_rng(52)
+    items = [{"question": f"{_text(rng, 80).strip()}?", "answer": "none",
+              "frame": i} for i in range(MPO_ITEMS)]
+    chat.chat_many([(items[0]["question"], tiles[0], None)])  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t1 = time.perf_counter()
+    rollouts = _Prefetched(chat, lambda it, k: (it["question"],
+                                                tiles[it["frame"]], None),
+                           1)
+    with torch.inference_mode():
+        rollouts.prefetch([(it, (it["frame"], k)) for it in items
+                           for k in range(MPO_SAMPLES)])
+        out = rp.sample_responses(
+            items, lambda it, k: rollouts(it, (it["frame"], k)),
+            num_samples=MPO_SAMPLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = {k: v for k, v in _read_counts().items() if v}
+    launches = dict(got)
+    for r in out[: (MPO_ITEMS // 2) * MPO_SAMPLES: MPO_SAMPLES]:
+        gold = rp.extract_final_answer(r["response"])
+        for o in out:
+            if o["frame"] == r["frame"]:
+                o["answer"] = gold
+    pos, neg, fmt = rp.build_items_based_on_correctness(out)
+    pairs = rp.build_pairs(pos, neg)
+    path = os.path.join(work, "pairs.jsonl")
+    rp.write_pairs_jsonl(pairs, path)
+    btok = ByteTokenizer()
+    ensure_special_tokens(btok)
+    ds = PreferenceDataset(PreferenceDatasetConfig(path), btok)
+    if len(ds) != len(pairs) or not pairs or any(
+            (ds[i]["chosen_labels"] == -100).all() for i in range(len(ds))):
+        raise RuntimeError(f"MPO pairs: {len(pairs)} built, {len(ds)} read")
+    distinct = len({o["response"] for o in out})
+    print(f"MPO rollouts (EngineChat, temperature 0.7, top_p 0.9, "
+          f"{ROLLOUT_NEW} new tokens): {MPO_ITEMS} items x {MPO_SAMPLES} "
+          f"samples = {len(out)} generations in {wall:.2f} s -> "
+          f"{len(out) / wall:.2f} generations/s ({distinct} distinct); "
+          f"positive {sum(map(len, pos.values()))}, negative "
+          f"{sum(map(len, neg.values()))}, no answer "
+          f"{sum(map(len, fmt.values()))}; {len(pairs)} pairs written and "
+          f"read back by PreferenceDataset; launches {got} {tag}",
+          flush=True)
+
+    # VisualPRM: 1 item, its solutions and step continuations batched
+    item = {"question": items[0]["question"], "frame": 0,
+            "answer": items[0]["answer"]}
+    chat.max_new_tokens = PRM_NEW
+    solutions = _Prefetched(chat, lambda it, k: (it["question"],
+                                                 tiles[it["frame"]], None),
+                            PRM_SOLUTIONS)
+    conts = _Prefetched(chat, lambda it, prefix: (
+        f"{it['question']}\n{prefix}", tiles[it["frame"]], None), PRM_MC)
+    _zero_counts()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        rows = prm.build_process_supervision(
+            [item], lambda it, k: solutions(it, ("solution",)), conts,
+            num_return_sequences=PRM_SOLUTIONS, num_mc_sequences=PRM_MC,
+            max_steps=PRM_STEPS)
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t1
+    pgot = {k: v for k, v in _read_counts().items() if v}
+    _add(launches, pgot)
+    n_gen = solutions.requests + conts.requests
+    convs = [prm.item_to_prm_conversation(r) for r in rows]
+    convs += [prm.item_to_orm_conversation(r) for r in rows]
+    prm.write_conversations_jsonl(convs, os.path.join(work, "prm.jsonl"))
+    steps = [len(r["steps_with_score"]) for r in rows]
+    if len(rows) != PRM_SOLUTIONS or not all(steps):
+        raise RuntimeError(f"VisualPRM: {len(rows)} rows, steps {steps}")
+    print(f"VisualPRM (EngineChat, {PRM_NEW} new tokens): 1 item x "
+          f"{PRM_SOLUTIONS} solutions, {PRM_MC} continuations a step, "
+          f"max_steps {PRM_STEPS}: steps {steps}, scores "
+          f"{[[s['score'] for s in r['steps_with_score']] for r in rows]}; "
+          f"{n_gen} generations in {pwall:.2f} s -> {n_gen / pwall:.2f} "
+          f"generations/s; {len(convs)} PRM / ORM rows written; launches "
+          f"{pgot} {tag}", flush=True)
+    need = ("int8_gemm", "quantize_rows", "quantize_silu_mul")
+    lack = [k for k in need if not got.get(k) or not pgot.get(k)]
+    if lack:
+        raise RuntimeError(f"rollouts never launched {lack}")
+    del chat
+    return launches
+
+
+def data_generation_phases(torch, np, dev, model, tok, tag):
+    """Phases 50-52 on phases 35-37's model and tokenizer. -> launches."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_qa_")
+    launches = {}
+    try:
+        for n, fn in ((50, qa_default_phase), (51, qa_engine_phase),
+                      (52, rollout_phase)):
+            t = time.perf_counter()
+            _add(launches, fn(torch, np, dev, model, tok, tag, work))
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"phase {n} took {time.perf_counter() - t:.1f} s {tag}",
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+# -- memory budget and monitoring: phase 53 (last of all) ---------------------
+def budget_rows(config, ada_b=None):
+    """Phase 53's one-device rows: (label, memory_budget function, its
+    keywords, a VLAConfig for _vla_budget or None), for the train recipes
+    the script runs and the larger families."""
+    import dataclasses
+
+    ada = dataclasses.replace(config.vlaser_2b_vla(),
+                              adaptive_mode="adaln_zero",
+                              time_hidden_size=256, vision_in_expert=True)
+    one = dict(dp=1, fsdp=1, tp=1)
+    return [
+        ("11 VLA b32, fp32 AdamW", "vla_train_budget",
+         dict(one, per_device_batch=32), None),
+        ("26 SFTTrainer, 2,048 tokens, frozen ViT", "vlm_sft_budget",
+         dict(one, model_size="2b", seq_len=SFT_TOKENS,
+              frozen_patterns=(r"vision_model/",)), None),
+        ("47 adaLN-Zero + VIE", "vla_train_budget",
+         dict(one, per_device_batch=ada_b or ADA_B), ada),
+        ("8B-VLA", "vla_train_budget", dict(one, model_size="8b"), None),
+        ("30B-A3B SFT", "vlm_sft_budget", dict(one, model_size="30b-a3b"),
+         None),
+        ("38B SFT", "vlm_sft_budget", dict(one, model_size="38b"), None),
+        ("78B SFT", "vlm_sft_budget", dict(one, model_size="78b"), None),
+    ]
+
+
+def budget_phase(torch, dev, tag):
+    """Phase 53: utils/memory_budget at the one-device mesh for the train
+    recipes the script ran (11 and 32-34: the Vlaser-2B-VLA at B 32, whose
+    budget counts fp32 AdamW moments; 26; 47) beside the peak each
+    measured, and the 8B-VLA, 30B-A3B, 38B and 78B rows against the card's
+    memory. Gate: the Vlaser-2B-VLA budget's params_gib equals the bytes
+    of the port's fp32 PiZeroVLA built on the card. Then
+    monitoring_probe (log_device_memory, profile_trace around one small
+    call) in this process and in a fresh one, whose trace must hold the
+    call's device kernel."""
+    from vlaser_tpu_torch.core import config
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.utils import memory_budget as mb
+
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    peaks = {"11": PEAKS.get("11"), "32-34": PEAKS.get("32-34"),
+             "26": PEAKS.get("26"), "47": PEAKS.get("47")}
+    ada_b = (peaks["47"] or (None, None, None))[1]
+    rows = {}
+    for label, fn, kw, vcfg in budget_rows(config, ada_b):
+        t = time.perf_counter()
+        r = (mb._vla_budget(vcfg, **kw) if vcfg is not None
+             else getattr(mb, fn)(**kw))
+        rows[label] = r
+        phase = label.split()[0]
+        measured = [f"phase {p} peak {peaks[p][0]:.2f} GiB at B "
+                    f"{peaks[p][1]}, {peaks[p][2]:.2f} GiB of it left by "
+                    f"earlier phases (budget - own peak "
+                    f"{r['total_gib'] - peaks[p][0] + peaks[p][2]:+.2f} GiB)"
+                    for p in ((phase, "32-34") if phase == "11" else (phase,))
+                    if peaks.get(p)]
+        fit = "fits" if r["total_gib"] <= total else "does not fit"
+        print(f"memory budget {label} ({fn}, {kw}): {r['n_params']:,} "
+              f"parameters; params {r['params_gib']:.2f}, grads "
+              f"{r['grads_gib']:.2f}, moments {r['moments_gib']:.2f}, acts "
+              f"{r['acts_gib']:.2f} -> total {r['total_gib']:.2f} GiB a "
+              f"device ({fit} the card's {total:.2f} GiB; "
+              f"{(time.perf_counter() - t) * 1e3:.0f} ms on the meta "
+              f"device); " + ("; ".join(measured) or "no phase measures it")
+              + f" {tag}", flush=True)
+    # gate: the budget's parameter bytes are the model's on the card
+    r = rows["11 VLA b32, fp32 AdamW"]
+    before = torch.cuda.memory_allocated()
+    model = PiZeroVLA(config.vlaser_2b_vla(), param_dtype=torch.float32,
+                      compute_dtype=torch.bfloat16, device=dev)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    grew = torch.cuda.memory_allocated() - before
+    print(f"memory budget gate: the fp32 Vlaser-2B-VLA on the card holds "
+          f"{nbytes:,} bytes of parameters ({nbytes / 2**30:.6f} GiB; the "
+          f"allocator grew {grew / 2**30:.6f} GiB), the budget's params_gib "
+          f"{r['params_gib']:.6f} {tag}", flush=True)
+    if nbytes / 2**30 != r["params_gib"]:
+        raise RuntimeError(f"memory budget: params_gib {r['params_gib']} != "
+                           f"{nbytes / 2**30} GiB on the card")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # monitoring: device memory, a timed call, a trace; in this process
+    # (late in the run its session has recorded no device kernel, PERF.md)
+    # and in a fresh one, which must record the call's kernel
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        here = monitoring_probe(os.path.join(trace_dir, "here"))
+        out = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+             f"chip_smoke.monitoring_probe({os.path.join(trace_dir, 'new')!r}"
+             ")))"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        if out.returncode:
+            raise RuntimeError(f"monitoring probe: {out.stderr[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        print("\n".join(lines[:-1]), flush=True)  # its log lines
+        fresh = json.loads(lines[-1])
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    for where, r in (("this process", here), ("a fresh process", fresh)):
+        print(f"profile_trace in {where}: {r['files']} trace of "
+              f"{r['bytes']:,} bytes, {r['events']} events, {r['kernels']} "
+              f"device kernels {tag}", flush=True)
+    if fresh["files"] != 1 or not fresh["kernels"]:
+        raise RuntimeError("profile_trace in a fresh process wrote no "
+                           "device kernel")
+
+
+def monitoring_probe(trace_dir):
+    """utils/monitoring on the card: log_device_memory, then profile_trace
+    into trace_dir around one timed 1,024^2 matmul (log_execution_time).
+    -> {"files", "bytes", "events", "kernels"} of the trace written."""
+    import logging
+
+    import torch
+
+    from vlaser_tpu_torch.utils import monitoring
+
+    log = logging.getLogger("vlaser_tpu_torch")
+    handler = None if log.hasHandlers() else logging.StreamHandler(
+        sys.stdout)
+    if handler is not None:
+        log.addHandler(handler)
+    level = log.level
+    log.setLevel(logging.INFO)
+    try:
+        monitoring.log_device_memory("phase 53")
+        x = torch.randn(1024, 1024, device="cuda")
+
+        @monitoring.log_execution_time()
+        def small_call():
+            y = x @ x
+            torch.cuda.synchronize()
+            return y
+
+        with monitoring.profile_trace(trace_dir):
+            small_call()
+    finally:
+        if handler is not None:
+            log.removeHandler(handler)
+        log.setLevel(level)
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    return {"files": len(files),
+            "bytes": sum(os.path.getsize(os.path.join(trace_dir, f))
+                         for f in files),
+            "events": len(events),
+            "kernels": sum(e.get("cat") == "kernel" for e in events)}
 
 
 # -- closed-loop evaluation: phases 38-39 (right after 37) ------------------
@@ -5953,6 +6605,7 @@ def sft_trainer_phase(torch, np, dev, cfg, tag):
     from vlaser_tpu_torch.train.trainer import SFTTrainer, TrainConfig
 
     t0 = time.perf_counter()
+    left = torch.cuda.memory_allocated()  # by earlier phases
     model = InternVLChatModel(cfg, param_dtype=torch.float32,
                               compute_dtype=torch.bfloat16, device=dev,
                               remat=True)
@@ -5977,6 +6630,7 @@ def sft_trainer_phase(torch, np, dev, cfg, tag):
         torch, lambda b: trainer.train(iter([b])), batch, STEPS)
     counts = {k: v for k, v in _read_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    PEAKS["26"] = (peak, 1, left / 2**30)
     print(f"SFTTrainer: {STEPS} steps, losses {[round(v, 6) for v in losses]}"
           f", grad norms {[round(v, 4) for v in gnorms]}, step ms "
           f"{[round(v, 3) for v in times]} (median "
@@ -8877,6 +9531,7 @@ def ada_vie_phase(torch, np, dev, tag, extra):
     vc, llm, S_it = cfg.vlm.vision, cfg.vlm.llm, cfg.max_image_text_tokens
     H, n_a = llm.num_heads, cfg.num_action_tokens
     n_p = n_img + cfg.num_proprio_tokens
+    left = torch.cuda.memory_allocated()  # by earlier phases
     model = PiZeroVLA(cfg, param_dtype=torch.float32,
                       compute_dtype=torch.bfloat16, device=dev, remat=True)
     gen = torch.Generator(device=dev)
@@ -8977,6 +9632,7 @@ def ada_vie_phase(torch, np, dev, tag, extra):
     torch.cuda.synchronize()
     got = {k: v for k, v in _read_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    PEAKS["47"] = (peak, B, left / 2**30)
     # derived from the code, a step: the VLM-side ViT runs its flash forward
     # once (its features are detached: no backward reaches it, so remat
     # never recomputes it); the expert tower and every joint layer run one
@@ -9405,9 +10061,11 @@ def main() -> int:
     # later launches in the process slower (PERF.md)
     launches = phase("20-22 engine", engine_phases, torch, np, dev,
                      vlaser_2b(), tag, report)
-    # the entry points' phases serve over HTTP: host-bound too
-    _add(launches, phase("35-37 entry points", vlm_entry_phases, torch, np,
-                         dev, vlaser_2b(), tag, report))
+    # the entry points' phases serve over HTTP, and the data-generation
+    # phases 50-52 on their model drive the chat backends: host-bound too
+    _add(launches, phase("35-37, 50-52 entry points, data generation",
+                         vlm_entry_phases, torch, np, dev, vlaser_2b(), tag,
+                         report))
     # the closed-loop harnesses: host-bound as well
     _add(launches, phase("38-39 closed loop", closed_loop_phases, torch, np,
                          dev, vlaser_2b_vla(), vlaser_2b(), tag))
@@ -9478,6 +10136,8 @@ def main() -> int:
                          text_ablation_phases, torch, np, dev, tag, extra))
     phase("engine profile", engine_profile_phase, torch, np, dev,
           vlaser_2b(), tag, report)
+    # reads the train phases' peaks; its profiler sessions come last
+    phase("53 memory budget", budget_phase, torch, dev, tag)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "vlaser_tpu")]
     if bad:
         raise RuntimeError(f"the port imported {bad[:4]}")

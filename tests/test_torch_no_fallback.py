@@ -110,6 +110,12 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.native.build",
     "vlaser_tpu_torch.image.native",
     "vlaser_tpu_torch.data.native_loader",
+    "vlaser_tpu_torch.core.mesh",
+    "vlaser_tpu_torch.utils.memory_budget",
+    "vlaser_tpu_torch.data.qa_generation",
+    "vlaser_tpu_torch.data.reasoning_pipeline",
+    "vlaser_tpu_torch.data.visualprm_pipeline",
+    "vlaser_tpu_torch.scripts.generate_qa",
 )
 
 
@@ -442,10 +448,11 @@ def test_flash_cuda_route_refuses_other_head_dims(monkeypatch, D):
 
 
 def test_entry_points_default_to_the_card():
-    """PiZeroVLA (the internvl and the paligemma backbone) and PolicyServer
-    with no device take the card; without one they raise instead of
-    building on the CPU."""
+    """PiZeroVLA (the internvl and the paligemma backbone), PolicyServer
+    and generate_qa with no device take the card; without one they raise
+    instead of building on the CPU."""
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts import generate_qa
     from vlaser_tpu_torch.serve.policy_server import PolicyServer
 
     cfg = tiny_vla(max_image_text_tokens=8)
@@ -464,6 +471,9 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((RuntimeError, AssertionError)):
         PolicyServer(model)
     assert PolicyServer(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        generate_qa.main(["--tiny", "--episodes_dir", ".", "--out",
+                          "unused.jsonl"])
 
 
 def test_chat_entry_points_default_to_the_card():
@@ -653,15 +663,17 @@ def test_train_vla_cli_defaults_to_the_card(tmp_path):
                         "2", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("cli", ["serve_vlm", "eval_vlm"])
+@pytest.mark.parametrize("cli", ["serve_vlm", "eval_vlm", "generate_qa"])
 def test_serving_clis_default_to_the_card(tmp_path, cli):
-    """serve_vlm / eval_vlm given no --device raise on a box without a card
-    before they build a model, in a process that loads no jax, no
-    vlaser_tpu and no PIL (a text-only run needs none)."""
+    """serve_vlm / eval_vlm / generate_qa given no --device raise on a box
+    without a card before they build a model, in a process that loads no
+    jax, no vlaser_tpu and no PIL (a text-only run needs none)."""
     env = _env()
     env["CUDA_VISIBLE_DEVICES"] = ""
-    argv = ["--tiny"] + (["--benchmark", "mcq", "--data", "x.jsonl"]
-                         if cli == "eval_vlm" else [])
+    argv = ["--tiny"] + {
+        "eval_vlm": ["--benchmark", "mcq", "--data", "x.jsonl"],
+        "generate_qa": ["--episodes_dir", ".", "--out", "o.jsonl"],
+    }.get(cli, [])
     code = ("import sys\n"
             f"from vlaser_tpu_torch.scripts import {cli} as m\n"
             "try:\n"
