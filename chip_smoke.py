@@ -21,7 +21,8 @@ width and depth of Vlaser-2B-VLA (phases 1-11), of the Vlaser-2B chat
 model (phases 12-16), of the PaliGemma VLA (phases 17-19), of the
 Vlaser-2B serving engine (phases 20-22, run first), of the Vlaser-2B
 SFT train step (phases 23-26, after 19), of the training entry points
-(phases 27-31, after 26), of the VLA recipe's 8-bit trainer (phases
+(phases 27-31, after 26; the LLM's depth cut to CUT_LAYERS), of the VLA
+recipe's 8-bit trainer (phases
 32-34, right after 11), of the VLM's serving and evaluation entry
 points (phases 35-37, right after 22), of the closed-loop evaluations
 (phases 38-39, right after 37), of the RoboTwin parallel-decoding VLA's
@@ -32,8 +33,10 @@ the Qwen3-MoE family (phases 44-45, between 43 and 42) and of the VLA's
 text head, its adaLN-Zero and vision-in-expert ablations, InternViT-6B and
 the graft entry's twin (phases 46-49, after 27-31, before the engine's
 profiled run), of the data-generation pipelines (phases 50-52, right after
-37) and of the memory budget (phase 53, last) with random weights
-from seeded generators; each group's wall seconds are printed on a line of
+37), of the data / fsdp / context layouts (phases 54-56, after 46-49: the
+ring's chunk route, the trainers over a one-rank NCCL mesh, the gate's
+8-rank gloo mirror on the host) and of the memory budget (phase 53, last)
+with random weights from seeded generators; each group's wall seconds are printed on a line of
 its own ("phase wall: ..."). The native image libraries
 (vlaser_tpu_torch/native, g++) build beside nvcc:
 
@@ -494,6 +497,23 @@ and tokenizer; seeded uint8 448 px frames, each one tile without PIL):
      PiZeroVLA built on the card; then log_device_memory and profile_trace
      (host and device activity) around one small call, in this process
      and in a fresh one, whose trace must hold the call's device kernel.
+Parallel layouts (run after 46-49; NCCL refuses two ranks on one card):
+  54. ring attention's chunk route (kernels/ring_attention.virtual_ring: 4
+      virtual context ranks in one process, each running exactly the
+      flash calls of its 4 ring steps, forward and backward) at 16,384
+      causal packed tokens, 12 / 2 heads x 128, bf16, contiguous and
+      zigzag, against one whole-sequence flash call (a q_offset-0
+      control must break it) and, at 2,048 tokens, the eager fp32 chunk
+      twin; each rank's device ms against the one call; launches derived
+      from the block pairs;
+  55. SFTTrainer (phase 26's step) over (data 1, fsdp 1, tensor 1) and
+      over a context axis of 1, VLATrainer (phase 11's) over (data 1,
+      fsdp 1, tensor 1), a one-rank NCCL group: 2 steps each against the
+      same trainer without a mesh from the same weights (loss and grad
+      norm within SHARD_REL), launches derived, ms a step, peaks;
+  56. a CPU check: graft_entry.dryrun_multichip(8) on 8 gloo ranks of the
+      host (the gate's VLA, SFT, CP and CPxFSDP-train lines, five not
+      ported yet).
 Every other profiler session records device activity only (host ops made
 the trace's post-processing the bulk of the engine's profiled run).
 Any failed phase raises (non-zero exit, no result line). The line before
@@ -6685,6 +6705,12 @@ def sft_phases(torch, np, dev, cfg, tag, report):
 # -- the training entry points (phases 27-31) ---------------------------------
 CLI_TOKENS = 2048  # --max_seq of the packed SFT and pretrain runs
 CLI_STEPS = 4      # train_sft steps at full width
+# the LLM layers of 27-31's Vlaser-2B (of 28; full width): their time is
+# checkpoint and converter IO, which scales with depth, and the script
+# outgrew its time limit's budget with phases 54-56 (phase 40 keeps its
+# depth: its
+# bf16 grad-norm gate, calibrated at 28 layers, parts by 1.3e-2 at 8)
+CUT_LAYERS = 8
 PRETRAIN_STEPS = 2  # the first takes warmup_cosine's lr 0
 CLI_CONVS = 160    # conversations of the JSONL
 CLI_TEXT = (64, 1500)  # their text bytes (byte tokenizer tokens)
@@ -6893,9 +6919,9 @@ def convert_phase(torch, np, dev, cfg, hf_dir, tag):
 
 
 def sft_cli_phase(torch, np, dev, cfg, model, hf_dir, data, work, tag):
-    """Phase 28: train_sft's stages at full width and depth as `main` runs
-    them: --model_path (phase 27's checkpoint, loaded there by the same
-    load_model into `model`) --data (CLI_CONVS conversations) --packed
+    """Phase 28: train_sft's stages at full width (the LLM's depth cut to
+    CUT_LAYERS by `main`) as `main` runs them: --model_path (phase 27's
+    checkpoint, loaded there by the same load_model into `model`) --data (CLI_CONVS conversations) --packed
     --max_seq CLI_TOKENS --steps CLI_STEPS --checkpoint_dir (under `work`),
     with the byte tokenizer and vlaser_2b's 151,674-word config handed in.
     The packer's fill rate, tokens/s over real tokens, step ms, the time
@@ -9403,7 +9429,8 @@ def vla_text_phase(torch, np, dev, tag, extra):
                 with torch.inference_mode():
                     pre_ms = _ms(torch, lambda: model.infer_text(
                         ids, px, mask, 1, eos_token_id=-1), 3)
-                    all_ms = _ms(torch, run, 3)
+                    # warm from the counted calls: one timed call
+                    all_ms = _ms(torch, run, 1, warmup=0)
                 peak = torch.cuda.max_memory_allocated() / 2**30
             finally:
                 model.set_attn_impl("auto")
@@ -9926,6 +9953,558 @@ def text_ablation_phases(torch, np, dev, tag, extra):
     return launches
 
 
+# -- the parallel layouts (phases 54-56) --------------------------------------
+RING_TOKENS = 16384  # phase 24's long SFT pack
+RING_RANKS = 4       # virtual context ranks
+RING_SMALL = 2048    # the eager chunk twin's size
+RING_SEGMENTS = (3000, 4500, 1500, 5000, 2320)  # packed, then 64 padding
+
+
+def _ring_seg(torch, dev, n, lengths):
+    """[1, n] segment ids: `lengths` packed from 0, segment 0 after."""
+    seg = torch.zeros((1, n), dtype=torch.int32, device=dev)
+    at = 0
+    for i, m in enumerate(lengths):
+        seg[:, at:at + m] = i + 1
+        at += m
+    return seg
+
+
+def _ring_run(torch, ra, q, k, v, do, seg, n, layout, ranks=None):
+    """virtual_ring in `layout` on the logical sequence; -> {key: the
+    ranks' results put back in sequence order} (dk / dv of each rank's own
+    chunk), or the raw result when `ranks` is given."""
+    idx = None
+    if layout == "zigzag":
+        fwd, inv = ra.zigzag_indices(n, q.shape[1])
+        idx = (torch.as_tensor(fwd, device=q.device),
+               torch.as_tensor(inv, device=q.device))
+    perm = lambda t: t if idx is None else t.index_select(1, idx[0])
+    res = ra.virtual_ring(perm(q), perm(k), perm(v), n,
+                          dout=None if do is None else perm(do),
+                          q_segment_ids=perm(seg), causal=True,
+                          layout=layout, ranks=ranks)
+    if ranks is not None:
+        return res
+    back = lambda t, dim=1: t if idx is None else t.index_select(dim, idx[1])
+    out = {"out": back(torch.cat([res["out"][r] for r in range(n)], 1)),
+           "lse": back(torch.cat([res["lse"][r] for r in range(n)], 2), 2)}
+    if do is not None:
+        for key in ("dq", "dk", "dv"):
+            out[key] = back(torch.cat([res[key][r] for r in range(n)], 1))
+    return out
+
+
+def _ring_pairs(ra, n, chunk, layout):
+    """Allowed (q, kv) blocks of each virtual rank: its flash calls."""
+    return [sum(len(ra._pairs(r, src, n, chunk, layout, True))
+                for src in range(n)) for r in range(n)]
+
+
+def _rank_work(torch, seg, n, layout, ra):
+    """Allowed (query, key) pairs of each virtual rank's rows under the
+    packed causal mask (the flop its chunk steps need)."""
+    s = seg[0]
+    pos = torch.arange(s.numel(), device=s.device)
+    start = torch.zeros_like(pos)
+    change = torch.nonzero(s[1:] != s[:-1])[:, 0] + 1
+    start[change] = change
+    start = torch.cummax(start, 0).values
+    rows = torch.where(s != 0, pos - start + 1, 0)
+    chunk = s.numel() // n
+    return [int(rows[ra._positions(r, n, chunk, layout, s.device)].sum())
+            for r in range(n)]
+
+
+def ring_phase(torch, np, dev, tag, extra):
+    """Phase 54: ring attention's chunk route at full width, 4 virtual
+    context ranks in one process (kernels/ring_attention.virtual_ring:
+    each rank runs exactly the flash calls of its 4 ring steps, forward
+    and backward, the chunks handed over without communication):
+    Qwen2.5-1.5B attention (12 / 2 heads x 128), bf16, RING_TOKENS causal
+    tokens in packed segments, both layouts. Held against one flash call
+    over the whole sequence (out, lse, dq, dk, dv within FLASH_REL x max,
+    lse within LSE_ABS), with a control (every block pair's q_offset set
+    to 0) that must break the bound; at RING_SMALL tokens the kernel route
+    is held to the eager fp32 chunk twin. Each rank's device ms, the
+    slowest against the one call, and the launches (counted from 0 around
+    the two layouts' runs, held to the block pairs); the library yardstick
+    is one scaled_dot_product_attention of the slowest rank's rows against
+    the whole K/V. -> those launches."""
+    import torch.nn.functional as F
+
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import ring_attention as ra
+
+    H, KVH, D, n = 12, 2, 128, RING_RANKS
+    g = torch.Generator(device=dev)
+    g.manual_seed(54)
+
+    # the eager twin at the small size
+    q, k, v, do = _flash_inputs(torch, g, dev, 1, RING_SMALL, RING_SMALL, H,
+                                KVH, D)
+    seg = _ring_seg(torch, dev, RING_SMALL, (700, 900, 384))
+    keys = ("out", "lse", "dq", "dk", "dv")
+    for layout in ("contiguous", "zigzag"):
+        got = _ring_run(torch, ra, q, k, v, do, seg, n, layout)
+        route = ra._kernel_route
+        ra._kernel_route = lambda q: False
+        try:
+            twin = _ring_run(torch, ra, q, k, v, do, seg, n, layout)
+        finally:
+            ra._kernel_route = route
+        bounds = {kk: FLASH_REL * twin[kk].float().abs().max().item()
+                  for kk in ("out", "dq", "dk", "dv")}
+        bounds["lse"] = LSE_ABS
+        valid = (seg != 0)[0]  # fully masked rows: lse -1e30 either way
+        twin["lse"], got["lse"] = twin["lse"][..., valid], got["lse"][
+            ..., valid]
+        _check(f"ring {layout} chunk route vs eager twin S={RING_SMALL} "
+               f"H={H}/{KVH} D={D} x{n}", got, twin, bounds, {})
+    del q, k, v, do, got, twin
+
+    S = RING_TOKENS
+    q, k, v, do = _flash_inputs(torch, g, dev, 1, S, S, H, KVH, D)
+    seg = _ring_seg(torch, dev, S, RING_SEGMENTS)
+    meta = fa.pack_meta(seg)
+    one_fwd = lambda: fa.flash_attention_fwd(q, k, v, meta, meta, 0, True)
+    out, lse = one_fwd()
+    grads = fa.flash_attention_bwd(q, k, v, meta, meta, 0, out, lse, do,
+                                   True)
+    ref = dict(zip(keys, (out, lse, *grads)))
+    bounds = {kk: FLASH_REL * ref[kk].float().abs().max().item()
+              for kk in ("out", "dq", "dk", "dv")}
+    bounds["lse"] = LSE_ABS
+    valid = (seg != 0)[0]
+    ref["lse"] = ref["lse"][..., valid]
+    _zero_counts()
+    runs = {}
+    for layout in ("contiguous", "zigzag"):
+        runs[layout] = _ring_run(torch, ra, q, k, v, do, seg, n, layout)
+    torch.cuda.synchronize()
+    launches = {kk: v_ for kk, v_ in _read_counts().items() if v_}
+    calls = {lay: _ring_pairs(ra, n, S // n, lay)
+             for lay in ("contiguous", "zigzag")}
+    want = {"flash_attention_fwd": sum(map(sum, calls.values())),
+            "flash_attention_bwd": sum(map(sum, calls.values()))}
+    print(f"ring launches {launches} (derived from the block pairs "
+          f"{calls}: {want}) {tag}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"ring launches {launches} != {want}")
+    pairs = ra._pairs
+    ra._pairs = lambda *a: [(qs, ks, 0) for qs, ks, _ in pairs(*a)]
+    try:
+        wrong = _ring_run(torch, ra, q, k, v, None, seg, n, "contiguous")
+    finally:
+        ra._pairs = pairs
+    errs = {}
+    for layout, got in runs.items():
+        got["lse"] = got["lse"][..., valid]
+        errs[layout] = _check(
+            f"ring {layout} S={S} H={H}/{KVH} D={D} x{n} vs one flash call",
+            got, ref, bounds,
+            {"q_offset 0": {"out": wrong["out"]}} if layout == "contiguous"
+            else {})
+    del runs, wrong, ref
+    gc.collect()
+
+    one_ms = _kernel_ms(torch, one_fwd, 5)
+    one_both = _kernel_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, meta, meta, 0, out, lse, do, True), 5) + one_ms
+    io = (q.numel() + 2 * k.numel()) * 2
+    for layout in ("contiguous", "zigzag"):
+        work = _rank_work(torch, seg, n, layout, ra)
+        f_ms = [_kernel_ms(torch, lambda r=r: _ring_run(
+            torch, ra, q, k, v, None, seg, n, layout, ranks=[r]), 3)
+            for r in range(n)]
+        b_ms = [_kernel_ms(torch, lambda r=r: _ring_run(
+            torch, ra, q, k, v, do, seg, n, layout, ranks=[r]), 3) - f
+            for r, f in enumerate(f_ms)]
+        slow = max(range(n), key=lambda r: f_ms[r] + b_ms[r])
+        # the yardstick: one scaled_dot_product_attention of the slowest
+        # rank's query rows against the whole K/V under the ring's mask at
+        # their global positions (K/V repeated over each group's q heads),
+        # forward, then autograd.grad for the backward
+        pos = ra._positions(slow, n, S // n, layout, dev)
+        mask = ra._chunk_mask(meta[:, pos], meta, pos,
+                              torch.arange(S, device=dev), True)[:, None]
+        rep_kv = lambda t: t.repeat_interleave(H // KVH, dim=2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q[:, pos], rep_kv(k), rep_kv(v)))
+        dot = do[:, pos].transpose(1, 2).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        lib_f = _kernel_ms(torch, sdpa, 5)
+        o_lib = sdpa()
+        lib_b = _kernel_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True), 5)
+        del o_lib, qt, kt, vt, dot, mask
+        route = ra._kernel_route
+        ra._kernel_route = lambda q: False
+        try:
+            plain_f = _ms(torch, lambda: _ring_run(
+                torch, ra, q, k, v, None, seg, n, layout, ranks=[slow]), 1)
+            plain_b = _ms(torch, lambda: _ring_run(
+                torch, ra, q, k, v, do, seg, n, layout, ranks=[slow]),
+                1) - plain_f
+        finally:
+            ra._kernel_route = route
+        # the slowest rank's work: its rows' allowed pairs, q / out / lse
+        # of its rows and every k / v chunk once
+        rows_b = (q.numel() // n) * 2 * 2 + (lse.numel() // n) * 4
+        for nm, ms, plain, flop, nbytes in (
+                ("fwd", f_ms, plain_f, 4 * D * H * work[slow],
+                 io // n + 2 * k.numel() * 2 * (n - 1) // n + rows_b),
+                ("bwd", b_ms, plain_b, 10 * D * H * work[slow],
+                 2 * (io // n + 2 * k.numel() * 2 * (n - 1) // n + rows_b))):
+            rep = {"max_abs_err": max(errs[layout][kk] for kk in (
+                       ("out",) if nm == "fwd" else ("dq", "dk", "dv"))),
+                   "ms": ms[slow], "rank_ms": [round(x, 4) for x in ms],
+                   "plain_ms": plain,
+                   "library_ms": lib_f if nm == "fwd" else lib_b,
+                   "one_call_ms": one_ms if nm == "fwd" else one_both - one_ms,
+                   "launches": sum(calls[layout]),
+                   "calls_by_rank": calls[layout]}
+            rep["bound_ms"], rep["bound_by"] = _bound(flop, nbytes,
+                                                      PEAK_BF16)
+            extra[f"flash_attention_{nm}"][f"ring{S // 1024}k_{layout}"] = rep
+        both = [f + b for f, b in zip(f_ms, b_ms)]
+        print(f"ring {layout} S={S} x{n} virtual ranks: device ms a rank "
+              f"(fwd + bwd chunk steps) {[round(x, 3) for x in both]}, "
+              f"allowed pairs a rank {work}, flash calls a rank "
+              f"{calls[layout]}; slowest rank {max(both):.3f} ms against "
+              f"one whole-sequence flash call {one_both:.3f} ms "
+              f"({max(both) / one_both:.2f}x; an even split is "
+              f"{1 / n:.2f}x); eager twin on the slowest rank "
+              f"{plain_f + plain_b:.3f} ms; sdpa of the slowest rank's rows "
+              f"fwd {lib_f:.3f} ms, bwd {lib_b:.3f} ms {tag}", flush=True)
+    del q, k, v, do, out, lse, grads
+    return launches
+
+
+def _shard_run(torch, step, batch, what, steps):
+    """`steps` calls of step(batch) (a trainer's loop on one batch), the
+    launch counters zeroed just before and read just after: -> (ms a step,
+    losses, grad norms, launches, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times, losses, gnorms = _timed_steps(torch, step, batch, steps)
+    counts = {k: v for k, v in _read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"sharded {what}: losses {losses}, grad norms {gnorms}, step ms "
+          f"{[round(t, 3) for t in times]}, peak {peak:.2f} GiB, launches "
+          f"{counts}", flush=True)
+    return times, losses, gnorms, counts, peak
+
+
+SHARD_STEPS = 2
+SHARD_REL = 1e-5  # loss / grad norm: sharded at world size 1 vs one device
+
+
+def sharded_trainer_phase(torch, np, dev, tag):
+    """Phase 55: the trainers over a mesh at world size 1 on the card: a
+    one-rank NCCL group, SFTTrainer over (data 1, fsdp 1, tensor 1) and
+    over (data 1, fsdp 1, context 1, tensor 1) with a context-parallel
+    LLM config, and VLATrainer over (data 1, fsdp 1, tensor 1): phase 26's
+    full-parameter Vlaser-2B SFT step (SFT_TOKENS packed tokens) and phase
+    11's Vlaser-2B-VLA batch-32 step, SHARD_STEPS steps from the same
+    weights, losses and grad norms held to the same trainer without a
+    mesh within SHARD_REL, launches held to the derived counts; ms a step
+    beside the unsharded step's, peak memory. The group is destroyed
+    before the next phase. -> the sharded runs' launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from vlaser_tpu_torch.core import mesh as mesh_lib
+    from vlaser_tpu_torch.core.config import vlaser_2b, vlaser_2b_vla
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
+    from vlaser_tpu_torch.train.trainer import (SFTTrainer, TrainConfig,
+                                                VLATrainConfig, VLATrainer)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{work}/pg", rank=0,
+                            world_size=1)
+    launches = {}
+    try:
+        mesh = mesh_lib.make_mesh(fsdp=1)
+        cmesh = init_device_mesh("cuda", (1, 1, 1, 1), mesh_dim_names=(
+            mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS, mesh_lib.CONTEXT_AXIS,
+            mesh_lib.TENSOR_AXIS))
+        print(f"phase 55 meshes: {mesh_lib.mesh_shape(mesh)}, "
+              f"{mesh_lib.mesh_shape(cmesh)} (NCCL, world size 1)",
+              flush=True)
+        cfg = vlaser_2b()
+        ccfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, context_parallel_axis=mesh_lib.CONTEXT_AXIS))
+        lengths = (SFT_TOKENS * 3 // 8, SFT_TOKENS * 5 // 16, SFT_TOKENS // 4)
+        batch = _packed_batch(np, cfg, SFT_TOKENS, 26, lengths)
+        L = cfg.llm.num_layers
+        sft_want = {"flash_attention_fwd": SHARD_STEPS * 2 * L,
+                    "flash_attention_bwd": SHARD_STEPS * L,
+                    "_rms_fwd": SHARD_STEPS * (4 * L + 1),
+                    "_rms_bwd": SHARD_STEPS * (2 * L + 1)}
+        vcfg = vlaser_2b_vla()
+        vbatch = _train_batch(torch, np, dev, vcfg, 32)
+        n_vit, VL = vcfg.vlm.vision.num_layers, vcfg.vlm.llm.num_layers
+        vla_want = {"flash_attention_fwd": SHARD_STEPS * 2 * (n_vit + VL),
+                    "flash_attention_bwd": SHARD_STEPS * (n_vit + VL),
+                    "_rms_fwd": SHARD_STEPS * (2 * 2 * VL + 1),
+                    "_rms_bwd": SHARD_STEPS * (2 * VL - 1)}
+
+        def sft(conf, m):  # phase 26's trainer and weights
+            model = InternVLChatModel(conf, param_dtype=torch.float32,
+                                      compute_dtype=torch.bfloat16,
+                                      device=dev, remat=True)
+            random_init_(model, torch.Generator(dev).manual_seed(26))
+            trainer = SFTTrainer(model, TrainConfig(), mesh=m)
+            return lambda b: trainer.train(iter([b]))
+
+        def vla(conf, m):  # phase 11's trainer, weights and generator
+            model = PiZeroVLA(conf, param_dtype=torch.float32,
+                              compute_dtype=torch.bfloat16, device=dev,
+                              remat=True)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(5)
+            random_init_(model, gen)
+            trainer = VLATrainer(model, VLATrainConfig(), generator=gen,
+                                 mesh=m)
+            return lambda b: trainer.train_steps(iter([b]), 1)
+
+        def run(make, conf, b, m, what):
+            out = _shard_run(torch, make(conf, m), b, what, SHARD_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+        plains = {}
+        for what, make, conf, m, want in (
+                ("SFT", sft, cfg, mesh, sft_want),
+                ("SFT context", sft, ccfg, cmesh, sft_want),
+                ("VLA", vla, vcfg, mesh, vla_want)):
+            b = vbatch if what == "VLA" else batch
+            family = what.split()[0]  # the context run's plain twin: SFT's
+            if family not in plains:
+                plains[family] = run(make, conf, b, None,
+                                     f"{family} one device")
+            plain = plains[family]
+            shard = run(make, conf, b, m,
+                        f"{what} mesh {mesh_lib.mesh_shape(m)}")
+            _held(shard[3], want, f"sharded {what}")
+            _add(launches, shard[3])
+            rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(
+                shard[1] + shard[2], plain[1] + plain[2]))
+            # the first step of a process's first run holds its warm-up:
+            # the last steps are compared
+            print(f"sharded {what}: loss / grad norm rel diff to one device "
+                  f"{rel:.3e} (bound {SHARD_REL}); last step "
+                  f"{shard[0][-1]:.3f} ms sharded, {plain[0][-1]:.3f} ms one "
+                  f"device; peak {shard[4]:.2f} / {plain[4]:.2f} GiB {tag}",
+                  flush=True)
+            if not rel <= SHARD_REL:
+                raise RuntimeError(f"sharded {what} step disagrees with "
+                                   "its one-device step")
+        del vbatch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def dryrun_phase(tag):
+    """Phase 56, a CPU check: graft_entry.dryrun_multichip(8), the
+    repository's multi-device gate mirrored on 8 gloo ranks of the host's
+    CPU (spawned processes, the card untouched): the VLA, SFT, CP and
+    CPxFSDP-train lines with finite losses, five sections named as not
+    ported yet. Its failure fails the run."""
+    from vlaser_tpu_torch.graft_entry import NOT_PORTED, dryrun_multichip
+
+    print("phase 56 (a CPU check on the host: 8 gloo ranks)", flush=True)
+    lines = dryrun_multichip(8)
+    done = [ln for ln in lines if "not ported yet" not in ln]
+    for key in ("VLA:", "SFT:", "CP:", "CPxFSDP-train:"):
+        if not any(f"dryrun_multichip(8) {key}" in ln for ln in done):
+            raise RuntimeError(f"dryrun_multichip(8): no {key} line")
+    if (len(lines) != 9 or len(lines) - len(done) != len(NOT_PORTED)
+            or any("nan" in ln or "inf" in ln for ln in done)):
+        raise RuntimeError(f"dryrun_multichip(8) printed {lines}")
+    print(f"dryrun_multichip(8): {len(done)} sections ran, "
+          f"{len(lines) - len(done)} not ported yet (CPU) {tag}", flush=True)
+
+
+# -- the layouts across cards (--multichip N) ----------------------------------
+MULTI_STEPS = 2
+MULTI_REL = 1e-2  # loss / grad norm: fsdp 2 x cp 2 over NCCL vs one card
+
+
+def _multichip_rank(rank, n, work, rehearse=None):
+    """One rank of `--multichip n`, on card `rank`, in an NCCL group of n:
+    (1) phase 26's full-parameter Vlaser-2B SFT step on two packed rows of
+    SFT_TOKENS, MULTI_STEPS steps, over (data n / 4, fsdp 2, context 2)
+    with the context-parallel LLM (the P2P ring on the flash kernels, the
+    gathers and reduce-scatters of the ZeRO-3 state), rank 0 first running
+    the same steps on one card alone; (2) the Vlaser-8B-VLA step (phase
+    11's trainer, one row a rank) over fsdp n, which no one card holds.
+    Writes {"plain", "sft", "vla8b": _shard_run's results} to
+    work/res.<rank>. `rehearse`: (SFT config, VLA config, tokens) to run
+    the same code on a gloo group of CPU processes at a small size."""
+    import dataclasses
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vlaser_tpu_torch.core import mesh as mesh_lib
+    from vlaser_tpu_torch.core.config import vlaser_2b, vlaser_8b_vla
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.policy.pizero import PiZeroVLA
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
+    from vlaser_tpu_torch.train.trainer import (SFTTrainer, TrainConfig,
+                                                VLATrainConfig, VLATrainer)
+
+    cfg, vcfg, tokens = rehearse or (vlaser_2b(), vlaser_8b_vla(),
+                                     SFT_TOKENS)
+    if rehearse is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+        dist.init_process_group("nccl", init_method=f"file://{work}/pg",
+                                rank=rank, world_size=n, device_id=dev,
+                                timeout=datetime.timedelta(seconds=240))
+    else:
+        dev = torch.device("cpu")
+        dist.init_process_group("gloo", init_method=f"file://{work}/pg",
+                                rank=rank, world_size=n)
+    res, tag = {}, f"(rank {rank})"
+    try:
+        ccfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, context_parallel_axis=mesh_lib.CONTEXT_AXIS))
+        lengths = (tokens * 3 // 8, tokens * 5 // 16, tokens // 4)
+        rows = [_packed_batch(np, cfg, tokens, 26 + i, lengths[i % 3:]
+                              + lengths[:i % 3]) for i in range(n // 2)]
+        batch = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+
+        def sft(conf, m, b, what):
+            model = InternVLChatModel(conf, param_dtype=torch.float32,
+                                      compute_dtype=torch.bfloat16,
+                                      device=dev, remat=True)
+            random_init_(model, torch.Generator(dev).manual_seed(26))
+            trainer = SFTTrainer(model, TrainConfig(), mesh=m)
+            out = _shard_run(torch, lambda b_: trainer.train(iter([b_])), b,
+                             f"{what} {tag}", MULTI_STEPS)
+            del model, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+        if rank == 0:
+            res["plain"] = sft(cfg, None, batch,
+                               f"SFT one card, {n // 2} rows")
+        dist.barrier()
+        mesh = mesh_lib.make_mesh(fsdp=2, cp=2)
+        index, count = mesh_lib.batch_shard(mesh)
+        local = {k: v[index:index + 1] for k, v in batch.items()}
+        res["sft"] = sft(ccfg, mesh, local,
+                         f"SFT mesh {mesh_lib.mesh_shape(mesh)}")
+        dist.barrier()
+
+        mesh = mesh_lib.make_mesh(fsdp=n)
+        model = PiZeroVLA(vcfg, param_dtype=torch.float32,
+                          compute_dtype=torch.bfloat16, device=dev,
+                          remat=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        random_init_(model, gen)
+        trainer = VLATrainer(model, VLATrainConfig(), generator=gen,
+                             mesh=mesh)
+        index, count = mesh_lib.batch_shard(mesh)
+        vbatch = _train_batch(torch, np, dev, vcfg, count)
+        vbatch = {k: v[index:index + 1] for k, v in vbatch.items()}
+        res["vla8b"] = _shard_run(
+            torch, lambda b_: trainer.train_steps(iter([b_]), 1), vbatch,
+            f"Vlaser-8B-VLA mesh {mesh_lib.mesh_shape(mesh)} {tag}",
+            MULTI_STEPS)
+        res["vla8b_rank_bytes"] = trainer.sharded.bytes_per_rank()
+    finally:
+        dist.destroy_process_group()
+    import torch as _t
+
+    _t.save(res, os.path.join(work, f"res.{rank}"))
+
+
+def multichip(n, tag):
+    """`--multichip n`: the data / fsdp / context layouts over n cards, one
+    NCCL rank a card (_multichip_rank). The sharded SFT step's losses and
+    grad norms are held to the one-card step within MULTI_REL; the 8B-VLA
+    step's losses must be finite; each rank's peak memory is printed
+    beside utils/memory_budget's per-device total."""
+    import torch
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < n or n % 4:
+        raise SystemExit(f"--multichip {n}: needs a multiple of 4 cards, "
+                         f"{torch.cuda.device_count()} visible")
+    work = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_multichip_rank, args=(n, work), nprocs=n)
+        res = [torch.load(os.path.join(work, f"res.{r}")) for r in range(n)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _multichip_report(res, n, time.perf_counter() - t0, tag)
+
+
+def _multichip_report(res, n, seconds, tag):
+    """Print and hold `--multichip n`'s results (see multichip)."""
+    from vlaser_tpu_torch.utils import memory_budget as mb
+
+    plain = res[0]["plain"]
+    sft = res[0]["sft"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sft[1] + sft[2],
+                                                   plain[1] + plain[2]))
+    peaks = [r["sft"][4] for r in res]
+    print(f"multichip SFT fsdp 2 x cp 2 over {n} cards: losses {sft[1]}, "
+          f"grad norms {sft[2]} vs one card {plain[1]}, {plain[2]}: rel "
+          f"diff {rel:.3e} (bound {MULTI_REL}); last step {sft[0][-1]:.3f} "
+          f"ms vs {plain[0][-1]:.3f} ms one card; peak GiB a rank "
+          f"{[round(p, 2) for p in peaks]} vs {plain[4]:.2f} one card "
+          f"{tag}", flush=True)
+    budget = mb.vla_train_budget(1, n, 1, per_device_batch=1,
+                                 model_size="8b")
+    vla = [r["vla8b"] for r in res]
+    print(f"multichip Vlaser-8B-VLA fsdp {n}: losses {vla[0][1]}, grad "
+          f"norms {vla[0][2]}, step ms {[round(t, 3) for t in vla[0][0]]}, "
+          f"peak GiB a rank {[round(v[4], 2) for v in vla]}, parameter "
+          f"shard {res[0]['vla8b_rank_bytes'] / 2**30:.2f} GiB a rank; "
+          f"memory_budget at fsdp {n}: params {budget['params_gib']:.2f}, "
+          f"grads {budget['grads_gib']:.2f}, moments "
+          f"{budget['moments_gib']:.2f}, acts {budget['acts_gib']:.2f}, "
+          f"total {budget['total_gib']:.2f} GiB ({seconds:.1f} s in all) "
+          f"{tag}", flush=True)
+    if not rel <= MULTI_REL:
+        raise RuntimeError("the sharded SFT step over NCCL disagrees with "
+                           "its one-card step")
+    if not all(math.isfinite(x) for v in vla for x in v[1] + v[2]):
+        raise RuntimeError("the 8B-VLA step over fsdp gave a non-finite "
+                           "loss or grad norm")
+
+
+def layout_phases(torch, np, dev, tag, extra):
+    """Phases 54-56, the data / fsdp / context layouts: -> launches of
+    their main paths (the ring's chunk steps, the sharded trainers)."""
+    launches = ring_phase(torch, np, dev, tag, extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, sharded_trainer_phase(torch, np, dev, tag))
+    dryrun_phase(tag)
+    return launches
+
+
 KERNEL_GROUPS = (("flash attention", ("fa::",)), ("RMSNorm", ("rms::",)),
                  ("w8a8 quantizer + int8 GEMM", ("w8a8::",)),
                  ("fused ViT", ("vit::",)), ("int8 stack", ("dec::",)),
@@ -10004,6 +10583,13 @@ def main() -> int:
     ap.add_argument("--profile-first", action="store_true",
                     help="with --engine-wall: one torch.profiler session "
                          "before the timing")
+    ap.add_argument("--layouts", action="store_true",
+                    help="only build the kernels and run phases 54-56 (the "
+                         "parallel layouts), then exit")
+    ap.add_argument("--multichip", type=int, metavar="N",
+                    help="only build the kernels and run the layouts over N "
+                         "cards (a multiple of 4), one NCCL rank a card, "
+                         "then exit")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -10037,6 +10623,14 @@ def main() -> int:
 
     if args.engine_wall:
         engine_wall(torch, np, dev, vlaser_2b(), args.profile_first, tag)
+        return 0
+    if args.multichip:
+        multichip(args.multichip, tag)
+        return 0
+    if args.layouts:
+        extra = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+        launches = layout_phases(torch, np, dev, tag, extra)
+        print(json.dumps({"launches": launches, "ring": extra}), flush=True)
         return 0
     _build_report(_build)
     report = {}
@@ -10122,10 +10716,15 @@ def main() -> int:
                          vlaser_2b(), tag, report))
     _add(launches, phase("40 RoboTwin train", robotwin_train_phases, torch,
                          np, dev, vlaser_2b(), tag, report))
-    work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoints: ~27 GB
+    import dataclasses
+
+    cut = vlaser_2b()
+    cut = dataclasses.replace(cut, llm=dataclasses.replace(
+        cut.llm, num_layers=CUT_LAYERS))
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoints: ~15 GB
     try:
-        _add(launches, phase("27-31 CLIs", cli_phases, torch, np, dev,
-                             vlaser_2b(), tag, work))
+        _add(launches, phase("27-31 CLIs", cli_phases, torch, np, dev, cut,
+                             tag, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the VLA's text head and ablations, InternViT-6B, the graft entry:
@@ -10134,6 +10733,11 @@ def main() -> int:
     # profiles)
     _add(launches, phase("46-49 text head, adaLN-Zero, 6B ViT",
                          text_ablation_phases, torch, np, dev, tag, extra))
+    # the data / fsdp / context layouts: the ring's chunk route, the
+    # trainers over a one-rank NCCL group (destroyed after), and the
+    # 8-rank gloo mirror of the multi-device gate on the host
+    _add(launches, phase("54-56 parallel layouts", layout_phases, torch, np,
+                         dev, tag, extra))
     phase("engine profile", engine_profile_phase, torch, np, dev,
           vlaser_2b(), tag, report)
     # reads the train phases' peaks; its profiler sessions come last

@@ -116,6 +116,9 @@ SLICE_MODULES = (
     "vlaser_tpu_torch.data.reasoning_pipeline",
     "vlaser_tpu_torch.data.visualprm_pipeline",
     "vlaser_tpu_torch.scripts.generate_qa",
+    "vlaser_tpu_torch.core.distributed",
+    "vlaser_tpu_torch.kernels.ring_attention",
+    "vlaser_tpu_torch.graft_entry",
 )
 
 
@@ -527,7 +530,8 @@ CLI_DATA = {"train_sft": "conv", "pretrain": "conv", "train_mpo": "pairs"}
 def test_training_clis_default_to_the_card(tmp_path, cli):
     """A port CLI given no --device runs on the card: on a box without one
     it raises before it builds or trains anything, in a process that
-    loads no jax and no vlaser_tpu; each module also refuses --fsdp 2."""
+    loads no jax and no vlaser_tpu; each module also refuses --fsdp 2
+    without a process group to shard over."""
     import json
 
     with open(tmp_path / "conv.jsonl", "w") as f:
@@ -562,7 +566,7 @@ def test_training_clis_default_to_the_card(tmp_path, cli):
 
     mod = {"train_sft": train_sft, "pretrain": pretrain,
            "train_mpo": train_mpo}[cli]
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="process group"):
         mod.main(["--tiny", "--data", data, "--fsdp", "2", "--device",
                   "cpu"])
 
@@ -639,7 +643,8 @@ def test_adamw8bit_raises_when_the_library_cannot_load(monkeypatch):
 def test_train_vla_cli_defaults_to_the_card(tmp_path):
     """train_vla's main with no --device raises on a box without a card,
     before it builds or reads anything, in a process that loads no jax,
-    no vlaser_tpu and no tensorflow; --fsdp 2 raises NotImplementedError."""
+    no vlaser_tpu and no tensorflow; --fsdp 2 without a process group
+    raises."""
     env = _env()
     env["CUDA_VISIBLE_DEVICES"] = ""
     code = ("import sys\n"
@@ -658,7 +663,7 @@ def test_train_vla_cli_defaults_to_the_card(tmp_path):
     assert "refused" in out.stdout
     from vlaser_tpu_torch.scripts import train_vla
 
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="process group"):
         train_vla.main(["--model_path", "x", "--rlds_dir", "y", "--fsdp",
                         "2", "--device", "cpu"])
 
@@ -716,3 +721,88 @@ def test_robotwin_and_simpler_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         eval_simpler.main(["--model_path", str(tmp_path), "--ckpt", "x.pt",
                            "--stats", "s.json"])
+
+
+def test_dryrun_multichip_never_imports_jax():
+    """graft_entry.dryrun_multichip on 2 gloo ranks: the ported sections'
+    lines with finite losses and the rest named as not ported, in a
+    process that loads no jax and no vlaser_tpu."""
+    code = ("import sys\n"
+            "from vlaser_tpu_torch.graft_entry import dryrun_multichip\n"
+            "lines = dryrun_multichip(2)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'flax', 'jaxlib', 'vlaser_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('clean', len(lines))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean 8" in out.stdout
+    for section in ("VLA: mesh={'data': 1, 'fsdp': 2, 'tensor': 1} loss=",
+                    "SFT: loss=", "CP: ring attention over {'context': 2}"):
+        assert f"dryrun_multichip(2) {section}" in out.stdout, section
+    assert "nan" not in out.stdout
+    assert out.stdout.count("not ported yet") == 5
+
+
+@pytest.mark.parametrize("which", ["flash_attention_fwd", "flash_attention_bwd",
+                                   "rms_fwd", "quantize_rows", "int8_gemm"])
+def test_a_dtensor_at_a_kernel_entry_raises(tmp_path, which):
+    """A DTensor reaching a kernel's entry raises instead of taking the
+    plain twin by its device (a one-rank gloo group, torn down after)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import rmsnorm, w8a8
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,))
+        dt = lambda *s, dtype=torch.float32: DTensor.from_local(
+            torch.ones(s, dtype=dtype), mesh, [Replicate()])
+        bf, i8 = torch.bfloat16, torch.int8
+        meta = torch.ones((1, 8), dtype=torch.int32)
+        calls = {
+            "flash_attention_fwd": lambda: fa.flash_attention_fwd(
+                dt(1, 8, 2, 64, dtype=bf), dt(1, 8, 2, 64, dtype=bf),
+                dt(1, 8, 2, 64, dtype=bf), meta, meta),
+            "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+                torch.ones(1, 8, 2, 64), torch.ones(1, 8, 2, 64),
+                torch.ones(1, 8, 2, 64), meta, meta, 0,
+                torch.ones(1, 8, 2, 64), dt(1, 2, 8),
+                torch.ones(1, 8, 2, 64)),
+            "rms_fwd": lambda: rmsnorm.rms_fwd(torch.ones(4, 16), dt(16),
+                                               1e-6),
+            "quantize_rows": lambda: w8a8.quantize_rows(dt(4, 32, dtype=bf)),
+            "int8_gemm": lambda: w8a8.int8_gemm(
+                torch.ones(4, 32, dtype=i8), torch.ones(4, 1),
+                dt(16, 32, dtype=i8), torch.ones(16)),
+        }
+        with pytest.raises(TypeError, match="DTensor"):
+            calls[which]()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ring_kernel_route_has_no_eager_fallback(monkeypatch):
+    """The ring's chunk steps on a CUDA q go through the flash kernel's
+    CUDA launch; when that launch fails the error leaves the ring instead
+    of the eager chunk step taking over."""
+    from vlaser_tpu_torch.kernels import flash_attention as fa
+    from vlaser_tpu_torch.kernels import ring_attention as ra
+
+    def launch(*args):
+        raise RuntimeError("the CUDA launch was reached")
+
+    monkeypatch.setattr(fa, "_fwd_launch", launch)
+    monkeypatch.setattr(ra, "_kernel_route",
+                        lambda q: q.device.type == "cuda")
+    card = lambda *s, dt=torch.bfloat16: torch.ones(s, dtype=dt).as_subclass(
+        _OnCard)
+    with pytest.raises(RuntimeError, match="CUDA launch was reached"):
+        ra.virtual_ring(card(1, 128, 2, 64), card(1, 128, 1, 64),
+                        card(1, 128, 1, 64), 2, causal=True,
+                        q_segment_ids=card(1, 128, dt=torch.int32))

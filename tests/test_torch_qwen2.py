@@ -118,10 +118,15 @@ def test_cached_prefill_and_decode_match_jax(variant):
 
 
 def test_unported_variants_raise():
-    # MoE layers and Phi3 longrope are ported (tests/test_torch_moe.py)
-    for over in (dict(context_parallel_axis="context"),
-                 dict(rms_plus_one=True),
+    # MoE layers and Phi3 longrope are ported (tests/test_torch_moe.py),
+    # context parallelism too (tests/test_torch_ring_attention.py), but not
+    # beside a sliding window, as in JAX
+    for over in (dict(rms_plus_one=True),
                  dict(attn_softcap=50.0), dict(mlp_act="gelu_tanh")):
         cfg = dataclasses.replace(tiny_llm(), **over)
         with pytest.raises(NotImplementedError):
             Qwen2ForCausalLM(cfg, device="cpu")
+    with pytest.raises(AssertionError, match="sliding window"):
+        Qwen2ForCausalLM(dataclasses.replace(
+            tiny_llm(), context_parallel_axis="context", sliding_window=8),
+            device="cpu")

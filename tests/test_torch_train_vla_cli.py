@@ -273,5 +273,5 @@ def test_train_vla_main_on_the_cpu_leaves_its_checkpoint(tmp_path,
     assert isinstance(trainer.step_fn.optimizer, AdamW8bit)
     assert trainer.step == 2 and latest_step(ck) == 2
     assert trainer.model.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="process group"):
         pcli.main(FLAGS + ["--fsdp", "2", "--device", "cpu"])

@@ -1,5 +1,6 @@
-"""Sharding-rule layer of the device mesh (port of the rule half of
-vlaser_tpu/core/mesh.py; no jax).
+"""Device mesh and sharding rules (port of vlaser_tpu/core/mesh.py; no
+jax): a torch.distributed DeviceMesh and path-pattern rules that give each
+parameter its DTensor placements.
 
 Axes:
   data    -- batch sharding (pure DP)
@@ -15,14 +16,20 @@ It equals `tuple(jax.sharding.PartitionSpec(...))` of the JAX rules.
 Rules match the JAX parameter path ("params/a/b/kernel"), which
 `path_str` builds from a port parameter name.
 
-The DeviceMesh half (`make_mesh`, `tree_shardings`, `shard_batch`) goes
-with the torch.distributed layouts and is not here yet.
+`make_mesh` builds a DeviceMesh over the process group's ranks with the
+JAX axis order; `tree_shardings` turns the rules into one DTensor
+`Placement` per mesh dimension for each parameter (Shard(d) where the
+rule names that axis for dim d, Replicate elsewhere), and `shard_batch`
+does the same for a batch's leaves. `set_mesh` makes a mesh ambient (the
+context-parallel LLM reads its `context` group there), as jax.set_mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import re
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
@@ -109,3 +116,142 @@ def stageify_rules(rules: Sequence[Rule], axis: str = STAGE_AXIS
 def batch_spec(extra_dims: int = 1) -> Spec:
     """[batch, ...] activations sharded over (data, fsdp)."""
     return (BATCH_AXES,) + (None,) * extra_dims
+
+
+# ---------------------------------------------------------------------------
+# The DeviceMesh
+# ---------------------------------------------------------------------------
+
+def make_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, cp: int = 1,
+              pp: int = 1, device_type: Optional[str] = None):
+    """A (data, fsdp[, stage][, context], tensor) DeviceMesh over the
+    ranks of the default process group (core/distributed.initialize);
+    dp=-1 takes all remaining ranks. The stage and context axes appear
+    only when pp / cp > 1, as in the JAX mesh. device_type: "cuda" or
+    "cpu" (None: "cuda" under an NCCL group, else "cpu")."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call "
+                           "core.distributed.initialize (or "
+                           "torch.distributed.init_process_group) first")
+    n = dist.get_world_size()
+    if dp == -1:
+        assert n % (fsdp * tp * cp * pp) == 0, \
+            f"{n} devices not divisible by fsdp*tp*cp*pp"
+        dp = n // (fsdp * tp * cp * pp)
+    assert dp * fsdp * tp * cp * pp == n, \
+        f"mesh {dp}x{fsdp}x{pp}x{cp}x{tp} != {n}"
+    shape, axes = [dp, fsdp], [DATA_AXIS, FSDP_AXIS]
+    if pp > 1:
+        shape.append(pp)
+        axes.append(STAGE_AXIS)
+    if cp > 1:
+        shape.append(cp)
+        axes.append(CONTEXT_AXIS)
+    shape.append(tp)
+    axes.append(TENSOR_AXIS)
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis name: size} of a DeviceMesh (JAX's Mesh.shape)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of `axis` (1 for an axis the mesh does not have)."""
+    return mesh_shape(mesh).get(axis, 1) if mesh is not None else 1
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate along `axis` (0 without the axis)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]
+
+
+def context_slice(x, mesh, dim: int = 1, axis: str = CONTEXT_AXIS):
+    """This rank's contiguous slice of a sequence dim split over `axis`
+    (x itself without the axis)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    c = x.shape[dim] // n
+    assert c * n == x.shape[dim], (x.shape[dim], n)
+    return x.narrow(dim, axis_index(mesh, axis) * c, c)
+
+
+def batch_shard(mesh) -> Tuple[int, int]:
+    """-> (index, count) of this rank's block of batch rows: the batch
+    shards over (data, fsdp), data major, as JAX's P(('data', 'fsdp'))."""
+    f = axis_size(mesh, FSDP_AXIS)
+    return (axis_index(mesh, DATA_AXIS) * f + axis_index(mesh, FSDP_AXIS),
+            axis_size(mesh, DATA_AXIS) * f)
+
+
+def _placements(spec: Spec, shape, mesh):
+    """A spec -> one Placement per mesh dimension. A dim that the product
+    of its axes does not divide, or one past the leaf's rank, stays whole
+    (Replicate), as JAX's tree_shardings degrades it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = mesh_shape(mesh)
+    out = [Replicate()] * len(mesh.mesh_dim_names)
+    for d, names in enumerate(tuple(spec)):
+        if names is None or d >= len(shape):
+            continue
+        names_t = names if isinstance(names, tuple) else (names,)
+        if shape[d] % math.prod(sizes.get(a, 1) for a in names_t):
+            continue
+        for a in names_t:
+            if a in sizes:
+                out[mesh.mesh_dim_names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def tree_shardings(tree, mesh, rules: Sequence[Rule]):
+    """{port parameter name: tensor (or shape)} -> {name: placements}, the
+    rule of `path_str(name)`. The names are the port's, the shapes its
+    layout; the one leaf whose layout differs from JAX's, a patch conv
+    (OIHW here), matches no rule and is replicated either way."""
+    out = {}
+    for name, leaf in tree.items():
+        shape = tuple(getattr(leaf, "shape", leaf))
+        out[name] = _placements(spec_for(path_str(name), rules), shape, mesh)
+    return out
+
+
+def shard_batch(tree, mesh):
+    """{key: array} -> {key: placements}: the leading dim over (data,
+    fsdp) where their product divides it, else replicated (scalars
+    too)."""
+    out = {}
+    for key, leaf in tree.items():
+        shape = tuple(getattr(leaf, "shape", ()))
+        spec = (BATCH_AXES,) if shape else ()
+        out[key] = _placements(spec, shape, mesh)
+    return out
+
+
+_ambient = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Make `mesh` the ambient mesh inside the block (jax.set_mesh): the
+    context-parallel LLM takes its ring's group from it."""
+    _ambient.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ambient.pop()
+
+
+def current_mesh():
+    """The innermost ambient mesh, or None."""
+    return _ambient[-1] if _ambient else None

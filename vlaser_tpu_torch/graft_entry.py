@@ -12,10 +12,26 @@ example batch is the JAX entry's: one 448 px tile, a 384-token prompt whose
 first 256 slots are image-context tokens followed by 44 text tokens, text
 mask over those 300, zero proprio and zero noise. `entry(cfg, "cpu")` runs
 any config on the CPU (the tests' tiny ones), the prompt cut to fit.
+
+`dryrun_multichip(n)` is the twin of the repository's multi-device gate:
+n gloo ranks on the CPU (spawned processes, no card), each section of the
+JAX gate at its tiny config and sizes, one line each. Ported: VLA (the
+flow-matching train step, frozen ViT, AdamW, data x fsdp = n/2 x 2), SFT
+(the packed VLM SFT step on that mesh), CP (the tiny LLM stack through
+ring attention over {'context': min(n, 4)}) and CPxFSDP-train (the SFT
+step with the LLM ring-sharded over context 2 and the state over fsdp 2;
+n divisible by 8). The other five sections print "not ported yet".
+
+    python -c "from vlaser_tpu_torch.graft_entry import dryrun_multichip
+    dryrun_multichip(8)"
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+
+import numpy as np
 import torch
 
 TEXT_TOKENS = 44  # the JAX entry's text tokens after the image slots
@@ -51,3 +67,200 @@ def entry(cfg=None, device=None):
             torch.zeros((B, cfg.cond_steps, cfg.proprio_dim), **f32),
             torch.zeros((B, cfg.num_action_tokens, cfg.action_dim), **f32))
     return model.infer_action, args
+
+
+NOT_PORTED = {
+    "TP-serve": "the tensor-parallel PolicyServer",
+    "TP-engine": "the tensor-parallel serving engine",
+    "PP": "the GPipe pipeline of train/pipeline.py",
+    "PPxFSDP-train": "the pipeline x fsdp train step",
+    "EP": "MoE expert parallelism over the tensor axis",
+}
+ORDER = ("VLA", "SFT", "TP-serve", "TP-engine", "CP", "PP", "PPxFSDP-train",
+         "CPxFSDP-train", "EP")
+
+
+def _vla_section(n, rng):
+    from .core import mesh as mesh_lib
+    from .core.config import tiny_vla
+    from .policy.flow import make_flow_loss
+    from .policy.pizero import PiZeroVLA
+    from .train.optim import make_optimizer
+    from .train.train_step import make_train_step, shard_train_state
+
+    fsdp = 2 if n % 2 == 0 else 1
+    mesh = mesh_lib.make_mesh(dp=-1, fsdp=fsdp)
+    cfg = tiny_vla(max_image_text_tokens=16)
+    B, S = n, cfg.max_image_text_tokens
+    img = cfg.vlm.vision.image_size
+    ids = rng.integers(1, 400, (B, S))
+    ids[:, 2] = cfg.vlm.img_context_token_id
+    batch = {
+        "input_ids": ids,
+        "pixel_values": rng.standard_normal((B, img, img, 3)).astype(
+            np.float32),
+        "text_mask": np.ones((B, S), np.int32),
+        "proprios": np.zeros((B, cfg.cond_steps, cfg.proprio_dim),
+                             np.float32),
+        "actions": np.zeros((B, cfg.num_action_tokens, cfg.action_dim),
+                            np.float32),
+    }
+    model = seeded_(PiZeroVLA(cfg, compute_dtype=torch.float32,
+                              attn_impl="reference", device="cpu"), 0)
+    groups, frozen = make_optimizer(model, 1e-4,
+                                    frozen_patterns=(r"vision_model/",))
+    sharded = shard_train_state(model, mesh)
+    gen = torch.Generator().manual_seed(1)
+    step = make_train_step(make_flow_loss(model, "beta", gen, mesh=mesh),
+                           groups, frozen=frozen, sharded=sharded)
+    loss = float(step(_local(batch, mesh))["loss"])
+    assert np.isfinite(loss), loss
+    return (f"VLA: mesh={mesh_lib.mesh_shape(mesh)} loss={loss:.4f}",
+            mesh)
+
+
+def seeded_(model, seed: int):
+    """Every parameter N(0, 0.1^2) from a seeded generator, norm weights
+    ("weight") 1 + N(0, 0.1^2): the tiny models' test weights."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            w = torch.randn(p.shape, generator=gen) * 0.1
+            p.copy_(w + 1.0 if name.endswith(".weight") else w)
+    return model
+
+
+def _local(batch, mesh):
+    """This rank's block of rows of a global numpy batch, as tensors."""
+    from .core.mesh import batch_shard
+
+    i, count = batch_shard(mesh)
+    b = next(iter(batch.values())).shape[0] // count
+    return {k: torch.as_tensor(v[i * b:(i + 1) * b]) for k, v in
+            batch.items()}
+
+
+def _sft_batch(vcfg, n, rng):
+    Bv, Nv = n, 24
+    vids = rng.integers(1, 400, (Bv, Nv))
+    vids[:, 1] = vcfg.img_context_token_id
+    labels = vids.copy()
+    labels[:, :4] = -100
+    img = vcfg.vision.image_size
+    return {
+        "input_ids": vids,
+        "labels": labels,
+        "loss_weight": (labels != -100).astype(np.float32),
+        "seg_ids": np.ones((Bv, Nv), np.int32),
+        "pixel_values": rng.standard_normal((Bv, img, img, 3)).astype(
+            np.float32),
+        "image_flags": np.ones((Bv,), np.int32),
+    }
+
+
+def _sft_step(vcfg, mesh, batch, seed):
+    from .core import mesh as mesh_lib
+    from .models.vlm import InternVLChatModel
+    from .train.losses import make_sft_loss
+    from .train.optim import make_optimizer
+    from .train.train_step import make_train_step, shard_train_state
+
+    model = seeded_(InternVLChatModel(vcfg, compute_dtype=torch.float32,
+                                      attn_impl="reference", device="cpu"),
+                    seed)
+    groups, frozen = make_optimizer(model, 1e-4,
+                                    frozen_patterns=(r"vision_model/",))
+    sharded = shard_train_state(model, mesh)
+    step = make_train_step(make_sft_loss(model, mesh=mesh), groups,
+                           frozen=frozen, sharded=sharded)
+    with mesh_lib.set_mesh(mesh):
+        loss = float(step(_local(batch, mesh))["loss"])
+    assert np.isfinite(loss), loss
+    return loss
+
+
+def _cp_section(n, vcfg, rng):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from .core import mesh as mesh_lib
+    from .models.qwen2 import Qwen2ForCausalLM
+
+    cp = min(n, 4)
+    cp_mesh = mesh_lib.make_mesh(dp=-1, fsdp=1, tp=1, cp=cp)
+    lcfg = dataclasses.replace(vcfg.llm, context_parallel_axis="context")
+    lmodel = seeded_(Qwen2ForCausalLM(lcfg, compute_dtype=torch.float32,
+                                      device="cpu"), 4)
+    Sc = 8 * cp
+    cids = torch.as_tensor(rng.integers(1, 400, (2, Sc)))
+    cseg = torch.ones((2, Sc), dtype=torch.int32)
+    with torch.no_grad(), mesh_lib.set_mesh(cp_mesh):
+        logits, _, _ = lmodel(cids, seg_ids=cseg, attn_impl="reference")
+    parts = [torch.empty_like(logits) for _ in range(cp)]
+    dist.all_gather(parts, logits.contiguous(),
+                    group=cp_mesh.get_group("context"))
+    logits = torch.cat(parts, 1)
+    assert torch.isfinite(logits).all()
+    return (f"CP: ring attention over {{'context': {cp}}} logits "
+            f"{tuple(logits.shape)}")
+
+
+def _dryrun_rank(rank, n, init_file, out_file):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from .core import mesh as mesh_lib
+    from .core.config import tiny_vlm
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=n)
+    try:
+        rng = np.random.default_rng(0)
+        lines = {}
+        lines["VLA"], mesh = _vla_section(n, rng)
+        vcfg = tiny_vlm()
+        vbatch = _sft_batch(vcfg, n, rng)
+        lines["SFT"] = f"SFT: loss={_sft_step(vcfg, mesh, vbatch, 2):.4f}"
+        lines["CP"] = _cp_section(n, vcfg, rng)
+        if n % 8 == 0:
+            cpfm = mesh_lib.make_mesh(dp=-1, fsdp=2, tp=1, cp=2)
+            ccfg = dataclasses.replace(vcfg, llm=dataclasses.replace(
+                vcfg.llm, context_parallel_axis="context"))
+            closs = _sft_step(ccfg, cpfm, vbatch, 9)
+            lines["CPxFSDP-train"] = (
+                f"CPxFSDP-train: mesh={mesh_lib.mesh_shape(cpfm)} "
+                f"loss={closs:.4f}")
+        if rank == 0:
+            with open(out_file, "w") as f:
+                for key in ORDER:
+                    if key in lines:
+                        f.write(f"dryrun_multichip({n}) {lines[key]}\n")
+                    elif key in NOT_PORTED:
+                        f.write(f"dryrun_multichip({n}) {key}: not ported "
+                                f"yet: {NOT_PORTED[key]}\n")
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int):
+    """Run the gate's sections on `n_devices` gloo CPU ranks; print and
+    return their lines. Raises if a rank fails."""
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="dryrun_")
+    out = os.path.join(work, "lines.txt")
+    try:
+        mp.spawn(_dryrun_rank, args=(n_devices, os.path.join(work, "init"),
+                                     out), nprocs=n_devices)
+        with open(out) as f:
+            lines = f.read().splitlines()
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    for line in lines:
+        print(line, flush=True)
+    return lines

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -166,3 +167,19 @@ def tmap_cache(enable: bool | None = None) -> dict:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def route(x, what: str, *others) -> str:
+    """The route of a kernel entry: "cpu" (the plain twin) or "cuda" (the
+    kernel), by x's device. A DTensor (x or any of `others`) raises: its
+    device says nothing of where its shards live, and a kernel takes whole
+    local tensors (the ZeRO-3 step hands the model gathered ones). Any
+    other device raises."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and any(isinstance(t, dt.DTensor)
+                              for t in (x,) + others):
+        raise TypeError(f"{what}: a DTensor has no kernel route; pass "
+                        "its local tensor (.to_local()) or a whole tensor")
+    if x.device.type in ("cpu", "cuda"):
+        return x.device.type
+    raise RuntimeError(f"{what}: no route for device {x.device}")

@@ -31,10 +31,8 @@ def _kernel():
     return _fns["adam8bit_step"]
 
 
-def _route(x, what):
-    if x.device.type in ("cpu", "cuda"):
-        return x.device.type
-    raise RuntimeError(f"{what}: no route for device {x.device}")
+def _route(x, what, *others):
+    return _build.route(x, what, *others)
 
 
 def _check(g, p, m_q, m_scale, v_q, v_scale):
@@ -61,7 +59,7 @@ def adamw8bit(g, p, m_q, m_scale, v_q, v_scale, h) -> None:
     global launch_count
     from ..train import optim8bit
 
-    if _route(p, "adamw8bit") == "cpu":
+    if _route(p, "adamw8bit", g, m_q, m_scale, v_q, v_scale) == "cpu":
         optim8bit.adam8bit_update_plain(g, p, m_q, m_scale, v_q, v_scale, h)
         return
     _check(g, p, m_q, m_scale, v_q, v_scale)

@@ -278,10 +278,8 @@ def _bwd_launch(q, k, v, q_meta, kv_meta, q_offset, out, lse, dout, causal,
     return dq, dk, dv
 
 
-def _route(x, what):
-    if x.device.type in ("cpu", "cuda"):
-        return x.device.type
-    raise RuntimeError(f"{what}: no route for device {x.device}")
+def _route(x, what, *others):
+    return _build.route(x, what, *others)
 
 
 def flash_attention_fwd(q, k, v, q_meta, kv_meta, q_offset: int = 0,
@@ -289,7 +287,7 @@ def flash_attention_fwd(q, k, v, q_meta, kv_meta, q_offset: int = 0,
                         softcap: Optional[float] = None,
                         window: Optional[int] = None):
     """-> (out [B, Sq, H, D], lse [B, H, Sq] fp32)."""
-    if _route(q, "flash_attention_fwd") == "cpu":
+    if _route(q, "flash_attention_fwd", k, v, q_meta, kv_meta) == "cpu":
         return flash_attention_fwd_plain(q, k, v, q_meta, kv_meta, q_offset,
                                          causal, scale, softcap, window)
     return _fwd_launch(q, k, v, q_meta, kv_meta, q_offset, causal, scale,
@@ -302,7 +300,8 @@ def flash_attention_bwd(q, k, v, q_meta, kv_meta, q_offset, out, lse, dout,
                         window: Optional[int] = None):
     """-> (dq, dk, dv). On the card delta = rowsum(dO * O) is taken by a
     pre-pass kernel; the CPU route takes it with `_delta`."""
-    if _route(q, "flash_attention_bwd") == "cpu":
+    if _route(q, "flash_attention_bwd", k, v, q_meta, kv_meta, out, lse,
+              dout) == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_meta, kv_meta, q_offset,
                                          out, lse, dout, causal, scale,
                                          softcap, window)

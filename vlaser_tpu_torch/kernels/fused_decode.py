@@ -312,6 +312,8 @@ def fused_int8_stack(x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
     args = (x, cos, sin, self_mask, ext_mask, ln1, ln2, bq, bk, bv,
             wq, sq, wk, sk, wv, sv, wo, so, wg, sg, wu, su, wd, sd,
             k_ext, v_ext)
+    _build.route(x, "fused_int8_stack", *[t for t in args
+                                   if t is not None])
     if x.device.type == "cpu":
         return fused_int8_stack_plain(*args, eps=eps)
     if x.device.type == "cuda":

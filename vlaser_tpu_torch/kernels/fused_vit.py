@@ -325,6 +325,8 @@ def fused_vit_stack(x, ln1w, ln1b, ln2w, ln2b, ls1, ls2, qnw, knw,
             fc2b)
     mats = (qkvw, projw, fc1w, fc2w)
     scales = (qkvs, projs, fc1s, fc2s) if act_quant else None
+    _build.route(x, "fused_vit_stack", *[t for t in (vecs + mats)
+                                   if t is not None])
     if x.device.type == "cpu":
         return fused_vit_stack_plain(x, *vecs, *mats, *(scales or ()),
                                      num_heads=num_heads, eps=eps,

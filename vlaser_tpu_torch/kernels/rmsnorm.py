@@ -68,16 +68,14 @@ def _check(x2, w, what):
         raise ValueError(f"{what}: w must be on {x2.device}")
 
 
-def _route(x, what):
-    if x.device.type in ("cpu", "cuda"):
-        return x.device.type
-    raise RuntimeError(f"{what}: no route for device {x.device}")
+def _route(x, what, *others):
+    return _build.route(x, what, *others)
 
 
 def rms_fwd(x2, w, eps: float):
     """x2 [n, H], w [H] (x2's dtype) -> (y, rrms [n, 1] fp32)."""
     global fwd_launch_count
-    if _route(x2, "rms_fwd") == "cpu":
+    if _route(x2, "rms_fwd", w) == "cpu":
         return rms_fwd_plain(x2, w, eps)
     _check(x2, w, "rms_fwd")
     x2, w = x2.contiguous(), w.contiguous()
@@ -105,7 +103,7 @@ def rows_per_block(n: int) -> int:
 def rms_bwd(x2, w, g2, rrms):
     """-> (dx [n, H] in x2's dtype, dw [H] fp32)."""
     global bwd_launch_count
-    if _route(x2, "rms_bwd") == "cpu":
+    if _route(x2, "rms_bwd", w, g2, rrms) == "cpu":
         return rms_bwd_plain(x2, w, g2, rrms)
     _check(x2, w, "rms_bwd")
     n, h = x2.shape

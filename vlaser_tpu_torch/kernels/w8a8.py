@@ -158,10 +158,8 @@ def _workspace(M, N, K, dev):
     return torch.empty(max(n, 1), dtype=torch.int32, device=dev), n
 
 
-def _route(x, what):
-    if x.device.type in ("cpu", "cuda"):
-        return x.device.type
-    raise RuntimeError(f"{what}: no route for device {x.device}")
+def _route(x, what, *others):
+    return _build.route(x, what, *others)
 
 
 def _quant_rows_arg(x, what, dtypes, groups=1):
@@ -211,7 +209,7 @@ def quantize_silu_mul(g, u):
     F.silu(g) * u, rounded as the eager ops round it (bf16 silu, then a
     bf16 product); on the card the product stays in registers."""
     global silu_quant_launch_count
-    if _route(g, "quantize_silu_mul") == "cpu":
+    if _route(g, "quantize_silu_mul", u) == "cpu":
         return quantize_silu_mul_plain(g, u)
     bf = (torch.bfloat16,)
     g = _quant_rows_arg(g, "quantize_silu_mul", bf)
@@ -252,7 +250,7 @@ def int8_gemm(q, am, kt, ks, out_dtype=torch.float32):
     """q int8 [M, K], am fp32 [M, 1], kt int8 [N, K] (K-major), ks fp32 [N]
     (or [1, N]) -> y [M, N] in out_dtype (fp32 or bf16)."""
     global gemm_launch_count
-    if _route(q, "int8_gemm") == "cpu":
+    if _route(q, "int8_gemm", am, kt, ks) == "cpu":
         return int8_gemm_plain(q, am, kt, ks, out_dtype)
     M, K = q.shape
     N = kt.shape[0]

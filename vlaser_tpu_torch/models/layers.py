@@ -91,13 +91,24 @@ class Block(nn.Module):
         self.register_parameter(name, nn.Parameter(torch.empty(
             tuple(shape), dtype=self.param_dtype, device=self.device_)))
 
+    # {leaf: (dim, state)} of the leaves held as ZeRO-3 shards split along
+    # dim (train/train_step.ShardedState sets it); None: every leaf whole
+    _gathered = None
+
     def leaf(self, name: str, layer: Optional[int] = None) -> torch.Tensor:
-        """Weight `name`, or its slice for `layer` of a stacked block."""
+        """Weight `name`, or its slice for `layer` of a stacked block; a
+        leaf held as a shard comes back whole (the slice's all-gather)."""
         if layer is None:
-            return getattr(self, name)
-        if self._slices is not None and name in self._slices:
-            return self._slices[name][layer]
-        return getattr(self, name)[layer]
+            t = getattr(self, name)
+        elif self._slices is not None and name in self._slices:
+            t = self._slices[name][layer]
+        else:
+            t = getattr(self, name)[layer]
+        split = self._gathered.get(name) if self._gathered else None
+        if split is not None:
+            dim, state = split
+            t = state.gather(t, dim - (layer is not None))
+        return t
 
 
 @contextlib.contextmanager
@@ -346,7 +357,7 @@ class Embed(Block):
         if "embedding_q" in self._buffers:
             rows = self.embedding_q[ids].to(self.dtype)
             return rows * self.embedding_scale[ids].to(self.dtype)
-        return self.embedding[ids].to(self.dtype)
+        return self.leaf("embedding")[ids].to(self.dtype)
 
     def attend(self, hidden):
         """Tied logits head: hidden @ table^T, operands in the embedding
@@ -355,7 +366,7 @@ class Embed(Block):
         if "embedding_q" in self._buffers:
             y = h @ self.embedding_q.to(self.dtype).float().T
             return y * self.embedding_scale[:, 0].float()
-        return h @ self.embedding.to(self.dtype).float().T
+        return h @ self.leaf("embedding").to(self.dtype).float().T
 
 
 def _leaves(mod: nn.Module):

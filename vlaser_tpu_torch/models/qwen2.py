@@ -17,10 +17,15 @@ RMSNorm, Qwen3-MoE's sparse MLP (`num_experts > 0`: every layer's MLP is
 `models.moe.MoEMLP`), Phi3 longrope (`rope_short_factor` set:
 `ops.rope_cos_sin_su`), tied or untied heads, the sliding window
 (`sliding_window`: on the causal path every layer's attention sees keys
-at most that many slots back, flash-attn's left window, as in JAX). Not
-ported (they raise NotImplementedError): context parallelism, the Gemma
-family's options (plus-one RMSNorm, tanh-GELU MLP, embedding scale,
-softcap, query pre-attention scale).
+at most that many slots back, flash-attn's left window, as in JAX), and
+context parallelism: with `context_parallel_axis` set and an ambient mesh
+(core/mesh.set_mesh) whose axis is larger than 1, a forward without a
+cache keeps this rank's contiguous slice of the sequence from the
+embeddings on (rope at the global positions, segment ids sliced alike;
+the logits are the slice's) and attends through kernels/ring_attention
+over the axis's group. Not ported (they raise NotImplementedError): the
+Gemma family's options (plus-one RMSNorm, tanh-GELU MLP, embedding
+scale, softcap, query pre-attention scale).
 `remat=True` wraps each decoder layer in `torch.utils.checkpoint` when a
 gradient is being taken without a cache (the JAX `nn.remat` over the
 scanned layer), so the backward recomputes a layer's activations instead
@@ -40,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core import mesh as mesh_lib
 from ..inference.kv_cache import KVCache, write_kv
 from ..kernels import ops
 from ..kernels.flash_attention import attention_fn
@@ -118,7 +124,8 @@ class Qwen2Model(nn.Module):
                  remat: bool = False):
         super().__init__()
         if cfg.context_parallel_axis is not None:
-            raise NotImplementedError("context parallelism is not ported yet")
+            assert cfg.sliding_window is None, (
+                "sliding window + context parallelism is unsupported")
         if (cfg.rms_plus_one or cfg.mlp_act != "silu" or cfg.embed_scale
                 or cfg.attn_softcap is not None
                 or cfg.query_pre_attn_scalar is not None):
@@ -169,6 +176,13 @@ class Qwen2Model(nn.Module):
                 q_levels=levels,
                 kv_levels=None if levels is None else cache.lev,
                 q_offset=mask_offset, **kw)
+        elif (group := context_group(cfg)) is not None:
+            from ..kernels.ring_attention import ring_attention
+
+            attend = lambda q, k, v: ring_attention(
+                q, k, v, group=group, q_segment_ids=seg_ids,
+                kv_segment_ids=seg_ids, q_levels=levels, kv_levels=levels,
+                causal=causal)
         else:
             attend = attention_fn(
                 b, s, s, cfg.num_heads, dev, q_segment_ids=seg_ids,
@@ -184,6 +198,16 @@ class Qwen2Model(nn.Module):
                 else:
                     x = self.layers(x, l, cos, sin, attend, cache, q_offset)
         return self.norm(x), cache
+
+
+def context_group(cfg):
+    """The process group of the LLM's context axis in the ambient mesh, or
+    None (no axis set, no mesh, or an axis of size 1)."""
+    mesh = mesh_lib.current_mesh()
+    axis = cfg.context_parallel_axis
+    if axis is None or mesh_lib.axis_size(mesh, axis) == 1:
+        return None
+    return mesh.get_group(axis)
 
 
 class Qwen2ForCausalLM(nn.Module):
@@ -213,6 +237,15 @@ class Qwen2ForCausalLM(nn.Module):
             base = torch.arange(s, device=inputs_embeds.device)
             positions = (base[None] + off[:, None] if torch.is_tensor(off)
                          else (base + off)[None].expand(b, s))
+        if cache is None and context_group(self.cfg) is not None:
+            # this context rank's slice, from the embeddings to the logits
+            if seg_ids is None:
+                seg_ids = torch.ones((b, s), dtype=torch.int32,
+                                     device=inputs_embeds.device)
+            inputs_embeds, positions, seg_ids = (
+                mesh_lib.context_slice(x, mesh_lib.current_mesh(),
+                                       axis=self.cfg.context_parallel_axis)
+                for x in (inputs_embeds, positions, seg_ids))
         hidden, cache = self.model(inputs_embeds, positions, seg_ids=seg_ids,
                                    cache=cache, attn_impl=attn_impl)
         logits = self.logits(hidden) if return_logits else None

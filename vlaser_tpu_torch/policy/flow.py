@@ -73,21 +73,33 @@ def sample_fm_time(generator: Optional[torch.Generator], bsz: int,
 
 
 def make_flow_loss(model, sampling: str = "beta",
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, mesh=None):
     """-> loss_fn(batch) for train.train_step.make_train_step: draws t and
     x0 ~ N(0, I) from `generator` on the batch's device and returns the
     model's flow-matching loss. batch keys: input_ids, pixel_values,
-    text_mask, proprios, actions (tensors on the model's device)."""
+    text_mask, proprios, actions (tensors on the model's device).
+
+    Over a mesh the batch is this rank's block of rows of the global batch
+    (core/mesh.batch_shard): every rank draws the global batch's t and x0
+    from the same generator and keeps its block's rows, and returns its
+    share of the global mean (the block's mean over the number of
+    blocks), so the sharded step equals the one-device step."""
+    from ..core.mesh import batch_shard
+
     cfg = model.cfg
+    index, count = batch_shard(mesh) if mesh is not None else (0, 1)
 
     def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         ids = batch["input_ids"]
         b, dev = ids.shape[0], ids.device
-        t = sample_fm_time(generator, b, sampling, cfg.flow_alpha,
-                           cfg.flow_beta, cfg.flow_t_max, device=dev)
-        x0 = torch.randn((b, cfg.num_action_tokens, cfg.action_dim),
-                         generator=generator, dtype=torch.float32, device=dev)
-        return model(ids, batch["pixel_values"], batch["text_mask"],
+        rows = slice(index * b, (index + 1) * b)
+        t = sample_fm_time(generator, b * count, sampling, cfg.flow_alpha,
+                           cfg.flow_beta, cfg.flow_t_max, device=dev)[rows]
+        x0 = torch.randn((b * count, cfg.num_action_tokens, cfg.action_dim),
+                         generator=generator, dtype=torch.float32,
+                         device=dev)[rows]
+        loss = model(ids, batch["pixel_values"], batch["text_mask"],
                      batch["proprios"], batch["actions"], t, x0)
+        return loss / count if count > 1 else loss
 
     return loss_fn

@@ -9,9 +9,11 @@ the initial parameters, on one CUDA device.
         --steps 2 --device cpu
 
 The flags are the JAX CLI's, plus --device (the card unless it says
-"cpu"; without a card it raises); --fsdp above 1 raises
-NotImplementedError. The tokenizer, config and weights stages are
-train_sft's; remat is on unless --tiny, as in the JAX CLI.
+"cpu"; without a card it raises); --fsdp above 1 trains over the
+processes' ranks (torchrun or slurm, as train_sft): ZeRO-3 state over
+fsdp, each rank fed its block of the global batch of --batch pairs a
+rank. The tokenizer, config and weights stages are train_sft's; remat is
+on unless --tiny, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import argparse
 import logging
 
-from .train_sft import (build_config, check_single_device, load_model,
+from .train_sft import (build_config, build_mesh, load_model,
                         load_tokenizer, resolve_device)
 
 
@@ -50,23 +52,30 @@ def build_dataset(args, cfg, tokenizer):
         max_seq_length=args.max_seq), tokenizer)
 
 
-def batches(args, cfg, dataset):
-    """Consecutive pairs of --batch, cycling over the dataset."""
+def batches(args, cfg, dataset, mesh=None):
+    """Consecutive pairs of --batch, cycling over the dataset; over a mesh
+    the global batch is --batch pairs a rank and each rank collates its
+    block of them (its batch coordinate, core/mesh.batch_shard)."""
+    from ..core.mesh import batch_shard
     from ..data.preference_dataset import preference_collate
 
+    index, count = batch_shard(mesh) if mesh is not None else (0, 1)
     i = 0
     while True:
-        chunk = [dataset[(i + j) % len(dataset)] for j in range(args.batch)]
-        i += args.batch
+        start = i + index * args.batch
+        chunk = [dataset[(start + j) % len(dataset)]
+                 for j in range(args.batch)]
+        i += args.batch * count
         yield preference_collate(chunk, cfg.pad_token_id)
 
 
-def build_trainer(args, model):
+def build_trainer(args, model, mesh=None):
     from ..train.mpo import MPOConfig, MPOTrainer
     from ..train.trainer import TrainConfig
 
     return MPOTrainer(model, MPOConfig(beta=args.beta), TrainConfig(
-        learning_rate=args.lr, total_steps=args.steps))
+        learning_rate=args.lr, total_steps=args.steps,
+        mesh_fsdp=args.fsdp), mesh=mesh)
 
 
 def main(argv=None):
@@ -76,15 +85,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not (args.tiny or args.model_path):
         raise SystemExit("need --model_path (or --tiny)")
-    check_single_device(args)
     device = resolve_device(args.device)
+    mesh = build_mesh(args)
     tokenizer = load_tokenizer(args)
     cfg, n_added, _, _ = build_config(args, tokenizer)
     model = load_model(args, cfg, n_added, len(tokenizer), device,
                        remat=not args.tiny)
-    trainer = build_trainer(args, model)
-    trainer.train(batches(args, cfg, build_dataset(args, cfg, tokenizer)),
-                  args.steps)
+    trainer = build_trainer(args, model, mesh)
+    trainer.train(batches(args, cfg, build_dataset(args, cfg, tokenizer),
+                          mesh), args.steps)
     return trainer
 
 

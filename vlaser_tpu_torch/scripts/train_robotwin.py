@@ -1,5 +1,5 @@
 """RoboTwin parallel-decoding VLA training entry point of the port
-(scripts/train_robotwin.py's recipe on one CUDA device): HDF5 episodes ->
+(scripts/train_robotwin.py's recipe): HDF5 episodes ->
 the SequenceBuilder's static layout -> the ParallelDecodingVLA L1 loss,
 fp32 parameters with bf16 compute, AdamW under warmup_cosine(lr, steps,
 0.03), the ViT frozen (the reference's no-grad extract_feature).
@@ -11,8 +11,10 @@ fp32 parameters with bf16 compute, AdamW under warmup_cosine(lr, steps,
         --device cpu      # offline: tiny random model, synthetic episodes
 
 The flags are the JAX CLI's, plus --device (the card unless it says
-"cpu"; without a card it raises); --fsdp above 1 raises
-NotImplementedError: the port trains on one device. `main` runs the JAX
+"cpu"; without a card it raises); --fsdp above 1 trains over the
+processes' ranks (torchrun or slurm, as train_sft): ZeRO-3 state over
+fsdp, a global batch of --batch samples a rank, each rank taking its
+block of consecutive samples. `main` runs the JAX
 `main`'s stages, each a function here: the tokenizer, the config (the 12
 RoboTwin markers, <IMG_CONTEXT> and the <state_i> tokens added as the JAX
 CLI adds them), the model (a seeded random init under --tiny, else the
@@ -37,7 +39,8 @@ from typing import Dict, Iterator, List, Sequence
 import numpy as np
 import torch
 
-from .train_sft import resolve_device
+from ..core.distributed import initialize
+from .train_sft import build_mesh, resolve_device
 
 # RoboTwin special tokens added at train time (train_mine_new.py:226-266)
 ROBOTWIN_TOKENS = [
@@ -68,10 +71,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args) -> None:
-    if args.fsdp > 1:
-        raise NotImplementedError(
-            f"--fsdp {args.fsdp}: the port trains on one device; the "
-            "parallel layouts are not ported yet")
     if not (args.tiny or (args.model_path and args.data_root)):
         raise SystemExit("need --model_path and --data_root (or --tiny)")
 
@@ -235,16 +234,19 @@ def normalize(images: np.ndarray) -> np.ndarray:
     return (images.astype(np.float32) / 255.0 - mean) / std
 
 
-def make_batches(samples: Sequence[Dict], batch: int, builder, tokenizer
+def make_batches(samples: Sequence[Dict], batch: int, builder, tokenizer,
+                 index: int = 0, count: int = 1
                  ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless numpy batches of `batch` samples taken in order, wrapping
-    around (the JAX CLI's loop), through collate_robotwin."""
+    around (the JAX CLI's loop), through collate_robotwin. index / count:
+    this rank's block of each global batch of count x batch samples."""
     from ..data.hdf5_dataset import collate_robotwin
 
     i = 0
     while True:
-        chunk = [samples[(i + j) % len(samples)] for j in range(batch)]
-        i += batch
+        start = i + index * batch
+        chunk = [samples[(start + j) % len(samples)] for j in range(batch)]
+        i += batch * count
         yield collate_robotwin(chunk, builder, tokenizer, normalize)
 
 
@@ -256,19 +258,25 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 def build_step(args, model):
     """The train step: make_optimizer's AdamW (clip 1.0, decay 0.01) under
     warmup_cosine(--lr, --steps, 0.03), `vision_model/` frozen, the L1
-    loss."""
+    loss; with --fsdp above 1 over the mesh of the ranks
+    (train_sft.build_mesh; `step.sharded.mesh`), ZeRO-3 shards and each
+    rank's share of the global batch's mean loss."""
     from ..train.optim import make_optimizer, warmup_cosine
-    from ..train.train_step import make_train_step
+    from ..train.train_step import make_train_step, shard_train_state
 
+    mesh = build_mesh(args)
     groups, frozen = make_optimizer(
         model, warmup_cosine(args.lr, args.steps, 0.03),
         frozen_patterns=(r"vision_model/",))
+    sharded = shard_train_state(model, mesh) if mesh is not None else None
+    ranks = mesh.size() if mesh is not None else 1
 
     def loss_fn(batch):
-        return model.loss(batch["input_ids"], batch["pixel_values"],
+        loss = model.loss(batch["input_ids"], batch["pixel_values"],
                           batch["text_mask"], batch["actions"])
+        return loss / ranks if ranks > 1 else loss
 
-    return make_train_step(loss_fn, groups, frozen=frozen)
+    return make_train_step(loss_fn, groups, frozen=frozen, sharded=sharded)
 
 
 def train(args, model, step, batches, device) -> List[Dict[str, float]]:
@@ -299,15 +307,21 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     check_args(args)
     device = resolve_device(args.device)
+    initialize()  # before the model: under NCCL it picks the rank's card
     tokenizer = load_tokenizer(args)
     cfg, state_start = build_config(args, tokenizer)
     builder = build_builder(cfg, tokenizer, state_start)
     model = build_model(args, cfg, device)
     dataset = build_dataset(args, cfg)
     step = build_step(args, model)
+    index, count = (0, 1)
+    if step.sharded is not None:
+        from ..core.mesh import batch_shard
+
+        index, count = batch_shard(step.sharded.mesh)
     return train(args, model, step,
-                 make_batches(dataset, args.batch, builder, tokenizer),
-                 device)
+                 make_batches(dataset, args.batch, builder, tokenizer, index,
+                              count), device)
 
 
 if __name__ == "__main__":

@@ -10,15 +10,26 @@ with the data stream's state.
     python -m vlaser_tpu_torch.scripts.train_sft --tiny --data train.jsonl \\
         --steps 2 --device cpu      # offline: tiny random model, bytes
 
+    torchrun --nproc_per_node 8 -m vlaser_tpu_torch.scripts.train_sft \
+        --model_path Vlaser-2B/ --data train.jsonl --packed --fsdp 2 --cp 2
+
 The flags are the JAX CLI's, plus --device (the card unless it says
-"cpu"; without a card it raises). --fsdp, --tp and --cp above 1 raise
-NotImplementedError: the port trains on one device. `main` runs the JAX
-`main`'s stages, each a function here: the tokenizer, the config (the
-InternVL special tokens; the vocab sized to the tokenizer unless a config
-is handed in), the model and its weights (an HF checkpoint directory
-through utils/hf_convert and utils/convert, or a seeded random init under
---tiny or without --model_path), the batches and the trainer.
-`transformers` is imported only to load a --model_path tokenizer.
+"cpu"; without a card it raises). --fsdp and --cp above 1 train over a
+(data, fsdp[, context], tensor) mesh of the processes' ranks
+(core/distributed.initialize reads the torchrun or slurm variables; one
+card a process): ZeRO-3 state over fsdp, the LLM ring-sharded over
+context (its config then sets context_parallel_axis; a packed batch of
+--max_seq tokens, which 2 x --cp must divide, is cut along the sequence
+by the model, each context rank keeping its slice), each rank fed its
+block of the batches (packs sharded by the rank's batch coordinate,
+core/mesh.batch_shard). --tp above 1 raises NotImplementedError.
+`main` runs the JAX `main`'s stages, each a function here: the tokenizer,
+the config (the InternVL special tokens; the vocab sized to the tokenizer
+unless a config is handed in), the model and its weights (an HF
+checkpoint directory through utils/hf_convert and utils/convert, or a
+seeded random init under --tiny or without --model_path), the batches and
+the trainer. `transformers` is imported only to load a --model_path
+tokenizer.
 """
 
 from __future__ import annotations
@@ -70,12 +81,23 @@ def resolve_device(name: Optional[str]) -> torch.device:
     return torch.device(name)
 
 
-def check_single_device(args) -> None:
-    for flag in ("fsdp", "tp", "cp"):
-        if getattr(args, flag, 1) > 1:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: the port trains on one "
-                "device; the parallel layouts are not ported yet")
+def check_tp(args) -> None:
+    if getattr(args, "tp", 1) > 1:
+        raise NotImplementedError(
+            f"--tp {args.tp}: tensor-parallel training is not ported yet; "
+            "the port trains over data, fsdp and context")
+
+
+def build_mesh(args):
+    """Start the process group from the environment (a no-op for one
+    process) and -> the mesh of --fsdp / --cp, or None when both are 1."""
+    from ..core.distributed import initialize
+    from ..train.trainer import build_mesh as trainer_mesh
+
+    check_tp(args)
+    initialize()
+    return trainer_mesh(None, getattr(args, "fsdp", 1), 1,
+                        getattr(args, "cp", 1))
 
 
 def load_tokenizer(args):
@@ -112,6 +134,9 @@ def build_config(args, tokenizer, cfg=None) -> Tuple[object, int, int, int]:
         cfg, img_context_token_id=img_ctx_id, img_start_token_id=img_start_id,
         img_end_token_id=img_end_id,
         pad_token_id=tokenizer.pad_token_id or cfg.pad_token_id)
+    if getattr(args, "cp", 1) > 1:
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, context_parallel_axis="context"))
     return cfg, n_added, img_start_id, img_end_id
 
 
@@ -174,22 +199,35 @@ def build_dataset(args, cfg, tokenizer):
     return ConversationDataset(ds_cfg, tokenizer)
 
 
-def build_batches(args, cfg, dataset, img_start_id: int, img_end_id: int
-                  ) -> Tuple[Iterator, Optional[Callable]]:
+def build_batches(args, cfg, dataset, img_start_id: int, img_end_id: int,
+                  mesh=None) -> Tuple[Iterator, Optional[Callable]]:
     """-> (batches, data_state_fn). Packed: PackedDataset behind a
     PrefetchIterator, its cursor the data state. Padded: length-grouped
     order (train_sampler_patch.py:54-125) cycled through map_prefetch's
-    item threads, no data state."""
+    item threads, no data state. Over a mesh each rank takes the shard of
+    its batch coordinate (context ranks share it), and with --cp the
+    sequence length is a multiple of 2 x --cp."""
+    from ..core.distributed import shard_for_process
+    from ..core.mesh import batch_shard
     from ..data.chat_dataset import PackedDataset, pad_collate
     from ..data.prefetch import PrefetchIterator, map_prefetch
 
+    index, count = batch_shard(mesh) if mesh is not None else (0, 1)
+    cp = getattr(args, "cp", 1)
     if args.packed:
+        if cp > 1:
+            # the model cuts the pack along the sequence: max_seq must
+            # divide 2 * cp (zigzag headroom)
+            assert args.max_seq % (2 * cp) == 0, (
+                f"--packed with --cp {cp} needs max_seq divisible by "
+                f"{2 * cp}, got {args.max_seq}")
         packed = PackedDataset(dataset, max_packed_tokens=args.max_seq,
                                pad_token_id=cfg.pad_token_id,
                                img_start_id=img_start_id,
                                img_end_id=img_end_id,
                                num_image_token=cfg.num_image_token,
                                image_size=cfg.vision.image_size)
+        packed = shard_for_process(packed, num_shards=count, index=index)
         return PrefetchIterator(iter(packed), buffer_size=4), packed.state_dict
     from ..data.chat_dataset import (estimate_lengths, length_grouped_indices,
                                      tokenized_lengths)
@@ -204,6 +242,7 @@ def build_batches(args, cfg, dataset, img_start_id: int, img_end_id: int
         order = length_grouped_indices(lengths, args.batch)
     else:  # ConcatDataset: sequential order
         order = list(range(len(dataset)))
+    order = order[index::count]
 
     def cycle():
         while True:
@@ -211,18 +250,21 @@ def build_batches(args, cfg, dataset, img_start_id: int, img_end_id: int
 
     batches = map_prefetch(
         dataset, cycle(),
-        collate=lambda xs: pad_collate(xs, cfg.pad_token_id),
+        collate=lambda xs: pad_collate(
+            xs, cfg.pad_token_id, pad_multiple=2 * cp if cp > 1 else None),
         batch_size=args.batch, num_threads=4)
     return batches, None
 
 
-def build_trainer(args, model):
+def build_trainer(args, model, mesh=None):
     from ..train.trainer import SFTTrainer, TrainConfig
 
     return SFTTrainer(model, TrainConfig(
         learning_rate=args.lr, total_steps=args.steps,
         freeze_vision=args.freeze_vision, freeze_llm=args.freeze_llm,
-        checkpoint_dir=args.checkpoint_dir, profile_dir=args.profile_dir))
+        mesh_fsdp=getattr(args, "fsdp", 1), mesh_cp=getattr(args, "cp", 1),
+        checkpoint_dir=args.checkpoint_dir, profile_dir=args.profile_dir),
+        mesh=mesh)
 
 
 def main(argv=None):
@@ -234,15 +276,16 @@ def main(argv=None):
         raise SystemExit("need --data or --meta")
     if not (args.tiny or args.model_path):
         raise SystemExit("need --model_path (or --tiny)")
-    check_single_device(args)
+    check_tp(args)
     device = resolve_device(args.device)
+    mesh = build_mesh(args)  # before the model: NCCL picks the rank's card
     tokenizer = load_tokenizer(args)
     cfg, n_added, img_start_id, img_end_id = build_config(args, tokenizer)
     model = load_model(args, cfg, n_added, len(tokenizer), device)
     dataset = build_dataset(args, cfg, tokenizer)
     batches, data_state_fn = build_batches(args, cfg, dataset, img_start_id,
-                                           img_end_id)
-    trainer = build_trainer(args, model)
+                                           img_end_id, mesh)
+    trainer = build_trainer(args, model, mesh=mesh)
     try:
         trainer.train(batches, data_state_fn=data_state_fn)
     finally:

@@ -1,5 +1,5 @@
 """VLA flow-matching training entry point of the port (scripts/train_vla.py's
-recipe on one CUDA device): the RLDS bridge / fractal mixture ->
+recipe): the RLDS bridge / fractal mixture ->
 InternVLAProcessor inputs -> VLATrainer (two optimizer groups, beta
 flow-time sampling, fp32 parameters with bf16 compute and remat).
 
@@ -8,8 +8,11 @@ flow-time sampling, fp32 parameters with bf16 compute and remat).
         fractal20220817_data --batch 32 --steps 20000 [--adam8bit]
 
 The flags are the JAX CLI's, plus --device (the card unless it says
-"cpu"; without a card it raises); --fsdp above 1 raises
-NotImplementedError: the port trains on one device. `main` runs the JAX
+"cpu"; without a card it raises); --fsdp above 1 trains over the
+processes' ranks (torchrun or slurm, as train_sft): ZeRO-3 state over
+fsdp, each rank fed its shard of the RLDS batches (its batch coordinate,
+core/mesh.batch_shard); with --adam8bit it raises NotImplementedError (a
+shard would split the 8-bit blocks). `main` runs the JAX
 `main`'s stages, each a function here: the tokenizer and the config, the
 model and the processor, the RLDS batches and the trainer. The JAX CLI
 initializes its parameters with `model.init`; the port's model takes a
@@ -27,7 +30,7 @@ from typing import Callable, Dict, Iterator
 import numpy as np
 import torch
 
-from .train_sft import resolve_device
+from .train_sft import build_mesh, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,16 +146,16 @@ def make_batches(mixed, processor, cfg) -> Callable[[], Iterator[Dict]]:
     return batches
 
 
-def build_trainer(args, model, **overrides):
+def build_trainer(args, model, mesh=None, **overrides):
     """VLATrainer with lr_action = lr_vlm = --lr, the 8-bit optimizer under
-    --adam8bit and --checkpoint_dir; `overrides`: other VLATrainConfig
-    fields."""
+    --adam8bit and --checkpoint_dir, over `mesh`; `overrides`: other
+    VLATrainConfig fields."""
     from ..train.trainer import VLATrainConfig, VLATrainer
 
     return VLATrainer(model, VLATrainConfig(
         lr_action=args.lr, lr_vlm=args.lr, mesh_fsdp=args.fsdp,
         optimizer_8bit=args.adam8bit, checkpoint_dir=args.checkpoint_dir,
-        **overrides))
+        **overrides), mesh=mesh)
 
 
 def main(argv=None):
@@ -160,17 +163,21 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
-    if args.fsdp > 1:
-        raise NotImplementedError(
-            f"--fsdp {args.fsdp}: the port trains on one device; the "
-            "parallel layouts are not ported yet")
     device = resolve_device(args.device)
+    mesh = build_mesh(args)
     tokenizer = load_tokenizer(args)
     cfg = build_config(args, tokenizer)
     model = build_model(args, cfg, device)
     processor = build_processor(cfg, tokenizer)
-    batches = make_batches(build_dataset(args, cfg), processor, cfg)
-    trainer = build_trainer(args, model)
+    dataset = build_dataset(args, cfg)
+    if mesh is not None:
+        from ..core.distributed import shard_for_process
+        from ..core.mesh import batch_shard
+
+        index, count = batch_shard(mesh)
+        dataset = shard_for_process(dataset, num_shards=count, index=index)
+    batches = make_batches(dataset, processor, cfg)
+    trainer = build_trainer(args, model, mesh=mesh)
     trainer.train_steps(batches(), args.steps)
     return trainer
 

@@ -7,6 +7,14 @@ divided by the weight sum. The loss functions take the batch alone (the
 model holds its parameters), as train/train_step.make_train_step calls
 them. Batch keys: input_ids, labels, loss_weight, seg_ids, pixel_values,
 image_flags, optional positions (packing).
+
+Over a mesh (`mesh`) each rank holds a block of the global batch's rows
+(and, with a `context` axis, a contiguous slice of its sequence): the
+loss is the rank's weighted CE sum over the global weight sum (the
+ranks' sums of weights, all-reduced without a gradient), so the ranks'
+losses and gradients sum to the one-device ones. A context rank's logits
+at positions [i0, i1) predict the labels at [i0 + 1, i1 + 1): the labels
+are shifted over the whole sequence, then sliced (`context_labels`).
 """
 
 from __future__ import annotations
@@ -29,45 +37,94 @@ def _weights(labels, loss_weight):
     return torch.where(valid, labels, 0).long(), w * valid
 
 
+def _global_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x summed over every rank of the mesh, without a gradient (the
+    batch ranks: the trainers' meshes have no tensor axis)."""
+    if mesh is None or mesh.size() == 1:
+        return x
+    import torch.distributed as dist
+
+    x = x.detach().clone()
+    dist.all_reduce(x)
+    return x
+
+
 def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
-                     loss_weight: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     loss_weight: Optional[torch.Tensor] = None,
+                     mesh=None, shifted: bool = False) -> torch.Tensor:
     """logits [B, N, V] (fp32 math), labels [B, N] -> the shift-by-one
-    weighted CE, a 0-dim fp32 tensor."""
-    safe, w = _weights(labels[:, 1:], None if loss_weight is None
-                       else loss_weight[:, 1:])
-    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    weighted CE, a 0-dim fp32 tensor. shifted: labels[i] is already the
+    label that logits[i] predict (context_labels). mesh: the weight sum is
+    the global one (this rank's share of the global loss)."""
+    if not shifted:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+        loss_weight = None if loss_weight is None else loss_weight[:, 1:]
+    safe, w = _weights(labels, loss_weight)
+    logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return (nll * w).sum() / w.sum().clamp_min(1e-8)
+    return (nll * w).sum() / _global_sum(w.sum(), mesh).clamp_min(1e-8)
+
+
+def context_labels(labels: torch.Tensor, loss_weight, mesh):
+    """-> (labels, loss_weight) that this context rank's logits predict:
+    shifted by one over the whole sequence (IGNORE_TOKEN_ID, weight 0
+    past its end), then cut to the rank's slice."""
+    from ..core.mesh import context_slice
+
+    labels = F.pad(labels[:, 1:], (0, 1), value=IGNORE_TOKEN_ID)
+    if loss_weight is not None:
+        loss_weight = context_slice(F.pad(loss_weight[:, 1:], (0, 1)), mesh)
+    return context_slice(labels, mesh), loss_weight
+
+
+def _context_parallel(model, mesh) -> bool:
+    """Whether the model's LLM runs its context route on this mesh."""
+    from ..core.mesh import axis_size
+
+    axis = model.cfg.llm.context_parallel_axis
+    return axis is not None and axis_size(mesh, axis) > 1
 
 
 def _model_kwargs(batch):
     return dict(seg_ids=batch.get("seg_ids"), positions=batch.get("positions"))
 
 
-def make_sft_loss(model, moe_aux_coef: float = 0.0):
+def make_sft_loss(model, moe_aux_coef: float = 0.0, mesh=None):
     """-> loss_fn(batch) for the VLM SFT step: the model's full logits and
     weighted_ce_loss. moe_aux_coef > 0 adds moe_aux_coef x the router
     load-balancing loss of each MoE stack (models/moe.router_aux_loss over
     its layers' router vectors, summed over the stacks), as the JAX loss
-    adds it from the sown `intermediates`."""
+    adds it from the sown `intermediates`. mesh: the rank's share of the
+    global loss (the module's docstring); the router statistics are the
+    ranks' means, each rank's probabilities taking their share of the
+    gradient. The model runs inside core/mesh.set_mesh(mesh) when its LLM
+    is context-parallel."""
+    cp = mesh is not None and _context_parallel(model, mesh)
 
     def forward(batch):
         logits, _, _ = model(batch["input_ids"], batch.get("pixel_values"),
                              batch.get("image_flags"), **_model_kwargs(batch))
-        return weighted_ce_loss(logits, batch["labels"],
-                                batch.get("loss_weight"))
+        labels, weight = batch["labels"], batch.get("loss_weight")
+        if cp:
+            labels, weight = context_labels(labels, weight, mesh)
+        return weighted_ce_loss(logits, labels, weight, mesh=mesh,
+                                shifted=cp)
 
     if moe_aux_coef <= 0.0:
         return forward
 
     from ..models.moe import collect_router_stats, router_aux_loss
 
+    ranks = 1 if mesh is None else mesh.size()
+
     def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         with collect_router_stats(model) as stacks:
             ce = forward(batch)
-        aux = sum(router_aux_loss(f, p) for f, p in stacks)
-        return ce + moe_aux_coef * aux
+        # the global fractions (no gradient) against this rank's
+        # probabilities, whose mean over the ranks is the global one
+        aux = sum(router_aux_loss(_global_sum(f, mesh) / ranks, p)
+                  for f, p in stacks)
+        return ce + moe_aux_coef * aux / ranks
 
     return loss_fn
 
@@ -82,8 +139,8 @@ def _chunk_nll(h_c, lab_c, w_c, kern):
 def chunked_weighted_ce(hidden: torch.Tensor, vocab_table: torch.Tensor,
                         labels: torch.Tensor,
                         loss_weight: Optional[torch.Tensor] = None,
-                        chunk: int = 512, table_is_kernel: bool = False
-                        ) -> torch.Tensor:
+                        chunk: int = 512, table_is_kernel: bool = False,
+                        mesh=None, shifted: bool = False) -> torch.Tensor:
     """weighted_ce_loss of hidden [B, N, H] against the vocab table ([V, H]
     tied embedding, or the [H, V] head kernel with table_is_kernel), in
     chunks of `chunk` rows so that the [N, V] fp32 logits never exist
@@ -92,11 +149,14 @@ def chunked_weighted_ce(hidden: torch.Tensor, vocab_table: torch.Tensor,
     logits are freed after its forward and recomputed in its backward; one
     chunk's logits are live at a time. The table is rounded to the hidden
     dtype, as the JAX dot reads it, and the products are summed in fp32
-    (its preferred_element_type)."""
+    (its preferred_element_type). mesh / shifted: as weighted_ce_loss."""
     h = hidden.shape[-1]
-    sh = hidden[:, :-1].reshape(-1, h)
-    safe, w = _weights(labels[:, 1:].reshape(-1), None if loss_weight is None
-                       else loss_weight[:, 1:].reshape(-1))
+    if not shifted:
+        hidden, labels = hidden[:, :-1], labels[:, 1:]
+        loss_weight = None if loss_weight is None else loss_weight[:, 1:]
+    sh = hidden.reshape(-1, h)
+    safe, w = _weights(labels.reshape(-1), None if loss_weight is None
+                       else loss_weight.reshape(-1))
     pad = (-sh.shape[0]) % chunk
     if pad:
         sh = F.pad(sh, (0, 0, 0, pad))
@@ -108,7 +168,7 @@ def chunked_weighted_ce(hidden: torch.Tensor, vocab_table: torch.Tensor,
         s = slice(i, i + chunk)
         total = total + checkpoint(_chunk_nll, sh[s], safe[s], w[s], kern,
                                    use_reentrant=False)
-    return total / w.sum().clamp_min(1e-8)
+    return total / _global_sum(w.sum(), mesh).clamp_min(1e-8)
 
 
 def _vocab_table(model):
@@ -127,18 +187,22 @@ def _vocab_table(model):
     return head.kernel, True
 
 
-def make_sft_loss_chunked(model, chunk: int = 512):
+def make_sft_loss_chunked(model, chunk: int = 512, mesh=None):
     """make_sft_loss that never materializes the full logits: the model's
     final hidden states (return_logits=False) go through
-    chunked_weighted_ce against its vocab table."""
+    chunked_weighted_ce against its vocab table. mesh: as make_sft_loss."""
+    cp = mesh is not None and _context_parallel(model, mesh)
 
     def loss_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         _, hidden, _ = model(batch["input_ids"], batch.get("pixel_values"),
                              batch.get("image_flags"), return_logits=False,
                              **_model_kwargs(batch))
         table, is_kernel = _vocab_table(model)
-        return chunked_weighted_ce(hidden, table, batch["labels"],
-                                   batch.get("loss_weight"), chunk=chunk,
-                                   table_is_kernel=is_kernel)
+        labels, weight = batch["labels"], batch.get("loss_weight")
+        if cp:
+            labels, weight = context_labels(labels, weight, mesh)
+        return chunked_weighted_ce(hidden, table, labels, weight,
+                                   chunk=chunk, table_is_kernel=is_kernel,
+                                   mesh=mesh, shifted=cp)
 
     return loss_fn

@@ -1,5 +1,5 @@
 """MPO (Mixed Preference Optimization): DPO + BCO quality + SFT losses (port
-of vlaser_tpu/train/mpo.py, one device).
+of vlaser_tpu/train/mpo.py), on one device or over a mesh.
 
 Parity surface: internvl/train/internvl_chat_mpo.py (loss_type
 'sigmoid,bco_pair' with sigmoid_loss_weight / bco_pair_loss_weight, plus SFT
@@ -9,7 +9,13 @@ shift of BCO). The losses are functions of per-sequence log-probs. The
 reference (frozen) policy is a copy of the initial parameters with storage
 of its own; its log-probs come from the same model run on that copy
 (torch.func.functional_call) under torch.no_grad(). The full logits of the
-concatenated pair batch are formed, as the JAX loss forms them.
+concatenated pair batch are formed, as the JAX loss forms them. Over a
+mesh (`mesh_fsdp` above 1, or a DeviceMesh handed in) each rank feeds its
+block of the global batch's pairs, the reference copy is held as ZeRO-3
+shards like the policy (its forward gathers them a leaf at a time, as
+the policy's does), each loss and metric is the rank's share of its
+global value (means over the blocks, the SFT term over the global weight
+sum) and the BCO running mean takes every rank's rewards.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ import torch.nn.functional as F
 
 from .losses import weighted_ce_loss
 from .optim import make_optimizer, warmup_cosine
-from .train_step import make_train_step
-from .trainer import TrainConfig
+from .train_step import make_train_step, shard_train_state
+from .trainer import TrainConfig, build_mesh
 
 IGNORE_TOKEN_ID = -100
 
@@ -92,14 +98,18 @@ class RunningMoments:
         return float(self.mean)
 
 
-def make_mpo_loss(model, cfg: MPOConfig):
+def make_mpo_loss(model, cfg: MPOConfig, mesh=None):
     """-> loss_fn(ref_params, batch, delta) -> (loss, metrics): the model
     (which holds the policy's parameters) on the concatenated [chosen;
     rejected] batch, as concatenated_forward:99 runs it, and again on
     `ref_params` ({parameter name: tensor}) without a graph.
 
     batch: chosen_ / rejected_ {input_ids, labels, seg_ids} and the shared
-    pixel_values / image_flags (each side takes the pair's tiles)."""
+    pixel_values / image_flags (each side takes the pair's tiles). mesh:
+    the loss and the scalar metrics are this rank's shares (they sum over
+    the ranks to the global values); `rewards` stay the rank's own."""
+    ranks = 1 if mesh is None else mesh.size()
+    share = (lambda x: x / ranks) if ranks > 1 else (lambda x: x)
 
     def loss_fn(ref_params: Dict[str, torch.Tensor], batch, delta):
         cat = lambda k: torch.cat([batch[f"chosen_{k}"],
@@ -119,14 +129,17 @@ def make_mpo_loss(model, cfg: MPOConfig):
         l_dpo = dpo_sigmoid_loss(pc, pr, rc, rr, cfg.beta,
                                  cfg.label_smoothing)
         l_bco, rewards = bco_pair_loss(pc, pr, rc, rr, cfg.beta, delta)
-        l_sft = weighted_ce_loss(logits[:b], batch["chosen_labels"])
+        l_sft = weighted_ce_loss(logits[:b], batch["chosen_labels"],
+                                 mesh=mesh)
+        l_dpo, l_bco = share(l_dpo), share(l_bco)
         loss = (cfg.sigmoid_loss_weight * l_dpo
                 + cfg.bco_pair_loss_weight * l_bco
                 + cfg.sft_loss_weight * l_sft)
         metrics = {
             "dpo_loss": l_dpo, "bco_loss": l_bco, "sft_loss": l_sft,
-            "reward_margin": (cfg.beta * ((pc - rc) - (pr - rr))).mean(),
-            "reward_accuracy": ((pc - rc) > (pr - rr)).float().mean(),
+            "reward_margin": share(
+                (cfg.beta * ((pc - rc) - (pr - rr))).mean()),
+            "reward_accuracy": share(((pc - rc) > (pr - rr)).float().mean()),
             "rewards": rewards,
         }
         return loss, {k: v.detach() for k, v in metrics.items()}
@@ -142,13 +155,13 @@ class MPOTrainer:
     freeze_vision); `grad_norm` counts the frozen ViT's gradients, as
     optax.global_norm does in the JAX step."""
 
-    def __init__(self, model, cfg: MPOConfig, train_cfg=None):
+    def __init__(self, model, cfg: MPOConfig, train_cfg=None, mesh=None):
         """model: a port InternVLChatModel on its device; train_cfg: a
-        trainer.TrainConfig (its defaults when None)."""
+        trainer.TrainConfig (its defaults when None); mesh: a DeviceMesh
+        (built from train_cfg.mesh_fsdp when None and it is above 1)."""
         self.model, self.cfg = model, cfg
         self.train_cfg = tc = train_cfg or TrainConfig()
-        if tc.mesh_fsdp != 1 or tc.mesh_tp != 1:
-            raise NotImplementedError("the port trains on one device")
+        self.mesh = mesh = build_mesh(mesh, tc.mesh_fsdp, tc.mesh_tp)
         schedule = warmup_cosine(tc.learning_rate, tc.total_steps,
                                  tc.warmup_ratio)
         frozen = (r"vision_model/",) if tc.freeze_vision else ()
@@ -157,11 +170,13 @@ class MPOTrainer:
             grad_clip=tc.grad_clip, frozen_patterns=frozen)
         for p in model.parameters():
             p.requires_grad_(True)
+        self.sharded = (shard_train_state(model, mesh) if mesh is not None
+                        else None)
         # a real copy: the live parameters change in place every step
         self.ref_params = {n: p.detach().clone()
                            for n, p in model.named_parameters()}
         self.running = RunningMoments()
-        mpo_loss, aux = make_mpo_loss(model, cfg), {}
+        mpo_loss, aux = make_mpo_loss(model, cfg, mesh), {}
 
         def loss_fn(batch):
             loss, metrics = mpo_loss(self.ref_params, batch, batch["delta"])
@@ -170,11 +185,28 @@ class MPOTrainer:
 
         self._aux = aux
         self.step_fn = make_train_step(loss_fn, self.groups,
-                                       frozen=self.frozen)
+                                       frozen=self.frozen,
+                                       sharded=self.sharded)
 
     @property
     def step(self) -> int:
         return self.step_fn.count
+
+    def _global_metrics(self, metrics, rewards):
+        """Sum the ranks' shares of the scalar metrics in place; -> every
+        rank's rewards (the global batch's, [chosen; rejected] of each
+        rank in rank order)."""
+        import torch.distributed as dist
+
+        keys = ("dpo_loss", "bco_loss", "sft_loss", "reward_margin",
+                "reward_accuracy")
+        flat = torch.stack([metrics[k].float() for k in keys])
+        dist.all_reduce(flat)
+        metrics.update(zip(keys, flat.unbind()))
+        parts = [torch.empty_like(rewards)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, rewards.contiguous())
+        return torch.cat(parts)
 
     def train(self, batches: Iterator[Dict], num_steps: int):
         """Run up to num_steps steps; -> the last step's metrics (loss,
@@ -189,7 +221,10 @@ class MPOTrainer:
             batch["delta"] = torch.tensor(self.running.mean,
                                           dtype=torch.float32, device=dev)
             metrics = dict(self.step_fn(batch), **self._aux)
-            self.running.update(metrics.pop("rewards").cpu().numpy())
+            rewards = metrics.pop("rewards")
+            if self.sharded is not None:
+                rewards = self._global_metrics(metrics, rewards)
+            self.running.update(rewards.cpu().numpy())
             step = i + 1
             if (step == 1 or step % self.train_cfg.log_every == 0
                     or step == num_steps):

@@ -1,5 +1,5 @@
-"""The train step (port of vlaser_tpu/train/train_step.py, one device, no
-mesh).
+"""The train step (port of vlaser_tpu/train/train_step.py) on one device or
+over a mesh (`shard_train_state`, ZeRO-3).
 
 Each parameter group is clipped by its own global norm (unless its
 `grad_clip` is None) and then takes an AdamW step (b1 0.9, b2 0.999, eps
@@ -16,16 +16,36 @@ batches' gradients are summed in fp32 and divided by accum_steps, and the
 loss is their mean (the JAX step's scan). `optimizer="adamw8bit"` puts
 every group on train/optim8bit.AdamW8bit (the JAX adamw8bit chain) under
 the same clip, schedule and grad_norm; `hwio` names its patch convs.
+
+Over a mesh (`sharded`, a ShardedState of `shard_train_state`) the step
+is the one-device step of the global batch, ZeRO-3 as XLA runs JAX's
+sharded scan: every parameter that its rule splits over `fsdp` is held
+as this rank's shard, at rest and through the step. A model reads its
+weights through models/layers.Block.leaf, which all-gathers the one
+leaf, or the one layer's slice of a stacked leaf, it is asked for; the
+gather's backward reduce-scatters that slice's gradient over fsdp, so a
+gradient is never whole beyond one layer. The state turns the model's
+`remat` on: each layer's gathered weights then live only while the layer
+runs, forward and recompute, and are never saved for the backward. The
+loss function returns the rank's share of the global loss (train/losses,
+policy/flow: sums over the batch ranks give the global loss), so the
+gradients, summed in fp32 over the micro batches, are summed once over
+the batch ranks left (data x context for a split leaf, every rank for a
+whole one), and the loss with them. Norms and clips read the global
+norms (a split leaf's squares summed over fsdp); the optimizer steps the
+shards, so the AdamW moments are shards too.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..core import mesh as mesh_lib
 from .optim8bit import AdamW8bit
 
 
@@ -72,18 +92,246 @@ def _accumulate(loss_fn, batch, params, accum_steps: int):
     return torch.stack(losses).float().mean()
 
 
+ADAM8BIT_OVER_FSDP = (
+    "8-bit AdamW over fsdp > 1: a shard would split the kernel's "
+    "256-element blocks, and the JAX shard_train_state cannot place the "
+    "8-bit state either")
+
+
+class _AllGather(torch.autograd.Function):
+    """The whole tensor of every fsdp rank's shard (cut along `dim`); the
+    backward sums the whole gradient over fsdp and keeps this rank's
+    slice (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, n, group):
+        import torch.distributed as dist
+
+        ctx.args = (dim, n, group)
+        parts = [torch.empty_like(shard) for _ in range(n)]
+        dist.all_gather(parts, shard.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        dim, n, group = ctx.args
+        parts = [c.contiguous() for c in g.chunk(n, dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=group)
+        return out, None, None, None
+
+
+def _bucketed_all_reduce(tensors: Sequence[torch.Tensor], group,
+                         bucket_bytes: int = 256 * 2**20) -> None:
+    """Sum each tensor over `group` in place, through flat buffers of at
+    most `bucket_bytes` a dtype (a tensor larger than that goes alone)."""
+    import torch.distributed as dist
+
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        bucket, size = [], 0
+        for t in ts + [None]:
+            nb = 0 if t is None else t.numel() * t.element_size()
+            if bucket and (t is None or size + nb > bucket_bytes):
+                if len(bucket) == 1:
+                    dist.all_reduce(bucket[0], group=group)
+                else:
+                    flat = torch.cat([b.reshape(-1) for b in bucket])
+                    dist.all_reduce(flat, group=group)
+                    off = 0
+                    for b in bucket:
+                        b.copy_(flat[off:off + b.numel()].view_as(b))
+                        off += b.numel()
+                bucket, size = [], 0
+            if t is not None:
+                bucket.append(t)
+                size += nb
+
+
+class ShardedState:
+    """ZeRO-3 over a mesh: each parameter of `model` that its rule
+    (core/mesh.tree_shardings) splits over `fsdp` is held as this rank's
+    shard of that dim, the others whole. The shards stay in place: the
+    model's Block that holds a split leaf reads it through `gather` (see
+    the module docstring). `peak_gathered` counts the largest number of
+    bytes of gathered weights alive at once (a gather's result is counted
+    until its storage is freed)."""
+
+    def __init__(self, model: nn.Module, mesh, rules=None):
+        import torch.distributed as dist
+
+        from ..models.layers import Block
+
+        for axis in (mesh_lib.TENSOR_AXIS, mesh_lib.STAGE_AXIS):
+            if mesh_lib.axis_size(mesh, axis) > 1:
+                raise NotImplementedError(
+                    f"a '{axis}' axis of {mesh_lib.axis_size(mesh, axis)}: "
+                    "the port's trainers shard over data, fsdp and context; "
+                    "tensor parallelism and pipeline stages are not ported "
+                    "yet")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError("the mesh must span every rank of the group")
+        self.mesh = mesh
+        self.fsdp = mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS)
+        self.index = mesh_lib.axis_index(mesh, mesh_lib.FSDP_AXIS)
+        self.group = (mesh.get_group(mesh_lib.FSDP_AXIS) if self.fsdp > 1
+                      else None)
+        self.ranks = dist.get_world_size()  # the batch ranks (no tensor)
+        f_dim = mesh.mesh_dim_names.index(mesh_lib.FSDP_AXIS)
+        # the ranks that hold this rank's shards: one group per fsdp index
+        self.replicas, self.n_replicas = None, self.ranks
+        if self.fsdp > 1:
+            self.n_replicas = self.ranks // self.fsdp
+            for j in range(self.fsdp):
+                ranks = mesh.mesh.select(f_dim, j).flatten().tolist()
+                group = dist.new_group(ranks) if len(ranks) > 1 else None
+                if j == self.index:
+                    self.replicas = group
+        named = dict(model.named_parameters())
+        placements = mesh_lib.tree_shardings(
+            named, mesh, rules if rules is not None
+            else mesh_lib.default_param_rules())
+        self.dims = {}  # id(p) -> the dim split over fsdp, or None
+        for name, p in named.items():
+            pl = placements[name][f_dim]
+            self.dims[id(p)] = (pl.dim if self.fsdp > 1 and pl.is_shard()
+                                else None)
+        self.params = list(named.values())
+        self.split = [p for p in self.params if self.dims[id(p)] is not None]
+        with torch.no_grad():
+            for m in model.modules():
+                for leaf, p in m._parameters.items():
+                    d = self.dims.get(id(p))
+                    if d is None:
+                        continue
+                    if not isinstance(m, Block):
+                        raise TypeError(
+                            f"{type(m).__name__}.{leaf}: a leaf split over "
+                            "fsdp must be read through Block.leaf")
+                    m._gathered = dict(m._gathered or {}, **{leaf: (d, self)})
+                    p.data = self.local(p, p.data)
+        if self.split:
+            for m in model.modules():
+                if isinstance(getattr(m, "remat", None), bool):
+                    m.remat = True
+        self._live: Dict[int, tuple] = {}
+        self.peak_gathered = 0
+
+    def local(self, p, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole tensor shaped like p."""
+        d = self.dims[id(p)]
+        if d is None:
+            return full
+        n = full.shape[d] // self.fsdp
+        return full.narrow(d, self.index * n, n).clone()
+
+    def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor of a shard split along `dim` (an all-gather over
+        fsdp that every rank of the group calls; differentiable)."""
+        whole = _AllGather.apply(shard, dim, self.fsdp, self.group)
+        st = whole.untyped_storage()
+        self._live[id(st)] = (weakref.ref(st), st.nbytes())
+        live = 0
+        for key, (ref, nbytes) in list(self._live.items()):
+            if ref() is None:
+                del self._live[key]
+            else:
+                live += nbytes
+        self.peak_gathered = max(self.peak_gathered, live)
+        return whole
+
+    def full(self, p, shard: torch.Tensor, dst: Optional[int] = None
+             ) -> Optional[torch.Tensor]:
+        """The whole tensor of a shard shaped like p's, on every rank (dst
+        None: an all-gather over fsdp, which every rank calls) or on rank
+        `dst` only (a gather over dst's fsdp group, whose ranks call it;
+        None on every other rank)."""
+        import torch.distributed as dist
+
+        d = self.dims[id(p)]
+        if d is None:
+            return shard
+        shard = shard.detach().contiguous()
+        if dst is None:
+            return _AllGather.apply(shard, d, self.fsdp, self.group)
+        if dst not in dist.get_process_group_ranks(self.group):
+            return None
+        here = dist.get_rank() == dst
+        parts = [torch.empty_like(shard) for _ in range(self.fsdp)]
+        dist.gather(shard, parts if here else None,
+                    dst=dst, group=self.group)
+        return torch.cat(parts, d) if here else None
+
+    def reduce(self, grads: Sequence[torch.Tensor], extra=()) -> None:
+        """Sum gradients (and `extra` tensors, whole on every rank) over
+        the batch ranks in place: a split leaf's (already summed over fsdp
+        by the gathers' backward) over its replicas, the others over every
+        rank."""
+        if self.ranks == 1:
+            return
+        split = {id(p.grad) for p in self.split if p.grad is not None}
+        shards = [g for g in grads if id(g) in split]
+        if shards and self.n_replicas > 1:
+            _bucketed_all_reduce(shards, self.replicas)
+        _bucketed_all_reduce(
+            [g for g in grads if id(g) not in split] + list(extra), None)
+
+    def grad_norms(self, lists: Sequence[Sequence[nn.Parameter]]
+                   ) -> List[torch.Tensor]:
+        """The global L2 norm of each list's gradients: a split leaf's
+        squares summed over fsdp."""
+        import torch.distributed as dist
+
+        zero = torch.zeros((), device=self.params[0].device)
+        sq = []
+        for params in lists:
+            parts = [zero, zero]  # (whole leaves, split leaves)
+            for p in params:
+                if p.grad is not None:
+                    i = int(self.dims[id(p)] is not None)
+                    parts[i] = parts[i] + torch.linalg.vector_norm(
+                        p.grad.float()).square()
+            sq.append(torch.stack(parts))
+        sq = torch.stack(sq)
+        if self.fsdp > 1:
+            split = sq[:, 1].contiguous()
+            dist.all_reduce(split, group=self.group)
+            sq = torch.stack([sq[:, 0], split], 1)
+        return list(sq.sum(1).sqrt().unbind())
+
+    def bytes_per_rank(self) -> int:
+        """Bytes of the parameter shards this rank holds."""
+        return sum(p.numel() * p.element_size() for p in self.params)
+
+
+def shard_train_state(model: nn.Module, mesh, rules=None) -> ShardedState:
+    """Hold `model`'s parameters at rest sharded over `mesh` by `rules`
+    (core/mesh.default_param_rules when None): ZeRO-3. Build the
+    optimizer (make_train_step(sharded=...)) after this call, so that its
+    moments are created as shards."""
+    return ShardedState(model, mesh, rules)
+
+
 def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
                     groups: Dict[str, ParamGroup], accum_steps: int = 1,
                     frozen: Sequence[nn.Parameter] = (),
                     optimizer: str = "adamw",
-                    hwio: Sequence[nn.Parameter] = ()):
+                    hwio: Sequence[nn.Parameter] = (),
+                    sharded: Optional[ShardedState] = None):
     """loss_fn(batch) -> scalar loss of the model that owns the groups'
-    parameters (and the frozen ones). Returns step(batch) -> {"loss",
+    parameters (and the frozen ones); with `sharded`, this rank's share
+    of the global batch's loss. Returns step(batch) -> {"loss",
     "grad_norm"} (0-dim fp32 tensors on the device: reading them syncs, so
-    a loop reads them only when it logs). `step.optimizer` and
-    `step.count` are exposed."""
+    a loop reads them only when it logs). `step.optimizer`, `step.count`
+    and `step.sharded` are exposed."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if sharded is not None and optimizer == "adamw8bit" and sharded.fsdp > 1:
+        raise NotImplementedError(ADAM8BIT_OVER_FSDP)
     params = [p for g in groups.values() for p in g.params]
     frozen = list(frozen)
     param_groups = [{"params": g.params, "weight_decay": g.weight_decay,
@@ -98,7 +346,7 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
     else:
         raise ValueError(f"unknown optimizer {optimizer!r}")
 
-    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+    def grads(batch):
         for p in frozen:
             p.grad = None
         if accum_steps == 1:
@@ -108,13 +356,28 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
             loss = loss.detach()
         else:
             loss = _accumulate(loss_fn, batch, params + frozen, accum_steps)
-        for p in params:  # a leaf the loss never reached: a zero gradient,
-            if p.grad is None:  # which optax's decay still updates
+        # a leaf the loss never reached: a zero gradient, which optax's
+        # decay still updates (and every rank reduces the same list)
+        for p in params + (frozen if sharded is not None else []):
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norms = group_grad_norms(groups)
-        every = list(norms.values())
-        if frozen:
-            every.append(grad_norm(frozen))
+        if sharded is not None:
+            loss = loss.float().reshape(1)
+            sharded.reduce([p.grad for p in params + frozen], [loss])
+            loss = loss[0]
+        return loss
+
+    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        loss = grads(batch)
+        if sharded is None:
+            norms = group_grad_norms(groups)
+            every = list(norms.values())
+            if frozen:
+                every.append(grad_norm(frozen))
+        else:
+            every = sharded.grad_norms([g.params for g in groups.values()]
+                                       + ([frozen] if frozen else []))
+            norms = dict(zip(groups, every))
         total = torch.linalg.vector_norm(torch.stack(every))
         for (name, g), pg in zip(groups.items(), optimizer.param_groups):
             if g.grad_clip is not None:
@@ -131,4 +394,5 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
 
     step.count = 0
     step.optimizer = optimizer
+    step.sharded = sharded
     return step

@@ -1,5 +1,5 @@
-"""Trainer loops (port of vlaser_tpu/train/trainer.py, one device, no
-mesh).
+"""Trainer loops (port of vlaser_tpu/train/trainer.py), on one device or
+over a mesh.
 
 `SFTTrainer` (the VLM SFT recipe, scripts/train_sft.py): AdamW on every
 trained parameter, clipped by its global norm, under `warmup_cosine`; the
@@ -10,9 +10,7 @@ JAX step's global norm does, and get no update (optax.set_to_zero). With
 when a preemption guard stops the loop, and after the last step, each
 with `data_state_fn()`. Steps are counted across `train` calls and a
 restore (`step`), as the schedule counts them. `moe_aux_coef` adds the MoE
-router loss (train/losses.make_sft_loss). Still to port, and raising
-NotImplementedError when asked for: meshes of more than one device (the
-parallel layouts).
+router loss (train/losses.make_sft_loss).
 
 `VLATrainer` (the flow-matching VLA): two optimizer groups with their own
 cosine-warmup-restarts schedules: "action" = the expert mixture, its final
@@ -27,8 +25,19 @@ parameters, optimizer state and counter, no average, as the JAX trainer
 saves); `metrics_path` logs every `log_every` steps. As in the JAX
 trainer, `train_steps` numbers its steps from 1 in every call: averaging,
 logging and saving see that count, the schedule the optimizer's own.
-Still to port, and raising NotImplementedError when asked for: meshes of
-more than one device.
+
+Meshes. `mesh_fsdp` (both trainers) and `mesh_cp` (SFTTrainer, whose
+model's LLM then needs `context_parallel_axis="context"`) above 1, or a
+DeviceMesh handed in (core/mesh.make_mesh over an initialized process
+group, core/distributed.initialize), train over a (data, fsdp[, context],
+tensor) mesh: the parameters, gradients and AdamW moments are held as
+ZeRO-3 shards, the forward and backward gathering one layer's weights at
+a time (train/train_step.shard_train_state), each rank feeds its local
+block of the global batch (its rows at core/mesh.batch_shard; context
+ranks feed the same rows and each keeps its slice of the sequence), and
+the step equals the one-device step of the global batch. The metrics log
+is written by rank 0. Still to port, and raising NotImplementedError:
+`mesh_tp` above 1, and 8-bit AdamW over fsdp above 1.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
+from ..core import mesh as mesh_lib
+from ..core.distributed import process_index
 from ..policy.flow import make_flow_loss
 from ..utils.convert import is_patch_conv
 from ..utils.monitoring import MetricsWriter, Timer
@@ -47,7 +58,8 @@ from .losses import make_sft_loss
 from .metrics import action_accuracy, action_l1
 from .model_averaging import AveragingConfig, ModelAveraging
 from .optim import cosine_warmup_restarts, make_optimizer, warmup_cosine
-from .train_step import ParamGroup, make_train_step
+from .train_step import (ADAM8BIT_OVER_FSDP, ParamGroup, make_train_step,
+                         shard_train_state)
 
 logger = logging.getLogger("vlaser_tpu_torch.train")
 
@@ -87,13 +99,36 @@ def _to_device(batch: Dict, device) -> Dict:
             for k, v in batch.items()}
 
 
+def build_mesh(mesh, fsdp: int = 1, tp: int = 1, cp: int = 1):
+    """The trainers' mesh: the one handed in, else make_mesh(fsdp, cp) when
+    either is above 1, else None (one device, no process group needed).
+    Tensor parallelism raises."""
+    if tp > 1 or (mesh is not None
+                  and mesh_lib.axis_size(mesh, mesh_lib.TENSOR_AXIS) > 1):
+        raise NotImplementedError(
+            f"mesh_tp {max(tp, mesh_lib.axis_size(mesh, 'tensor'))}: tensor-"
+            "parallel training is not ported yet; the port's "
+            "trainers shard over data, fsdp and context")
+    if mesh is None and (fsdp > 1 or cp > 1):
+        mesh = mesh_lib.make_mesh(fsdp=fsdp, cp=cp)
+    return mesh
+
+
+def _metrics_writer(path):
+    return MetricsWriter(path) if path and process_index() == 0 else None
+
+
 class SFTTrainer:
-    def __init__(self, model, cfg: TrainConfig):
-        """model: a port InternVLChatModel on its device."""
-        if cfg.mesh_fsdp != 1 or cfg.mesh_tp != 1 or cfg.mesh_cp != 1:
-            raise NotImplementedError(
-                "the port trains on one device; the parallel layouts are "
-                "not ported yet")
+    def __init__(self, model, cfg: TrainConfig, mesh=None):
+        """model: a port InternVLChatModel on its device; mesh: a DeviceMesh
+        (built from cfg.mesh_fsdp / mesh_cp when None and either is above
+        1)."""
+        self.mesh = mesh = build_mesh(mesh, cfg.mesh_fsdp, cfg.mesh_tp,
+                                      cfg.mesh_cp)
+        if (mesh_lib.axis_size(mesh, mesh_lib.CONTEXT_AXIS) > 1
+                and model.cfg.llm.context_parallel_axis is None):
+            raise ValueError("a context axis needs a model whose LLM config "
+                             "sets context_parallel_axis='context'")
         self.model, self.cfg = model, cfg
         frozen = []
         if cfg.freeze_vision:
@@ -107,13 +142,22 @@ class SFTTrainer:
             grad_clip=cfg.grad_clip, frozen_patterns=tuple(frozen))
         for p in model.parameters():
             p.requires_grad_(True)
+        self.sharded = (shard_train_state(model, mesh) if mesh is not None
+                        else None)
         self.step_fn = make_train_step(
-            make_sft_loss(model, moe_aux_coef=cfg.moe_aux_coef), self.groups,
-            accum_steps=cfg.accum_steps, frozen=self.frozen)
+            make_sft_loss(model, moe_aux_coef=cfg.moe_aux_coef, mesh=mesh),
+            self.groups, accum_steps=cfg.accum_steps, frozen=self.frozen,
+            sharded=self.sharded)
 
     @property
     def step(self) -> int:
         return self.step_fn.count
+
+    def _step(self, batch):
+        if self.mesh is None:
+            return self.step_fn(batch)
+        with mesh_lib.set_mesh(self.mesh):
+            return self.step_fn(batch)
 
     def _profiler(self):
         from torch.profiler import ProfilerActivity, profile
@@ -134,7 +178,7 @@ class SFTTrainer:
         object whose should_stop() ends the loop after the current step."""
         cfg, dev = self.cfg, self.model.device
         timer, prof, metrics = Timer(), None, None
-        writer = MetricsWriter(cfg.metrics_path) if cfg.metrics_path else None
+        writer = _metrics_writer(cfg.metrics_path)
         saved = self.step
         self.model.train()
         try:
@@ -143,7 +187,7 @@ class SFTTrainer:
                     break
                 if cfg.profile_dir and self.step == cfg.profile_start:
                     prof = self._profiler()
-                metrics = self.step_fn(_to_device(batch, dev))
+                metrics = self._step(_to_device(batch, dev))
                 step = self.step
                 if prof is not None and step == (cfg.profile_start
                                                  + cfg.profile_steps):
@@ -235,12 +279,16 @@ class _InferAction(torch.nn.Module):
 
 class VLATrainer:
     def __init__(self, model, cfg: VLATrainConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         """model: a port PiZeroVLA on its device; generator: the source of
         flow times and noise (a fresh one seeded 0 on the model's device
-        when None)."""
-        if cfg.mesh_fsdp != 1 or cfg.mesh_tp != 1:
-            raise NotImplementedError("the port trains on one device")
+        when None; every rank of a mesh draws the global batch's from
+        it); mesh: a DeviceMesh (built from cfg.mesh_fsdp when None and it
+        is above 1)."""
+        self.mesh = mesh = build_mesh(mesh, cfg.mesh_fsdp, cfg.mesh_tp)
+        if (cfg.optimizer_8bit
+                and mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS) > 1):
+            raise NotImplementedError(ADAM8BIT_OVER_FSDP)
         self.model, self.cfg = model, cfg
         if generator is None:
             generator = torch.Generator(device=model.device)
@@ -259,11 +307,16 @@ class VLATrainer:
                     cfg.weight_decay, cfg.grad_clip)
         for n, lab in labels.items():
             named[n].requires_grad_(lab != "frozen")
+        self.sharded = (shard_train_state(model, mesh) if mesh is not None
+                        else None)
+        loss_fn = (make_flow_loss(model, cfg.flow_sampling, generator)
+                   if mesh is None else make_flow_loss(
+                       model, cfg.flow_sampling, generator, mesh=mesh))
         self.step_fn = make_train_step(
-            make_flow_loss(model, cfg.flow_sampling, generator), self.groups,
-            accum_steps=cfg.accum_steps,
+            loss_fn, self.groups, accum_steps=cfg.accum_steps,
             optimizer="adamw8bit" if cfg.optimizer_8bit else "adamw",
-            hwio=[p for n, p in named.items() if is_patch_conv(n)])
+            hwio=[p for n, p in named.items() if is_patch_conv(n)],
+            sharded=self.sharded)
         self.averaging = ModelAveraging(cfg.averaging)
         self._infer = _InferAction(model)
 
@@ -272,6 +325,8 @@ class VLATrainer:
         return self.step_fn.count
 
     def params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as the trainer holds them (shards over a mesh,
+        which the model's forward gathers a leaf at a time)."""
         return dict(self.model.named_parameters())
 
     def save(self, step: int) -> str:
@@ -287,7 +342,7 @@ class VLATrainer:
         cfg, dev = self.cfg, self.model.device
         metrics = None
         timer = Timer()
-        writer = MetricsWriter(cfg.metrics_path) if cfg.metrics_path else None
+        writer = _metrics_writer(cfg.metrics_path)
         self.model.train()
         try:
             for i, batch in enumerate(batches):

@@ -1,6 +1,6 @@
 """Checkpoint and resume of the port's trainers (the contract of
-vlaser_tpu/utils/checkpoint.py, written for torch on one device: no orbax,
-no distributed checkpoint).
+vlaser_tpu/utils/checkpoint.py, written for torch: no orbax, no
+distributed checkpoint format).
 
 `<directory>/<step>/` holds
 - `params.safetensors`: the model's state dict (every parameter and
@@ -13,6 +13,14 @@ A step is written into `<directory>/.tmp-<step>` and renamed into place,
 so a reader never finds half a step; the `max_to_keep` newest steps stay.
 The files are safetensors (utils/hf_convert.save_safetensors /
 load_safetensors), so restoring unpickles nothing.
+
+A train step over a mesh (`train_step.sharded`, ZeRO-3 shards) saves the
+same files as the one-device state, leaf by leaf: every rank joins the
+gather of a leaf to rank 0, which writes it and drops it before the next
+(hf_convert.write_safetensors), so no rank ever holds more than one whole
+leaf. Restoring maps the files and keeps each rank's shards of the
+trainer's own mesh, reading only those, so a checkpoint moves between
+meshes (and to and from one device) unchanged.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import os
 import shutil
 from typing import Any, Dict, Optional
 
-from .hf_convert import load_safetensors, save_safetensors
+from .hf_convert import load_safetensors, write_safetensors
 
 PARAMS, OPTIMIZER, META = ("params.safetensors", "optimizer.safetensors",
                            "meta.json")
@@ -39,6 +47,44 @@ def _param_names(model) -> Dict[int, str]:
     return {id(p): n for n, p in model.named_parameters()}
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier(sharded) -> None:
+    if sharded is not None and sharded.ranks > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _entries(model, train_step):
+    """-> (the model's state dict, the optimizer's "<name>/<key>" state) as
+    write_safetensors entries of whole tensors, in an order every rank
+    shares: a sharded step's split leaf (and each state tensor of its
+    shape) is gathered to rank 0 when its turn comes."""
+    sharded = getattr(train_step, "sharded", None)
+    named = dict(model.named_parameters())
+
+    def entry(key, p, t):
+        if sharded is None or p is None or sharded.dims[id(p)] is None \
+                or t.shape != p.shape:
+            return key, tuple(t.shape), t.dtype, lambda: t.detach()
+        shape = list(t.shape)
+        shape[sharded.dims[id(p)]] *= sharded.fsdp
+        return key, tuple(shape), t.dtype, lambda: sharded.full(p, t, dst=0)
+
+    params = [entry(k, named.get(k), t)
+              for k, t in model.state_dict(keep_vars=True).items()]
+    opt, state = [], train_step.optimizer.state
+    for name, p in named.items():
+        opt.extend(entry(f"{name}/{key}", p, v)
+                   for key, v in state.get(p, {}).items())
+    return params, opt
+
+
 def save_checkpoint(directory: str, step: int, model, train_step,
                     data_state: Optional[Dict[str, Any]] = None,
                     max_to_keep: int = 3) -> str:
@@ -47,23 +93,27 @@ def save_checkpoint(directory: str, step: int, model, train_step,
     counter `train_step.count` and `data_state` (JSON). -> the step's
     directory."""
     directory = os.path.abspath(directory)
+    sharded = getattr(train_step, "sharded", None)
+    params, opt = _entries(model, train_step)
+    final = os.path.join(directory, str(step))
+    if _rank() != 0:  # join the gathers
+        write_safetensors(params, None)
+        write_safetensors(opt, None)
+        _barrier(sharded)
+        return final
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp-{step}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    save_safetensors(model.state_dict(), os.path.join(tmp, PARAMS))
-    names, opt = _param_names(model), {}
-    for p, state in train_step.optimizer.state.items():
-        for key, v in state.items():
-            opt[f"{names[id(p)]}/{key}"] = v
-    save_safetensors(opt, os.path.join(tmp, OPTIMIZER))
+    write_safetensors(params, os.path.join(tmp, PARAMS))
+    write_safetensors(opt, os.path.join(tmp, OPTIMIZER))
     with open(os.path.join(tmp, META), "w") as f:
         json.dump({"step": int(train_step.count), "data": data_state}, f)
-    final = os.path.join(directory, str(step))
     shutil.rmtree(final, ignore_errors=True)
     os.rename(tmp, final)
     for old in _steps(directory)[:-max_to_keep]:
         shutil.rmtree(os.path.join(directory, str(old)))
+    _barrier(sharded)
     return final
 
 
@@ -96,8 +146,19 @@ def restore_checkpoint(directory: str, model, train_step,
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
     path = os.path.join(directory, str(step))
-    model.load_state_dict(load_safetensors(os.path.join(path, PARAMS)))
-    saved = load_safetensors(os.path.join(path, OPTIMIZER))
+    sharded = getattr(train_step, "sharded", None)
+    mapped = sharded is not None
+    sd = load_safetensors(os.path.join(path, PARAMS), mmap=mapped)
+    saved = load_safetensors(os.path.join(path, OPTIMIZER), mmap=mapped)
+    if mapped:  # read this rank's shards (and copy the whole leaves)
+        named = dict(model.named_parameters())
+        for k, t in list(sd.items()) + list(saved.items()):
+            p = named.get(k.split("/")[0])
+            split = (p is not None and sharded.dims[id(p)] is not None
+                     and t.dim() == p.dim())
+            (saved if "/" in k else sd)[k] = (sharded.local(p, t) if split
+                                              else t.clone())
+    model.load_state_dict(sd)
     opt = train_step.optimizer
     sd = opt.state_dict()  # the live groups; their params are indices
     names, index = _param_names(model), 0

@@ -21,6 +21,8 @@ loader's ml_dtypes arrays give.
 from __future__ import annotations
 
 import json
+import math
+import os
 import struct
 from typing import Dict, Mapping, Optional
 
@@ -489,16 +491,25 @@ _ST_DTYPES = {
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """One .safetensors file -> {name: CPU tensor at the written dtype}."""
+def load_safetensors(path: str, mmap: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """One .safetensors file -> {name: CPU tensor at the written dtype}.
+    mmap: the tensors are views of the file mapped copy-on-write, so only
+    the pages a caller touches are read."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
         header.pop("__metadata__", None)
         size = max((e for v in header.values()
                     for e in v["data_offsets"][1:]), default=0)
-        buf = torch.empty(size, dtype=torch.uint8)
-        view, got = memoryview(buf.numpy()), 0
+        if mmap:
+            whole = os.path.getsize(path)
+            buf = torch.from_file(path, shared=False, size=whole,
+                                  dtype=torch.uint8)[8 + n:8 + n + size]
+            size = 0  # nothing to read
+        else:
+            buf = torch.empty(size, dtype=torch.uint8)
+        view, got = memoryview(buf.numpy()) if size else None, 0
         while got < size:  # reads of at most 1 GiB, as the OS gives them
             n = f.readinto(view[got:got + 2**30])
             if not n:
@@ -644,24 +655,45 @@ def save_safetensors(state_dict: Mapping, path: str):
     device; torch bfloat16 kept as BF16) to one .safetensors file. Tensors
     are laid out by decreasing element size, so every buffer is aligned to
     its element."""
-    items = sorted(((k, _as_torch(v)) for k, v in state_dict.items()),
-                   key=lambda kv: (-kv[1].element_size(), kv[0]))
+    tensors = {k: _as_torch(v) for k, v in state_dict.items()}
+    write_safetensors([(k, tuple(t.shape), t.dtype, lambda t=t: t)
+                       for k, t in tensors.items()], path)
+
+
+def write_safetensors(entries, path: Optional[str]):
+    """Stream `entries` [(name, shape, dtype, fetch)] to one .safetensors
+    file in save_safetensors' layout: the header from the shapes first,
+    then fetch() -> each tensor, written and dropped one at a time. With
+    path None every fetch is still made, in the same order, and nothing
+    is written (a rank that joins collective fetches)."""
+    items = sorted(entries, key=lambda e: (-e[2].itemsize, e[0]))
     header, ofs = {}, 0
-    for k, t in items:
-        if t.dtype not in _ST_NAMES:
-            raise ValueError(f"{k}: dtype {t.dtype} has no safetensors name")
-        n = t.numel() * t.element_size()
-        header[k] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+    for k, shape, dtype, _ in items:
+        if dtype not in _ST_NAMES:
+            raise ValueError(f"{k}: dtype {dtype} has no safetensors name")
+        n = math.prod(shape) * dtype.itemsize
+        header[k] = {"dtype": _ST_NAMES[dtype], "shape": list(shape),
                      "data_offsets": [ofs, ofs + n]}
         ofs += n
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
-        for _, t in items:
+    f = open(path, "wb") if path is not None else None
+    try:
+        if f is not None:
+            f.write(struct.pack("<Q", len(blob)))
+            f.write(blob)
+        for k, shape, dtype, fetch in items:
+            t = fetch()
+            if f is None:
+                continue
+            if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+                raise ValueError(f"{k}: got {tuple(t.shape)} {t.dtype}, "
+                                 f"declared {tuple(shape)} {dtype}")
             t = t.contiguous().cpu().reshape(-1)
             f.write(memoryview(t.view(torch.uint8).numpy()))
+    finally:
+        if f is not None:
+            f.close()
 
 
 def save_hf_checkpoint_dir(state_dict: Mapping, path: str,
