@@ -683,7 +683,8 @@ def test_admission_validation(vlm):
         ContinuousBatchingEngine(tm, num_slots=2, max_len=32,
                                  eos_token_ids=EOS, pad_token_id=0,
                                  prefill_buckets=(16, 64))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh needs the process group whose ranks it spans
+    with pytest.raises(ValueError, match="process group"):
         ContinuousBatchingEngine(tm, num_slots=2, max_len=32,
                                  eos_token_ids=EOS, pad_token_id=0,
                                  mesh=object())

@@ -3,8 +3,8 @@ serve_vlm.py, eval_vlm.py) on the CPU: each `main` through argparse under
 --tiny --device cpu (tiny_vlm with seeded weights and the byte tokenizer,
 the tokenizer handling of the training CLIs' --tiny), every JAX flag
 accepted, the weights stage reading an HF checkpoint directory bit for
-bit, the refusals (--tp > 1, beams on the engine, --int8 beside
---quantize), and eval_vlm's results keeping the JAX CLI's keys on every
+bit, the refusals (--tp without --engine or without a process group of
+its ranks, beams on the engine, --int8 beside --quantize), and eval_vlm's results keeping the JAX CLI's keys on every
 backend: VlaserChat with 1 and 2 beams, --engine, --offline and
 --spec_draft."""
 
@@ -95,10 +95,14 @@ def test_eval_vlm_runner_route_on_text_rows(items, tmp_path):
 def test_cli_refusals(items):
     base = ["--tiny", "--device", "cpu", "--benchmark", "mcq", "--data",
             str(items)]
-    with pytest.raises(NotImplementedError):
+    # --tp serves through the engine, over a process group of --tp ranks
+    # (torchrun); this process has none
+    with pytest.raises(RuntimeError, match="nproc-per-node 2"):
         eval_vlm.main(base + ["--engine", "--tp", "2"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="--engine"):
         serve_vlm.main(["--tiny", "--device", "cpu", "--tp", "2"])
+    with pytest.raises(ValueError, match="--engine"):
+        eval_vlm.main(base + ["--tp", "2"])
     with pytest.raises(ValueError):
         eval_vlm.main(base + ["--engine", "--num_beams", "2"])
     with pytest.raises(SystemExit):

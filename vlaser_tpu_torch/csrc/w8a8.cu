@@ -164,12 +164,14 @@ __device__ __forceinline__ float row_reduce(float v, float* red, int tpr) {
 // (rows a block) threads; row = blockIdx.x * rows + threadIdx.x / tpr, K %
 // 8 == 0; thread t of a row holds chunks t, t + tpr, ... (those past K / 8
 // are empty). The amax is exact in any order, so the layout may follow M.
-// am = max(max|h|, 1e-9), q = round_half_even(h * (127 / am)).
+// am = max(max|h|, amax_in[row] if given, 1e-9), q = round_half_even(h *
+// (127 / am)).
 template <bool SILU, int NV>
 __global__ void __launch_bounds__(PBLOCK)
 quantize_packed_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
                        int M, int K, int tpr, int8_t* __restrict__ q,
-                       float* __restrict__ am) {
+                       float* __restrict__ am,
+                       const float* __restrict__ amax_in) {
   __shared__ float red[PBLOCK / 32];
   const int sub = threadIdx.x / tpr, t = threadIdx.x - sub * tpr;
   const size_t row = (size_t)blockIdx.x * (blockDim.x / tpr) + sub;
@@ -205,10 +207,10 @@ quantize_packed_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
     }
   }
   const float2 mf = __bfloat1622float2(m2);
-  const float a =
-      fmaxf(row_reduce<true>(fmaxf(mf.x, mf.y), red, tpr), 1e-9f);
-  const float inv = __fdiv_rn(127.f, a);
+  float a = fmaxf(row_reduce<true>(fmaxf(mf.x, mf.y), red, tpr), 1e-9f);
   if (!live) return;
+  if (amax_in) a = fmaxf(a, amax_in[row]);
+  const float inv = __fdiv_rn(127.f, a);
 #pragma unroll
   for (int c = 0; c < NV; ++c) {
     const int ch = t + c * tpr;
@@ -234,7 +236,8 @@ template <typename T, bool LN, int NV>
 __global__ void __launch_bounds__(QBLOCK)
 quantize_kernel(const T* __restrict__ x, int M, int K, int tpr,
                 const float* __restrict__ lnw, const float* __restrict__ lnb,
-                float eps, int8_t* __restrict__ q, float* __restrict__ am) {
+                float eps, int8_t* __restrict__ q, float* __restrict__ am,
+                const float* __restrict__ amax_in) {
   __shared__ float red[3][32];
   const int sub = threadIdx.x / tpr, t = threadIdx.x - sub * tpr;
   const size_t row = (size_t)blockIdx.x * (blockDim.x / tpr) + sub;
@@ -282,9 +285,10 @@ quantize_kernel(const T* __restrict__ x, int M, int K, int tpr,
     if (t + c * tpr < nch)
 #pragma unroll
       for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[c][e]));
-  const float a = fmaxf(row_reduce<true>(m, red[2], tpr), 1e-9f);
-  const float inv = __fdiv_rn(127.f, a);
+  float a = fmaxf(row_reduce<true>(m, red[2], tpr), 1e-9f);
   if (!live) return;
+  if (amax_in) a = fmaxf(a, amax_in[row]);
+  const float inv = __fdiv_rn(127.f, a);
 #pragma unroll
   for (int c = 0; c < NV; ++c) {
     const int ch = t + c * tpr;
@@ -668,7 +672,7 @@ static int q_rows_a_block(int M, int tpr, int most) {
 // PBLOCK x 4 chunks (16,384 values) keeps PBLOCK threads and gives each of
 // them up to PMAX_NV chunks.
 static int q_packed(const bf16* x, const bf16* u, int M, int K, int8_t* q,
-                    float* am, cudaStream_t st) {
+                    float* am, const float* amax, cudaStream_t st) {
   const int nch = K / 8;
   const long long fill = (long long)M * nch / FILL;
   const int most = u ? 3 : 4;
@@ -682,11 +686,11 @@ static int q_packed(const bf16* x, const bf16* u, int M, int K, int8_t* q,
 #define Q_LAUNCH(N)                                                       \
   case N:                                                                 \
     if (u)                                                                \
-      quantize_packed_kernel<true, N><<<grid, block, 0, st>>>(x, u, M, K, \
-                                                              tpr, q, am); \
+      quantize_packed_kernel<true, N><<<grid, block, 0, st>>>(            \
+          x, u, M, K, tpr, q, am, amax);                                  \
     else                                                                  \
-      quantize_packed_kernel<false, N><<<grid, block, 0, st>>>(x, u, M, K, \
-                                                               tpr, q, am); \
+      quantize_packed_kernel<false, N><<<grid, block, 0, st>>>(           \
+          x, u, M, K, tpr, q, am, amax);                                  \
     break;
   switch (nv) { Q_CASES(Q_LAUNCH) }
 #undef Q_LAUNCH
@@ -700,7 +704,7 @@ static int q_packed(const bf16* x, const bf16* u, int M, int K, int8_t* q,
 template <typename T>
 static int q_fp32(const T* x, int M, int K, const float* lnw,
                   const float* lnb, float eps, int8_t* q, float* am,
-                  cudaStream_t st) {
+                  const float* amax, cudaStream_t st) {
   const int nch = K / 8;
   int tpr = 32;
   while (tpr < QBLOCK && nch > tpr * QNV) tpr *= 2;
@@ -711,12 +715,11 @@ static int q_fp32(const T* x, int M, int K, const float* lnw,
 #define Q_LAUNCH(N)                                                        \
   case N:                                                                  \
     if (lnw)                                                               \
-      quantize_kernel<T, true, N><<<grid, block, 0, st>>>(x, M, K, tpr, lnw, \
-                                                          lnb, eps, q, am); \
+      quantize_kernel<T, true, N><<<grid, block, 0, st>>>(                 \
+          x, M, K, tpr, lnw, lnb, eps, q, am, amax);                       \
     else                                                                   \
-      quantize_kernel<T, false, N><<<grid, block, 0, st>>>(x, M, K, tpr,    \
-                                                           lnw, lnb, eps, q, \
-                                                           am);            \
+      quantize_kernel<T, false, N><<<grid, block, 0, st>>>(                \
+          x, M, K, tpr, lnw, lnb, eps, q, am, amax);                       \
     break;
   switch (nv) { Q_CASES(Q_LAUNCH) }
 #undef Q_LAUNCH
@@ -728,48 +731,57 @@ static int q_fp32(const T* x, int M, int K, const float* lnw,
 // Both prologues (u: silu-mul, lnw / lnb: LayerNorm) or neither.
 static int quantize_any(const void* x, const bf16* u, int x_bf16, int M,
                         int K, int G, const float* lnw, const float* lnb,
-                        float eps, int8_t* q, float* am, cudaStream_t st) {
+                        float eps, int8_t* q, float* am, const float* amax,
+                        cudaStream_t st) {
   const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)u % 16 == 0 &&
                        (uintptr_t)q % 8 == 0;
   if (M <= 0 || G < 1 || K % 16 || K % G || (K / G) % 8 || !aligned ||
-      ((lnw || u) && G != 1) || (lnw && u) || (u && !x_bf16) ||
+      ((lnw || u || amax) && G != 1) || (lnw && (u || amax)) ||
+      (u && !x_bf16) ||
       (lnw && ((uintptr_t)lnw % 16 || (uintptr_t)lnb % 16)) ||
       (long long)M * G > (1ll << 31) - 1)
     return (int)cudaErrorInvalidValue;
   const int R = M * G, Kg = K / G;
-  if (x_bf16 && !lnw) return q_packed((const bf16*)x, u, R, Kg, q, am, st);
+  if (x_bf16 && !lnw)
+    return q_packed((const bf16*)x, u, R, Kg, q, am, amax, st);
   if (x_bf16)
-    return q_fp32((const bf16*)x, R, Kg, lnw, lnb, eps, q, am, st);
-  return q_fp32((const float*)x, R, Kg, lnw, lnb, eps, q, am, st);
+    return q_fp32((const bf16*)x, R, Kg, lnw, lnb, eps, q, am, amax, st);
+  return q_fp32((const float*)x, R, Kg, lnw, lnb, eps, q, am, amax, st);
 }
 
 int quantize(const void* x, int x_bf16, int M, int K, int G, const float* lnw,
              const float* lnb, float eps, int8_t* q, float* am,
-             cudaStream_t st) {
-  return quantize_any(x, nullptr, x_bf16, M, K, G, lnw, lnb, eps, q, am, st);
+             cudaStream_t st, const float* amax) {
+  return quantize_any(x, nullptr, x_bf16, M, K, G, lnw, lnb, eps, q, am, amax,
+                      st);
 }
 
 int quantize_silu_mul(const bf16* g, const bf16* u, int M, int K, int8_t* q,
-                      float* am, cudaStream_t st) {
-  return quantize_any(g, u, 1, M, K, 1, nullptr, nullptr, 0.f, q, am, st);
+                      float* am, cudaStream_t st, const float* amax) {
+  return quantize_any(g, u, 1, M, K, 1, nullptr, nullptr, 0.f, q, am, amax,
+                      st);
 }
 
 }  // namespace w8a8
 
-// x [M, K] bf16 or fp32 -> q int8 [M, K], am fp32 [M, G] (G column groups).
-extern "C" int w8a8_quantize_rows(const void* x, void* q, void* am, int M,
-                                  int K, int G, int x_bf16, void* stream) {
+// x [M, K] bf16 or fp32 -> q int8 [M, K], am fp32 [M, G] (G column groups);
+// amax: an optional per-row absmax input fp32 [M] (G 1; null: none).
+extern "C" int w8a8_quantize_rows(const void* x, const void* amax, void* q,
+                                  void* am, int M, int K, int G, int x_bf16,
+                                  void* stream) {
   return w8a8::quantize(x, x_bf16, M, K, G, nullptr, nullptr, 0.f,
-                        (int8_t*)q, (float*)am, (cudaStream_t)stream);
+                        (int8_t*)q, (float*)am, (cudaStream_t)stream,
+                        (const float*)amax);
 }
 
 // g, u bf16 [M, K] -> the rows of h = bf16(bf16(silu(g)) * u): q int8 [M,
-// K], am fp32 [M]; h is never stored.
-extern "C" int w8a8_quantize_silu_mul(const void* g, const void* u, void* q,
-                                      void* am, int M, int K, void* stream) {
+// K], am fp32 [M]; h is never stored. amax as above.
+extern "C" int w8a8_quantize_silu_mul(const void* g, const void* u,
+                                      const void* amax, void* q, void* am,
+                                      int M, int K, void* stream) {
   return w8a8::quantize_silu_mul((const bf16*)g, (const bf16*)u, M, K,
-                                 (int8_t*)q, (float*)am,
-                                 (cudaStream_t)stream);
+                                 (int8_t*)q, (float*)am, (cudaStream_t)stream,
+                                 (const float*)amax);
 }
 
 // The LayerNorm prologue alone (the act_quant ViT's LN1 / LN2, which

@@ -29,15 +29,18 @@ enum Epi {
 // 1e-9) and q = round_half_even(v * (127 / am)). With lnw != nullptr, v is
 // the fp32 LayerNorm of the row (G must be 1), not rounded to bf16. K % 16
 // == 0, (K / G) % 8 == 0, x 16-byte and q 8-byte aligned (else
-// cudaErrorInvalidValue).
+// cudaErrorInvalidValue). amax (G 1, no LayerNorm): an optional per-row
+// absmax input, am = max(max|v|, amax[row], 1e-9) (a row-parallel layer's
+// whole-row absmax, all-reduced over the ranks that hold its columns).
 int quantize(const void* x, int x_bf16, int M, int K, int G, const float* lnw,
              const float* lnb, float eps, int8_t* q, float* am,
-             cudaStream_t st);
+             cudaStream_t st, const float* amax = nullptr);
 
 // The same for the rows of h = bf16(bf16(silu(g)) * u), g and u bf16 [M, K]
 // (PyTorch's rounding of F.silu(g) * u), G 1; h is never stored.
 int quantize_silu_mul(const bf16* g, const bf16* u, int M, int K, int8_t* q,
-                      float* am, cudaStream_t st);
+                      float* am, cudaStream_t st,
+                      const float* amax = nullptr);
 
 // int32 elements of scratch `gemm` needs for (M, N, K): the K splits' partial
 // sums where the plan splits K (a grid short of one wave), else 0.

@@ -221,7 +221,7 @@ class ChatDatasetConfig:
     max_seq_length: int = 4096
     loss_reduction: str = "token"
     repeat_time: float = 1.0
-    # the C++ JPEG worker pool of the JAX package (not ported: raises)
+    # the C++ JPEG worker pool (data/native_loader.py)
     use_native_loader: bool = False
 
 

@@ -17,10 +17,14 @@ any config on the CPU (the tests' tiny ones), the prompt cut to fit.
 n gloo ranks on the CPU (spawned processes, no card), each section of the
 JAX gate at its tiny config and sizes, one line each. Ported: VLA (the
 flow-matching train step, frozen ViT, AdamW, data x fsdp = n/2 x 2), SFT
-(the packed VLM SFT step on that mesh), CP (the tiny LLM stack through
-ring attention over {'context': min(n, 4)}) and CPxFSDP-train (the SFT
-step with the LLM ring-sharded over context 2 and the state over fsdp 2;
-n divisible by 8). The other five sections print "not ported yet".
+(the packed VLM SFT step on that mesh), TP-serve (the tiny VLA's
+infer_action with its policy laid out over (data, fsdp 2, tensor 2):
+tensor-parallel columns, fsdp shards; core/tensor_parallel), TP-engine
+(the continuous-batching engine on that mesh), CP (the tiny LLM stack
+through ring attention over {'context': min(n, 4)}), CPxFSDP-train (the
+SFT step with the LLM ring-sharded over context 2 and the state over fsdp
+2; n divisible by 8) and EP (a tiny MoE stack with its experts split over
+the tensor axis). PP and PPxFSDP-train print "not ported yet".
 
     python -c "from vlaser_tpu_torch.graft_entry import dryrun_multichip
     dryrun_multichip(8)"
@@ -70,11 +74,8 @@ def entry(cfg=None, device=None):
 
 
 NOT_PORTED = {
-    "TP-serve": "the tensor-parallel PolicyServer",
-    "TP-engine": "the tensor-parallel serving engine",
     "PP": "the GPipe pipeline of train/pipeline.py",
     "PPxFSDP-train": "the pipeline x fsdp train step",
-    "EP": "MoE expert parallelism over the tensor axis",
 }
 ORDER = ("VLA", "SFT", "TP-serve", "TP-engine", "CP", "PP", "PPxFSDP-train",
          "CPxFSDP-train", "EP")
@@ -206,6 +207,71 @@ def _cp_section(n, vcfg, rng):
             f"{tuple(logits.shape)}")
 
 
+def _tp_sections(n, vcfg, rng):
+    """TP-serve, TP-engine and EP on a (data, fsdp 2, tensor 2) mesh (the
+    JAX gate's), each model laid out by core/tensor_parallel."""
+    import dataclasses
+
+    from .core import mesh as mesh_lib
+    from .core.config import tiny_vla
+    from .core.tensor_parallel import shard_for_serving
+    from .models.qwen2 import Qwen2ForCausalLM
+    from .models.vlm import InternVLChatModel
+    from .policy.pizero import PiZeroVLA
+    from .serve.engine import ContinuousBatchingEngine, Request
+
+    tp = 2 if n % 4 == 0 else 1
+    mesh = mesh_lib.make_mesh(dp=-1, fsdp=2 if n % 2 == 0 else 1, tp=tp)
+    shape = mesh_lib.mesh_shape(mesh)
+    lines = {}
+    cfg = tiny_vla(max_image_text_tokens=16)
+    B, S = n, cfg.max_image_text_tokens
+    img = cfg.vlm.vision.image_size
+    ids = rng.integers(1, 400, (B, S))
+    ids[:, 2] = cfg.vlm.img_context_token_id
+    model = shard_for_serving(seeded_(PiZeroVLA(
+        cfg, compute_dtype=torch.float32, attn_impl="reference",
+        device="cpu"), 3), mesh)
+    act = model.infer_action(
+        torch.as_tensor(ids),
+        torch.as_tensor(rng.standard_normal((B, img, img, 3)).astype(
+            np.float32)),
+        torch.ones((B, S), dtype=torch.int32),
+        torch.zeros((B, cfg.cond_steps, cfg.proprio_dim)),
+        torch.zeros((B, cfg.num_action_tokens, cfg.action_dim))).numpy()
+    assert act.shape == (B, cfg.horizon_steps, cfg.action_dim)
+    assert np.isfinite(act).all()
+    lines["TP-serve"] = (f"TP-serve: actions {act.shape} "
+                         f"mean={float(act.mean()):.4f} mesh={shape}")
+    vmodel = seeded_(InternVLChatModel(vcfg, compute_dtype=torch.float32,
+                                       attn_impl="reference", device="cpu"),
+                     5)
+    eng = ContinuousBatchingEngine(
+        vmodel, num_slots=2, max_len=64, eos_token_ids=[3], pad_token_id=0,
+        prefill_buckets=(16,), cache_dtype=torch.float32, mesh=mesh)
+    comps = eng.run([Request(uid=i, input_ids=rng.integers(
+        1, 400, (m,)).astype(np.int32), max_new_tokens=4)
+        for i, m in enumerate((5, 9, 7))])
+    assert sorted(c.uid for c in comps) == [0, 1, 2]
+    assert all(1 <= len(c.token_ids) <= 4 for c in comps)
+    lines["TP-engine"] = (f"TP-engine: {len(comps)} completions over "
+                          f"mesh={shape} lens="
+                          f"{[len(c.token_ids) for c in comps]}")
+    mcfg = dataclasses.replace(vcfg.llm, num_experts=4,
+                               num_experts_per_tok=2,
+                               moe_intermediate_size=32)
+    mmodel = shard_for_serving(seeded_(Qwen2ForCausalLM(
+        mcfg, compute_dtype=torch.float32, device="cpu"), 6), mesh)
+    with torch.no_grad():
+        logits, _, _ = mmodel(torch.as_tensor(rng.integers(1, 400, (4, 8))),
+                              attn_impl="reference")
+    assert torch.isfinite(logits).all()
+    held = mmodel.model.layers.mlp.experts_gate_proj.shape[1]
+    lines["EP"] = (f"EP: MoE logits {tuple(logits.shape)} ({held} of 4 "
+                   "experts a rank, over the tensor axis)")
+    return lines
+
+
 def _dryrun_rank(rank, n, init_file, out_file):
     import dataclasses
 
@@ -224,6 +290,7 @@ def _dryrun_rank(rank, n, init_file, out_file):
         vcfg = tiny_vlm()
         vbatch = _sft_batch(vcfg, n, rng)
         lines["SFT"] = f"SFT: loss={_sft_step(vcfg, mesh, vbatch, 2):.4f}"
+        lines.update(_tp_sections(n, vcfg, rng))
         lines["CP"] = _cp_section(n, vcfg, rng)
         if n % 8 == 0:
             cpfm = mesh_lib.make_mesh(dp=-1, fsdp=2, tp=1, cp=2)

@@ -22,6 +22,7 @@ from typing import Sequence
 
 import torch
 
+from ..core.tensor_parallel import refuse_cut
 from ..kernels import ops
 from ..kernels.fused_decode import NEG_INF, fused_int8_stack
 from ..kernels.fused_vit import (fused_vit_stack, pack_vit_stack,
@@ -38,6 +39,7 @@ def pack_qwen2_stack(language_model) -> dict:
     arguments: int8 weights [L, K, N] and fp32 scales [L, 1, N] as they
     are stored (no copy), fp32 norms and biases (zeros without q/k/v bias),
     and the final norm."""
+    refuse_cut(language_model, "pack_qwen2_stack")
     lay = language_model.model.layers
     att, mlp = lay.self_attn, lay.mlp
     f32 = lambda t: t.detach().float().contiguous()

@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..core.tensor_parallel import refuse_cut
 from . import _build
 from .w8a8 import INV127, int_mm_exact, quantize_rows_plain
 
@@ -349,6 +350,7 @@ def pack_vit_stack(vision_model, dtype=torch.bfloat16) -> dict:
     Dense's `kernel_kmajor()`, one copy per model) with fp32 scales [L, N]
     and act_quant=True (the w8a8 stack); a partly quantized one is
     dequantized to `dtype` [L, K, N], as the JAX packer does."""
+    refuse_cut(vision_model, "pack_vit_stack")
     if not supports_fused_vit(vision_model.cfg):
         raise NotImplementedError(
             "fused_vit_stack takes LayerNorm blocks with a biased QKV")

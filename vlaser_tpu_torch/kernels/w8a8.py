@@ -11,6 +11,11 @@ through the same two kernels).
       product rounded as the eager ops round it and never stored (the down
       projection's input in a SiLU MLP; XLA fuses the same product into the
       quantize of the JAX function)
+  Both quantizers take an optional per-row absmax `amax` fp32 [M, 1] (one
+      group): am = max(max|x|, amax, 1e-9). A row-parallel layer passes the
+      absmax of the whole row, all-reduced over the tensor ranks that hold
+      its columns (models/layers.row_quantize), so that its codes are the
+      one-device codes.
   int8_gemm: (q [M, K], am [M, 1], kt int8 [N, K], ks fp32 [N]) ->
       y = (float(q @ kt^T) * (am * (1/127))) * ks, fp32 or bf16 (int32
       accumulation; the order of the rescale is w8a8_dot's)
@@ -59,18 +64,21 @@ gemm_launch_count = 0   # int8 GEMM launches through the CUDA route
 MAX_GROUP = {torch.bfloat16: 32768, torch.float32: 16384}
 
 
-def quantize_rows_plain(x2, groups: int = 1):
+def quantize_rows_plain(x2, groups: int = 1, amax=None):
     """x2 [M, K] -> (q int8 [M, K], am fp32 [M, groups])."""
     M, K = x2.shape
     xf = x2.float().reshape(M, groups, K // groups)
-    am = torch.clamp_min(xf.abs().amax(-1, keepdim=True), 1e-9)
+    am = xf.abs().amax(-1, keepdim=True)
+    if amax is not None:
+        am = torch.maximum(am, amax.float().reshape(M, 1, 1))
+    am = torch.clamp_min(am, 1e-9)
     q = torch.round(xf * (torch.full_like(am, 127.0) / am)).to(torch.int8)
     return q.reshape(M, K), am.reshape(M, groups)
 
 
-def quantize_silu_mul_plain(g, u):
+def quantize_silu_mul_plain(g, u, amax=None):
     """g, u [M, K] -> quantize_rows_plain(F.silu(g) * u)."""
-    return quantize_rows_plain(F.silu(g) * u)
+    return quantize_rows_plain(F.silu(g) * u, amax=amax)
 
 
 def quantize_ln_rows_plain(x2, w, b, eps):
@@ -125,8 +133,8 @@ def int8_gemm_ex_plain(a, am, b, s_col, epi, row_first=False, bias=None,
 
 _I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {  # C name -> (pointer args, the types after them)
-    "w8a8_quantize_rows": (3, (_I, _I, _I, _I, _P)),
-    "w8a8_quantize_silu_mul": (4, (_I, _I, _P)),
+    "w8a8_quantize_rows": (4, (_I, _I, _I, _I, _P)),
+    "w8a8_quantize_silu_mul": (5, (_I, _I, _P)),
     "w8a8_quantize_ln_rows": (5, (_I, _I, _I, ctypes.c_float, _P)),
     "w8a8_gemm_rows": (6, (_I, _I, _I, _I, _LL, _P)),
     "w8a8_gemm_general": (10, (_I,) * 8 + (_LL, _P)),
@@ -186,17 +194,31 @@ def _outputs(M, K, groups, dev):
             torch.empty((M, groups), dtype=torch.float32, device=dev))
 
 
-def quantize_rows(x2, groups: int = 1):
-    """x2 [M, K] bf16 or fp32 -> (q int8 [M, K], am fp32 [M, groups])."""
+def _amax_arg(amax, M, groups, dev, what):
+    """The optional per-row absmax input on the card: fp32 [M, 1] (one
+    group only), contiguous; -> its pointer (0 without one)."""
+    if amax is None:
+        return 0
+    if groups != 1 or amax.dtype != torch.float32 or amax.numel() != M \
+            or amax.device != dev or not amax.is_contiguous():
+        raise ValueError(f"{what}: amax must be a contiguous fp32 [M, 1] on "
+                         f"{dev}, one group")
+    return amax.data_ptr()
+
+
+def quantize_rows(x2, groups: int = 1, amax=None):
+    """x2 [M, K] bf16 or fp32 -> (q int8 [M, K], am fp32 [M, groups]);
+    amax: the optional per-row absmax input (one group)."""
     global quant_launch_count
     if _route(x2, "quantize_rows") == "cpu":
-        return quantize_rows_plain(x2, groups)
+        return quantize_rows_plain(x2, groups, amax)
     x2 = _quant_rows_arg(x2, "quantize_rows", (torch.bfloat16, torch.float32),
                          groups)
     fn = _kernel("w8a8_quantize_rows")  # a failed build raises here
     M, K = x2.shape
+    amp = _amax_arg(amax, M, groups, x2.device, "quantize_rows")
     q, am = _outputs(M, K, groups, x2.device)
-    code = fn(x2.data_ptr(), q.data_ptr(), am.data_ptr(), M, K, groups,
+    code = fn(x2.data_ptr(), amp, q.data_ptr(), am.data_ptr(), M, K, groups,
               int(x2.dtype == torch.bfloat16),
               torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(code, "w8a8_quantize_rows")
@@ -204,13 +226,14 @@ def quantize_rows(x2, groups: int = 1):
     return q, am
 
 
-def quantize_silu_mul(g, u):
+def quantize_silu_mul(g, u, amax=None):
     """g, u bf16 [M, K] -> (q int8 [M, K], am fp32 [M, 1]) of the rows of
     F.silu(g) * u, rounded as the eager ops round it (bf16 silu, then a
-    bf16 product); on the card the product stays in registers."""
+    bf16 product); on the card the product stays in registers. amax: the
+    optional per-row absmax input."""
     global silu_quant_launch_count
     if _route(g, "quantize_silu_mul", u) == "cpu":
-        return quantize_silu_mul_plain(g, u)
+        return quantize_silu_mul_plain(g, u, amax)
     bf = (torch.bfloat16,)
     g = _quant_rows_arg(g, "quantize_silu_mul", bf)
     u = _quant_rows_arg(u, "quantize_silu_mul", bf)
@@ -218,9 +241,10 @@ def quantize_silu_mul(g, u):
         raise ValueError("quantize_silu_mul: g and u must match")
     fn = _kernel("w8a8_quantize_silu_mul")  # a failed build raises here
     M, K = g.shape
+    amp = _amax_arg(amax, M, 1, g.device, "quantize_silu_mul")
     q, am = _outputs(M, K, 1, g.device)
-    code = fn(g.data_ptr(), u.data_ptr(), q.data_ptr(), am.data_ptr(), M, K,
-              torch.cuda.current_stream(g.device).cuda_stream)
+    code = fn(g.data_ptr(), u.data_ptr(), amp, q.data_ptr(), am.data_ptr(),
+              M, K, torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(code, "w8a8_quantize_silu_mul")
     silu_quant_launch_count += 1
     return q, am

@@ -64,9 +64,15 @@ class InternVisionEmbeddings(Block):
 
 
 class _Attn(nn.Module):
+    """The fused qkv and proj; `heads`: the heads this rank computes
+    (core/tensor_parallel may cut them: qkv then holds those heads' columns
+    of q, k and v, in that order)."""
+
     def __init__(self, cfg, L, pd, cd, device):
         super().__init__()
         C = cfg.hidden_size
+        self.heads = self.kv_heads = cfg.num_heads
+        self.head_dim, self.qk_norm = cfg.head_dim, cfg.qk_normalization
         self.qkv = Dense(C, 3 * C, cfg.qkv_bias, (L,), pd, cd, device)
         self.proj = Dense(C, C, True, (L,), pd, cd, device)
         if cfg.qk_normalization:
@@ -105,14 +111,14 @@ class InternVisionEncoder(Block):
         b, s, C = x.shape
         h = self.norm1(x, l).to(x.dtype)
         qkv = self.attn.qkv(h, l)
-        q, k, v = qkv.split(C, dim=-1)
+        q, k, v = qkv.chunk(3, dim=-1)
         if cfg.qk_normalization:
             q = self.attn.q_norm(q, l)
             k = self.attn.k_norm(k, l)
-        shape = (b, s, cfg.num_heads, cfg.head_dim)
+        shape = (b, s, self.attn.heads, cfg.head_dim)
         out = attention(q.reshape(shape), k.reshape(shape), v.reshape(shape),
                         causal=False, impl=self.attn_impl)
-        h = self.attn.proj(out.reshape(b, s, C), l)
+        h = self.attn.proj(out.reshape(b, s, -1), l)
         x = x + h * self.leaf("ls1", l).to(h.dtype)
         h = self.norm2(x, l).to(x.dtype)
         h = self.mlp.fc2(F.gelu(self.mlp.fc1(h, l)), l)  # exact erf GELU

@@ -20,7 +20,14 @@ made by train/lora.init_qlora_collection): its term (x a) b is added on
 the activation path after the base product, whatever that product is
 (float, int8 weight-only, w8a8), as the JAX Dense adds its `lora`
 collection. Such a Dense never takes the shared int8 route, which has no
-x to form the term from. A block built
+x to form the term from. A Dense, Embed or MoE stack cut over the mesh's
+tensor axis (core/tensor_parallel.py) holds its rank's shard and its `tp`
+split: a column-parallel Dense computes its columns of the output (all of
+them, gathered, for a vocab-parallel head); a row-parallel one sums its
+partial products over the tensor group (in fp32) before its bias, and on
+the w8a8 route quantizes its input with the row absmax all-reduced over
+the group, so its int8 codes are the one-device codes; a vocab-parallel
+Embed looks up its rows and sums the ranks' lookups. A block built
 for a scanned stack holds every layer's weights stacked on a leading `[L]`
 axis, as the fused
 kernels consume them; `forward(x, layer)` picks one slice. Inside
@@ -177,6 +184,9 @@ class LayerNorm(Block):
 class Dense(Block):
     """Kernel layout [in, out] (the JAX layout, HF weight.T)."""
 
+    # core/tensor_parallel.TensorSplit of a Dense cut over the tensor axis
+    tp = None
+
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  stack: Sequence[int] = (), param_dtype=torch.float32,
                  compute_dtype=torch.bfloat16, device=None):
@@ -215,6 +225,12 @@ class Dense(Block):
         super()._load_from_state_dict(*args, **kwargs)
 
     @property
+    def kernel_shape(self):
+        """The [..., in, out] shape of the kernel, float or int8."""
+        return (self.kernel_q if "kernel_q" in self._buffers
+                else self.kernel).shape
+
+    @property
     def has_lora(self) -> bool:
         return "lora_a" in self._parameters
 
@@ -226,7 +242,14 @@ class Dense(Block):
 
     def forward(self, x, layer: Optional[int] = None):
         cd = self.compute_dtype
+        row = self.tp is not None and self.tp.kind == "row"
+        if self.tp is not None and not row:
+            x = self.tp.enter(x)
         xc = x.to(cd)
+        if self.takes_w8a8(x) and row:
+            x2 = xc.reshape(-1, xc.shape[-1])
+            return self.forward_int8(*row_quantize(x2, self.tp),
+                                     x.shape[:-1], layer)
         if self.takes_w8a8(x):
             y = w8a8_dot(xc, self.kernel_kmajor(layer),
                          self.leaf("kernel_scale", layer), out_dtype=cd)
@@ -239,17 +262,38 @@ class Dense(Block):
 
     def forward_int8(self, q, am, lead, layer: Optional[int] = None):
         """forward's w8a8 route from int8 rows already made (q int8 [M, in],
-        am fp32 [M, 1]): -> [*lead, out], equal to forward on the input
-        they were made from. No gradient flows."""
+        am fp32 [M, 1]; a row-parallel Dense's from row_quantize): ->
+        [*lead, out], equal to forward on the input they were made from. No
+        gradient flows."""
+        row = self.tp is not None and self.tp.kind == "row"
         y = w8a8.int8_gemm(q, am, self.kernel_kmajor(layer),
                            self.leaf("kernel_scale", layer),
-                           self.compute_dtype)
+                           torch.float32 if row else self.compute_dtype)
         return self._biased(y.reshape(*lead, -1), layer)
 
     def _biased(self, y, layer):
+        """The split's collective on the product, then the bias."""
+        if self.tp is not None:
+            if self.tp.kind == "row":  # partial sums, in fp32
+                y = self.tp.reduce(y.float()).to(self.compute_dtype)
+            elif self.tp.gather:
+                y = self.tp.gather_out(y)
         if self.use_bias:
             y = y + self.leaf("bias", layer).to(y.dtype)
         return y
+
+
+def row_quantize(x2, tp, g=None):
+    """The int8 rows of a row-parallel layer's local input x2 [M, K/tp]
+    (or of F.silu(x2) * g): the row absmax of the local columns,
+    all-reduced (MAX) over the tensor group, then the quantizer given it,
+    so each rank holds its columns of the one-device codes. -> (q int8,
+    am fp32 [M, 1])."""
+    if g is None:
+        _, am = w8a8.quantize_rows(x2)
+        return w8a8.quantize_rows(x2, amax=tp.reduce_max(am))
+    _, am = w8a8.quantize_silu_mul(x2, g)
+    return w8a8.quantize_silu_mul(x2, g, amax=tp.reduce_max(am))
 
 
 def _cond_rows(cond):
@@ -337,8 +381,11 @@ def gated_mlp(x, gate, up, down, act, layer: Optional[int] = None):
     if (act is F.silu and g.dtype == u.dtype == down.compute_dtype
             == torch.bfloat16 and _int8_shared(g, (down,))
             and not u.requires_grad):
-        q, am = w8a8.quantize_silu_mul(g.reshape(-1, g.shape[-1]),
-                                       u.reshape(-1, u.shape[-1]))
+        g2, u2 = g.reshape(-1, g.shape[-1]), u.reshape(-1, u.shape[-1])
+        if down.tp is not None and down.tp.kind == "row":
+            q, am = row_quantize(g2, down.tp, u2)
+        else:
+            q, am = w8a8.quantize_silu_mul(g2, u2)
         return down.forward_int8(q, am, g.shape[:-1], layer)
     return down(act(g) * u, layer)
 
@@ -347,26 +394,41 @@ class Embed(Block):
     """Token embedding ('embedding' [V, H]) or its per-row int8 form;
     `attend` is the tied logits head."""
 
+    # core/tensor_parallel.TensorSplit ("vocab": rows lo:hi held here)
+    tp = None
+
     def __init__(self, num_embeddings: int, features: int,
                  param_dtype=torch.float32, dtype=torch.bfloat16, device=None):
         super().__init__(param_dtype, device)
         self.dtype = dtype
+        self.num_embeddings = num_embeddings
         self._alloc("embedding", (num_embeddings, features))
 
     def forward(self, ids):
+        inside = None
+        if self.tp is not None:  # vocab-parallel: this rank's rows, summed
+            inside = (ids >= self.tp.lo) & (ids < self.tp.hi)
+            ids = torch.where(inside, ids - self.tp.lo, 0)
         if "embedding_q" in self._buffers:
             rows = self.embedding_q[ids].to(self.dtype)
-            return rows * self.embedding_scale[ids].to(self.dtype)
-        return self.leaf("embedding")[ids].to(self.dtype)
+            rows = rows * self.embedding_scale[ids].to(self.dtype)
+        else:
+            rows = self.leaf("embedding")[ids].to(self.dtype)
+        if inside is None:
+            return rows
+        return self.tp.reduce(torch.where(inside[..., None], rows, 0))
 
     def attend(self, hidden):
         """Tied logits head: hidden @ table^T, operands in the embedding
-        dtype, fp32 out (per-row scales on the output for the int8 table)."""
+        dtype, fp32 out (per-row scales on the output for the int8 table);
+        vocab-parallel: each rank's columns, gathered."""
         h = hidden.to(self.dtype).float()
         if "embedding_q" in self._buffers:
             y = h @ self.embedding_q.to(self.dtype).float().T
-            return y * self.embedding_scale[:, 0].float()
-        return h @ self.leaf("embedding").to(self.dtype).float().T
+            y = y * self.embedding_scale[:, 0].float()
+        else:
+            y = h @ self.leaf("embedding").to(self.dtype).float().T
+        return y if self.tp is None else self.tp.gather_out(y)
 
 
 def _leaves(mod: nn.Module):

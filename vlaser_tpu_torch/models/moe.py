@@ -29,6 +29,13 @@ other layer weights: `gate` [L, H, E], `experts_gate_proj` /
 named `kernel`, so the serving quantizer leaves them float, as the JAX one
 does. The batched product is `torch.bmm` (the JAX package computes it in
 XLA, outside any Pallas kernel).
+
+Expert parallelism (a stack cut over the tensor axis by
+core/tensor_parallel, its `tp` split holding experts lo:hi): the router
+stays whole and fp32, so every rank routes, places and drops every slot
+as one device does; a rank runs its own experts' rows of the buffer and
+combines the slots routed to them, and the partial sums are all-reduced
+over the tensor group (fp32) before the cast.
 """
 
 from __future__ import annotations
@@ -62,10 +69,11 @@ def capacity(cfg, tokens: int) -> int:
 
 
 def moe_forward(cfg, x: torch.Tensor, gate, wg, wu, wd,
-                compute_dtype) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
+                compute_dtype, tp=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
     """One MoE layer on x [B, S, H] with one layer's weights -> (y [B, S, H]
-    in x's dtype, router_f [E], router_p [E])."""
+    in x's dtype, router_f [E], router_p [E]). tp: the expert-parallel
+    split (wg / wu / wd then hold experts tp.lo:tp.hi)."""
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     b, s, H = x.shape
     T = b * s
@@ -88,16 +96,25 @@ def moe_forward(cfg, x: torch.Tensor, gate, wg, wu, wd,
     safe_pos = torch.where(keep, pos, C - 1)
     buf = xk.new_zeros((E, C, H)).index_put_((flat_e, safe_pos), xk,
                                              accumulate=True)
+    w = topw.reshape(T * k) * keep.float()
+    if tp is not None:  # this rank's experts and the slots routed to them
+        buf = buf[tp.lo:tp.hi]
+        mine = (flat_e >= tp.lo) & (flat_e < tp.hi)
+        w = w * mine.float()
+        flat_e = torch.where(mine, flat_e - tp.lo, 0)
     h = F.silu(torch.bmm(buf, wg.to(cd))) * torch.bmm(buf, wu.to(cd))
     ye = torch.bmm(h, wd.to(cd))  # [E, C, H]
-    w = topw.reshape(T * k) * keep.float()
     y = (ye[flat_e, safe_pos].float() * w[:, None]).reshape(T, k, H).sum(1)
+    if tp is not None:
+        y = tp.reduce(y)
     return y.to(x.dtype).reshape(b, s, H), router_f, router_p
 
 
 class MoEMLP(Block):
     """Every layer's sparse MLP, weights stacked [L, ...]; forward(x, l)
     runs layer l's."""
+
+    tp = None  # core/tensor_parallel.TensorSplit ("experts")
 
     def __init__(self, cfg, L: int, param_dtype=torch.float32,
                  compute_dtype=torch.bfloat16, device=None):
@@ -117,7 +134,7 @@ class MoEMLP(Block):
         y, f, p = moe_forward(
             self.cfg, x, self.leaf("gate", l),
             self.leaf("experts_gate_proj", l), self.leaf("experts_up_proj", l),
-            self.leaf("experts_down_proj", l), self.compute_dtype)
+            self.leaf("experts_down_proj", l), self.compute_dtype, self.tp)
         if self.router_stats is not None:
             self.router_stats.append((f, p))
         return y

@@ -55,9 +55,14 @@ from .moe import MoEMLP
 
 
 class Qwen2Attention(nn.Module):
+    """q / k / v / o of every layer. `heads` / `kv_heads`: the heads this
+    rank computes (fewer where core/tensor_parallel cut them)."""
+
     def __init__(self, cfg, L, pd, cd, device):
         super().__init__()
         C, bias = cfg.hidden_size, cfg.attention_bias
+        self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
+        self.head_dim = cfg.head_dim
         self.q_proj = Dense(C, cfg.q_dim, bias, (L,), pd, cd, device)
         self.k_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)
         self.v_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)
@@ -101,9 +106,9 @@ class Qwen2Layers(nn.Module):
         b, s, _ = x.shape
         h = self.input_layernorm(x, l)
         q, k, v = w8a8_group(h, (att.q_proj, att.k_proj, att.v_proj), l)
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = q.reshape(b, s, att.heads, cfg.head_dim)
+        k = k.reshape(b, s, att.kv_heads, cfg.head_dim)
+        v = v.reshape(b, s, att.kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q, k = att.q_norm(q, l), att.k_norm(k, l)
         q, k = ops.apply_rope(q, cos, sin), ops.apply_rope(k, cos, sin)
@@ -111,7 +116,7 @@ class Qwen2Layers(nn.Module):
             write_kv(cache.k[l], k, q_offset)
             write_kv(cache.v[l], v, q_offset)
             k, v = cache.k[l].to(q.dtype), cache.v[l].to(q.dtype)
-        out = attend(q, k, v).reshape(b, s, cfg.q_dim)
+        out = attend(q, k, v).reshape(b, s, -1)
         x = x + att.o_proj(out, l)
         return x + self.mlp(self.post_attention_layernorm(x, l), l)
 
@@ -154,6 +159,7 @@ class Qwen2Model(nn.Module):
                                         cfg.rope_theta)
         kw = dict(causal=causal, impl=attn_impl,
                   window=cfg.sliding_window if causal else None)
+        heads = self.layers.self_attn.heads  # this rank's
         q_offset = 0
         if cache is not None:
             q_offset = cache.length
@@ -171,7 +177,7 @@ class Qwen2Model(nn.Module):
             if torch.is_tensor(q_offset) and s == 1:
                 mask_offset = 0
             attend = attention_fn(
-                b, s, cache.max_len, cfg.num_heads, dev,
+                b, s, cache.max_len, heads, dev,
                 q_segment_ids=seg_ids, kv_segment_ids=cache.seg,
                 q_levels=levels,
                 kv_levels=None if levels is None else cache.lev,
@@ -185,7 +191,7 @@ class Qwen2Model(nn.Module):
                 causal=causal)
         else:
             attend = attention_fn(
-                b, s, s, cfg.num_heads, dev, q_segment_ids=seg_ids,
+                b, s, s, heads, dev, q_segment_ids=seg_ids,
                 kv_segment_ids=seg_ids, q_levels=levels, kv_levels=levels,
                 **kw)
         x = inputs_embeds.to(self.compute_dtype)

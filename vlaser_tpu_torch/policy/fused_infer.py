@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..core.quant import quantize_int8
+from ..core.tensor_parallel import refuse_cut
 from ..kernels import ops
 from ..kernels.fused_decode import NEG_INF, fused_int8_stack
 from ..kernels.fused_vit import (fused_vit_stack, pack_vit_stack,
@@ -43,6 +44,7 @@ def pack_expert_stack(model) -> dict:
     """Expert mixture stacked weights -> fused kernel layout: int8 weights
     [L, K, N] with fp32 [L, 1, N] scales (leaves under the quantization
     floor are quantized here), fp32 norms and biases."""
+    refuse_cut(model.joint, "pack_expert_stack")
     p = model.joint.layers.expert
 
     def wpair(dense):

@@ -81,6 +81,9 @@ class MixtureBlock(nn.Module):
             self.post_adaptive_scale = gate()
             self.final_adaptive_scale = gate()
         bias = cfg.attention_bias
+        # the heads this rank computes (core/tensor_parallel may cut them)
+        self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
+        self.head_dim = cfg.head_dim
         self.q_proj = Dense(C, cfg.q_dim, bias, (L,), pd, cd, device)
         self.k_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)
         self.v_proj = Dense(C, cfg.kv_dim, bias, (L,), pd, cd, device)
@@ -111,9 +114,9 @@ class MixtureBlock(nn.Module):
         h = self._norm(self.input_layernorm, getattr(self, "ada_input_norm",
                                                      None), x, l, cond, blend)
         q, k, v = w8a8_group(h, (self.q_proj, self.k_proj, self.v_proj), l)
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = q.reshape(b, s, self.heads, cfg.head_dim)
+        k = k.reshape(b, s, self.kv_heads, cfg.head_dim)
+        v = v.reshape(b, s, self.kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q, k = self.q_norm(q, l), self.k_norm(k, l)
         return ops.apply_rope(q, cos, sin), ops.apply_rope(k, cos, sin), v
@@ -165,7 +168,7 @@ class JointModel(nn.Module):
         asked): route and mask picked once per call, not per layer."""
         b, sq, skv = seg_q.shape[0], seg_q.shape[1], seg_kv.shape[1]
         return attention_fn(
-            b, sq, skv, self.vlm_cfg.num_heads, seg_q.device,
+            b, sq, skv, self.layers.vlm.heads, seg_q.device,
             q_segment_ids=seg_q, kv_segment_ids=seg_kv, q_levels=lev_q,
             kv_levels=lev_kv, q_offset=q_offset, causal=causal,
             impl=self.attn_impl, softcap=self.vlm_cfg.attn_softcap)

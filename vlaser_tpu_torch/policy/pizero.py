@@ -439,8 +439,8 @@ class PiZeroVLA(nn.Module):
         kv_seg = torch.cat([seg, torch.zeros((b, max_new_tokens),
                                              dtype=torch.int32, device=dev)],
                            1)
-        shape = (llm.num_layers, b, s + max_new_tokens, llm.num_kv_heads,
-                 llm.head_dim)
+        shape = (llm.num_layers, b, s + max_new_tokens,
+                 self.joint.layers.vlm.kv_heads, llm.head_dim)
         k_bufs = torch.zeros(shape, dtype=self.compute_dtype, device=dev)
         v_bufs = torch.zeros_like(k_bufs)
         embeds, (cos, sin) = self._text_embeds(input_ids, pixel_values)

@@ -7,6 +7,9 @@ one CUDA device: the embodied-reasoning sweep and the general benchmarks).
         --benchmark mmbench --data mmbench_dev.tsv [--engine]
     python -m vlaser_tpu_torch.scripts.eval_vlm --tiny --device cpu \\
         --benchmark mcq --data items.jsonl   # offline: tiny random model
+    torchrun --nproc-per-node 2 -m vlaser_tpu_torch.scripts.eval_vlm \\
+        --model_path Vlaser-2B/ --benchmark mmbench --data d.tsv \\
+        --engine --tp 2                      # tensor-parallel engine
 
 Routes, as in JAX: the embodied benchmarks (EMBODIED) through
 eval/embodied_benchmarks.run_benchmark; mmbench and pope through their
@@ -15,8 +18,11 @@ mathvista and vqa[:dataset] through eval/protocol_runners.RUNNERS; any
 other name as a generic multiple-choice JSONL file. The flags are the JAX
 CLI's, plus --device (the card unless it says "cpu"; without a card it
 raises) and --tiny (tiny_vlm with seeded weights and the byte tokenizer).
---tp above 1 raises NotImplementedError. `main` runs the JAX `main`'s
-stages, each a function here; the model stages are serve_vlm's.
+--tp N (--engine, not --offline, as in JAX) runs under `torchrun
+--nproc-per-node N` (serve_vlm.tensor_mesh): every rank reads the same
+items and runs the engine over the mesh, and rank 0 prints and writes the
+results. `main` runs the JAX `main`'s stages, each a function here; the
+model stages are serve_vlm's.
 """
 
 from __future__ import annotations
@@ -91,9 +97,10 @@ def quantize_mode(ap, args) -> str:
     return "int8" if args.int8 else (args.quantize or "w8a8")
 
 
-def build_chat(args, model, tokenizer):
-    """EngineChat under --engine / --offline (greedy, no beams or penalty),
-    else VlaserChat with --num_beams and --repetition_penalty."""
+def build_chat(args, model, tokenizer, mesh=None):
+    """EngineChat under --engine / --offline (greedy, no beams or penalty;
+    on `mesh` under --tp), else VlaserChat with --num_beams and
+    --repetition_penalty."""
     if args.engine or args.offline:
         from ..serve.engine_chat import EngineChat
 
@@ -106,7 +113,7 @@ def build_chat(args, model, tokenizer):
                           num_slots=args.num_slots,
                           max_len=args.engine_max_len,
                           backend="offline" if args.offline else "engine",
-                          speculative_draft_len=args.spec_draft)
+                          speculative_draft_len=args.spec_draft, mesh=mesh)
     from ..inference.chat import VlaserChat
 
     return VlaserChat(model, tokenizer, max_new_tokens=args.max_new_tokens,
@@ -176,14 +183,18 @@ def main(argv=None):
     if not (args.tiny or args.model_path):
         raise SystemExit("need --model_path (or --tiny)")
     args.quantize = quantize_mode(ap, args)
-    serve_vlm.check_single_device(args)
+    if args.tp > 1 and args.offline:
+        raise ValueError("--tp serves through the host-driven engine (the "
+                         "offline schedule is single-device)")
+    mesh = serve_vlm.tensor_mesh(args)
     device = resolve_device(args.device)
     tokenizer = serve_vlm.load_tokenizer(args)
     cfg = serve_vlm.build_config(args, tokenizer)
     model = serve_vlm.quantize(args, serve_vlm.load_model(args, cfg,
                                                           device))
-    key, out = run(args, build_chat(args, model, tokenizer))
-    report(args, key, out)
+    key, out = run(args, build_chat(args, model, tokenizer, mesh))
+    if mesh is None or mesh.get_rank() == 0:
+        report(args, key, out)
     return out
 
 

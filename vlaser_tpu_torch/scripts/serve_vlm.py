@@ -5,13 +5,20 @@ recipe on one CUDA device; the vLLM API-server role).
         --port 8000 [--engine] [--quantize w8a8] [--max_new_tokens 256]
     python -m vlaser_tpu_torch.scripts.serve_vlm --tiny --device cpu \\
         --port 8000     # offline: tiny random model, byte tokenizer
+    torchrun --nproc-per-node 2 -m vlaser_tpu_torch.scripts.serve_vlm \\
+        --model_path Vlaser-2B/ --engine --tp 2   # tensor-parallel
 
 Then point an OpenAI client at http://host:port/v1 (chat completions with
 text and data: / file: image URLs). The flags are the JAX CLI's, plus
 --device (the card unless it says "cpu"; without a card it raises) and
 --tiny (train_sft's offline mode: tiny_vlm with seeded weights and the
-byte tokenizer). --tp above 1 raises NotImplementedError: the port serves
-on one device. `main` runs the JAX `main`'s stages, each a function here:
+byte tokenizer). --tp N (with --engine, as in JAX) serves over a (data 1,
+fsdp 1, tensor N) mesh: run under `torchrun --nproc-per-node N`, one rank
+a card (gloo ranks under --device cpu); every rank builds the model and
+the engine lays it out (core/tensor_parallel), rank 0 serves HTTP and
+hands each batch of requests to the others (serve/chat_server.
+RankBroadcastChat), and only rank 0 answers. `main` runs the JAX `main`'s
+stages, each a function here:
 the tokenizer, the config (vlaser_2b with the vocab sized to the
 tokenizer), the model and its weights (utils/hf_convert -> utils/convert),
 `quantize_for_serving`, the chat backend (EngineChat under --engine, else
@@ -53,11 +60,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_single_device(args) -> None:
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: the port serves on one device; tensor-parallel "
-            "serving is not ported yet")
+def tensor_mesh(args):
+    """--tp: None at 1, else a (1, 1, tp) mesh over the process group,
+    which must hold exactly tp ranks (torchrun --nproc-per-node tp); -tp
+    needs --engine, as the JAX CLI asserts."""
+    if args.tp == 1:
+        return None
+    if not args.engine:
+        raise ValueError("--tp requires --engine")
+    import torch.distributed as dist
+
+    from ..core import distributed, mesh
+
+    n = (dist.get_world_size() if dist.is_initialized()
+         else int(os.environ.get("WORLD_SIZE", "1")))
+    if n != args.tp:
+        raise RuntimeError(
+            f"--tp {args.tp} needs a process group of {args.tp} ranks (run "
+            f"under torchrun --nproc-per-node {args.tp}); this one has {n}")
+    cpu = str(args.device or "").startswith("cpu")
+    distributed.initialize(backend="gloo" if cpu else None)
+    return mesh.make_mesh(dp=1, fsdp=1, tp=args.tp)
 
 
 def load_tokenizer(args):
@@ -130,15 +153,15 @@ def quantize(args, model):
     return model
 
 
-def build_chat(args, model, tokenizer, **engine_kw):
-    """EngineChat under --engine (engine_kw: further EngineChat keywords,
-    such as a caller's max_len), else VlaserChat."""
+def build_chat(args, model, tokenizer, mesh=None, **engine_kw):
+    """EngineChat under --engine (on `mesh` under --tp; engine_kw: further
+    EngineChat keywords, such as a caller's max_len), else VlaserChat."""
     if args.engine:
         from ..serve.engine_chat import EngineChat
 
         return EngineChat(model, tokenizer,
                           max_new_tokens=args.max_new_tokens,
-                          num_slots=args.num_slots, **engine_kw)
+                          num_slots=args.num_slots, mesh=mesh, **engine_kw)
     from ..inference.chat import VlaserChat
 
     return VlaserChat(model, tokenizer, max_new_tokens=args.max_new_tokens)
@@ -156,23 +179,36 @@ def build_server(args, chat):
 
 def main(argv=None):
     """Parse argv (sys.argv when None), build the server and serve until
-    interrupted."""
+    interrupted (under --tp: rank 0 serves, the other ranks follow it)."""
     args = build_parser().parse_args(argv)
     if not (args.tiny or args.model_path):
         raise SystemExit("need --model_path (or --tiny)")
-    check_single_device(args)
+    mesh = tensor_mesh(args)
     device = resolve_device(args.device)
     tokenizer = load_tokenizer(args)
     cfg = build_config(args, tokenizer)
     model = quantize(args, load_model(args, cfg, device))
-    srv = build_server(args, build_chat(args, model, tokenizer))
+    chat = build_chat(args, model, tokenizer, mesh)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from ..serve.chat_server import RankBroadcastChat, follow_rank0
+
+        if dist.get_rank() != 0:
+            follow_rank0(chat)
+            return
+        chat = RankBroadcastChat(chat)
+    srv = build_server(args, chat)
     print(f"serving on http://{args.host}:{srv.port}/v1 "
           f"(backend={'engine' if args.engine else 'static'}, "
-          f"quantize={args.quantize}, device={device})", flush=True)
+          f"quantize={args.quantize}, device={device}, tp={args.tp})",
+          flush=True)
     try:
         srv.serve_forever()
     finally:
         srv.shutdown()
+        if mesh is not None:
+            chat.stop()
 
 
 if __name__ == "__main__":

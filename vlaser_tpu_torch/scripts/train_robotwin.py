@@ -145,8 +145,10 @@ def graft_vlm(model, raw: Dict) -> None:
     `vision_model`, `mlp1`, `language_model/{model,embed_tokens}`, numpy)
     into the parallel-decoding model, as the JAX CLI grafts it; the action
     head keeps its init. A ViT trained at another grid (a 448-px
-    checkpoint into the 224-px model) raises ValueError naming both grids:
-    its position embedding would need the bicubic resize, not ported."""
+    checkpoint into the 224-px model) raises ValueError naming both grids,
+    as the JAX CLI grafts no other grid either: the position embedding is
+    not resized here (ops.bicubic_resize_2d resizes it at run time only
+    for an input of another grid, models/internvit.py)."""
     from ..models.layers import load_state
     from ..utils.convert import from_jax_variables
 
@@ -158,8 +160,8 @@ def graft_vlm(model, raw: Dict) -> None:
         raise ValueError(
             f"the checkpoint's ViT position embedding is a {have} x {have} "
             f"grid ({pe.shape[1]} rows), the model's {vcfg.image_size} px "
-            f"config a {want} x {want} grid ({vcfg.seq_len} rows); resizing "
-            "it needs ops.bicubic_resize_2d, not ported yet")
+            f"config a {want} x {want} grid ({vcfg.seq_len} rows); the graft "
+            "takes the model's grid only, as the JAX CLI's does")
     tree = {"vision_model": raw["vision_model"], "mlp1": raw["mlp1"],
             "language_model": raw["language_model"]["model"],
             "embed_tokens": raw["language_model"]["embed_tokens"]}

@@ -30,6 +30,13 @@ request builds an autograd graph.
 One repair of the reference: its listen backlog is socketserver's default
 of 5, and a burst of 16 concurrent clients had connections reset; here the
 backlog is BACKLOG.
+
+Tensor-parallel serving (scripts/serve_vlm.py --engine --tp N): every rank
+holds an EngineChat over the mesh, whose engine calls are collectives. Rank
+0 serves HTTP through `RankBroadcastChat`, which broadcasts each batch it
+is handed (and, at shutdown, a stop message) to the other ranks before it
+runs the batch; the other ranks run `follow_rank0`, the same batches on
+their own EngineChat, and answer nobody.
 """
 
 from __future__ import annotations
@@ -455,6 +462,61 @@ class ChatHTTPServer:
     def shutdown(self):
         self._httpd.shutdown()
         self._httpd.server_close()
+
+
+class RankBroadcastChat:
+    """Rank 0's backend under tensor-parallel serving: an EngineChat whose
+    `chat_many` batches are first broadcast to the other ranks of the
+    default process group (which run follow_rank0); every other attribute
+    is the wrapped chat's."""
+
+    def __init__(self, chat):
+        self.chat = chat
+
+    def __getattr__(self, name):
+        return getattr(self.chat, name)
+
+    @staticmethod
+    def _send(msg) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([msg], src=0)
+
+    def chat_many(self, items, on_token=None):
+        self._send(("chat_many", items, on_token is not None))
+        return self.chat.chat_many(items, on_token=on_token)
+
+    def stop(self) -> None:
+        """Release the other ranks from follow_rank0."""
+        self._send(("stop",))
+
+
+def follow_rank0(chat) -> int:
+    """A rank other than 0 under tensor-parallel serving: run each batch
+    rank 0 broadcasts on this rank's EngineChat (its answers dropped; a
+    streamed batch with a hook that drops its tokens, so that the engine
+    runs as rank 0's does) until the stop message. A batch that raises
+    here raises on rank 0 too, which answers it with its error; the loop
+    goes on. -> the batches run."""
+    import torch.distributed as dist
+
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        msg = box[0]
+        if msg[0] == "stop":
+            return n
+        _, items, streamed = msg
+        try:
+            with torch.no_grad():
+                chat.chat_many(items, on_token=(lambda i, t: None)
+                               if streamed else None)
+        except Exception:  # noqa: BLE001 — rank 0 answers it
+            import logging
+
+            logging.getLogger(__name__).exception("tensor rank batch")
+        n += 1
 
 
 def chat_completion_request(url: str, messages: List[Dict[str, Any]],

@@ -57,7 +57,16 @@ prefills as one multi-token cached forward against the stored prefix K/V.
 `auto_prefix_block` turns on the automatic form (a block-hash chain seeded
 by the pixels' digest, an LRU store with a minimum gain).
 
-`mesh=` (tensor-parallel serving) is not ported and raises.
+Tensor-parallel serving (`mesh=`, a core/mesh DeviceMesh over every rank
+of the process group): the model is laid out by
+core/tensor_parallel.shard_for_serving (its leaves cut over the tensor
+axis, those the rules split over fsdp held as shards), and the KV cache
+holds the rank's KV heads: split where tensor divides them, the one its q
+heads read where they divide tensor, else whole, as the model's
+attention. Every rank runs the same schedule on the same gathered logits
+(greedy, or sampled from identically seeded generators), so every rank's
+completions are equal; a chunk then reads its rows' aliveness each step
+(a host sync a step), so that every rank runs the same number of steps.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.tensor_parallel import local_kv_heads, shard_for_serving
 from ..inference.kv_cache import KVCache
 from ..inference.sampling import sample_per_row
 from ..inference.speculative import lookup_draft
@@ -160,8 +170,10 @@ class _Liveness:
     `all_dead` reads the flags whose events have completed (and waits for
     the oldest once more than LIVENESS_LAG steps are unread)."""
 
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, device, sync: bool = False):
+        # sync: read any(alive) each step (every tensor rank then runs the
+        # same steps)
+        self.cuda = torch.device(device).type == "cuda" and not sync
         self.pending: deque = deque()
         self.dead = False
 
@@ -220,9 +232,6 @@ class ContinuousBatchingEngine:
         auto_prefix_min_gain: Optional[int] = None,
         pipeline_depth: int = 1,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet")
         llm = model.cfg.llm
         self.pipeline_depth = int(pipeline_depth)
         if self.pipeline_depth < 1 or chunk_size < 1:
@@ -231,9 +240,12 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "continuous batching decodes with per-row offsets; "
                 "sliding-window models are unsupported")
+        if mesh is not None:
+            shard_for_serving(model, mesh)
         self.model = model
         self.device = model.device
-        self.mesh = None
+        self.mesh = mesh
+        self._kv_heads = local_kv_heads(model, llm.num_kv_heads)
         self.num_slots = num_slots
         self.max_len = max_len
         self.eos = tuple(int(e) for e in eos_token_ids)
@@ -310,7 +322,7 @@ class ContinuousBatchingEngine:
     def _fresh_cache(self) -> KVCache:
         llm = self._llm
         cache = KVCache.create(llm.num_layers, self.num_slots, self.max_len,
-                               llm.num_kv_heads, llm.head_dim,
+                               self._kv_heads, llm.head_dim,
                                self.cache_dtype, self.device)
         return dataclasses.replace(cache, length=torch.zeros(
             (self.num_slots,), dtype=torch.int32, device=self.device))
@@ -346,7 +358,7 @@ class ContinuousBatchingEngine:
         tokens [k], last logits [k, V])."""
         llm = self._llm
         k, nb = ids.shape
-        cache = KVCache.create(llm.num_layers, k, nb, llm.num_kv_heads,
+        cache = KVCache.create(llm.num_layers, k, nb, self._kv_heads,
                                llm.head_dim, self.cache_dtype, self.device)
         logits, _, cache = self.model.prefill(ids, pixels, seg, cache,
                                               image_flags=flags)
@@ -365,7 +377,7 @@ class ContinuousBatchingEngine:
         k_rows, sb = ids.shape
         pb = pref["k"].shape[2]
         cache = KVCache.create(llm.num_layers, k_rows, pb + sb,
-                               llm.num_kv_heads, llm.head_dim,
+                               self._kv_heads, llm.head_dim,
                                self.cache_dtype, self.device)
         cache.k[:, :, :pb] = pref["k"].to(cache.k.dtype)
         cache.v[:, :, :pb] = pref["v"].to(cache.v.dtype)
@@ -408,7 +420,7 @@ class ContinuousBatchingEngine:
     def _chunk_loop(self, kcap: int, alive, body):
         """Run body(step) -> alive up to kcap times, stopping (LIVENESS_LAG
         steps late at most) once no row is alive."""
-        probe = _Liveness(self.device)
+        probe = _Liveness(self.device, sync=self.mesh is not None)
         probe.push(alive)
         steps = 0
         for step in range(kcap):

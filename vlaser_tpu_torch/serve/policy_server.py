@@ -7,11 +7,19 @@ kernels); `fused=False` runs the plain `PiZeroVLA.infer_action`, the
 oracle. The server runs on the CUDA card unless it is given another
 device (device="cpu"). Noise comes from a seeded `torch.Generator` on that
 device, drawn by `draw_noise` (one method, so a test can feed other noise).
-Mesh / tensor-parallel serving is not ported yet.
+`mesh=` serves over a (data, fsdp, tensor) DeviceMesh that spans the
+process group: the policy is laid out by
+core/tensor_parallel.shard_for_serving (tensor-parallel q/k/v, MLP and
+ViT columns, vocab-parallel embedding; fsdp shards gathered per leaf) and
+every rank runs the same step on the same inputs and noise. The fused
+stacks are single-device, as in the JAX package: `fused=True` on a mesh
+of more than one rank takes the plain `infer_action`, says so in a logged
+warning and sets `serving_path` to "plain".
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -24,7 +32,7 @@ from ..models.layers import load_state
 class PolicyServer:
     def __init__(self, model, params: Optional[Mapping] = None, adapter=None,
                  processor=None, act_steps: int = 4, seed: int = 0,
-                 fused: bool = False, device=None):
+                 fused: bool = False, device=None, mesh=None):
         """params: optional flat state (utils/convert.from_jax_variables or
         another port state) loaded into `model`; None keeps its weights.
         The model should already be quantized for serving when fused:
@@ -36,11 +44,24 @@ class PolicyServer:
         step, with the wgmma int8 GEMM, takes less device time than the
         int8 one (about 35 vs 44 ms of kernels); both steps are host-bound
         and their wall times vary more between runs than they differ
-        (PERF.md, "Where the time goes"). device: None is the CUDA card."""
+        (PERF.md, "Where the time goes"). device: None is the CUDA card
+        (this process's current one). mesh: see the module docstring;
+        `params` is the whole state, loaded before the model is cut."""
         if params is not None:
             load_state(model, params)
         self.device = torch.device(device if device is not None else "cuda")
         self.model = model.to(self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..core.tensor_parallel import shard_for_serving
+
+            shard_for_serving(self.model, mesh)
+            if fused and mesh.size() > 1:
+                logging.getLogger(__name__).warning(
+                    "the fused serving path is single-device; the mesh has "
+                    "%d ranks: serving through the plain infer_action",
+                    mesh.size())
+                fused = False
         self.adapter = adapter
         self.processor = processor
         self.act_steps = act_steps

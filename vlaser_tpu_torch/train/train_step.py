@@ -155,7 +155,10 @@ def _bucketed_all_reduce(tensors: Sequence[torch.Tensor], group,
 class ShardedState:
     """ZeRO-3 over a mesh: each parameter of `model` that its rule
     (core/mesh.tree_shardings) splits over `fsdp` is held as this rank's
-    shard of that dim, the others whole. The shards stay in place: the
+    shard of that dim, the others whole. On a mesh with a tensor axis the
+    model's leaves are already its tensor rank's (core/tensor_parallel,
+    serving): a leaf split over both is held as this rank's fsdp shard of
+    its tensor shard, and `gather` gives the tensor shard back. The shards stay in place: the
     model's Block that holds a split leaf reads it through `gather` (see
     the module docstring). `peak_gathered` counts the largest number of
     bytes of gathered weights alive at once (a gather's result is counted
@@ -166,13 +169,9 @@ class ShardedState:
 
         from ..models.layers import Block
 
-        for axis in (mesh_lib.TENSOR_AXIS, mesh_lib.STAGE_AXIS):
-            if mesh_lib.axis_size(mesh, axis) > 1:
-                raise NotImplementedError(
-                    f"a '{axis}' axis of {mesh_lib.axis_size(mesh, axis)}: "
-                    "the port's trainers shard over data, fsdp and context; "
-                    "tensor parallelism and pipeline stages are not ported "
-                    "yet")
+        if mesh_lib.axis_size(mesh, mesh_lib.STAGE_AXIS) > 1:
+            raise NotImplementedError(
+                "a 'stage' axis: pipeline stages are not ported yet")
         if mesh.size() != dist.get_world_size():
             raise ValueError("the mesh must span every rank of the group")
         self.mesh = mesh
@@ -312,7 +311,15 @@ def shard_train_state(model: nn.Module, mesh, rules=None) -> ShardedState:
     """Hold `model`'s parameters at rest sharded over `mesh` by `rules`
     (core/mesh.default_param_rules when None): ZeRO-3. Build the
     optimizer (make_train_step(sharded=...)) after this call, so that its
-    moments are created as shards."""
+    moments are created as shards. A tensor axis raises: the train step's
+    gradient rules for a tensor-parallel leaf are not ported yet."""
+    tp = mesh_lib.axis_size(mesh, mesh_lib.TENSOR_AXIS)
+    if tp > 1:
+        raise NotImplementedError(
+            f"a 'tensor' axis of {tp}: the port's train step shards over "
+            "data, fsdp and context; tensor-parallel training is not "
+            "ported yet (tensor parallelism serves: "
+            "core/tensor_parallel.shard_for_serving)")
     return ShardedState(model, mesh, rules)
 
 

@@ -14,7 +14,10 @@ parameters: a port model's state -> the JAX `params` tree of numpy arrays
 (fp32), the input of utils/hf_convert's exporters.
 `adam8bit_state_from_jax` carries the moments of a JAX 8-bit AdamW state
 (train/optim8bit.py) across as the port's per-parameter AdamW8bit state.
-Nothing here imports jax.
+`tensor_shards` gives one tensor rank's shards of the JAX variables
+(core/tensor_parallel's layout: the strided ViT qkv, the int8 `kernel_q`
+and per-column scales cut as their kernel), the state of a model cut by
+core/tensor_parallel.shard_model. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -65,6 +68,21 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 name = f"{mod}{dot}lora_{leaf_name}"
             out[name] = t.contiguous()
     return out
+
+
+def tensor_shards(variables: Mapping, model, size: int, rank: int
+                  ) -> Dict[str, torch.Tensor]:
+    """The state of tensor rank `rank` of `size`: from_jax_variables of
+    `variables`, each leaf that core/tensor_parallel.plan cuts for `model`
+    (a port model of the same config, whole; on `meta` it costs nothing)
+    cut to this rank's entries. Load it into that model after
+    core/tensor_parallel.shard_model(model, size, rank)."""
+    from ..core.tensor_parallel import plan, shard_leaf
+
+    state = from_jax_variables(variables)
+    cuts = plan(model, size, rank).leaves
+    return {name: (shard_leaf(t, *cuts[name]) if name in cuts else t)
+            for name, t in state.items()}
 
 
 def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict:
