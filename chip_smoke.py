@@ -38,7 +38,9 @@ ring's chunk route, the trainers over a one-rank NCCL mesh, the gate's
 8-rank gloo mirror on the host), of the tensor axis for serving (phase 57,
 right after 56: two processes share the card over a gloo group on CUDA
 tensors, PolicyServer(mesh=) and ContinuousBatchingEngine(mesh=) at
-tensor 2 against one process) and of the memory budget (phase 53, last)
+tensor 2 against one process), of the tensor axis for training (phase
+58, right after 57: SFTTrainer(TrainConfig(mesh_tp=2)) in two such
+processes against one) and of the memory budget (phase 53, last)
 with random weights from seeded generators; each group's wall seconds are printed on a line of
 its own ("phase wall: ..."). The native image libraries
 (vlaser_tpu_torch/native, g++) build beside nvcc:
@@ -515,8 +517,24 @@ Parallel layouts (run after 46-49; NCCL refuses two ranks on one card):
       same trainer without a mesh from the same weights (loss and grad
       norm within SHARD_REL), launches derived, ms a step, peaks;
   56. a CPU check: graft_entry.dryrun_multichip(8) on 8 gloo ranks of the
-      host (the gate's VLA, SFT, CP and CPxFSDP-train lines, five not
-      ported yet).
+      host (the gate's VLA and SFT lines on (data 2, fsdp 2, tensor 2),
+      TP-serve, TP-engine, CP, CPxFSDP-train and EP; PP and PPxFSDP-train
+      not ported yet).
+The tensor axis (run after 56; two processes share the card over a gloo
+group on CUDA tensors; --tp-serve / --tp-train run one phase alone):
+  57. serving: PolicyServer(mesh=) and ContinuousBatchingEngine(mesh=) at
+      tensor 2 against one process (see tp_serve_phase);
+  58. training: flash forward and backward at a tensor-2 rank's 6 / 1
+      heads x 128 (2 packed causal rows of SFT_TOKENS) against the plain
+      version with phase 9's controls, timed beside SDPA; phase 26's
+      full-parameter Vlaser-2B SFT step on 2 packed rows, SFTTrainer in
+      this process, then SFTTrainer(TrainConfig(mesh_tp=2)) in two: each
+      step's loss and grad norm within MULTI_REL of one process's, with
+      two controls that must break it (down_proj's all-reduce dropped;
+      the vocab-parallel CE's sum of exp not all-reduced); rank 0's
+      launches of its 2 steps held to phase 26's counts; ms a step (a
+      gloo wall, not a speed figure) and each rank's peak beside
+      utils/memory_budget.vlm_sft_budget(1, 1, 2).
 Every other profiler session records device activity only (host ops made
 the trace's post-processing the bulk of the engine's profiled run).
 Any failed phase raises (non-zero exit, no result line). The line before
@@ -572,6 +590,22 @@ PARITY_B8_TOL, W8A8_VS_BF16_TOL, VIT_KV_TOL = 2e-2, 2.5e-2, 0.2
 # products are exact on both sides, so each y within one fp32 rounding
 ONE_ROUNDING = 2.0 ** -23
 B8 = 8  # the multi-robot serving batch (bench.py's batch-8 step)
+
+
+def _cut_depth(cfg, layers):
+    """cfg at `layers` LLM layers (full width): a VLMConfig's LLM, or both
+    mixtures of a VLAConfig; cfg itself for None. The script's time limit
+    cuts the depth of some phases (their constants say which)."""
+    import dataclasses
+
+    if layers is None:
+        return cfg
+    if hasattr(cfg, "expert"):
+        return dataclasses.replace(
+            cfg, vlm=_cut_depth(cfg.vlm, layers),
+            expert=dataclasses.replace(cfg.expert, num_layers=layers))
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=layers))
 
 
 def _card() -> str:
@@ -5048,7 +5082,7 @@ def budget_rows(config, ada_b=None):
     the script runs and the larger families."""
     import dataclasses
 
-    ada = dataclasses.replace(config.vlaser_2b_vla(),
+    ada = dataclasses.replace(_cut_depth(config.vlaser_2b_vla(), ABLATION_LAYERS),
                               adaptive_mode="adaln_zero",
                               time_hidden_size=256, vision_in_expert=True)
     one = dict(dp=1, fsdp=1, tp=1)
@@ -6482,10 +6516,18 @@ def qlora_gate(torch, model, factors, loss_fn, batch, tag):
 
 
 def _timed_steps(torch, step, batch, iters):
-    """`iters` steps, each between CUDA events (host included). -> (ms a
-    step, losses, grad norms)."""
+    """`iters` steps, each between CUDA events (host included; the host's
+    clock in a CPU rehearsal without a card). -> (ms a step, losses, grad
+    norms)."""
     times, losses, gnorms = [], [], []
     for _ in range(iters):
+        if not torch.cuda.is_available():
+            t = time.perf_counter()
+            m = step(batch)
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(m["loss"].item())
+            gnorms.append(m["grad_norm"].item())
+            continue
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -6719,9 +6761,9 @@ CLI_STEPS = 4      # train_sft steps at full width
 # the LLM layers of 27-31's Vlaser-2B (of 28; full width): their time is
 # checkpoint and converter IO, which scales with depth, and the script
 # outgrew its time limit's budget with phases 54-56 (8 layers), then with
-# phase 57 (4) (phase 40 keeps its depth: its bf16 grad-norm gate,
-# calibrated at 28 layers, parts by 1.3e-2 at 8)
-CUT_LAYERS = 4
+# phase 57 (4), then with phase 58 (2) (phase 40 keeps its depth: its
+# bf16 grad-norm gate, calibrated at 28 layers, parts by 1.3e-2 at 8)
+CUT_LAYERS = 2
 PRETRAIN_STEPS = 2  # the first takes warmup_cosine's lr 0
 CLI_CONVS = 160    # conversations of the JSONL
 CLI_TEXT = (64, 1500)  # their text bytes (byte tokenizer tokens)
@@ -8492,6 +8534,9 @@ RESIZE_TOL, DECODE_TOL = 1e-3, 4.0
 LOADER_JOBS = 64
 MOE_REL = 3e-2  # phase 45: one MoE layer in bf16 vs the fp32 oracle, x max
 MOE_NEW = 32  # phase 45: the second chat's new tokens, and the teacher force
+# phase 45: the LLM layers (of 48; full width), cut with phase 58 for the
+# script's time limit (a 30B build and its chats scale with depth)
+MOE_LAYERS = 12
 ENGINE_MOE_MSGS = ((48, 12), (96, 16), (64, 8), (128, 12))  # chars, new
 
 
@@ -8858,7 +8903,8 @@ def _teacher_forced(torch, model, ids, seg, tiles, stream, new):
 def moe_chat_phase(torch, np, dev, tag, extra, tiles_np):
     """Phase 45, InternVL3.5-30B-A3B (InternViT-300M + Qwen3-30B-A3B: 48
     layers, 32 / 4 heads x 128, 128 experts top-8 of 768, capacity factor
-    1.25) at full width and depth, built on the card in bf16 from
+    1.25) at full width and MOE_LAYERS of its 48 layers (the script's
+    time limit), built on the card in bf16 from
     random_init_'s draws with the q/k kernels x QK_GAIN (phase 43's),
     quantize_for_serving defaults (vlm, w8a8: the attention, embedding, head
     and ViT int8; the router and experts bf16, as in JAX). VlaserChat on
@@ -8897,7 +8943,7 @@ def moe_chat_phase(torch, np, dev, tag, extra, tiles_np):
           f"reserved {tag}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = internvl3_5_30b_a3b()
+    cfg = _cut_depth(internvl3_5_30b_a3b(), MOE_LAYERS)
     llm, L = cfg.llm, cfg.llm.num_layers
     model = quantize_for_serving(_qwen3_model(torch, dev, cfg,
                                               torch.bfloat16))
@@ -8911,7 +8957,9 @@ def moe_chat_phase(torch, np, dev, tag, extra, tiles_np):
         refused = None
     except ValueError as exc:
         refused = str(exc)
-    print(f"InternVL3.5-30B-A3B chat model: {n_param / 1e9:.3f} G elements, "
+    print(f"InternVL3.5-30B-A3B chat model ({L} of 48 LLM layers, "
+          f"MOE_LAYERS: the script's time limit): "
+          f"{n_param / 1e9:.3f} G elements, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, built "
           f"and quantized in {time.perf_counter() - t0:.1f} s; experts "
           f"{mlp.experts_gate_proj.dtype}; VlaserChat route {chat.route}; "
@@ -9103,6 +9151,12 @@ TEXT_ROUTE_REL = {"bf16": 0.1, "w8a8": PREFILL_REL}
 # dropped by 23%
 W8A8_STREAM_REL = 0.12
 ADA_B = 32  # phase 47: the train batch (cut on out-of-memory, printed)
+# phases 46-47: the LLM layers of both mixtures (of 28; full width). The
+# script outgrew its time limit's budget with phase 58 (1,177.2 s of
+# 1,200 on an H100 80GB HBM3 whose host built the kernels in 145.7 s);
+# their gates were calibrated at 28 layers, where bf16 noise through
+# more random layers parts correct routes further
+ABLATION_LAYERS = 8
 VIT6B_TILES = 13
 BETA_DRAWS = 100_000
 KS_CRIT = 1.95  # Kolmogorov-Smirnov: sqrt(n) D below this at the 0.1% level
@@ -9334,7 +9388,8 @@ def _route_gate(torch, model, what, ids, px, mask, stream, tag, rel,
 
 def vla_text_phase(torch, np, dev, tag, extra):
     """Phase 46, the VLA's text head at full width: Vlaser-2B-VLA with
-    use_lm_head (28 layers x 1,536, a 151,930-row head), random_init_'s
+    use_lm_head (ABLATION_LAYERS of its 28 layers x 1,536, a 151,930-row
+    head), random_init_'s
     draws; forward_vlm and infer_text (TEXT_NEW greedy tokens, no EOS) at
     batch 1 and 8 over right-padded 384-slot prompts (256 image slots),
     first on the bf16 tree, then on quantize_for_serving(target="policy")'s
@@ -9357,7 +9412,8 @@ def vla_text_phase(torch, np, dev, tag, extra):
     from vlaser_tpu_torch.kernels import rmsnorm
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(vlaser_2b_vla(), use_lm_head=True)
+    cfg = dataclasses.replace(_cut_depth(vlaser_2b_vla(), ABLATION_LAYERS),
+                              use_lm_head=True)
     llm, S = cfg.vlm.llm, cfg.max_image_text_tokens
     L, n_vit = llm.num_layers, cfg.vlm.vision.num_layers
     s_vit = cfg.vlm.vision.seq_len
@@ -9367,7 +9423,8 @@ def vla_text_phase(torch, np, dev, tag, extra):
     gen = torch.Generator(device=dev)
     gen.manual_seed(46)
     random_init_(model, gen)
-    print(f"VLA text head model: Vlaser-2B-VLA + lm_head "
+    print(f"VLA text head model: Vlaser-2B-VLA at {L} of 28 layers "
+          f"(ABLATION_LAYERS: the script's time limit) + lm_head "
           f"{tuple(model.lm_head.kernel.shape)}, bf16, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on device, "
           f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
@@ -9537,7 +9594,8 @@ def _actions_unshifted(model):
 
 def ada_vie_phase(torch, np, dev, tag, extra):
     """Phase 47, adaLN-Zero with vision-in-expert at full width:
-    Vlaser-2B-VLA with adaptive_mode "adaln_zero", time_hidden_size 256 and
+    Vlaser-2B-VLA (ABLATION_LAYERS of its 28 layers in both mixtures)
+    with adaptive_mode "adaln_zero", time_hidden_size 256 and
     the second vision tower, fp32 parameters, bf16 compute, remat,
     random_init_'s draws. Batch-1 infer_action against infer_action_naive
     (<= PARITY_TOL; controls: the suffix's adaLN condition dropped, the
@@ -9562,7 +9620,8 @@ def ada_vie_phase(torch, np, dev, tag, extra):
     from vlaser_tpu_torch.kernels import rmsnorm
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(vlaser_2b_vla(), adaptive_mode="adaln_zero",
+    cfg = dataclasses.replace(_cut_depth(vlaser_2b_vla(), ABLATION_LAYERS),
+                              adaptive_mode="adaln_zero",
                               time_hidden_size=256, vision_in_expert=True)
     L, n_vit = cfg.vlm.llm.num_layers, cfg.vlm.vision.num_layers
     n_img = cfg.vlm.num_image_token
@@ -9576,7 +9635,8 @@ def ada_vie_phase(torch, np, dev, tag, extra):
     gen.manual_seed(47)
     random_init_(model, gen)
     n_param = sum(p.numel() for p in model.parameters())
-    print(f"adaLN-Zero + vision-in-expert model: {n_param / 1e9:.3f} G "
+    print(f"adaLN-Zero + vision-in-expert model ({L} of 28 LLM layers, "
+          f"ABLATION_LAYERS: the script's time limit): {n_param / 1e9:.3f} G "
           f"parameters (fp32), {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB on device, {time.perf_counter() - t0:.1f} s {tag}",
           flush=True)
@@ -10196,13 +10256,15 @@ def ring_phase(torch, np, dev, tag, extra):
 def _shard_run(torch, step, batch, what, steps):
     """`steps` calls of step(batch) (a trainer's loop on one batch), the
     launch counters zeroed just before and read just after: -> (ms a step,
-    losses, grad norms, launches, peak GiB)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    losses, grad norms, launches, peak GiB; 0 in a CPU rehearsal)."""
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     times, losses, gnorms = _timed_steps(torch, step, batch, steps)
     counts = {k: v for k, v in _read_counts().items() if v}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
     print(f"sharded {what}: losses {losses}, grad norms {gnorms}, step ms "
           f"{[round(t, 3) for t in times]}, peak {peak:.2f} GiB, launches "
           f"{counts}", flush=True)
@@ -10330,7 +10392,8 @@ def dryrun_phase(tag):
     """Phase 56, a CPU check: graft_entry.dryrun_multichip(8), the
     repository's multi-device gate mirrored on 8 gloo ranks of the host's
     CPU (spawned processes, the card untouched): the VLA, SFT, TP-serve,
-    TP-engine, CP, CPxFSDP-train and EP lines, finite, and the two
+    TP-engine, CP, CPxFSDP-train and EP lines, finite (VLA and SFT on
+    the JAX gate's mesh, data 2 x fsdp 2 x tensor 2), and the two
     pipeline sections named as not ported yet. Its failure fails the
     run."""
     from vlaser_tpu_torch.graft_entry import NOT_PORTED, dryrun_multichip
@@ -10342,8 +10405,11 @@ def dryrun_phase(tag):
                 "CPxFSDP-train:", "EP:"):
         if not any(f"dryrun_multichip(8) {key}" in ln for ln in done):
             raise RuntimeError(f"dryrun_multichip(8): no {key} line")
+    gate = "mesh={'data': 2, 'fsdp': 2, 'tensor': 2}"
     if (len(lines) != 9 or len(lines) - len(done) != len(NOT_PORTED)
-            or any("nan" in ln or "inf" in ln for ln in done)):
+            or any("nan" in ln or "inf" in ln for ln in done)
+            or not all(gate in ln for ln in done
+                       if ln.split()[1] in ("VLA:", "SFT:"))):
         raise RuntimeError(f"dryrun_multichip(8) printed {lines}")
     print(f"dryrun_multichip(8): {len(done)} sections ran, "
           f"{len(lines) - len(done)} not ported yet (CPU) {tag}", flush=True)
@@ -10595,7 +10661,7 @@ def _tp_engine(torch, np, dev, mesh, cfg, tiles, new, w8a8_bf16):
     return out
 
 
-def _tp_rank(rank, n, work, rehearse=None):
+def _tp_rank(rank, n, work, rehearse=None, layers=None):
     """One of the n processes of phase 57 (tensor n over a gloo group on
     CUDA tensors; both on card 0): (a) _tp_vla on the int8 tree in fp32
     and on the w8a8 tree in bf16, (b) _tp_engine in fp32,
@@ -10611,8 +10677,9 @@ def _tp_rank(rank, n, work, rehearse=None):
     from vlaser_tpu_torch.core import mesh as mesh_lib
     from vlaser_tpu_torch.core.config import vlaser_2b, vlaser_2b_vla
 
-    vla_cfg, vlm_cfg, tiles, new = rehearse or (vlaser_2b_vla(), vlaser_2b(),
-                                                TP_TILES, TP_NEW)
+    vla_cfg, vlm_cfg, tiles, new = rehearse or (
+        _cut_depth(vlaser_2b_vla(), layers), _cut_depth(vlaser_2b(), layers),
+        TP_TILES, TP_NEW)
     if rehearse is None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -10694,7 +10761,7 @@ def tp_absmax_phase(torch, dev, tag, extra, rows_list=(384, 3584)):
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
-def tp_serve_phase(torch, np, dev, tag, extra, rehearse=None):
+def tp_serve_phase(torch, np, dev, tag, extra, rehearse=None, layers=None):
     """Phase 57: the tensor axis for serving on the one card. NCCL refuses
     two ranks on one card, so two processes share it over a gloo group on
     CUDA tensors (every collective of core/tensor_parallel moves real
@@ -10713,7 +10780,8 @@ def tp_serve_phase(torch, np, dev, tag, extra, rehearse=None):
     default (bf16 w8a8: the quantizers with the all-reduced absmax, flash
     and the RMSNorm kernel on the rank's 6 / 1 heads), held to finite
     tokens and equal ranks; its agreement with one process is printed.
-    Every rank's completions must be equal. -> rank 0's launches of the
+    Every rank's completions must be equal. `layers`: the LLM layers of
+    both models (full width; None: all 28). -> rank 0's launches of the
     runs on the mesh."""
     import torch.multiprocessing as mp
 
@@ -10722,7 +10790,7 @@ def tp_serve_phase(torch, np, dev, tag, extra, rehearse=None):
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
         t0 = time.perf_counter()
-        mp.spawn(_tp_rank, args=(2, work, rehearse), nprocs=2)
+        mp.spawn(_tp_rank, args=(2, work, rehearse, layers), nprocs=2)
         res = [torch.load(os.path.join(work, f"tp.{r}"), weights_only=False)
                for r in range(2)]
     finally:
@@ -10799,6 +10867,243 @@ def tp_serve_phase(torch, np, dev, tag, extra, rehearse=None):
                      b[0]["counts"]), c[0]["counts"])
 
 
+# -- the tensor axis for training (phase 58) ----------------------------------
+TP_TRAIN_STEPS = 2
+TP_TRAIN_ROWS = 2  # packed rows of SFT_TOKENS a step (every rank feeds both)
+# phases 57-58 in the whole script: the LLM layers of their models (of 28;
+# full width), for its time limit (1,177.2 and 1,248.5 s of 1,200 with
+# both at full depth on H100 80GB HBM3 hosts that built the kernels in
+# 145.7 and 170.1 s); --tp-serve / --tp-train run all 28
+TP_LAYERS = 8
+
+
+def _tp_train_batch(np, cfg, tokens, rows=TP_TRAIN_ROWS):
+    """`rows` packed rows (_packed_batch, phase 26's segments rotated a
+    row)."""
+    lengths = (tokens * 3 // 8, tokens * 5 // 16, tokens // 4)
+    parts = [_packed_batch(np, cfg, tokens, 26 + i,
+                           lengths[i % 3:] + lengths[:i % 3])
+             for i in range(rows)]
+    return {k: np.concatenate([r[k] for r in parts]) for k in parts[0]}
+
+
+def _tp_train_model(torch, dev, cfg):
+    """Phase 26's full-parameter SFT model: fp32 parameters, bf16 compute,
+    remat, scripts/train_sft.random_init_ from seed 26."""
+    from vlaser_tpu_torch.models.vlm import InternVLChatModel
+    from vlaser_tpu_torch.scripts.train_sft import random_init_
+
+    model = InternVLChatModel(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.bfloat16, device=dev,
+                              remat=True)
+    random_init_(model, torch.Generator(dev).manual_seed(26))
+    return model
+
+
+def _tp_train_grad(torch, model, sharded, loss_fn, batch):
+    """The loss and grad norm one step of the trainer would report on
+    `batch` (its loss function, the state's sums and norms), with no
+    update: a control's numbers. -> (loss, grad norm)."""
+    params = list(model.parameters())
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(batch)
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    loss = loss.detach().float().reshape(1)
+    sharded.reduce(params, [loss])
+    norm = sharded.grad_norms([params])[0]
+    model.zero_grad(set_to_none=True)
+    return float(loss[0]), float(norm)
+
+
+def _tp_train_rank(rank, n, work, rehearse=None, layers=None):
+    """One of the n processes of phase 58 (tensor n over a gloo group on
+    CUDA tensors, both on card 0): phase 26's SFT model cut over tensor n
+    by SFTTrainer(TrainConfig(mesh_tp=n)); two controls (no update):
+    down_proj's all-reduce dropped, the vocab-parallel CE's sum of exp
+    not all-reduced; then TP_TRAIN_STEPS steps with the launch counters
+    zeroed just before and read just after. Writes its results to
+    work/tp_train.<rank>. `rehearse`: (VLM config, tokens) to run the
+    same code on CPU processes at a small size."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vlaser_tpu_torch.core import tensor_parallel as tpl
+    from vlaser_tpu_torch.core.config import vlaser_2b
+    from vlaser_tpu_torch.train import losses
+    from vlaser_tpu_torch.train.trainer import SFTTrainer, TrainConfig
+
+    cfg, tokens = rehearse or (_cut_depth(vlaser_2b(), layers), SFT_TOKENS)
+    if rehearse is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        torch.set_num_threads(2)
+        dev = torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"file://{work}/tp_pg",
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=600))
+    res, tag = {}, f"(rank {rank})"
+    try:
+        batch = _tp_train_batch(np, cfg, tokens)
+        t0 = time.perf_counter()
+        model = _tp_train_model(torch, dev, cfg)
+        trainer = SFTTrainer(model, TrainConfig(mesh_tp=n))
+        _tp_sync(torch, dev)
+        res["build_s"] = time.perf_counter() - t0
+        sharded = trainer.sharded
+        loss_fn = losses.make_sft_loss(model, mesh=trainer.mesh)
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        down = model.language_model.model.layers.mlp.down_proj
+        kept = _drop_reduce(tpl, down)
+        try:
+            res["drop_down"] = _tp_train_grad(torch, model, sharded,
+                                              loss_fn, tb)
+        finally:
+            down.tp = kept
+        kept = losses._sum_exp_over_vocab
+        losses._sum_exp_over_vocab = lambda x, tp: x
+        try:
+            res["drop_sum_exp"] = _tp_train_grad(torch, model, sharded,
+                                                 loss_fn, tb)
+        finally:
+            losses._sum_exp_over_vocab = kept
+        del tb
+        res["run"] = _shard_run(torch, lambda b: trainer.train(iter([b])),
+                                batch, f"SFT tensor {n} {tag}",
+                                TP_TRAIN_STEPS)
+        res["held_gib"] = sharded.bytes_per_rank() / 2**30
+        res["layers"] = cfg.llm.num_layers
+        res["heads"] = (model.language_model.model.layers.self_attn.heads,
+                        model.language_model.model.layers.self_attn.kv_heads)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(work, f"tp_train.{rank}"))
+
+
+def _tp_flash_phase(torch, np, dev, cfg, tag, extra):
+    """flash_attention_fwd / _bwd at a tensor-2 rank's heads of the SFT
+    step (Vlaser-2B's 12 / 2 -> 6 / 1 x 128: the backward walks a GQA
+    group of 6), on TP_TRAIN_ROWS packed causal rows of SFT_TOKENS,
+    against the plain versions with phase 9's controls, timed beside
+    SDPA. Filed under "sft_tp2"."""
+    llm = cfg.llm
+    H, KVH = llm.num_heads // 2, max(llm.num_kv_heads // 2, 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(58)
+    seg = torch.as_tensor(_tp_train_batch(np, cfg, SFT_TOKENS)["seg_ids"],
+                          dtype=torch.int32, device=dev)
+    f, b = _flash_case(torch, dev, g, tag, f"sft tp2 {H}/{KVH}",
+                       TP_TRAIN_ROWS, SFT_TOKENS, SFT_TOKENS, H, KVH,
+                       llm.head_dim, seg, None, seg, None, causal=True)
+    extra["flash_attention_fwd"]["sft_tp2"] = f
+    extra["flash_attention_bwd"]["sft_tp2"] = b
+
+
+def tp_train_phase(torch, np, dev, tag, extra, rehearse=None, layers=None):
+    """Phase 58: the tensor axis for training on the one card. The flash
+    kernels at a rank's 6 / 1 heads first (_tp_flash_phase). Then phase
+    26's full-parameter Vlaser-2B SFT step on TP_TRAIN_ROWS packed rows
+    of SFT_TOKENS: SFTTrainer without a mesh in this process,
+    TP_TRAIN_STEPS steps, freed; then the same weights and batch through
+    SFTTrainer(TrainConfig(mesh_tp=2)) in two processes that share the
+    card over a gloo group on CUDA tensors (NCCL refuses two ranks on one
+    card; _tp_train_rank). Gate: each step's loss and grad norm within
+    MULTI_REL of the one-process step's, on both ranks; each control
+    (down_proj's all-reduce dropped; the vocab-parallel CE's sum of exp
+    not all-reduced) must break it on step 1's numbers. Launches (rank
+    0, the steps only) held to phase 26's per-step counts. Ms a step (a
+    gloo wall: not a speed figure) and each rank's peak memory beside
+    utils/memory_budget.vlm_sft_budget(1, 1, 2). `layers`: the LLM layers
+    of both runs (full width; None: all 28). -> rank 0's launches."""
+    import torch.multiprocessing as mp
+
+    from vlaser_tpu_torch.core.config import vlaser_2b
+    from vlaser_tpu_torch.train.trainer import SFTTrainer, TrainConfig
+    from vlaser_tpu_torch.utils import memory_budget as mb
+
+    cfg, tokens = rehearse or (_cut_depth(vlaser_2b(), layers), SFT_TOKENS)
+    if rehearse is None:
+        _tp_flash_phase(torch, np, dev, cfg, tag, extra)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch = _tp_train_batch(np, cfg, tokens)
+    model = _tp_train_model(torch, dev, cfg)
+    trainer = SFTTrainer(model, TrainConfig())
+    plain = _shard_run(torch, lambda b: trainer.train(iter([b])), batch,
+                       "SFT one process", TP_TRAIN_STEPS)
+    del model, trainer
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tpt_")
+    try:
+        t1 = time.perf_counter()
+        mp.spawn(_tp_train_rank, args=(2, work, rehearse, layers), nprocs=2)
+        spawn_s = time.perf_counter() - t1
+        res = [torch.load(os.path.join(work, f"tp_train.{r}"),
+                          weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rel = lambda got, want: max(abs(a - b) / abs(b)
+                                for a, b in zip(got, want))
+    want = plain[1] + plain[2]
+    d_run = max(rel(r["run"][1] + r["run"][2], want) for r in res)
+    first = (plain[1][0], plain[2][0])
+    d_down = max(rel(r["drop_down"], first) for r in res)
+    d_exp = max(rel(r["drop_sum_exp"], first) for r in res)
+    run = res[0]["run"]
+    budget = mb.vlm_sft_budget(1, 1, 2, per_device_batch=TP_TRAIN_ROWS,
+                               seq_len=tokens, model_size="2b",
+                               frozen_patterns=(r"vision_model/",))
+    L = res[0]["layers"]
+    depth = ("the full depth" if layers is None else
+             f"TP_LAYERS of 28: the script's time limit; --tp-train runs "
+             f"all 28, and the budget is the full model's")
+    print(f"phase 58 Vlaser-2B SFT over tensor 2 ({L} LLM layers, {depth}; "
+          f"heads a rank {res[0]['heads']}; {TP_TRAIN_ROWS} x "
+          f"{tokens} packed tokens): losses {run[1]}, grad norms {run[2]} "
+          f"vs one process {plain[1]}, {plain[2]}: max rel diff "
+          f"{d_run:.3e} over both ranks (bound {MULTI_REL}); controls on "
+          f"step 1: down_proj's all-reduce dropped {d_down:.3e}, the CE's "
+          f"sum of exp not all-reduced {d_exp:.3e} (each must be > bound)"
+          f" {tag}", flush=True)
+    print(f"phase 58 step ms {[round(t, 1) for t in run[0]]} over tensor 2 "
+          f"vs {[round(t, 1) for t in plain[0]]} one process ({TP_NOTE}); "
+          f"peak GiB a rank {[round(r['run'][4], 2) for r in res]} vs "
+          f"{plain[4]:.2f} one process; parameters a rank "
+          f"{[round(r['held_gib'], 2) for r in res]} GiB; "
+          f"memory_budget.vlm_sft_budget(1, 1, 2): params "
+          f"{budget['params_gib']:.2f}, grads {budget['grads_gib']:.2f}, "
+          f"moments {budget['moments_gib']:.2f}, acts "
+          f"{budget['acts_gib']:.2f}, total {budget['total_gib']:.2f} GiB; "
+          f"model built in {res[0]['build_s']:.1f} s a rank; processes "
+          f"{spawn_s:.1f} s, phase {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    if not (d_run <= MULTI_REL < min(d_down, d_exp)):
+        raise RuntimeError("phase 58: the tensor-parallel SFT step fails "
+                           "its gate or a control")
+    if not all(math.isfinite(v) for r in res for v in r["run"][1]
+               + r["run"][2]):
+        raise RuntimeError("phase 58: a non-finite loss or grad norm")
+    counts = res[0]["run"][3]
+    if rehearse is None:
+        _held(counts, {"flash_attention_fwd": TP_TRAIN_STEPS * 2 * L,
+                       "flash_attention_bwd": TP_TRAIN_STEPS * L,
+                       "_rms_fwd": TP_TRAIN_STEPS * (4 * L + 1),
+                       "_rms_bwd": TP_TRAIN_STEPS * (2 * L + 1)},
+              "phase 58 SFT over tensor 2 (rank 0)")
+    return dict(counts)
+
+
 # -- the layouts across cards (--multichip N) ----------------------------------
 MULTI_STEPS = 2
 MULTI_REL = 1e-2  # loss / grad norm: fsdp 2 x cp 2 over NCCL vs one card
@@ -10810,9 +11115,10 @@ def _multichip_rank(rank, n, work, rehearse=None):
     SFT_TOKENS, MULTI_STEPS steps, over (data n / 4, fsdp 2, context 2)
     with the context-parallel LLM (the P2P ring on the flash kernels, the
     gathers and reduce-scatters of the ZeRO-3 state), rank 0 first running
-    the same steps on one card alone; (2) the Vlaser-8B-VLA step (phase
-    11's trainer, one row a rank) over fsdp n, which no one card holds.
-    Writes {"plain", "sft", "vla8b": _shard_run's results} to
+    the same steps on one card alone; (f) the same step over (data n / 4,
+    fsdp 2, tensor 2); (2) the Vlaser-8B-VLA step (phase 11's trainer,
+    one row a rank) over fsdp n, which no one card holds.
+    Writes {"plain", "sft", "sft_tp", "vla8b": _shard_run's results} to
     work/res.<rank>. `rehearse`: (SFT config, VLA config, tokens) to run
     the same code on a gloo group of CPU processes at a small size."""
     import dataclasses
@@ -10875,6 +11181,14 @@ def _multichip_rank(rank, n, work, rehearse=None):
         res["sft"] = sft(ccfg, mesh, local,
                          f"SFT mesh {mesh_lib.mesh_shape(mesh)}")
         dist.barrier()
+        # (f) the same step over (data n / 4, fsdp 2, tensor 2): the
+        # tensor axis's collectives over NCCL
+        mesh = mesh_lib.make_mesh(dp=-1, fsdp=2, tp=2)
+        index, count = mesh_lib.batch_shard(mesh)
+        local = {k: v[index:index + 1] for k, v in batch.items()}
+        res["sft_tp"] = sft(cfg, mesh, local,
+                            f"SFT mesh {mesh_lib.mesh_shape(mesh)}")
+        dist.barrier()
 
         mesh = mesh_lib.make_mesh(fsdp=n)
         model = PiZeroVLA(vcfg, param_dtype=torch.float32,
@@ -10910,13 +11224,14 @@ def _multichip_rank(rank, n, work, rehearse=None):
 MULTI_TP_STEPS = 3  # timed control steps a layout
 
 
-def _tp_vla_steps(torch, np, dev, mesh, cfg, fused_ms, compute):
-    """(c) on one layout: Vlaser-2B-VLA's w8a8 model from seed 0
-    (random_init_, as phase 57) computing in `compute`, the one-card plain
-    step and (fused_ms, bf16 only) the fused one-card step, then the model
-    cut over `mesh` (PolicyServer(mesh=)). -> (max |d action| of
-    infer_action's chunk, ms a step on the mesh, one-card plain ms, fused
-    ms or None)."""
+def _tp_vla_steps(torch, np, dev, mesh, cfg, fused_ms, compute,
+                  mode="w8a8"):
+    """(c) on one layout: Vlaser-2B-VLA's serving tree of `mode` (the
+    int8 weight-only gate tree, or w8a8) from seed 0 (random_init_, as
+    phase 57) computing in `compute`, the one-card plain step and
+    (fused_ms, bf16 only) the fused one-card step, then the model cut over
+    `mesh` (PolicyServer(mesh=)). -> (max |d action| of infer_action's
+    chunk, ms a step on the mesh, one-card plain ms, fused ms or None)."""
     from vlaser_tpu_torch.core.quant import quantize_for_serving
     from vlaser_tpu_torch.envs.adapters import BridgeSimplerAdapter
     from vlaser_tpu_torch.policy.pizero import PiZeroVLA
@@ -10931,7 +11246,7 @@ def _tp_vla_steps(torch, np, dev, mesh, cfg, fused_ms, compute):
     gen.manual_seed(0)
     with torch.no_grad():
         random_init_(model, gen)
-    quantize_for_serving(model, target="policy")
+    quantize_for_serving(model, target="policy", mode=mode)
     img = cfg.vlm.vision.image_size
     proc = InternVLAProcessor(SmokeTokenizer(cfg.vlm),
                               num_image_tokens=cfg.vlm.num_image_token,
@@ -11058,9 +11373,14 @@ def _multichip_tp(torch, np, dev, rank, n, res, rehearse=None):
                                    TP_NEW, None))
     for tp in (2, n):
         mesh = mesh_lib.make_mesh(dp=-1, fsdp=1, tp=tp)
-        for key, dt in (("", torch.bfloat16), ("_fp32", torch.float32)):
+        # the gate on the int8 weight-only tree in fp32 (as phase 57: the
+        # w8a8 quantizer turns any rounding difference into flipped
+        # codes); the w8a8 serving default in bf16, printed
+        for key, dt, mode in (("", torch.bfloat16, "w8a8"),
+                              ("_fp32", torch.float32, "int8")):
             res[f"vla_tp{tp}{key}"] = _tp_vla_steps(
-                torch, np, dev, mesh, vla_cfg, (tp == 2 and not key), dt)
+                torch, np, dev, mesh, vla_cfg, (tp == 2 and not key), dt,
+                mode)
             gc.collect()
             torch.cuda.empty_cache() if dev.type == "cuda" else None
             dist.barrier()
@@ -11075,8 +11395,9 @@ def _multichip_tp(torch, np, dev, rank, n, res, rehearse=None):
 
 def multichip(n, tag):
     """`--multichip n`: the data / fsdp / context layouts over n cards, one
-    NCCL rank a card (_multichip_rank), then the tensor axis
-    (_multichip_tp). The sharded SFT step's losses and
+    NCCL rank a card (_multichip_rank), (f) the SFT step over fsdp 2 x
+    tensor 2 (the only run of the tensor axis's training collectives over
+    NCCL), then the tensor axis for serving (_multichip_tp). The sharded SFT step's losses and
     grad norms are held to the one-card step within MULTI_REL; the 8B-VLA
     step's losses must be finite; each rank's peak memory is printed
     beside utils/memory_budget's per-device total."""
@@ -11106,10 +11427,11 @@ def _multichip_tp_report(res, n, tag):
         f32 = [r[f"vla_tp{tp}_fp32"] for r in res]
         d32 = max(x[0] for x in f32)
         fused = rows[0][3]
-        print(f"multichip (c) Vlaser-2B-VLA w8a8 control step at tensor {tp}"
-              f" (data {n // tp}): max |d action| vs one card, fp32 compute "
-              f"{d32:.3e} (bound {TP_ACT_TOL}), bf16 compute (the serving "
-              f"default, no gate) {d:.3e}; bf16 ms a step "
+        print(f"multichip (c) Vlaser-2B-VLA control step at tensor {tp}"
+              f" (data {n // tp}): max |d action| vs one card, the int8 "
+              f"weight-only tree in fp32 {d32:.3e} (bound {TP_ACT_TOL}), "
+              f"the w8a8 tree in bf16 (the serving default, no gate) "
+              f"{d:.3e}; bf16 ms a step "
               f"{[round(x[1], 2) for x in rows]} vs {rows[0][2]:.2f} one card "
               f"plain" + (f", {fused:.2f} one card fused" if fused else "")
               + f"; fp32 {f32[0][1]:.2f} vs {f32[0][2]:.2f} ms {tag}",
@@ -11178,10 +11500,27 @@ def _multichip_report(res, n, seconds, tag):
           f"{budget['moments_gib']:.2f}, acts {budget['acts_gib']:.2f}, "
           f"total {budget['total_gib']:.2f} GiB ({seconds:.1f} s in all) "
           f"{tag}", flush=True)
+    ft = res[0]["sft_tp"]
+    rel_tp = max(abs(a - b) / abs(b) for a, b in zip(ft[1] + ft[2],
+                                                      plain[1] + plain[2]))
+    budget_tp = mb.vlm_sft_budget(max(n // 4, 1), 2, 2, per_device_batch=1,
+                                  seq_len=SFT_TOKENS, model_size="2b",
+                                  frozen_patterns=(r"vision_model/",))
+    print(f"multichip (f) SFT fsdp 2 x tensor 2 over {n} NCCL cards: losses "
+          f"{ft[1]}, grad norms {ft[2]} vs one card: rel diff "
+          f"{rel_tp:.3e} (bound {MULTI_REL}); last step {ft[0][-1]:.3f} ms; "
+          f"peak GiB a rank {[round(r['sft_tp'][4], 2) for r in res]} vs "
+          f"memory_budget.vlm_sft_budget total "
+          f"{budget_tp['total_gib']:.2f} GiB (params "
+          f"{budget_tp['params_gib']:.2f}, moments "
+          f"{budget_tp['moments_gib']:.2f}) {tag}", flush=True)
     _multichip_tp_report(res, n, tag)
     if not rel <= MULTI_REL:
         raise RuntimeError("the sharded SFT step over NCCL disagrees with "
                            "its one-card step")
+    if not rel_tp <= MULTI_REL:
+        raise RuntimeError("(f): the SFT step over fsdp 2 x tensor 2 "
+                           "disagrees with its one-card step")
     if not all(math.isfinite(x) for v in vla for x in v[1] + v[2]):
         raise RuntimeError("the 8B-VLA step over fsdp gave a non-finite "
                            "loss or grad norm")
@@ -11283,6 +11622,10 @@ def main() -> int:
                     help="only build the kernels and run phase 57 (the "
                          "tensor axis for serving: two processes on the "
                          "card), then exit")
+    ap.add_argument("--tp-train", action="store_true",
+                    help="only build the kernels and run phase 58 (the "
+                         "tensor axis for training: two processes on the "
+                         "card), then exit")
     ap.add_argument("--multichip", type=int, metavar="N",
                     help="only build the kernels and run the layouts and "
                          "the tensor axis over N cards (a multiple of 4), "
@@ -11328,6 +11671,11 @@ def main() -> int:
         extra = {"quantize_rows": {}, "quantize_silu_mul": {}}
         launches = tp_serve_phase(torch, np, dev, tag, extra)
         print(json.dumps({"launches": launches, "absmax": extra}), flush=True)
+        return 0
+    if args.tp_train:
+        extra = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+        launches = tp_train_phase(torch, np, dev, tag, extra)
+        print(json.dumps({"launches": launches, "flash": extra}), flush=True)
         return 0
     if args.layouts:
         extra = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
@@ -11418,11 +11766,7 @@ def main() -> int:
                          vlaser_2b(), tag, report))
     _add(launches, phase("40 RoboTwin train", robotwin_train_phases, torch,
                          np, dev, vlaser_2b(), tag, report))
-    import dataclasses
-
-    cut = vlaser_2b()
-    cut = dataclasses.replace(cut, llm=dataclasses.replace(
-        cut.llm, num_layers=CUT_LAYERS))
+    cut = _cut_depth(vlaser_2b(), CUT_LAYERS)
     work = tempfile.mkdtemp(prefix="chip_smoke_")  # checkpoints: ~15 GB
     try:
         _add(launches, phase("27-31 CLIs", cli_phases, torch, np, dev, cut,
@@ -11442,7 +11786,10 @@ def main() -> int:
                          dev, tag, extra))
     # the tensor axis for serving: two processes share the card over gloo
     _add(launches, phase("57 tensor-parallel serving", tp_serve_phase,
-                         torch, np, dev, tag, extra))
+                         torch, np, dev, tag, extra, None, TP_LAYERS))
+    # the tensor axis for training: two processes share the card again
+    _add(launches, phase("58 tensor-parallel training", tp_train_phase,
+                         torch, np, dev, tag, extra, None, TP_LAYERS))
     phase("engine profile", engine_profile_phase, torch, np, dev,
           vlaser_2b(), tag, report)
     # reads the train phases' peaks; its profiler sessions come last

@@ -172,8 +172,8 @@ def test_vlm_sft_budget_matches_jax(kw):
 def test_chip_smoke_budget_rows_match_jax(monkeypatch):
     """The one-device rows chip_smoke.py's phase 53 prints: each equals the
     JAX package's arithmetic (phase 47's adaLN-Zero + vision-in-expert
-    config through JAX's own vla_train_budget, its Vlaser-2B-VLA factory
-    swapped for that config)."""
+    config, at its cut depth, through JAX's own vla_train_budget, its
+    Vlaser-2B-VLA factory swapped for that config)."""
     import chip_smoke
 
     rows = chip_smoke.budget_rows(tcfg)
@@ -187,6 +187,14 @@ def test_chip_smoke_budget_rows_match_jax(monkeypatch):
                 **{f.name: getattr(cfg_over, f.name)
                    for f in dataclasses.fields(cfg_over)
                    if f.name not in ("vlm", "expert", "siglip")})
+            # phase 47's depth (chip_smoke.ABLATION_LAYERS, both mixtures)
+            jover = dataclasses.replace(
+                jover, vlm=dataclasses.replace(
+                    jover.vlm, llm=dataclasses.replace(
+                        jover.vlm.llm,
+                        num_layers=cfg_over.vlm.llm.num_layers)),
+                expert=dataclasses.replace(
+                    jover.expert, num_layers=cfg_over.expert.num_layers))
             monkeypatch.setattr(jcfg, "vlaser_2b_vla", lambda: jover)
         want = getattr(jbudget, fn)(**kw)
         monkeypatch.undo()

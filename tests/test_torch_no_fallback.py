@@ -739,8 +739,10 @@ def test_dryrun_multichip_never_imports_jax():
                          text=True, timeout=300, env=_env(), cwd=REPO)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "clean 8" in out.stdout
-    for section in ("VLA: mesh={'data': 1, 'fsdp': 2, 'tensor': 1} loss=",
-                    "SFT: loss=", "TP-serve: actions (2, 4, 7)",
+    # VLA and SFT on the JAX gate's mesh: tensor 2 first, then fsdp
+    for section in ("VLA: mesh={'data': 1, 'fsdp': 1, 'tensor': 2} loss=",
+                    "SFT: mesh={'data': 1, 'fsdp': 1, 'tensor': 2} loss=",
+                    "TP-serve: actions (2, 4, 7)",
                     "TP-engine: 3 completions", "EP: MoE logits (4, 8, 512)",
                     "CP: ring attention over {'context': 2}"):
         assert f"dryrun_multichip(2) {section}" in out.stdout, section

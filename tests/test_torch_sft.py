@@ -331,12 +331,10 @@ def test_padding_rows_take_zero_finite_gradients():
 def test_sft_trainer_raises_on_what_is_not_ported():
     cfg = _cfg()
     model = InternVLChatModel(cfg, device="cpu")
-    # the MoE router loss is ported (tests/test_torch_moe.py); the fsdp
-    # and context meshes are (tests/test_torch_sharded_train.py) and need a
-    # process group; tensor parallelism is not
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        SFTTrainer(model, TrainConfig(mesh_tp=2))
-    for kw in (dict(mesh_fsdp=2), dict(mesh_cp=2)):
+    # the MoE router loss is ported (tests/test_torch_moe.py); the fsdp,
+    # tensor and context meshes are (tests/test_torch_sharded_train.py)
+    # and need a process group
+    for kw in (dict(mesh_fsdp=2), dict(mesh_tp=2), dict(mesh_cp=2)):
         with pytest.raises(RuntimeError, match="process group"):
             SFTTrainer(model, TrainConfig(**kw))
 

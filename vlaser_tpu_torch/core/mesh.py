@@ -17,7 +17,9 @@ Rules match the JAX parameter path ("params/a/b/kernel"), which
 `path_str` builds from a port parameter name.
 
 `make_mesh` builds a DeviceMesh over the process group's ranks with the
-JAX axis order; `tree_shardings` turns the rules into one DTensor
+JAX axis order; `rank_group` / `batch_group` give the process groups of
+ranks that share coordinates (the batch ranks: data x fsdp x context, one
+group a tensor index); `tree_shardings` turns the rules into one DTensor
 `Placement` per mesh dimension for each parameter (Shard(d) where the
 rule names that axis for dim d, Replicate elsewhere), and `shard_batch`
 does the same for a batch's leaves. `set_mesh` makes a mesh ambient (the
@@ -29,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import math
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
@@ -188,10 +190,53 @@ def context_slice(x, mesh, dim: int = 1, axis: str = CONTEXT_AXIS):
 
 def batch_shard(mesh) -> Tuple[int, int]:
     """-> (index, count) of this rank's block of batch rows: the batch
-    shards over (data, fsdp), data major, as JAX's P(('data', 'fsdp'))."""
+    shards over (data, fsdp), data major, as JAX's P(('data', 'fsdp')).
+    The tensor (and context) index plays no part: the ranks of a tensor
+    group feed the same rows."""
     f = axis_size(mesh, FSDP_AXIS)
     return (axis_index(mesh, DATA_AXIS) * f + axis_index(mesh, FSDP_AXIS),
             axis_size(mesh, DATA_AXIS) * f)
+
+
+def rank_group(mesh, name: str, key: Callable[[Dict[str, int]], object]):
+    """-> (process group, size) of the ranks whose coordinates ({axis:
+    index}) give the same key(coords) as this rank's: (None, n) when that
+    is every rank of the mesh (the default group; the mesh spans the
+    process group), (None, 1) for this rank alone. new_group is
+    collective, so every rank calls this at the same point; the groups
+    are built once a mesh and `name`, and kept on the mesh."""
+    import itertools
+
+    import torch.distributed as dist
+
+    cache = mesh.__dict__.setdefault("_rank_groups", {})
+    if name in cache:
+        return cache[name]
+    names, ranks = mesh.mesh_dim_names, mesh.mesh
+    blocks: Dict[object, list] = {}
+    for idx in itertools.product(*(range(n) for n in ranks.shape)):
+        k = key(dict(zip(names, idx)))
+        blocks.setdefault(k, []).append(int(ranks[idx]))
+    me = key(dict(zip(names, mesh.get_coordinate())))
+    out = (None, len(blocks[me]))
+    if len(blocks) > 1:
+        for k in sorted(blocks, key=repr):  # one order on every rank
+            g = dist.new_group(blocks[k]) if len(blocks[k]) > 1 else None
+            if k == me:
+                out = (g, len(blocks[k]))
+    cache[name] = out
+    return out
+
+
+def batch_group(mesh):
+    """-> (process group, size) of the batch ranks: data x fsdp (x
+    context), one group for each tensor index. Every sum over another
+    part of the batch (a gradient, a loss's numerator or denominator)
+    runs over them, never over tensor, whose ranks hold one replica of
+    the batch. (None, 1) without a mesh."""
+    if mesh is None:
+        return None, 1
+    return rank_group(mesh, "batch", lambda c: c.get(TENSOR_AXIS, 0))
 
 
 def _placements(spec: Spec, shape, mesh):

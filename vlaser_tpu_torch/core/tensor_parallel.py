@@ -1,7 +1,7 @@
-"""Tensor and expert parallelism for serving: each rank of the mesh's
-`tensor` axis holds plain local tensors (its shard of each split leaf) and
-the collectives are written out, where the JAX package lets GSPMD insert
-them from core/mesh.default_param_rules.
+"""Tensor and expert parallelism for serving and training: each rank of
+the mesh's `tensor` axis holds plain local tensors (its shard of each
+split leaf) and the collectives are written out, where the JAX package
+lets GSPMD insert them from core/mesh.default_param_rules.
 
 The collectives (every transport: NCCL on the card, gloo on the CPU or on
 CUDA tensors) run in fp32 and are built from all_reduce alone; a cut
@@ -50,8 +50,23 @@ the one-device codes. `shard_model` cuts a model's own leaves in place
 cut, then materialized); utils/convert.tensor_shards cuts a state the
 same way. `shard_for_serving` also holds the leaves the rules split over
 `fsdp` as this rank's shards of them (train/train_step.ShardedState;
-models/layers.Block.leaf gathers them over fsdp only). Layers cut here
-serve; the train step over a tensor axis raises.
+models/layers.Block.leaf gathers them over fsdp only).
+
+Training (`shard_for_training`, before the optimizer is built) cuts the
+same layout; the collectives' backward passes are Megatron's f / g pair:
+outside a split region the activations and their gradients are equal on
+every rank of a tensor group, which holds one replica of the batch, so a
+gradient is summed over the batch ranks (core/mesh.batch_group), never
+over tensor. The exception is a leaf that several tensor ranks hold as
+copies while each sees only part of its gradient (`Plan.copies`): the
+KV "pick" layout's k / v columns (a head's copy on the ranks whose q
+heads read it) and a Qwen3 q / k RMSNorm over head_dim (every rank's
+heads); train/train_step.ShardedState sums such a gradient over the
+holders and counts it once in the norm. A MoE stack passes its input and
+its top-k weights through `enter` before the dispatch (a rank combines
+only its experts' slots), the router reading the input as it is. The
+layout of every rank (`model._tensor_layout`) is kept, so that a
+checkpoint gathers whole leaves (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -67,7 +82,7 @@ from . import mesh as mesh_lib
 
 # -- the collectives ------------------------------------------------------------
 
-def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     """x summed (or op) over `group` in fp32, in x's dtype."""
     import torch.distributed as dist
 
@@ -84,13 +99,13 @@ class _CopyToTensor(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return all_reduce(g, ctx.group), None
 
 
 class _ReduceFromTensor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group)
+        return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -104,7 +119,7 @@ class _GatherLast(torch.autograd.Function):
         n = x.shape[-1]
         full = x.new_zeros((*x.shape[:-1], n * size), dtype=torch.float32)
         full[..., rank * n:(rank + 1) * n] = x
-        return _all_reduce(full, group).to(x.dtype)
+        return all_reduce(full, group).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -141,7 +156,7 @@ class TensorSplit:
     def reduce_max(self, a):
         import torch.distributed as dist
 
-        return _all_reduce(a, self.group, dist.ReduceOp.MAX)
+        return all_reduce(a, self.group, dist.ReduceOp.MAX)
 
 
 def tensor_group(mesh) -> Tuple[object, int, int]:
@@ -192,10 +207,14 @@ class Plan:
     """leaves: {dotted leaf name: (dim, index)}, every name the leaf may
     have (a float kernel or its int8 form and scales); splits: {module name:
     (kind, gather, lo, hi)}; heads: {module name: (heads, kv_heads)}, the
-    local head counts of an attention module."""
+    local head counts of an attention module; copies: {dotted leaf name:
+    g}, a leaf (cut or whole) whose each part the g tensor ranks of a
+    block [g j, g (j + 1)) hold as copies, each seeing part of its
+    gradient (see the module docstring)."""
     leaves: Dict[str, Tuple[int, torch.Tensor]]
     splits: Dict[str, Tuple[str, bool, int, int]]
     heads: Dict[str, Tuple[int, int]]
+    copies: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def plan(model: nn.Module, tp: int, rank: int) -> Plan:
@@ -208,7 +227,7 @@ def plan(model: nn.Module, tp: int, rank: int) -> Plan:
     from ..models.qwen2 import Qwen2Attention, Qwen2MLP
     from ..policy.joint import MixtureMLP, _Layers
 
-    p = Plan({}, {}, {})
+    p = Plan({}, {}, {}, {})
     if tp == 1:
         return p
     mods = dict(model.named_modules())
@@ -220,7 +239,8 @@ def plan(model: nn.Module, tp: int, rank: int) -> Plan:
         if d.has_lora:
             raise NotImplementedError(
                 f"{dense_name}: a LoRA adapter over a tensor-parallel layer "
-                "(merge it first)")
+                "(merge it first; QLoRA over the tensor axis is not ported, "
+                "and the JAX CLIs take no LoRA flag)")
         p.splits[dense_name] = (kind, gather, 0, 0)
         nd = len(d.kernel_shape)  # [..., in, out]; its int8 form alike
         dims = {"kernel": nd - (1 if kind == "col" else 2)}
@@ -247,6 +267,13 @@ def plan(model: nn.Module, tp: int, rank: int) -> Plan:
                                         ("v_proj", k, "col"),
                                         ("o_proj", q, "row")):
                     cut(f"{n}.{proj}", kind, idx)
+                if lay == "pick":  # a KV head's copy on tp / kv ranks
+                    for proj in ("k_proj", "v_proj"):
+                        for leaf in ("kernel", "bias"):
+                            p.copies[f"{n}.{proj}.{leaf}"] = tp // kv
+                for norm in ("q_norm", "k_norm"):  # over head_dim: all
+                    if hasattr(mods[n], norm):
+                        p.copies[f"{n}.{norm}.weight"] = tp
             p.heads[n] = (heads // tp, k.numel() // hd)
 
     def mlp(name, up_names, down_name, inter):
@@ -325,14 +352,18 @@ def shard_model(model: nn.Module, size: int, rank: int, group=None
     `group`. A model cut once is left as it is."""
     if getattr(model, "_tensor_plan", None) is not None or size == 1:
         return model
-    p = plan(model, size, rank)
+    plans = [plan(model, size, r) for r in range(size)]
+    p = plans[rank]
     mods = dict(model.named_modules())
+    layout = {}
     for key, (dim, idx) in p.leaves.items():
         mod_name, _, leaf = key.rpartition(".")
         mod = mods[mod_name]
         t = mod._parameters.get(leaf, mod._buffers.get(leaf))
         if t is None:
             continue
+        layout[key] = (dim, t.shape[dim],
+                       [pl.leaves[key][1] for pl in plans])
         new = shard_leaf(t.detach(), dim, idx)
         if leaf in mod._parameters:
             mod._parameters[leaf] = nn.Parameter(
@@ -345,6 +376,9 @@ def shard_model(model: nn.Module, size: int, rank: int, group=None
     for name, (h, kv) in p.heads.items():
         mods[name].heads, mods[name].kv_heads = h, kv
     model._tensor_plan = p
+    # {leaf: (dim, whole size, every rank's index)}: a checkpoint's
+    # gather (utils/checkpoint.py)
+    model._tensor_layout = layout
     return model
 
 
@@ -372,6 +406,17 @@ def shard_for_serving(model: nn.Module, mesh) -> nn.Module:
         model._fsdp_state = ShardedState(model, mesh)
     model._serving_mesh = mesh
     return model
+
+
+def shard_for_training(model: nn.Module, mesh) -> nn.Module:
+    """The training layout of `model` on `mesh`: its leaves cut over the
+    tensor axis as for serving (shard_model; a no-op without one). Call
+    it before the optimizer's parameter groups are made, since a cut
+    leaf is a new Parameter; train/train_step.shard_train_state then
+    holds the fsdp shards and owns the gradient sums. A LoRA adapter over
+    a cut layer raises."""
+    group, size, rank = tensor_group(mesh)
+    return shard_model(model, size, rank, group)
 
 
 def local_kv_heads(model: nn.Module, default: int) -> int:

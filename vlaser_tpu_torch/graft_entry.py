@@ -16,8 +16,10 @@ any config on the CPU (the tests' tiny ones), the prompt cut to fit.
 `dryrun_multichip(n)` is the twin of the repository's multi-device gate:
 n gloo ranks on the CPU (spawned processes, no card), each section of the
 JAX gate at its tiny config and sizes, one line each. Ported: VLA (the
-flow-matching train step, frozen ViT, AdamW, data x fsdp = n/2 x 2), SFT
-(the packed VLM SFT step on that mesh), TP-serve (the tiny VLA's
+flow-matching train step, frozen ViT, AdamW, on the JAX gate's mesh
+make_mesh(dp=-1, fsdp=2, tp=2): (data n/4, fsdp 2, tensor 2) at n = 8,
+the model cut over tensor, the state over fsdp), SFT (the packed VLM SFT
+step on that mesh, its CE vocab-parallel), TP-serve (the tiny VLA's
 infer_action with its policy laid out over (data, fsdp 2, tensor 2):
 tensor-parallel columns, fsdp shards; core/tensor_parallel), TP-engine
 (the continuous-batching engine on that mesh), CP (the tiny LLM stack
@@ -84,13 +86,16 @@ ORDER = ("VLA", "SFT", "TP-serve", "TP-engine", "CP", "PP", "PPxFSDP-train",
 def _vla_section(n, rng):
     from .core import mesh as mesh_lib
     from .core.config import tiny_vla
+    from .core.tensor_parallel import shard_for_training
     from .policy.flow import make_flow_loss
     from .policy.pizero import PiZeroVLA
     from .train.optim import make_optimizer
     from .train.train_step import make_train_step, shard_train_state
 
-    fsdp = 2 if n % 2 == 0 else 1
-    mesh = mesh_lib.make_mesh(dp=-1, fsdp=fsdp)
+    # the JAX gate's mesh: every axis that divides n, tensor, fsdp, data
+    tp = 2 if n % 2 == 0 else 1
+    fsdp = 2 if n % (tp * 2) == 0 else 1
+    mesh = mesh_lib.make_mesh(dp=-1, fsdp=fsdp, tp=tp)
     cfg = tiny_vla(max_image_text_tokens=16)
     B, S = n, cfg.max_image_text_tokens
     img = cfg.vlm.vision.image_size
@@ -106,8 +111,9 @@ def _vla_section(n, rng):
         "actions": np.zeros((B, cfg.num_action_tokens, cfg.action_dim),
                             np.float32),
     }
-    model = seeded_(PiZeroVLA(cfg, compute_dtype=torch.float32,
-                              attn_impl="reference", device="cpu"), 0)
+    model = shard_for_training(seeded_(PiZeroVLA(
+        cfg, compute_dtype=torch.float32, attn_impl="reference",
+        device="cpu"), 0), mesh)
     groups, frozen = make_optimizer(model, 1e-4,
                                     frozen_patterns=(r"vision_model/",))
     sharded = shard_train_state(model, mesh)
@@ -161,14 +167,15 @@ def _sft_batch(vcfg, n, rng):
 
 def _sft_step(vcfg, mesh, batch, seed):
     from .core import mesh as mesh_lib
+    from .core.tensor_parallel import shard_for_training
     from .models.vlm import InternVLChatModel
     from .train.losses import make_sft_loss
     from .train.optim import make_optimizer
     from .train.train_step import make_train_step, shard_train_state
 
-    model = seeded_(InternVLChatModel(vcfg, compute_dtype=torch.float32,
-                                      attn_impl="reference", device="cpu"),
-                    seed)
+    model = shard_for_training(seeded_(InternVLChatModel(
+        vcfg, compute_dtype=torch.float32, attn_impl="reference",
+        device="cpu"), seed), mesh)
     groups, frozen = make_optimizer(model, 1e-4,
                                     frozen_patterns=(r"vision_model/",))
     sharded = shard_train_state(model, mesh)
@@ -289,7 +296,8 @@ def _dryrun_rank(rank, n, init_file, out_file):
         lines["VLA"], mesh = _vla_section(n, rng)
         vcfg = tiny_vlm()
         vbatch = _sft_batch(vcfg, n, rng)
-        lines["SFT"] = f"SFT: loss={_sft_step(vcfg, mesh, vbatch, 2):.4f}"
+        lines["SFT"] = (f"SFT: mesh={mesh_lib.mesh_shape(mesh)} "
+                        f"loss={_sft_step(vcfg, mesh, vbatch, 2):.4f}")
         lines.update(_tp_sections(n, vcfg, rng))
         lines["CP"] = _cp_section(n, vcfg, rng)
         if n % 8 == 0:

@@ -421,7 +421,10 @@ class Embed(Block):
     def attend(self, hidden):
         """Tied logits head: hidden @ table^T, operands in the embedding
         dtype, fp32 out (per-row scales on the output for the int8 table);
-        vocab-parallel: each rank's columns, gathered."""
+        vocab-parallel: each rank's columns, gathered (the hidden state
+        entered, so that its gradient sums the ranks' columns)."""
+        if self.tp is not None:
+            hidden = self.tp.enter(hidden)
         h = hidden.to(self.dtype).float()
         if "embedding_q" in self._buffers:
             y = h @ self.embedding_q.to(self.dtype).float().T

@@ -35,7 +35,12 @@ core/tensor_parallel, its `tp` split holding experts lo:hi): the router
 stays whole and fp32, so every rank routes, places and drops every slot
 as one device does; a rank runs its own experts' rows of the buffer and
 combines the slots routed to them, and the partial sums are all-reduced
-over the tensor group (fp32) before the cast.
+over the tensor group (fp32) before the cast. In training the dispatch's
+input and the slots' weights pass through the split's `enter` (identity
+forward, all-reduce backward): each rank's experts and combine see only
+part of them, so their gradients are summed over the group, while the
+router's own read of the input and the aux loss's probabilities are
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -92,13 +97,17 @@ def moe_forward(cfg, x: torch.Tensor, gate, wg, wu, wd,
     pos = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1)
     keep = pos < C
     cd = compute_dtype
-    xk = xt.to(cd).repeat_interleave(k, 0) * keep[:, None].to(cd)
+    # the dispatch's input: entered, as a rank's experts see part of it
+    # (the router above reads it whole on every rank)
+    xd = xt if tp is None else tp.enter(xt)
+    xk = xd.to(cd).repeat_interleave(k, 0) * keep[:, None].to(cd)
     safe_pos = torch.where(keep, pos, C - 1)
     buf = xk.new_zeros((E, C, H)).index_put_((flat_e, safe_pos), xk,
                                              accumulate=True)
     w = topw.reshape(T * k) * keep.float()
     if tp is not None:  # this rank's experts and the slots routed to them
         buf = buf[tp.lo:tp.hi]
+        w = tp.enter(w)  # a rank's combine sees only its experts' slots
         mine = (flat_e >= tp.lo) & (flat_e < tp.hi)
         w = w * mine.float()
         flat_e = torch.where(mine, flat_e - tp.lo, 0)

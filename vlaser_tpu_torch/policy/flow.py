@@ -83,7 +83,9 @@ def make_flow_loss(model, sampling: str = "beta",
     (core/mesh.batch_shard): every rank draws the global batch's t and x0
     from the same generator and keeps its block's rows, and returns its
     share of the global mean (the block's mean over the number of
-    blocks), so the sharded step equals the one-device step."""
+    blocks, the batch ranks), so the sharded step equals the one-device
+    step. The ranks of a tensor group hold the same block: they draw and
+    keep the same t and x0, and their loss is one share, not several."""
     from ..core.mesh import batch_shard
 
     cfg = model.cfg

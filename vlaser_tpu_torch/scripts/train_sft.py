@@ -12,17 +12,20 @@ with the data stream's state.
 
     torchrun --nproc_per_node 8 -m vlaser_tpu_torch.scripts.train_sft \
         --model_path Vlaser-2B/ --data train.jsonl --packed --fsdp 2 --cp 2
+    torchrun --nproc_per_node 8 -m vlaser_tpu_torch.scripts.train_sft \
+        --model_path Vlaser-2B/ --data train.jsonl --packed --fsdp 2 --tp 2
 
 The flags are the JAX CLI's, plus --device (the card unless it says
-"cpu"; without a card it raises). --fsdp and --cp above 1 train over a
-(data, fsdp[, context], tensor) mesh of the processes' ranks
+"cpu"; without a card it raises). --fsdp, --tp and --cp above 1 train
+over a (data, fsdp[, context], tensor) mesh of the processes' ranks
 (core/distributed.initialize reads the torchrun or slurm variables; one
-card a process): ZeRO-3 state over fsdp, the LLM ring-sharded over
+card a process): the model cut over tensor (core/tensor_parallel, a
+vocab-parallel CE), ZeRO-3 state over fsdp, the LLM ring-sharded over
 context (its config then sets context_parallel_axis; a packed batch of
 --max_seq tokens, which 2 x --cp must divide, is cut along the sequence
 by the model, each context rank keeping its slice), each rank fed its
 block of the batches (packs sharded by the rank's batch coordinate,
-core/mesh.batch_shard). --tp above 1 raises NotImplementedError.
+core/mesh.batch_shard; a tensor group's ranks take the same packs).
 `main` runs the JAX `main`'s stages, each a function here: the tokenizer,
 the config (the InternVL special tokens; the vocab sized to the tokenizer
 unless a config is handed in), the model and its weights (an HF
@@ -81,23 +84,17 @@ def resolve_device(name: Optional[str]) -> torch.device:
     return torch.device(name)
 
 
-def check_tp(args) -> None:
-    if getattr(args, "tp", 1) > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel training is not ported yet; "
-            "the port trains over data, fsdp and context")
-
-
 def build_mesh(args):
     """Start the process group from the environment (a no-op for one
-    process) and -> the mesh of --fsdp / --cp, or None when both are 1."""
+    process) and -> the mesh of --fsdp / --tp / --cp (make_mesh(fsdp, tp,
+    cp), as the JAX CLI builds it), or None when all are 1. A CLI without
+    --tp or --cp (train_mpo, train_vla) builds its mesh here too."""
     from ..core.distributed import initialize
     from ..train.trainer import build_mesh as trainer_mesh
 
-    check_tp(args)
     initialize()
-    return trainer_mesh(None, getattr(args, "fsdp", 1), 1,
-                        getattr(args, "cp", 1))
+    return trainer_mesh(None, getattr(args, "fsdp", 1),
+                        getattr(args, "tp", 1), getattr(args, "cp", 1))
 
 
 def load_tokenizer(args):
@@ -262,7 +259,8 @@ def build_trainer(args, model, mesh=None):
     return SFTTrainer(model, TrainConfig(
         learning_rate=args.lr, total_steps=args.steps,
         freeze_vision=args.freeze_vision, freeze_llm=args.freeze_llm,
-        mesh_fsdp=getattr(args, "fsdp", 1), mesh_cp=getattr(args, "cp", 1),
+        mesh_fsdp=getattr(args, "fsdp", 1), mesh_tp=getattr(args, "tp", 1),
+        mesh_cp=getattr(args, "cp", 1),
         checkpoint_dir=args.checkpoint_dir, profile_dir=args.profile_dir),
         mesh=mesh)
 
@@ -276,7 +274,6 @@ def main(argv=None):
         raise SystemExit("need --data or --meta")
     if not (args.tiny or args.model_path):
         raise SystemExit("need --model_path (or --tiny)")
-    check_tp(args)
     device = resolve_device(args.device)
     mesh = build_mesh(args)  # before the model: NCCL picks the rank's card
     tokenizer = load_tokenizer(args)

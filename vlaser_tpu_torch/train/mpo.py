@@ -10,12 +10,15 @@ reference (frozen) policy is a copy of the initial parameters with storage
 of its own; its log-probs come from the same model run on that copy
 (torch.func.functional_call) under torch.no_grad(). The full logits of the
 concatenated pair batch are formed, as the JAX loss forms them. Over a
-mesh (`mesh_fsdp` above 1, or a DeviceMesh handed in) each rank feeds its
-block of the global batch's pairs, the reference copy is held as ZeRO-3
-shards like the policy (its forward gathers them a leaf at a time, as
-the policy's does), each loss and metric is the rank's share of its
-global value (means over the blocks, the SFT term over the global weight
-sum) and the BCO running mean takes every rank's rewards.
+mesh (`mesh_fsdp` or `mesh_tp` above 1, or a DeviceMesh handed in) the
+model is cut over tensor, each rank feeds its block of the global batch's
+pairs (a tensor group's ranks the same block), the reference copy is
+held as the policy's own shards (its forward gathers them a leaf at a
+time, as the policy's does), the log-probs read the gathered logits
+(the head's gather slices their gradient back), each loss and metric is
+the rank's share of its global value (means over the batch ranks'
+blocks, the SFT term over the global weight sum) and the BCO running
+mean takes every batch rank's rewards.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import batch_group
+from ..core.tensor_parallel import shard_for_training
 from .losses import weighted_ce_loss
 from .optim import make_optimizer, warmup_cosine
 from .train_step import make_train_step, shard_train_state
@@ -108,7 +113,7 @@ def make_mpo_loss(model, cfg: MPOConfig, mesh=None):
     pixel_values / image_flags (each side takes the pair's tiles). mesh:
     the loss and the scalar metrics are this rank's shares (they sum over
     the ranks to the global values); `rewards` stay the rank's own."""
-    ranks = 1 if mesh is None else mesh.size()
+    ranks = batch_group(mesh)[1]
     share = (lambda x: x / ranks) if ranks > 1 else (lambda x: x)
 
     def loss_fn(ref_params: Dict[str, torch.Tensor], batch, delta):
@@ -156,12 +161,14 @@ class MPOTrainer:
     optax.global_norm does in the JAX step."""
 
     def __init__(self, model, cfg: MPOConfig, train_cfg=None, mesh=None):
-        """model: a port InternVLChatModel on its device; train_cfg: a
-        trainer.TrainConfig (its defaults when None); mesh: a DeviceMesh
-        (built from train_cfg.mesh_fsdp when None and it is above 1)."""
+        """model: a port InternVLChatModel on its device (cut in place over
+        the mesh's tensor axis); train_cfg: a trainer.TrainConfig (its
+        defaults when None); mesh: a DeviceMesh (built from
+        train_cfg.mesh_fsdp / mesh_tp when None and either is above 1)."""
         self.model, self.cfg = model, cfg
         self.train_cfg = tc = train_cfg or TrainConfig()
         self.mesh = mesh = build_mesh(mesh, tc.mesh_fsdp, tc.mesh_tp)
+        shard_for_training(model, mesh)
         schedule = warmup_cosine(tc.learning_rate, tc.total_steps,
                                  tc.warmup_ratio)
         frozen = (r"vision_model/",) if tc.freeze_vision else ()
@@ -193,19 +200,21 @@ class MPOTrainer:
         return self.step_fn.count
 
     def _global_metrics(self, metrics, rewards):
-        """Sum the ranks' shares of the scalar metrics in place; -> every
-        rank's rewards (the global batch's, [chosen; rejected] of each
-        rank in rank order)."""
+        """Sum the batch ranks' shares of the scalar metrics in place; ->
+        every batch rank's rewards (the global batch's, [chosen; rejected]
+        of each in rank order; a tensor group's ranks hold the same)."""
         import torch.distributed as dist
 
+        group, n = batch_group(self.mesh)
+        if n == 1:
+            return rewards
         keys = ("dpo_loss", "bco_loss", "sft_loss", "reward_margin",
                 "reward_accuracy")
         flat = torch.stack([metrics[k].float() for k in keys])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         metrics.update(zip(keys, flat.unbind()))
-        parts = [torch.empty_like(rewards)
-                 for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, rewards.contiguous())
+        parts = [torch.empty_like(rewards) for _ in range(n)]
+        dist.all_gather(parts, rewards.contiguous(), group=group)
         return torch.cat(parts)
 
     def train(self, batches: Iterator[Dict], num_steps: int):

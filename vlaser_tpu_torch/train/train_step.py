@@ -30,10 +30,15 @@ runs, forward and recompute, and are never saved for the backward. The
 loss function returns the rank's share of the global loss (train/losses,
 policy/flow: sums over the batch ranks give the global loss), so the
 gradients, summed in fp32 over the micro batches, are summed once over
-the batch ranks left (data x context for a split leaf, every rank for a
-whole one), and the loss with them. Norms and clips read the global
-norms (a split leaf's squares summed over fsdp); the optimizer steps the
-shards, so the AdamW moments are shards too.
+the batch ranks left (data x context for a split leaf, data x fsdp x
+context for a whole one; never tensor, whose ranks hold one replica of
+the batch), and the loss with them. On a tensor axis the model is cut
+first (core/tensor_parallel.shard_for_training): a leaf that tensor
+ranks hold as copies, each seeing part of its gradient (the KV pick, a
+q / k norm), is also summed over its holders. Norms and clips read the
+global norms (each distinct part's squares once, summed over fsdp x
+tensor); the optimizer steps the shards, so the AdamW moments are shards
+too.
 """
 
 from __future__ import annotations
@@ -93,9 +98,9 @@ def _accumulate(loss_fn, batch, params, accum_steps: int):
 
 
 ADAM8BIT_OVER_FSDP = (
-    "8-bit AdamW over fsdp > 1: a shard would split the kernel's "
-    "256-element blocks, and the JAX shard_train_state cannot place the "
-    "8-bit state either")
+    "8-bit AdamW over fsdp > 1 or tensor > 1: a shard would split the "
+    "kernel's 256-element blocks, and the JAX shard_train_state cannot "
+    "place the 8-bit state either")
 
 
 class _AllGather(torch.autograd.Function):
@@ -156,13 +161,23 @@ class ShardedState:
     """ZeRO-3 over a mesh: each parameter of `model` that its rule
     (core/mesh.tree_shardings) splits over `fsdp` is held as this rank's
     shard of that dim, the others whole. On a mesh with a tensor axis the
-    model's leaves are already its tensor rank's (core/tensor_parallel,
-    serving): a leaf split over both is held as this rank's fsdp shard of
-    its tensor shard, and `gather` gives the tensor shard back. The shards stay in place: the
-    model's Block that holds a split leaf reads it through `gather` (see
-    the module docstring). `peak_gathered` counts the largest number of
-    bytes of gathered weights alive at once (a gather's result is counted
-    until its storage is freed)."""
+    model's leaves are already its tensor rank's (core/tensor_parallel:
+    shard_for_training, or shard_for_serving): a leaf split over both is
+    held as this rank's fsdp shard of its tensor shard, and `gather` gives
+    the tensor shard back. The shards stay in place: the model's Block
+    that holds a split leaf reads it through `gather` (see the module
+    docstring). `peak_gathered` counts the largest number of bytes of
+    gathered weights alive at once (a gather's result is counted until
+    its storage is freed).
+
+    Sums (`reduce`) run over the ranks that hold another part of the batch
+    and the same part of the leaf: a leaf split over fsdp (summed over
+    fsdp by its gathers' backward) over its replicas, the ranks of its
+    fsdp and tensor index; a whole leaf over the batch ranks
+    (core/mesh.batch_group); a tensor copy (tensor_parallel.Plan.copies)
+    over the same ranks times its holders. Norms (`grad_norms`) sum each
+    distinct part's squares once over fsdp x tensor: a leaf's squares
+    count on the first rank of the ranks that hold it."""
 
     def __init__(self, model: nn.Module, mesh, rules=None):
         import torch.distributed as dist
@@ -175,21 +190,15 @@ class ShardedState:
         if mesh.size() != dist.get_world_size():
             raise ValueError("the mesh must span every rank of the group")
         self.mesh = mesh
-        self.fsdp = mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS)
-        self.index = mesh_lib.axis_index(mesh, mesh_lib.FSDP_AXIS)
-        self.group = (mesh.get_group(mesh_lib.FSDP_AXIS) if self.fsdp > 1
-                      else None)
-        self.ranks = dist.get_world_size()  # the batch ranks (no tensor)
-        f_dim = mesh.mesh_dim_names.index(mesh_lib.FSDP_AXIS)
-        # the ranks that hold this rank's shards: one group per fsdp index
-        self.replicas, self.n_replicas = None, self.ranks
-        if self.fsdp > 1:
-            self.n_replicas = self.ranks // self.fsdp
-            for j in range(self.fsdp):
-                ranks = mesh.mesh.select(f_dim, j).flatten().tolist()
-                group = dist.new_group(ranks) if len(ranks) > 1 else None
-                if j == self.index:
-                    self.replicas = group
+        F_, T_ = mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS
+        self.fsdp = mesh_lib.axis_size(mesh, F_)
+        self.index = mesh_lib.axis_index(mesh, F_)
+        self.tp = mesh_lib.axis_size(mesh, T_)
+        self.t_index = mesh_lib.axis_index(mesh, T_)
+        self.group = mesh.get_group(F_) if self.fsdp > 1 else None
+        self.world = dist.get_world_size()
+        self.batch_group, self.ranks = mesh_lib.batch_group(mesh)
+        f_dim = mesh.mesh_dim_names.index(F_)
         named = dict(model.named_parameters())
         placements = mesh_lib.tree_shardings(
             named, mesh, rules if rules is not None
@@ -201,6 +210,39 @@ class ShardedState:
                                 else None)
         self.params = list(named.values())
         self.split = [p for p in self.params if self.dims[id(p)] is not None]
+        tplan = getattr(model, "_tensor_plan", None)
+        if self.tp > 1 and tplan is None:
+            raise ValueError(
+                "a tensor axis: cut the model first "
+                "(core/tensor_parallel.shard_for_training) and make the "
+                "optimizer's groups after the cut")
+        self.layout = getattr(model, "_tensor_layout", {})
+        cut = set(tplan.leaves) if tplan is not None else set()
+        copies = tplan.copies if tplan is not None else {}
+        # each leaf's reduction (the key of its group) and whether this
+        # rank counts its squares in a norm
+        self.route, self.owned = {}, {}
+        keys = set()
+        for name, p in named.items():
+            split = self.dims[id(p)] is not None
+            g = copies.get(name) if self.tp > 1 else None
+            held = g if g is not None else (1 if name in cut else self.tp)
+            key = ("split" if split else "whole", g or 1)
+            self.route[id(p)] = key
+            keys.add(key)
+            self.owned[id(p)] = ((split or self.index == 0)
+                                 and self.t_index % held == 0)
+        self.groups = {("whole", 1): (self.batch_group, self.ranks)}
+        for split, g in sorted(keys - {("whole", 1)}):
+            own = (lambda c, g=g: c.get(T_, 0) // g)  # the holders' block
+            self.groups[(split, g)] = mesh_lib.rank_group(
+                mesh, f"reduce-{split}-{g}",
+                (lambda c, own=own: (c[F_], own(c))) if split == "split"
+                else own)
+        # the ranks of one replica of the model: fsdp x tensor
+        self.model_group, self.model_ranks = mesh_lib.rank_group(
+            mesh, "model", lambda c: tuple(
+                v for a, v in c.items() if a not in (F_, T_)))
         with torch.no_grad():
             for m in model.modules():
                 for leaf, p in m._parameters.items():
@@ -228,6 +270,16 @@ class ShardedState:
         n = full.shape[d] // self.fsdp
         return full.narrow(d, self.index * n, n).clone()
 
+    def cut(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor shard of a one-device tensor of leaf `name`
+        (itself for a leaf the tensor axis leaves whole)."""
+        lay = self.layout.get(name)
+        if lay is None or whole.dim() <= lay[0]:
+            return whole
+        from ..core.tensor_parallel import shard_leaf
+
+        return shard_leaf(whole, lay[0], lay[2][self.t_index])
+
     def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
         """The whole tensor of a shard split along `dim` (an all-gather over
         fsdp that every rank of the group calls; differentiable)."""
@@ -245,10 +297,10 @@ class ShardedState:
 
     def full(self, p, shard: torch.Tensor, dst: Optional[int] = None
              ) -> Optional[torch.Tensor]:
-        """The whole tensor of a shard shaped like p's, on every rank (dst
-        None: an all-gather over fsdp, which every rank calls) or on rank
-        `dst` only (a gather over dst's fsdp group, whose ranks call it;
-        None on every other rank)."""
+        """The whole tensor over fsdp of a shard shaped like p's, on every
+        rank (dst None: an all-gather over fsdp, which every rank calls) or
+        on rank `dst` only (a gather over dst's fsdp group, whose ranks
+        call it; None on every other rank)."""
         import torch.distributed as dist
 
         d = self.dims[id(p)]
@@ -265,42 +317,85 @@ class ShardedState:
                     dst=dst, group=self.group)
         return torch.cat(parts, d) if here else None
 
-    def reduce(self, grads: Sequence[torch.Tensor], extra=()) -> None:
-        """Sum gradients (and `extra` tensors, whole on every rank) over
-        the batch ranks in place: a split leaf's (already summed over fsdp
-        by the gathers' backward) over its replicas, the others over every
-        rank."""
-        if self.ranks == 1:
-            return
-        split = {id(p.grad) for p in self.split if p.grad is not None}
-        shards = [g for g in grads if id(g) in split]
-        if shards and self.n_replicas > 1:
-            _bucketed_all_reduce(shards, self.replicas)
-        _bucketed_all_reduce(
-            [g for g in grads if id(g) not in split] + list(extra), None)
+    def whole_shape(self, name: str, p, shape) -> tuple:
+        """The one-device shape of leaf `name` (p: its parameter, None for
+        a buffer) held here as `shape`."""
+        shape = list(shape)
+        if p is not None and self.dims[id(p)] is not None:
+            shape[self.dims[id(p)]] *= self.fsdp
+        lay = self.layout.get(name)
+        if lay is not None and len(shape) > lay[0]:
+            shape[lay[0]] = lay[1]
+        return tuple(shape)
+
+    def whole(self, name: str, p, t: torch.Tensor
+              ) -> Optional[torch.Tensor]:
+        """The one-device tensor of leaf `name`'s local `t` (the leaf, or a
+        state tensor of its shape; p: its parameter, None for a buffer) on
+        rank 0, None on every other rank; every rank calls it. The fsdp
+        shards are all-gathered, then rank 0's tensor group gathers the
+        tensor shards to it, which it puts back at their columns (the
+        strided ViT qkv un-strided, a KV copy written once a holder)."""
+        import torch.distributed as dist
+
+        t = t.detach()
+        lay = self.layout.get(name)
+        if lay is None or t.dim() <= lay[0]:
+            if p is None:
+                return t if dist.get_rank() == 0 else None
+            return self.full(p, t, dst=0)
+        if p is not None:
+            t = self.full(p, t)
+        dim, n, idx = lay
+        group = self.mesh.get_group(mesh_lib.TENSOR_AXIS)
+        if 0 not in dist.get_process_group_ranks(group):
+            return None
+        here = dist.get_rank() == 0
+        parts = [torch.empty_like(t) for _ in range(self.tp)]
+        dist.gather(t.contiguous(), parts if here else None, dst=0,
+                    group=group)
+        if not here:
+            return None
+        shape = list(t.shape)
+        shape[dim] = n
+        out = t.new_empty(shape)
+        for i, part in zip(idx, parts):
+            out.index_copy_(dim, i.to(out.device), part)
+        return out
+
+    def reduce(self, params: Sequence[nn.Parameter], extra=()) -> None:
+        """Sum the parameters' gradients (and `extra` tensors, this rank's
+        shares, over the batch ranks) in place, each leaf over its
+        reduction's ranks (the class docstring)."""
+        buckets: Dict[tuple, List[torch.Tensor]] = {}
+        for p in params:
+            buckets.setdefault(self.route[id(p)], []).append(p.grad)
+        for key, grads in buckets.items():
+            group, n = self.groups[key]
+            if n > 1:
+                _bucketed_all_reduce(grads, group)
+        if extra and self.ranks > 1:
+            _bucketed_all_reduce(list(extra), self.batch_group)
 
     def grad_norms(self, lists: Sequence[Sequence[nn.Parameter]]
                    ) -> List[torch.Tensor]:
-        """The global L2 norm of each list's gradients: a split leaf's
-        squares summed over fsdp."""
+        """The global L2 norm of each list's gradients: each distinct
+        part's squares counted once, summed over fsdp x tensor."""
         import torch.distributed as dist
 
         zero = torch.zeros((), device=self.params[0].device)
         sq = []
         for params in lists:
-            parts = [zero, zero]  # (whole leaves, split leaves)
+            total = zero
             for p in params:
-                if p.grad is not None:
-                    i = int(self.dims[id(p)] is not None)
-                    parts[i] = parts[i] + torch.linalg.vector_norm(
+                if p.grad is not None and self.owned[id(p)]:
+                    total = total + torch.linalg.vector_norm(
                         p.grad.float()).square()
-            sq.append(torch.stack(parts))
+            sq.append(total)
         sq = torch.stack(sq)
-        if self.fsdp > 1:
-            split = sq[:, 1].contiguous()
-            dist.all_reduce(split, group=self.group)
-            sq = torch.stack([sq[:, 0], split], 1)
-        return list(sq.sum(1).sqrt().unbind())
+        if self.model_ranks > 1:
+            dist.all_reduce(sq, group=self.model_group)
+        return list(sq.sqrt().unbind())
 
     def bytes_per_rank(self) -> int:
         """Bytes of the parameter shards this rank holds."""
@@ -309,17 +404,11 @@ class ShardedState:
 
 def shard_train_state(model: nn.Module, mesh, rules=None) -> ShardedState:
     """Hold `model`'s parameters at rest sharded over `mesh` by `rules`
-    (core/mesh.default_param_rules when None): ZeRO-3. Build the
-    optimizer (make_train_step(sharded=...)) after this call, so that its
-    moments are created as shards. A tensor axis raises: the train step's
-    gradient rules for a tensor-parallel leaf are not ported yet."""
-    tp = mesh_lib.axis_size(mesh, mesh_lib.TENSOR_AXIS)
-    if tp > 1:
-        raise NotImplementedError(
-            f"a 'tensor' axis of {tp}: the port's train step shards over "
-            "data, fsdp and context; tensor-parallel training is not "
-            "ported yet (tensor parallelism serves: "
-            "core/tensor_parallel.shard_for_serving)")
+    (core/mesh.default_param_rules when None): ZeRO-3 over fsdp, on a
+    model already cut over the mesh's tensor axis
+    (core/tensor_parallel.shard_for_training). Build the optimizer
+    (make_train_step(sharded=...)) after this call, so that its moments
+    are created as shards."""
     return ShardedState(model, mesh, rules)
 
 
@@ -337,7 +426,8 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
     and `step.sharded` are exposed."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if sharded is not None and optimizer == "adamw8bit" and sharded.fsdp > 1:
+    if (sharded is not None and optimizer == "adamw8bit"
+            and sharded.fsdp * sharded.tp > 1):
         raise NotImplementedError(ADAM8BIT_OVER_FSDP)
     params = [p for g in groups.values() for p in g.params]
     frozen = list(frozen)
@@ -370,7 +460,7 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
                 p.grad = torch.zeros_like(p)
         if sharded is not None:
             loss = loss.float().reshape(1)
-            sharded.reduce([p.grad for p in params + frozen], [loss])
+            sharded.reduce(params + frozen, [loss])
             loss = loss[0]
         return loss
 

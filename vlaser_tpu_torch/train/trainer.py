@@ -26,18 +26,23 @@ saves); `metrics_path` logs every `log_every` steps. As in the JAX
 trainer, `train_steps` numbers its steps from 1 in every call: averaging,
 logging and saving see that count, the schedule the optimizer's own.
 
-Meshes. `mesh_fsdp` (both trainers) and `mesh_cp` (SFTTrainer, whose
-model's LLM then needs `context_parallel_axis="context"`) above 1, or a
-DeviceMesh handed in (core/mesh.make_mesh over an initialized process
-group, core/distributed.initialize), train over a (data, fsdp[, context],
-tensor) mesh: the parameters, gradients and AdamW moments are held as
-ZeRO-3 shards, the forward and backward gathering one layer's weights at
-a time (train/train_step.shard_train_state), each rank feeds its local
-block of the global batch (its rows at core/mesh.batch_shard; context
-ranks feed the same rows and each keeps its slice of the sequence), and
-the step equals the one-device step of the global batch. The metrics log
-is written by rank 0. Still to port, and raising NotImplementedError:
-`mesh_tp` above 1, and 8-bit AdamW over fsdp above 1.
+Meshes. `mesh_fsdp` and `mesh_tp` (both trainers) and `mesh_cp`
+(SFTTrainer, whose model's LLM then needs
+`context_parallel_axis="context"`) above 1, or a DeviceMesh handed in
+(core/mesh.make_mesh over an initialized process group,
+core/distributed.initialize), train over a (data, fsdp[, context],
+tensor) mesh: the model is cut over tensor first
+(core/tensor_parallel.shard_for_training: head-granular attention,
+column / row-parallel MLPs, the vocab table in blocks, experts over
+tensor), then the parameters, gradients and AdamW moments are held as
+ZeRO-3 shards over fsdp, the forward and backward gathering one layer's
+weights at a time (train/train_step.shard_train_state); each rank feeds
+its local block of the global batch (its rows at core/mesh.batch_shard:
+the ranks of a tensor group feed the same rows and draw the same flow
+times and noise; context ranks feed the same rows and each keeps its
+slice of the sequence), and the step equals the one-device step of the
+global batch. The metrics log is written by rank 0. 8-bit AdamW over
+fsdp or tensor above 1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 
 from ..core import mesh as mesh_lib
 from ..core.distributed import process_index
+from ..core.tensor_parallel import shard_for_training
 from ..policy.flow import make_flow_loss
 from ..utils.convert import is_patch_conv
 from ..utils.monitoring import MetricsWriter, Timer
@@ -100,18 +106,13 @@ def _to_device(batch: Dict, device) -> Dict:
 
 
 def build_mesh(mesh, fsdp: int = 1, tp: int = 1, cp: int = 1):
-    """The trainers' mesh: the one handed in, else make_mesh(fsdp, cp) when
-    either is above 1, else None (one device, no process group needed).
-    Tensor parallelism raises."""
-    if tp > 1 or (mesh is not None
-                  and mesh_lib.axis_size(mesh, mesh_lib.TENSOR_AXIS) > 1):
-        raise NotImplementedError(
-            f"mesh_tp {max(tp, mesh_lib.axis_size(mesh, 'tensor'))}: tensor-"
-            "parallel training is not ported yet; the port's "
-            "trainers shard over data, fsdp and context")
-    if mesh is None and (fsdp > 1 or cp > 1):
-        mesh = mesh_lib.make_mesh(fsdp=fsdp, cp=cp)
+    """The trainers' mesh: the one handed in, else make_mesh(fsdp, tp, cp)
+    when any is above 1 (as the JAX trainers build it), else None (one
+    device, no process group needed)."""
+    if mesh is None and (fsdp > 1 or tp > 1 or cp > 1):
+        mesh = mesh_lib.make_mesh(fsdp=fsdp, tp=tp, cp=cp)
     return mesh
+
 
 
 def _metrics_writer(path):
@@ -120,16 +121,16 @@ def _metrics_writer(path):
 
 class SFTTrainer:
     def __init__(self, model, cfg: TrainConfig, mesh=None):
-        """model: a port InternVLChatModel on its device; mesh: a DeviceMesh
-        (built from cfg.mesh_fsdp / mesh_cp when None and either is above
-        1)."""
+        """model: a port InternVLChatModel on its device (cut in place over
+        the mesh's tensor axis); mesh: a DeviceMesh (built from
+        cfg.mesh_fsdp / mesh_tp / mesh_cp when None and any is above 1)."""
         self.mesh = mesh = build_mesh(mesh, cfg.mesh_fsdp, cfg.mesh_tp,
                                       cfg.mesh_cp)
         if (mesh_lib.axis_size(mesh, mesh_lib.CONTEXT_AXIS) > 1
                 and model.cfg.llm.context_parallel_axis is None):
             raise ValueError("a context axis needs a model whose LLM config "
                              "sets context_parallel_axis='context'")
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg = shard_for_training(model, mesh), cfg
         frozen = []
         if cfg.freeze_vision:
             frozen.append(r"vision_model/")
@@ -283,13 +284,15 @@ class VLATrainer:
         """model: a port PiZeroVLA on its device; generator: the source of
         flow times and noise (a fresh one seeded 0 on the model's device
         when None; every rank of a mesh draws the global batch's from
-        it); mesh: a DeviceMesh (built from cfg.mesh_fsdp when None and it
-        is above 1)."""
+        it); mesh: a DeviceMesh (built from cfg.mesh_fsdp / mesh_tp when
+        None and either is above 1; the model is cut in place over its
+        tensor axis)."""
         self.mesh = mesh = build_mesh(mesh, cfg.mesh_fsdp, cfg.mesh_tp)
-        if (cfg.optimizer_8bit
-                and mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS) > 1):
+        if cfg.optimizer_8bit and (
+                mesh_lib.axis_size(mesh, mesh_lib.FSDP_AXIS) > 1
+                or mesh_lib.axis_size(mesh, mesh_lib.TENSOR_AXIS) > 1):
             raise NotImplementedError(ADAM8BIT_OVER_FSDP)
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg = shard_for_training(model, mesh), cfg
         if generator is None:
             generator = torch.Generator(device=model.device)
             generator.manual_seed(0)

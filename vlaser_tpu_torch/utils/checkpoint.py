@@ -14,12 +14,16 @@ so a reader never finds half a step; the `max_to_keep` newest steps stay.
 The files are safetensors (utils/hf_convert.save_safetensors /
 load_safetensors), so restoring unpickles nothing.
 
-A train step over a mesh (`train_step.sharded`, ZeRO-3 shards) saves the
-same files as the one-device state, leaf by leaf: every rank joins the
-gather of a leaf to rank 0, which writes it and drops it before the next
+A train step over a mesh (`train_step.sharded`, ZeRO-3 shards over fsdp
+of a model cut over tensor) saves the same files as the one-device
+state, leaf by leaf: every rank joins the gathers of a leaf to rank 0
+(its fsdp shards, then its tensor shards, put back at their columns:
+the strided ViT qkv un-strided, a KV copy written once;
+ShardedState.whole), which writes it and drops it before the next
 (hf_convert.write_safetensors), so no rank ever holds more than one whole
-leaf. Restoring maps the files and keeps each rank's shards of the
-trainer's own mesh, reading only those, so a checkpoint moves between
+leaf. The AdamW moments go the same way. Restoring maps the files and
+keeps each rank's shards of the trainer's own mesh (the tensor cut, then
+the fsdp shard), reading only those, so a checkpoint moves between
 meshes (and to and from one device) unchanged.
 """
 
@@ -54,7 +58,7 @@ def _rank() -> int:
 
 
 def _barrier(sharded) -> None:
-    if sharded is not None and sharded.ranks > 1:
+    if sharded is not None and sharded.world > 1:
         import torch.distributed as dist
 
         dist.barrier()
@@ -68,19 +72,20 @@ def _entries(model, train_step):
     sharded = getattr(train_step, "sharded", None)
     named = dict(model.named_parameters())
 
-    def entry(key, p, t):
-        if sharded is None or p is None or sharded.dims[id(p)] is None \
-                or t.shape != p.shape:
+    def entry(key, name, p, t):
+        if p is not None and t.shape != p.shape:  # an optimizer's count
+            p = None
+        if sharded is None or (name not in sharded.layout and (
+                p is None or sharded.dims[id(p)] is None)):
             return key, tuple(t.shape), t.dtype, lambda: t.detach()
-        shape = list(t.shape)
-        shape[sharded.dims[id(p)]] *= sharded.fsdp
-        return key, tuple(shape), t.dtype, lambda: sharded.full(p, t, dst=0)
+        return (key, sharded.whole_shape(name, p, t.shape), t.dtype,
+                lambda: sharded.whole(name, p, t))
 
-    params = [entry(k, named.get(k), t)
+    params = [entry(k, k, named.get(k), t)
               for k, t in model.state_dict(keep_vars=True).items()]
     opt, state = [], train_step.optimizer.state
     for name, p in named.items():
-        opt.extend(entry(f"{name}/{key}", p, v)
+        opt.extend(entry(f"{name}/{key}", name, p, v)
                    for key, v in state.get(p, {}).items())
     return params, opt
 
@@ -153,7 +158,9 @@ def restore_checkpoint(directory: str, model, train_step,
     if mapped:  # read this rank's shards (and copy the whole leaves)
         named = dict(model.named_parameters())
         for k, t in list(sd.items()) + list(saved.items()):
-            p = named.get(k.split("/")[0])
+            name = k.split("/")[0]
+            p = named.get(name)
+            t = sharded.cut(name, t)  # its tensor shard, then fsdp's
             split = (p is not None and sharded.dims[id(p)] is not None
                      and t.dim() == p.dim())
             (saved if "/" in k else sd)[k] = (sharded.local(p, t) if split
