@@ -40,6 +40,8 @@ right after 56: two processes share the card over a gloo group on CUDA
 tensors, PolicyServer(mesh=) and ContinuousBatchingEngine(mesh=) at
 tensor 2 against one process), of the tensor axis for training (phase
 58, right after 57: SFTTrainer(TrainConfig(mesh_tp=2)) in two such
+processes against one), of the stage axis for training (phase 59, right
+after 58: the GPipe pipeline of Vlaser-2B's LLM at stage 2 in two such
 processes against one) and of the memory budget (phase 53, last)
 with random weights from seeded generators; each group's wall seconds are printed on a line of
 its own ("phase wall: ..."). The native image libraries
@@ -518,8 +520,7 @@ Parallel layouts (run after 46-49; NCCL refuses two ranks on one card):
       norm within SHARD_REL), launches derived, ms a step, peaks;
   56. a CPU check: graft_entry.dryrun_multichip(8) on 8 gloo ranks of the
       host (the gate's VLA and SFT lines on (data 2, fsdp 2, tensor 2),
-      TP-serve, TP-engine, CP, CPxFSDP-train and EP; PP and PPxFSDP-train
-      not ported yet).
+      TP-serve, TP-engine, CP, PP, PPxFSDP-train, CPxFSDP-train and EP).
 The tensor axis (run after 56; two processes share the card over a gloo
 group on CUDA tensors; --tp-serve / --tp-train run one phase alone):
   57. serving: PolicyServer(mesh=) and ContinuousBatchingEngine(mesh=) at
@@ -535,6 +536,20 @@ group on CUDA tensors; --tp-serve / --tp-train run one phase alone):
       launches of its 2 steps held to phase 26's counts; ms a step (a
       gloo wall, not a speed figure) and each rank's peak beside
       utils/memory_budget.vlm_sft_budget(1, 1, 2).
+The stage axis (run after 58; two processes share the card over a gloo
+group on CUDA tensors, transfers staged through host memory; --pp-train
+runs it alone at full depth):
+  59. Vlaser-2B's LLM (Qwen2.5-1.5B, untied 151,674-word head; fp32
+      parameters, bf16 compute, remat, AdamW) on 4 packed rows of
+      SFT_TOKENS: the plain stack in this process, 2 steps, then
+      train/pipeline.make_pipeline_lm_loss at stage 2 and 4 microbatches
+      over a stageify_rules state in two processes: each step's loss and
+      grad norm within MULTI_REL of one process's on both ranks, two
+      controls that must break it (the backward's transfers zeroed;
+      every microbatch given microbatch 0's segment ids); each rank's
+      launches held to the derivation (_pp_want); ms a step (a gloo wall),
+      time blocked in receives beside GPipe's bubble, peaks. The whole
+      script runs it at PP_LAYERS of the 28 layers.
 Every other profiler session records device activity only (host ops made
 the trace's post-processing the bulk of the engine's profiled run).
 Any failed phase raises (non-zero exit, no result line). The line before
@@ -10391,28 +10406,26 @@ def sharded_trainer_phase(torch, np, dev, tag):
 def dryrun_phase(tag):
     """Phase 56, a CPU check: graft_entry.dryrun_multichip(8), the
     repository's multi-device gate mirrored on 8 gloo ranks of the host's
-    CPU (spawned processes, the card untouched): the VLA, SFT, TP-serve,
-    TP-engine, CP, CPxFSDP-train and EP lines, finite (VLA and SFT on
-    the JAX gate's mesh, data 2 x fsdp 2 x tensor 2), and the two
-    pipeline sections named as not ported yet. Its failure fails the
-    run."""
-    from vlaser_tpu_torch.graft_entry import NOT_PORTED, dryrun_multichip
+    CPU (spawned processes, the card untouched): all nine lines (VLA, SFT,
+    TP-serve, TP-engine, CP, PP, PPxFSDP-train, CPxFSDP-train, EP), finite
+    (VLA and SFT on the JAX gate's mesh, data 2 x fsdp 2 x tensor 2; PP at
+    stage 2). Its failure fails the run."""
+    from vlaser_tpu_torch.graft_entry import ORDER, dryrun_multichip
 
     print("phase 56 (a CPU check on the host: 8 gloo ranks)", flush=True)
     lines = dryrun_multichip(8)
-    done = [ln for ln in lines if "not ported yet" not in ln]
-    for key in ("VLA:", "SFT:", "TP-serve:", "TP-engine:", "CP:",
-                "CPxFSDP-train:", "EP:"):
-        if not any(f"dryrun_multichip(8) {key}" in ln for ln in done):
+    for key in ORDER:
+        if not any(f"dryrun_multichip(8) {key}:" in ln for ln in lines):
             raise RuntimeError(f"dryrun_multichip(8): no {key} line")
     gate = "mesh={'data': 2, 'fsdp': 2, 'tensor': 2}"
-    if (len(lines) != 9 or len(lines) - len(done) != len(NOT_PORTED)
-            or any("nan" in ln or "inf" in ln for ln in done)
-            or not all(gate in ln for ln in done
-                       if ln.split()[1] in ("VLA:", "SFT:"))):
+    if (len(lines) != len(ORDER)
+            or any("nan" in ln or "inf" in ln for ln in lines)
+            or not all(gate in ln for ln in lines
+                       if ln.split()[1] in ("VLA:", "SFT:"))
+            or not any("PP: 2-stage pipeline" in ln for ln in lines)):
         raise RuntimeError(f"dryrun_multichip(8) printed {lines}")
-    print(f"dryrun_multichip(8): {len(done)} sections ran, "
-          f"{len(lines) - len(done)} not ported yet (CPU) {tag}", flush=True)
+    print(f"dryrun_multichip(8): all {len(lines)} sections ran (CPU) {tag}",
+          flush=True)
 
 
 # -- phase 57: the tensor axis on one card (two processes over gloo) -----------
@@ -11104,6 +11117,334 @@ def tp_train_phase(torch, np, dev, tag, extra, rehearse=None, layers=None):
     return dict(counts)
 
 
+# -- phase 59: the stage axis for training ------------------------------------
+PP_STEPS = 2
+PP_ROWS = 4  # packed rows of SFT_TOKENS a step (every stage feeds all four)
+PP_MICRO = 4  # microbatches: one row each
+PP_STAGES = 2
+# phase 59 in the whole script: the LLM layers (of 28; full width), for its
+# time limit, as TP_LAYERS; --pp-train runs all 28
+PP_LAYERS = 8
+PP_LR = 1e-5
+
+
+@contextmanager
+def pp_backward_dropped(pipeline):
+    """A control: inside the block every cotangent the pipeline's backward
+    sends to the stage before is zeros (the transfers still run), so every
+    stage but the last gets zero layer gradients."""
+    sched, link = pipeline._Schedule, pipeline._Link
+    backward, send = sched.backward, link.send
+    inside = []
+
+    def zero_backward(ctx, g):
+        inside.append(True)
+        try:
+            return backward(ctx, g)
+        finally:
+            inside.pop()
+
+    def zero_send(self, t, dst):
+        return send(self, t * 0 if inside else t, dst)
+
+    sched.backward, link.send = staticmethod(zero_backward), zero_send
+    try:
+        yield
+    finally:
+        sched.backward, link.send = staticmethod(backward), send
+
+
+@contextmanager
+def pp_consts_misrouted(pipeline):
+    """A control: inside the block pipeline_llm_forward gives every
+    microbatch microbatch 0's segment ids (the constants misrouted)."""
+    forward = pipeline.pipeline_llm_forward
+
+    def misrouted(cfg, layers, x, cos, sin, seg_ids, **kw):
+        m = kw["n_microbatches"]
+        seg_ids = seg_ids[:seg_ids.shape[0] // m].repeat(
+            m, *([1] * (seg_ids.dim() - 1)))
+        return forward(cfg, layers, x, cos, sin, seg_ids, **kw)
+
+    pipeline.pipeline_llm_forward = misrouted
+    try:
+        yield
+    finally:
+        pipeline.pipeline_llm_forward = forward
+
+
+def _pp_batch(np, cfg, tokens, rows=PP_ROWS):
+    """`rows` packed rows of `tokens` (_tp_train_batch at Vlaser-2B): the
+    LM's ids, labels (-100 on the prompts and the pad tail) and segment
+    ids, the ids folded into the LLM config `cfg`'s vocabulary (a
+    rehearsal's is smaller)."""
+    from vlaser_tpu_torch.core.config import vlaser_2b
+
+    b = _tp_train_batch(np, vlaser_2b(), tokens, rows)
+    ids, labels = b["input_ids"], b["labels"]
+    return {"input_ids": ids % cfg.vocab_size,
+            "labels": np.where(labels >= 0, labels % cfg.vocab_size, labels),
+            "seg_ids": b["seg_ids"]}
+
+
+def _pp_model(torch, dev, cfg):
+    """Qwen2ForCausalLM at `cfg` (fp32 parameters, bf16 compute), drawn
+    from seed 59 as scripts/train_sft.random_init_ draws the LLM:
+    N(0, 0.02^2), norm weights 1 + N(0, 0.1^2)."""
+    from vlaser_tpu_torch.models.layers import RMSNorm, init_normal_
+    from vlaser_tpu_torch.models.qwen2 import Qwen2ForCausalLM
+
+    model = Qwen2ForCausalLM(cfg, param_dtype=torch.float32,
+                             compute_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(dev).manual_seed(59)
+    init_normal_(model, gen, std=0.02)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, RMSNorm):
+                m.weight.copy_(1 + 0.1 * torch.randn(
+                    m.weight.shape, generator=gen, device=dev))
+    return model
+
+
+def _pp_step(torch, model, mesh, m, rules=True):
+    """make_train_step over the pipeline loss (remat, flash and RMSNorm on
+    their auto routes): AdamW at PP_LR, decay 0.01, clip 1.0; the state
+    sharded by stageify_rules over `mesh` (None: one process, one
+    stage). -> (step(a numpy batch), the ShardedState or None, the loss
+    function)."""
+    from vlaser_tpu_torch.core import mesh as mesh_lib
+    from vlaser_tpu_torch.train.pipeline import make_pipeline_lm_loss
+    from vlaser_tpu_torch.train.train_step import (ParamGroup,
+                                                   make_train_step,
+                                                   shard_train_state)
+
+    sharded = None
+    if mesh is not None:
+        r = mesh_lib.default_param_rules()
+        sharded = shard_train_state(model, mesh, mesh_lib.stageify_rules(r)
+                                    if rules else r)
+    loss_fn = make_pipeline_lm_loss(model, n_microbatches=m, mesh=mesh)
+    groups = {"all": ParamGroup(list(model.parameters()),
+                                lambda i: PP_LR, 0.01, 1.0)}
+    step = make_train_step(loss_fn, groups, sharded=sharded)
+    dev = next(model.parameters()).device
+    return (lambda b: step({k: torch.as_tensor(v).to(dev)
+                            for k, v in b.items()}), sharded, loss_fn)
+
+
+def _pp_grad(torch, model, sharded, loss_fn, batch):
+    """One step's loss and grad norm on `batch` (the step's sums and
+    norms) and layer 0's q_proj gradient (None on a stage without layer
+    0), with no update: at random weights the loss and its norm barely see
+    where a token attends, layer 0's attention gradient does. -> (loss,
+    grad norm, the gradient on the host)."""
+    from vlaser_tpu_torch.train.train_step import grad_norm
+
+    params = list(model.parameters())
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn({k: torch.as_tensor(v).to(params[0].device)
+                    for k, v in batch.items()})
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    loss = loss.detach().float().reshape(1)
+    if sharded is not None:
+        sharded.reduce(params, [loss])
+        norm = sharded.grad_norms([params])[0]
+    else:
+        norm = grad_norm(params)
+    q = model.model.layers.self_attn.q_proj
+    first = q._staged is None or q._staged["kernel"] == 0
+    g0 = q.kernel.grad[0].float().cpu() if first else None
+    model.zero_grad(set_to_none=True)
+    return float(loss[0]), float(norm), g0
+
+
+def _pp_apart(got, want):
+    """The largest relative gap of (loss, grad norm, layer 0's gradient:
+    its L2 distance over want's L2 norm; skipped where got has none)."""
+    d = max(abs(a - b) / abs(b) for a, b in zip(got[:2], want[:2]))
+    if got[2] is not None:
+        d = max(d, float((got[2] - want[2]).norm() / want[2].norm()))
+    return d
+
+
+def _pp_want(L, stages, rank, m, steps):
+    """Launches of `steps` pipeline steps on stage `rank`: each of its
+    L / stages layers runs every microbatch once forward and once again
+    in its remat recompute (flash fwd 2, RMSNorm fwd 4: two norms a layer)
+    and once backward (flash bwd 1, RMSNorm bwd 2); the last stage adds
+    the final norm's forward and backward over the whole batch."""
+    lm = L // stages * m
+    last = int(rank == stages - 1)
+    return {"flash_attention_fwd": steps * 2 * lm,
+            "flash_attention_bwd": steps * lm,
+            "_rms_fwd": steps * (4 * lm + last),
+            "_rms_bwd": steps * (2 * lm + last)}
+
+
+def _pp_train_rank(rank, n, work, rehearse=None, layers=None):
+    """One of the n processes of phase 59 (stage n over a gloo group on
+    CUDA tensors, both on card 0): phase 59's LLM at stage n, its state
+    sharded by stageify_rules; two controls (no update): the backward's
+    transfers zeroed, every microbatch given microbatch 0's segment ids;
+    then PP_STEPS steps with the launch counters zeroed just before and
+    read just after, the time blocked in receives beside them. Writes its
+    results to work/pp_train.<rank>. `rehearse`: (LLM config, tokens) to
+    run the same code on CPU processes at a small size."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vlaser_tpu_torch.core import mesh as mesh_lib
+    from vlaser_tpu_torch.core.config import vlaser_2b
+    from vlaser_tpu_torch.train import pipeline
+
+    cfg, tokens = rehearse or (_cut_depth(vlaser_2b(), layers).llm,
+                               SFT_TOKENS)
+    if rehearse is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        torch.set_num_threads(2)
+        dev = torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"file://{work}/pp_pg",
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=600))
+    res, tag = {}, f"(rank {rank})"
+    try:
+        batch = _pp_batch(np, cfg, tokens)
+        t0 = time.perf_counter()
+        model = _pp_model(torch, dev, cfg)
+        mesh = mesh_lib.make_mesh(dp=1, pp=n)
+        step, sharded, loss_fn = _pp_step(torch, model, mesh, PP_MICRO)
+        _tp_sync(torch, dev)
+        res["build_s"] = time.perf_counter() - t0
+        res["host"] = pipeline.stage_link(mesh).host
+        res["grad"] = _pp_grad(torch, model, sharded, loss_fn, batch)
+        with pp_backward_dropped(pipeline):
+            res["drop_backward"] = _pp_grad(torch, model, sharded, loss_fn,
+                                            batch)
+        with pp_consts_misrouted(pipeline):
+            res["misrouted"] = _pp_grad(torch, model, sharded, loss_fn,
+                                        batch)
+        pipeline.reset_waits()
+        res["run"] = _shard_run(torch, step, batch,
+                                f"LM stage {n} {tag}", PP_STEPS)
+        res["recv_s"] = pipeline.WAITS["recv_s"]
+        res["recvs"] = pipeline.WAITS["recvs"]
+        res["held_gib"] = sharded.bytes_per_rank() / 2**30
+        res["layers"] = cfg.num_layers
+        res["held_layers"] = (
+            model.model.layers.self_attn.q_proj.kernel.shape[0])
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(work, f"pp_train.{rank}"))
+
+
+def pp_train_phase(torch, np, dev, tag, extra, rehearse=None, layers=None):
+    """Phase 59: the stage axis for training on the one card. Vlaser-2B's
+    LLM (Qwen2.5-1.5B at full width: hidden 1,536, 12 / 2 heads x 128, I
+    8,960, an untied 151,674-word head; fp32 parameters, bf16 compute,
+    remat, AdamW) on PP_ROWS packed rows of SFT_TOKENS: the plain stack in
+    this process (the pipeline loss at one stage and one microbatch: the
+    same CE), PP_STEPS steps, freed; then the same weights and batch at
+    stage PP_STAGES, PP_MICRO microbatches, in two processes that share
+    the card over a gloo group on CUDA tensors (NCCL refuses two ranks on
+    one card; _pp_train_rank). Gate: each step's loss and grad norm within
+    MULTI_REL of the one-process step's, on both ranks, and so is a first
+    step with no update read with layer 0's q_proj gradient (_pp_grad);
+    each control (the backward's transfers zeroed; every microbatch given
+    microbatch 0's segment ids) must break that step's gate. Launches of
+    each rank (the steps only) held to _pp_want. Ms a step (a gloo wall:
+    not a speed figure), each rank's time blocked in receives beside
+    GPipe's bubble, and each rank's peak memory beside one process's. `layers`: the LLM
+    layers of both runs (full width; None: all 28). -> rank 0's
+    launches."""
+    import torch.multiprocessing as mp
+
+    from vlaser_tpu_torch.core.config import vlaser_2b
+
+    cfg, tokens = rehearse or (_cut_depth(vlaser_2b(), layers).llm,
+                               SFT_TOKENS)
+    t0 = time.perf_counter()
+    batch = _pp_batch(np, cfg, tokens)
+    model = _pp_model(torch, dev, cfg)
+    step, _, loss_fn = _pp_step(torch, model, None, 1)
+    grad = _pp_grad(torch, model, None, loss_fn, batch)
+    plain = _shard_run(torch, step, batch, "LM one process", PP_STEPS)
+    del model, step, loss_fn
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ppt_")
+    try:
+        t1 = time.perf_counter()
+        mp.spawn(_pp_train_rank, args=(PP_STAGES, work, rehearse, layers),
+                 nprocs=PP_STAGES)
+        spawn_s = time.perf_counter() - t1
+        res = [torch.load(os.path.join(work, f"pp_train.{r}"),
+                          weights_only=False) for r in range(PP_STAGES)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rel = lambda got, want: max(abs(a - b) / abs(b)
+                                for a, b in zip(got, want))
+    want = plain[1] + plain[2]
+    d_run = max(rel(r["run"][1] + r["run"][2], want) for r in res)
+    d_grad = max(_pp_apart(r["grad"], grad) for r in res)
+    d_drop = max(_pp_apart(r["drop_backward"], grad) for r in res)
+    d_mis = max(_pp_apart(r["misrouted"], grad) for r in res)
+    run = res[0]["run"]
+    L = res[0]["layers"]
+    n, m = PP_STAGES, PP_MICRO
+    bubble = (n - 1) / (m + n - 1)
+    depth = ("the full depth" if layers is None else
+             f"PP_LAYERS of 28: the script's time limit; --pp-train runs "
+             f"all 28")
+    print(f"phase 59 Vlaser-2B's LLM over stage {n} ({L} layers, {depth}; "
+          f"{res[0]['held_layers']} a stage; {PP_ROWS} x {tokens} packed "
+          f"tokens, {m} microbatches): losses {run[1]}, grad norms {run[2]} "
+          f"vs one process {plain[1]}, {plain[2]}: max rel diff "
+          f"{d_run:.3e} over both ranks; step 1 with no update (loss, "
+          f"grad norm and layer 0's q_proj gradient, its relative L2 "
+          f"distance) {d_grad:.3e} (bound {MULTI_REL} for both); controls "
+          f"on that step: the backward's transfers zeroed {d_drop:.3e}, "
+          f"every microbatch given microbatch 0's segment ids {d_mis:.3e} "
+          f"(each must be > bound) {tag}", flush=True)
+    staged = ("gloo: CUDA tensors staged through host memory"
+              if res[0]["host"] else "device transfers")
+    ms = [[round(t, 1) for t in r["run"][0]] for r in res]
+    print(f"phase 59 step ms {ms} over stage {n} vs "
+          f"{[round(t, 1) for t in plain[0]]} one process ({TP_NOTE}; "
+          f"{staged}); time blocked in receives a rank "
+          f"{[round(r['recv_s'] * 1e3, 1) for r in res]} ms over "
+          f"{PP_STEPS} steps ({res[0]['recvs']} receives a rank), "
+          f"{[round(r['recv_s'] * 1e3 / sum(r['run'][0]), 3) for r in res]}"
+          f" of the steps' wall vs GPipe's bubble (n-1)/(M+n-1) = "
+          f"{bubble:.3f}; peak GiB a rank "
+          f"{[round(r['run'][4], 2) for r in res]} vs {plain[4]:.2f} one "
+          f"process; parameters a rank "
+          f"{[round(r['held_gib'], 2) for r in res]} GiB; model built in "
+          f"{res[0]['build_s']:.1f} s a rank; processes {spawn_s:.1f} s, "
+          f"phase {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if not (max(d_run, d_grad) <= MULTI_REL < min(d_drop, d_mis)):
+        raise RuntimeError("phase 59: the pipelined LM step fails its gate "
+                           "or a control")
+    if not all(math.isfinite(v) for r in res for v in r["run"][1]
+               + r["run"][2]):
+        raise RuntimeError("phase 59: a non-finite loss or grad norm")
+    if rehearse is None:
+        for r, out in enumerate(res):
+            _held(out["run"][3], _pp_want(L, n, r, m, PP_STEPS),
+                  f"phase 59 LM over stage {n} (rank {r})")
+    return dict(res[0]["run"][3])
+
+
 # -- the layouts across cards (--multichip N) ----------------------------------
 MULTI_STEPS = 2
 MULTI_REL = 1e-2  # loss / grad norm: fsdp 2 x cp 2 over NCCL vs one card
@@ -11214,6 +11555,9 @@ def _multichip_rank(rank, n, work, rehearse=None):
         dist.barrier()
         _multichip_tp(torch, np, dev, rank, n, res,
                       rehearse[3] if rehearse else None)
+        dist.barrier()
+        _multichip_pp(torch, np, dev, rank, n, res,
+                      rehearse[4] if rehearse else None)
     finally:
         dist.destroy_process_group()
     import torch as _t
@@ -11393,14 +11737,187 @@ def _multichip_tp(torch, np, dev, rank, n, res, rehearse=None):
     res["chat_78b"] = _chat_78b(torch, np, dev, rank, mesh, tiles, new, big)
 
 
-def multichip(n, tag):
+PP_BIG_LAYERS = 8  # (h): of InternVL3-38B's 64 LLM layers, 2 a stage
+PP_BIG_STAGES = 4
+
+
+def _multichip_pp(torch, np, dev, rank, n, res, rehearse=None):
+    """The stage axis over n cards: (g) phase 59's step (Vlaser-2B's LLM
+    at full depth, PP_ROWS packed rows of SFT_TOKENS) over (data n / 4,
+    fsdp 2, stage 2), one row a microbatch, against the plain stack on
+    one card (rank 0 alone first); (h) InternVL3-38B's LLM (Qwen2.5-32B at
+    full width) at PP_BIG_LAYERS layers over (data n / 4, stage 4),
+    PP_ROWS rows a data rank, at 2 microbatches against 4 (no one card
+    holds the step's fp32 state). Receives drain the stream before and
+    after each wait (pipeline.SYNC_WAITS), so their time is the device's
+    wait. `rehearse`: (the LLM config of (g), that of (h), tokens)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from vlaser_tpu_torch.core import mesh as mesh_lib
+    from vlaser_tpu_torch.core.config import internvl3_38b, vlaser_2b
+    from vlaser_tpu_torch.train import pipeline
+
+    gcfg, hcfg, tokens = rehearse or (
+        vlaser_2b().llm, dataclasses.replace(internvl3_38b().llm,
+                                             num_layers=PP_BIG_LAYERS),
+        SFT_TOKENS)
+    pipeline.SYNC_WAITS = dev.type == "cuda"
+    tag = f"(rank {rank})"
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+    def run(cfg, mesh, batch, m, key, what):
+        index, count = mesh_lib.batch_shard(mesh)
+        b = batch["input_ids"].shape[0] // count
+        local = {k: v[index * b:(index + 1) * b] for k, v in batch.items()}
+        model = _pp_model(torch, dev, cfg)
+        step, sharded, _ = _pp_step(torch, model, mesh, m)
+        waits = []
+
+        def waited(b_):  # each step's time blocked in receives
+            pipeline.reset_waits()
+            out = step(b_)
+            waits.append(pipeline.WAITS["recv_s"])
+            return out
+
+        res[key] = _shard_run(torch, waited, local, f"{what} mesh "
+                              f"{mesh_lib.mesh_shape(mesh)} M {m} {tag}",
+                              MULTI_STEPS)
+        res[f"{key}_recv_s"] = waits
+        res[f"{key}_held"] = sharded.bytes_per_rank()
+
+    batch = _pp_batch(np, gcfg, tokens)
+    if rank == 0:
+        step = _pp_step(torch, _pp_model(torch, dev, gcfg), None, 1)[0]
+        res["pp_plain"] = _shard_run(torch, step, batch, "(g) LM one card",
+                                     MULTI_STEPS)
+        del step
+    free()
+    mesh = mesh_lib.make_mesh(dp=-1, fsdp=2, pp=2)
+    run(gcfg, mesh, batch, PP_ROWS // mesh_lib.batch_shard(mesh)[1],
+        "pp_g", "(g) LM")
+    free()
+    mesh = mesh_lib.make_mesh(dp=-1, pp=PP_BIG_STAGES)
+    batch = _pp_batch(np, hcfg, tokens,
+                      PP_ROWS * mesh_lib.batch_shard(mesh)[1])
+    for m in (2, 4):
+        run(hcfg, mesh, batch, m, f"pp_h{m}", "(h) 38B LM")
+        free()
+    pipeline.SYNC_WAITS = False
+
+
+def _multichip_pp_rank(rank, n, work, rehearse=None):
+    """One rank of `--multichip n --stage-only`: _multichip_pp alone,
+    results to work/res.<rank>."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if rehearse is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+        dist.init_process_group("nccl", init_method=f"file://{work}/pg",
+                                rank=rank, world_size=n, device_id=dev,
+                                timeout=datetime.timedelta(seconds=240))
+    else:
+        dev = torch.device("cpu")
+        dist.init_process_group("gloo", init_method=f"file://{work}/pg",
+                                rank=rank, world_size=n)
+    res = {}
+    try:
+        _multichip_pp(torch, np, dev, rank, n, res, rehearse)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(work, f"res.{rank}"))
+
+
+def _multichip_pp_report(res, n, tag):
+    """Print (g) and (h) of `--multichip n` (see _multichip_pp), then raise
+    if a gate failed."""
+    import torch
+
+    from vlaser_tpu_torch.core import mesh as mesh_lib
+    from vlaser_tpu_torch.core.config import vlaser_2b
+    from vlaser_tpu_torch.models.qwen2 import Qwen2ForCausalLM
+    from vlaser_tpu_torch.utils import memory_budget as mb
+
+    rel = lambda got, want: max(abs(a - b) / abs(b)
+                                for a, b in zip(got, want))
+    plain, g = res[0]["pp_plain"], res[0]["pp_g"]
+    d_g = max(rel(r["pp_g"][1] + r["pp_g"][2], plain[1] + plain[2])
+              for r in res)
+    dp = max(n // 4, 1)
+    budget = mb.vlm_sft_budget(dp, 2, 1, pp=2, n_microbatches=2,
+                               per_device_batch=PP_ROWS // (2 * dp),
+                               seq_len=SFT_TOKENS, model_size="2b")
+    rules = mesh_lib.stageify_rules(mesh_lib.default_param_rules())
+    llm = mb.param_leaves(Qwen2ForCausalLM(vlaser_2b().llm,
+                                           device=torch.device("meta")))
+    llm_gib = 4 * mb.sharded_bytes_per_device(
+        llm, mb._abstract_mesh(dp, 2, 1, 2), rules) / 2**30
+    # the last step's: the first sets up NCCL's communicators
+    wait = lambda key: [round(r[f"{key}_recv_s"][-1] * 1e3, 1) for r in res]
+    ms = lambda key: [round(r[key][0][-1], 1) for r in res]
+    print(f"multichip (g) Vlaser-2B's LLM (28 layers) over fsdp 2 x stage 2 "
+          f"on {n} NCCL cards, {PP_ROWS} x {SFT_TOKENS} packed tokens, a "
+          f"row a microbatch: losses {g[1]}, grad norms {g[2]} vs one card "
+          f"{plain[1]}, {plain[2]}: max rel diff {d_g:.3e} over the ranks "
+          f"(bound {MULTI_REL}); the last step's ms a rank {ms('pp_g')} "
+          f"vs {plain[0][-1]:.1f} one card, its time blocked in receives "
+          f"a rank {wait('pp_g')} ms (bubble 1/3 at M 2); "
+          f"peak GiB a rank {[round(r['pp_g'][4], 2) for r in res]} vs "
+          f"{plain[4]:.2f} one card; parameters + grads + moments a rank "
+          f"{[round(4 * r['pp_g_held'] / 2**30, 2) for r in res]} GiB vs "
+          f"{llm_gib:.2f} the LLM's under stageify_rules "
+          f"(memory_budget.vlm_sft_budget({dp}, 2, 1, pp=2), the VLM: "
+          f"params {budget['params_gib']:.2f}, grads "
+          f"{budget['grads_gib']:.2f}, moments {budget['moments_gib']:.2f}"
+          f", total {budget['total_gib']:.2f}) {tag}", flush=True)
+    h2, h4 = res[-1]["pp_h2"], res[-1]["pp_h4"]
+    d_h = max(rel(r["pp_h2"][1] + r["pp_h2"][2],
+                  r["pp_h4"][1] + r["pp_h4"][2]) for r in res)
+    print(f"multichip (h) InternVL3-38B's LLM (Qwen2.5-32B, "
+          f"{PP_BIG_LAYERS} of 64 layers) over stage {PP_BIG_STAGES} on {n} "
+          f"NCCL cards, {PP_ROWS} x {SFT_TOKENS} packed tokens a data "
+          f"rank: M 2 losses {h2[1]}, grad norms {h2[2]} vs M 4 {h4[1]}, "
+          f"{h4[2]}: max rel diff {d_h:.3e} (bound {MULTI_REL}); the last "
+          f"step's ms a rank M 2 {ms('pp_h2')}, M 4 {ms('pp_h4')}, its time "
+          f"blocked in receives a rank M 2 {wait('pp_h2')}, M 4 "
+          f"{wait('pp_h4')} ms (bubble 3/5, 3/7); "
+          f"peak GiB a rank M 2 {[round(r['pp_h2'][4], 2) for r in res]}, "
+          f"M 4 {[round(r['pp_h4'][4], 2) for r in res]}; parameters + "
+          f"grads + moments a rank "
+          f"{[round(4 * r['pp_h4_held'] / 2**30, 2) for r in res]} GiB "
+          f"{tag}", flush=True)
+    bad = [k for k, d in (("(g)", d_g), ("(h)", d_h))
+           if not d <= MULTI_REL]
+    if not all(math.isfinite(v) for r in res for key in ("pp_g", "pp_h2",
+                                                           "pp_h4")
+               for v in r[key][1] + r[key][2]):
+        bad.append("a non-finite loss or grad norm")
+    if bad:
+        raise RuntimeError(f"multichip: stage-axis gates failed: {bad}")
+
+
+def multichip(n, tag, stage_only=False):
     """`--multichip n`: the data / fsdp / context layouts over n cards, one
     NCCL rank a card (_multichip_rank), (f) the SFT step over fsdp 2 x
     tensor 2 (the only run of the tensor axis's training collectives over
-    NCCL), then the tensor axis for serving (_multichip_tp). The sharded SFT step's losses and
-    grad norms are held to the one-card step within MULTI_REL; the 8B-VLA
-    step's losses must be finite; each rank's peak memory is printed
-    beside utils/memory_budget's per-device total."""
+    NCCL), then the tensor axis for serving (_multichip_tp), then the
+    stage axis, (g) and (h) (_multichip_pp; alone with stage_only). The
+    sharded SFT step's losses and grad norms are held to the one-card step
+    within MULTI_REL; the 8B-VLA step's losses must be finite; each rank's
+    peak memory is printed beside utils/memory_budget's per-device
+    total."""
     import torch
     import torch.multiprocessing as mp
 
@@ -11410,11 +11927,16 @@ def multichip(n, tag):
     work = tempfile.mkdtemp(prefix="chip_smoke_multi_")
     try:
         t0 = time.perf_counter()
-        mp.spawn(_multichip_rank, args=(n, work), nprocs=n)
+        mp.spawn(_multichip_pp_rank if stage_only else _multichip_rank,
+                 args=(n, work), nprocs=n)
         res = [torch.load(os.path.join(work, f"res.{r}")) for r in range(n)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    _multichip_report(res, n, time.perf_counter() - t0, tag)
+    if not stage_only:
+        _multichip_report(res, n, time.perf_counter() - t0, tag)
+    _multichip_pp_report(res, n, tag)
+    print(f"multichip: {time.perf_counter() - t0:.1f} s in all {tag}",
+          flush=True)
 
 
 def _multichip_tp_report(res, n, tag):
@@ -11626,10 +12148,17 @@ def main() -> int:
                     help="only build the kernels and run phase 58 (the "
                          "tensor axis for training: two processes on the "
                          "card), then exit")
+    ap.add_argument("--pp-train", action="store_true",
+                    help="only build the kernels and run phase 59 (the "
+                         "stage axis for training: two processes on the "
+                         "card, all 28 layers), then exit")
     ap.add_argument("--multichip", type=int, metavar="N",
-                    help="only build the kernels and run the layouts and "
-                         "the tensor axis over N cards (a multiple of 4), "
-                         "one NCCL rank a card, then exit")
+                    help="only build the kernels and run the layouts, the "
+                         "tensor axis and the stage axis over N cards (a "
+                         "multiple of 4), one NCCL rank a card, then exit")
+    ap.add_argument("--stage-only", action="store_true",
+                    help="with --multichip: only the stage axis's "
+                         "sections (g) and (h)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -11665,7 +12194,11 @@ def main() -> int:
         engine_wall(torch, np, dev, vlaser_2b(), args.profile_first, tag)
         return 0
     if args.multichip:
-        multichip(args.multichip, tag)
+        multichip(args.multichip, tag, args.stage_only)
+        return 0
+    if args.pp_train:
+        launches = pp_train_phase(torch, np, dev, tag, {})
+        print(json.dumps({"launches": launches}), flush=True)
         return 0
     if args.tp_serve:
         extra = {"quantize_rows": {}, "quantize_silu_mul": {}}
@@ -11790,6 +12323,9 @@ def main() -> int:
     # the tensor axis for training: two processes share the card again
     _add(launches, phase("58 tensor-parallel training", tp_train_phase,
                          torch, np, dev, tag, extra, None, TP_LAYERS))
+    # the stage axis for training: two processes share the card again
+    _add(launches, phase("59 pipeline training", pp_train_phase, torch, np,
+                         dev, tag, extra, None, PP_LAYERS))
     phase("engine profile", engine_profile_phase, torch, np, dev,
           vlaser_2b(), tag, report)
     # reads the train phases' peaks; its profiler sessions come last

@@ -38,10 +38,10 @@ spawn:
 - the KV pick: the tiny LLM's 4 / 2 heads at (data 2, tensor 4), every
   gradient and the grad norm against one device's (the port's), a
   control that sums the copies over the batch ranks only;
-- the MoE: the tiny Qwen3-MoE with its router loss (lossless capacity:
-  with a factor a rank's capacity follows its own tokens) at (2, 2, 2),
-  the router's gradient against one device's, a control without the
-  stacks' `enter`;
+- the MoE: the tiny Qwen3-MoE with its router loss at capacity factor
+  1.25 at (2, 2, 2), the router's gradient and every leaf against one
+  device's, a control without the stacks' `enter` and one whose capacity
+  counts the rank's own tokens;
 - the vocab-parallel chunked CE and the three collectives' backward
   passes at tensor 4 against their one-device functions;
 - a checkpoint of a VLA whose ViT attention is cut (the strided qkv)
@@ -457,6 +457,16 @@ def _no_enter(tpl, model):
                            t.hi)
 
 
+def _rank_local_capacity(tr):
+    """A control: every MoE stack's capacity and slot positions from the
+    rank's own tokens (no batch ranks)."""
+    from vlaser_tpu_torch.models.moe import MoEMLP
+
+    for m in tr.model.modules():
+        if isinstance(m, MoEMLP):
+            m.batch = None
+
+
 def _ce_case(mesh):
     """chunked_weighted_ce vocab-parallel (the table's block of this
     tensor rank) against the one-device CE on the same inputs: the value,
@@ -737,14 +747,16 @@ def _tp_worker(rank, work, cases, res, solo):
     res["kv_pick_control"] = [_grad_errors(tr.sharded, tr.model, want),
                               float(m["grad_norm"])]
 
-    # the MoE: the tiny Qwen3-MoE with the router loss, experts over
-    # tensor 2 at (2, 2, 2); the control drops the stacks' `enter`
-    mcfg = tiny_qwen3_moe_vlm(capacity=None)  # lossless: C = T a call
+    # the MoE: the tiny Qwen3-MoE with the router loss and a capacity
+    # factor, experts over tensor 2 at (2, 2, 2); the controls drop the
+    # stacks' `enter`, and count the capacity over the rank's own tokens
+    mcfg = tiny_qwen3_moe_vlm(capacity=1.25)
     mb_ = {k: torch.as_tensor(v) for k, v in _sft_batch(mcfg, 4, 31).items()}
     kw = dict(conf=mcfg, moe_aux_coef=0.05)
     want, want_norm = _one_device_grads(lambda m_: sft(m_, **dict(kw)), mb_)
     out = []
-    for control in (False, lambda tr: _no_enter(tpl, tr.model)):
+    for control in (False, lambda tr: _no_enter(tpl, tr.model),
+                    _rank_local_capacity):
         tr = sft(mesh, control=control, **dict(kw))
         m = tr.train(iter([_rows(mb_, index, count)]))
         gate = "language_model.model.layers.mlp.gate"
@@ -1032,14 +1044,26 @@ def test_kv_pick_gradients_match_one_device(runs):
 
 
 def test_moe_router_gradient_matches_one_device(runs):
-    """The tiny Qwen3-MoE (router loss on, experts over tensor 2) at
-    (2, 2, 2): the router's gradient and every leaf's equal one device's
-    (the q / k norms summed over tensor); without the stacks' `enter` the
-    router's gradient parts from it."""
-    (gate, every, norm, want_norm, scale), (c_gate, *_) = runs["res"]["moe"]
+    """The tiny Qwen3-MoE (router loss on, capacity factor 1.25, experts
+    over tensor 2) at (2, 2, 2): the router's gradient and every leaf's
+    equal one device's (the q / k norms summed over tensor): each rank
+    keeps the slots one device keeps (the capacity and positions of the
+    global batch); without the stacks' `enter` the router's gradient
+    parts from it."""
+    (gate, every, norm, want_norm, scale), (c_gate, *_), _ = (
+        runs["res"]["moe"])
     assert gate <= KV_TOL * scale and every <= KV_TOL, (gate, every, scale)
     np.testing.assert_allclose(norm, want_norm, rtol=1e-5)
     assert c_gate > 100 * KV_TOL * scale, (c_gate, scale)
+
+
+def test_moe_rank_local_capacity_parts_from_one_device(runs):
+    """The control of the capacity: counted over each rank's own tokens (C
+    and the slots' positions), the same step drops other slots than one
+    device, and the gradients part from one device's."""
+    *_, (c_gate, c_every, _, _, scale) = runs["res"]["moe"]
+    assert c_gate > 100 * KV_TOL * scale, (c_gate, scale)
+    assert c_every > 100 * KV_TOL, c_every
 
 
 def test_tensor_collectives_backward_passes(runs):

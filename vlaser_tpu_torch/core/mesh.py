@@ -19,9 +19,9 @@ Rules match the JAX parameter path ("params/a/b/kernel"), which
 `make_mesh` builds a DeviceMesh over the process group's ranks with the
 JAX axis order; `rank_group` / `batch_group` give the process groups of
 ranks that share coordinates (the batch ranks: data x fsdp x context, one
-group a tensor index); `tree_shardings` turns the rules into one DTensor
-`Placement` per mesh dimension for each parameter (Shard(d) where the
-rule names that axis for dim d, Replicate elsewhere), and `shard_batch`
+group a (stage, tensor) index); `tree_shardings` turns the rules into one
+DTensor `Placement` per mesh dimension for each parameter (Shard(d) where
+the rule names that axis for dim d, Replicate elsewhere), and `shard_batch`
 does the same for a batch's leaves. `set_mesh` makes a mesh ambient (the
 context-parallel LLM reads its `context` group there), as jax.set_mesh.
 """
@@ -230,13 +230,15 @@ def rank_group(mesh, name: str, key: Callable[[Dict[str, int]], object]):
 
 def batch_group(mesh):
     """-> (process group, size) of the batch ranks: data x fsdp (x
-    context), one group for each tensor index. Every sum over another
-    part of the batch (a gradient, a loss's numerator or denominator)
-    runs over them, never over tensor, whose ranks hold one replica of
-    the batch. (None, 1) without a mesh."""
+    context), one group for each (stage, tensor) index. Every sum over
+    another part of the batch (a gradient, a loss's numerator or
+    denominator) runs over them, never over tensor, whose ranks hold one
+    replica of the batch, nor over stage, whose ranks run other layers of
+    the same rows (train/pipeline.py). (None, 1) without a mesh."""
     if mesh is None:
         return None, 1
-    return rank_group(mesh, "batch", lambda c: c.get(TENSOR_AXIS, 0))
+    return rank_group(mesh, "batch", lambda c: (c.get(STAGE_AXIS, 0),
+                                                c.get(TENSOR_AXIS, 0)))
 
 
 def _placements(spec: Spec, shape, mesh):

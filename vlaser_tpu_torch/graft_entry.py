@@ -25,8 +25,12 @@ tensor-parallel columns, fsdp shards; core/tensor_parallel), TP-engine
 (the continuous-batching engine on that mesh), CP (the tiny LLM stack
 through ring attention over {'context': min(n, 4)}), CPxFSDP-train (the
 SFT step with the LLM ring-sharded over context 2 and the state over fsdp
-2; n divisible by 8) and EP (a tiny MoE stack with its experts split over
-the tensor axis). PP and PPxFSDP-train print "not ported yet".
+2; n divisible by 8), EP (a tiny MoE stack with its experts split over
+the tensor axis), PP (the 2-layer tiny LLM stack through the GPipe
+pipeline of train/pipeline.py at stage 2, 2 microbatches) and
+PPxFSDP-train (one AdamW step of the pipeline loss on (data, fsdp 2,
+stage 2) with the state sharded by stageify_rules; n divisible by 8).
+Every section of the JAX gate is ported.
 
     python -c "from vlaser_tpu_torch.graft_entry import dryrun_multichip
     dryrun_multichip(8)"
@@ -75,10 +79,6 @@ def entry(cfg=None, device=None):
     return model.infer_action, args
 
 
-NOT_PORTED = {
-    "PP": "the GPipe pipeline of train/pipeline.py",
-    "PPxFSDP-train": "the pipeline x fsdp train step",
-}
 ORDER = ("VLA", "SFT", "TP-serve", "TP-engine", "CP", "PP", "PPxFSDP-train",
          "CPxFSDP-train", "EP")
 
@@ -279,6 +279,58 @@ def _tp_sections(n, vcfg, rng):
     return lines
 
 
+def _pp_sections(n, vcfg, rng):
+    """PP (every n) and PPxFSDP-train (n divisible by 8) at the JAX gate's
+    sizes: the tiny LLM at 2 layers."""
+    import dataclasses
+
+    from .core import mesh as mesh_lib
+    from .kernels import ops
+    from .models.qwen2 import Qwen2ForCausalLM
+    from .train.optim import make_optimizer
+    from .train.pipeline import make_pipeline_lm_loss, pipeline_llm_forward
+    from .train.train_step import make_train_step, shard_train_state
+
+    lines = {}
+    pcfg = dataclasses.replace(vcfg.llm, num_layers=2)
+    pp = 2 if n % 2 == 0 else 1
+    mesh = mesh_lib.make_mesh(dp=-1, pp=pp)
+    model = seeded_(Qwen2ForCausalLM(pcfg, compute_dtype=torch.float32,
+                                     device="cpu"), 5)
+    ids = torch.as_tensor(rng.integers(1, 400, (4, 8)))
+    seg = torch.ones((4, 8), dtype=torch.int32)
+    pos = torch.arange(8)[None].expand(4, 8)
+    cos, sin = ops.rope_cos_sin(pos, pcfg.head_dim, pcfg.rope_theta)
+    with torch.no_grad():
+        hidden = pipeline_llm_forward(
+            pcfg, model.model.layers, model.embed(ids), cos, sin, seg,
+            n_microbatches=2, mesh=mesh, compute_dtype=torch.float32,
+            remat=False, attn_impl="reference")
+    assert torch.isfinite(hidden).all()
+    lines["PP"] = (f"PP: {pp}-stage pipeline hidden "
+                   f"{tuple(hidden.shape)}")
+    if n % 8 == 0:
+        mesh = mesh_lib.make_mesh(dp=-1, fsdp=2, pp=2)
+        model = seeded_(Qwen2ForCausalLM(pcfg, compute_dtype=torch.float32,
+                                         device="cpu"), 7)
+        tids = rng.integers(1, 400, (8, 16))
+        batch = {"input_ids": tids, "labels": tids,
+                 "seg_ids": np.ones((8, 16), np.int32)}
+        groups, _ = make_optimizer(model, 1e-4, weight_decay=1e-4,
+                                   grad_clip=None)
+        sharded = shard_train_state(model, mesh, mesh_lib.stageify_rules(
+            mesh_lib.default_param_rules()))
+        step = make_train_step(make_pipeline_lm_loss(
+            model, n_microbatches=2, mesh=mesh, remat=False,
+            attn_impl="reference"), groups, sharded=sharded)
+        loss = float(step(_local(batch, mesh))["loss"])
+        assert np.isfinite(loss), loss
+        lines["PPxFSDP-train"] = (f"PPxFSDP-train: mesh="
+                                  f"{mesh_lib.mesh_shape(mesh)} "
+                                  f"loss={loss:.4f}")
+    return lines
+
+
 def _dryrun_rank(rank, n, init_file, out_file):
     import dataclasses
 
@@ -300,6 +352,7 @@ def _dryrun_rank(rank, n, init_file, out_file):
                         f"loss={_sft_step(vcfg, mesh, vbatch, 2):.4f}")
         lines.update(_tp_sections(n, vcfg, rng))
         lines["CP"] = _cp_section(n, vcfg, rng)
+        lines.update(_pp_sections(n, vcfg, rng))
         if n % 8 == 0:
             cpfm = mesh_lib.make_mesh(dp=-1, fsdp=2, tp=1, cp=2)
             ccfg = dataclasses.replace(vcfg, llm=dataclasses.replace(
@@ -313,9 +366,6 @@ def _dryrun_rank(rank, n, init_file, out_file):
                 for key in ORDER:
                     if key in lines:
                         f.write(f"dryrun_multichip({n}) {lines[key]}\n")
-                    elif key in NOT_PORTED:
-                        f.write(f"dryrun_multichip({n}) {key}: not ported "
-                                f"yet: {NOT_PORTED[key]}\n")
     finally:
         dist.destroy_process_group()
 

@@ -101,10 +101,16 @@ class Block(nn.Module):
     # {leaf: (dim, state)} of the leaves held as ZeRO-3 shards split along
     # dim (train/train_step.ShardedState sets it); None: every leaf whole
     _gathered = None
+    # {leaf: the first layer held} of the stacked leaves held as a pipeline
+    # stage's layers (ShardedState over a stage axis); None: all layers
+    _staged = None
 
     def leaf(self, name: str, layer: Optional[int] = None) -> torch.Tensor:
         """Weight `name`, or its slice for `layer` of a stacked block; a
-        leaf held as a shard comes back whole (the slice's all-gather)."""
+        leaf held as a shard comes back whole (the slice's all-gather), a
+        leaf held as a stage's layers takes the global layer index."""
+        if layer is not None and self._staged and name in self._staged:
+            layer = layer - self._staged[name]
         if layer is None:
             t = getattr(self, name)
         elif self._slices is not None and name in self._slices:

@@ -16,12 +16,26 @@ vlaser_tpu/models/moe.py).
   C - 1 of its expert and combines with weight 0. C depends on T, so with
   a factor the output of a token depends on the other tokens of its call
   (how a prompt is chunked), as in JAX.
+- Over batch ranks (`batch`, a BatchRanks that train/train_step.
+  shard_train_state sets on a stack trained over data x fsdp x context:
+  serving feeds every rank the same rows and sets none) a call
+  is one rank's block of the global batch, which JAX's GSPMD step routes
+  as one call: with a factor, T is the global token count (this rank's T
+  times the batch ranks) and a slot's position within its expert is its
+  global token-major position, this rank's exclusive cumsum plus the
+  slots routed there from the global batch's earlier tokens (one
+  all-gather of each row's [E] counts a layer; batch order is data-major,
+  then fsdp, then context, as core/mesh.batch_shard and context_slice lay
+  the rows and their slices out), so a rank keeps and drops exactly the
+  slots one device does. The buffer keeps this rank's min(C, T) rows.
 - The load-balancing loss (HF `load_balancing_loss_func`): each call of a
   layer yields router_f (the mean over tokens of the top-k one-hot counts,
   summed over the slots) and router_p (the mean softmax probability), both
   [E]. The JAX module sows them into `intermediates`; here a caller that
   wants them opens `collect_router_stats(model)`, and `router_aux_loss`
-  combines a stack's [L, E] vectors.
+  combines a stack's [L, E] vectors. They are this call's means; over
+  batch ranks train/losses.make_sft_loss takes the global batch's
+  (router_f all-reduced, router_p a rank's share of the mean).
 
 Weights keep the JAX names and layout, stacked [L, ...] as the port's
 other layer weights: `gate` [L, H, E], `experts_gate_proj` /
@@ -46,6 +60,7 @@ whole on every rank.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
@@ -73,12 +88,46 @@ def capacity(cfg, tokens: int) -> int:
     return min(max(k, int(cfg.moe_capacity_factor * tokens * k / E)), tokens)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchRanks:
+    """The ranks that hold the other blocks of a MoE stack's global batch:
+    `group` (None: the default group) of `size` ranks in batch order,
+    `context` of them each holding a slice of the same rows."""
+    group: object
+    size: int
+    context: int = 1
+
+
+def prior_slots(oh: torch.Tensor, rows: int, batch: BatchRanks
+                ) -> torch.Tensor:
+    """oh [T k, E]: this rank's slots' one-hot experts in token-major
+    order, `rows` rows of T / rows tokens. -> [rows, E]: the slots routed
+    to each expert from the global batch's tokens ahead of each row's
+    first token here (earlier row blocks; this block's earlier rows on
+    the other context slices; this row on the earlier slices), less
+    this rank's own earlier rows (its cumsum counts those)."""
+    import torch.distributed as dist
+
+    E = oh.shape[-1]
+    counts = oh.reshape(rows, -1, E).sum(1)
+    parts = [torch.empty_like(counts) for _ in range(batch.size)]
+    dist.all_gather(parts, counts.contiguous(), group=batch.group)
+    every = torch.stack(parts).reshape(batch.size // batch.context,
+                                       batch.context, rows, E)
+    block, c = divmod(dist.get_rank(batch.group), batch.context)
+    here = every[block]  # [context, rows, E]
+    before = lambda t: torch.cumsum(t, 0) - t  # over the rows
+    return (every[:block].sum((0, 1, 2)) + before(here.sum(0))
+            - before(here[c]) + here[:c].sum(0))
+
+
 def moe_forward(cfg, x: torch.Tensor, gate, wg, wu, wd,
-                compute_dtype, tp=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                                 torch.Tensor]:
+                compute_dtype, tp=None, batch: Optional[BatchRanks] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One MoE layer on x [B, S, H] with one layer's weights -> (y [B, S, H]
     in x's dtype, router_f [E], router_p [E]). tp: the expert-parallel
-    split (wg / wu / wd then hold experts tp.lo:tp.hi)."""
+    split (wg / wu / wd then hold experts tp.lo:tp.hi). batch: the batch
+    ranks whose global batch the capacity counts (the module docstring)."""
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     b, s, H = x.shape
     T = b * s
@@ -90,12 +139,20 @@ def moe_forward(cfg, x: torch.Tensor, gate, wg, wu, wd,
     router_f = F.one_hot(topi, E).float().sum(1).mean(0)
     router_p = probs.mean(0)
 
-    C = capacity(cfg, T)
     flat_e = topi.reshape(T * k)  # slot order (t0 s0), (t0 s1), (t1 s0)...
     # each slot's position within its expert: the earlier slots routed there
     oh = F.one_hot(flat_e, E)
     pos = ((torch.cumsum(oh, 0) - oh) * oh).sum(-1)
-    keep = pos < C
+    if (batch is not None and batch.size > 1
+            and cfg.moe_capacity_factor is not None):
+        C = capacity(cfg, T * batch.size)
+        ahead = prior_slots(oh, b, batch)
+        keep = pos + ahead[torch.arange(T * k, device=x.device) // (s * k),
+                           flat_e] < C
+        C = min(C, T)  # a kept slot's position here is below both
+    else:
+        C = capacity(cfg, T)
+        keep = pos < C
     cd = compute_dtype
     # the dispatch's input: entered, as a rank's experts see part of it
     # (the router above reads it whole on every rank)
@@ -124,6 +181,7 @@ class MoEMLP(Block):
     runs layer l's."""
 
     tp = None  # core/tensor_parallel.TensorSplit ("experts")
+    batch = None  # BatchRanks (train/train_step.shard_train_state)
 
     def __init__(self, cfg, L: int, param_dtype=torch.float32,
                  compute_dtype=torch.bfloat16, device=None):
@@ -143,7 +201,8 @@ class MoEMLP(Block):
         y, f, p = moe_forward(
             self.cfg, x, self.leaf("gate", l),
             self.leaf("experts_gate_proj", l), self.leaf("experts_up_proj", l),
-            self.leaf("experts_down_proj", l), self.compute_dtype, self.tp)
+            self.leaf("experts_down_proj", l), self.compute_dtype, self.tp,
+            self.batch)
         if self.router_stats is not None:
             self.router_stats.append((f, p))
         return y

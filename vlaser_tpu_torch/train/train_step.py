@@ -39,6 +39,20 @@ q / k norm), is also summed over its holders. Norms and clips read the
 global norms (each distinct part's squares once, summed over fsdp x
 tensor); the optimizer steps the shards, so the AdamW moments are shards
 too.
+
+On a stage axis the loss is train/pipeline.make_pipeline_lm_loss: each
+stage runs its chunk of the layer stacks on the same rows. A stacked
+leaf that the rules (core/mesh.stageify_rules) put on stage is held as
+this stage's [L / pp, ...] layers (fsdp-split within) and read by global
+layer index (models/layers.Block._staged); its gradient is summed over
+the batch ranks of its stage. Every other leaf (the embedding, the final
+norm, the head, a stacked norm or bias the rules leave whole) is held
+whole on every stage, and its gradient is summed over the batch ranks x
+stage: a stage that does not use it contributes zero, so the tied
+embedding gets its input share from stage 0 and its head share from the
+last stage. Norms count a stage's layers on that stage and a whole leaf
+once, so AdamW gives every stage the same whole leaves. A stage axis
+with a context axis raises (no JAX recipe combines them).
 """
 
 from __future__ import annotations
@@ -98,9 +112,9 @@ def _accumulate(loss_fn, batch, params, accum_steps: int):
 
 
 ADAM8BIT_OVER_FSDP = (
-    "8-bit AdamW over fsdp > 1 or tensor > 1: a shard would split the "
-    "kernel's 256-element blocks, and the JAX shard_train_state cannot "
-    "place the 8-bit state either")
+    "8-bit AdamW over fsdp > 1, tensor > 1 or stage > 1: a shard would "
+    "split the kernel's 256-element blocks, and the JAX shard_train_state "
+    "cannot place the 8-bit state either")
 
 
 class _AllGather(torch.autograd.Function):
@@ -164,7 +178,9 @@ class ShardedState:
     model's leaves are already its tensor rank's (core/tensor_parallel:
     shard_for_training, or shard_for_serving): a leaf split over both is
     held as this rank's fsdp shard of its tensor shard, and `gather` gives
-    the tensor shard back. The shards stay in place: the model's Block
+    the tensor shard back. On a stage axis a stacked leaf that its rule
+    puts on stage is held as this stage's layers first (the module
+    docstring). The shards stay in place: the model's Block
     that holds a split leaf reads it through `gather` (see the module
     docstring). `peak_gathered` counts the largest number of bytes of
     gathered weights alive at once (a gather's result is counted until
@@ -175,39 +191,52 @@ class ShardedState:
     fsdp by its gathers' backward) over its replicas, the ranks of its
     fsdp and tensor index; a whole leaf over the batch ranks
     (core/mesh.batch_group); a tensor copy (tensor_parallel.Plan.copies)
-    over the same ranks times its holders. Norms (`grad_norms`) sum each
-    distinct part's squares once over fsdp x tensor: a leaf's squares
-    count on the first rank of the ranks that hold it."""
+    over the same ranks times its holders; each within its stage for a
+    leaf held on stage, else over every stage too. Norms (`grad_norms`)
+    sum each distinct part's squares once over fsdp x tensor x stage: a
+    leaf's squares count on the first rank of the ranks that hold it."""
 
     def __init__(self, model: nn.Module, mesh, rules=None):
         import torch.distributed as dist
 
         from ..models.layers import Block
 
-        if mesh_lib.axis_size(mesh, mesh_lib.STAGE_AXIS) > 1:
+        F_, T_ = mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS
+        S_, C_ = mesh_lib.STAGE_AXIS, mesh_lib.CONTEXT_AXIS
+        self.stage = mesh_lib.axis_size(mesh, S_)
+        if self.stage > 1 and mesh_lib.axis_size(mesh, C_) > 1:
             raise NotImplementedError(
-                "a 'stage' axis: pipeline stages are not ported yet")
+                "a 'stage' axis with a 'context' axis: pipeline stages over "
+                "a context-parallel stack are not ported (no JAX recipe or "
+                "test combines them)")
         if mesh.size() != dist.get_world_size():
             raise ValueError("the mesh must span every rank of the group")
         self.mesh = mesh
-        F_, T_ = mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS
         self.fsdp = mesh_lib.axis_size(mesh, F_)
         self.index = mesh_lib.axis_index(mesh, F_)
         self.tp = mesh_lib.axis_size(mesh, T_)
         self.t_index = mesh_lib.axis_index(mesh, T_)
+        self.s_index = mesh_lib.axis_index(mesh, S_)
         self.group = mesh.get_group(F_) if self.fsdp > 1 else None
+        self.s_group = mesh.get_group(S_) if self.stage > 1 else None
         self.world = dist.get_world_size()
         self.batch_group, self.ranks = mesh_lib.batch_group(mesh)
         f_dim = mesh.mesh_dim_names.index(F_)
+        s_dim = (mesh.mesh_dim_names.index(S_) if self.stage > 1
+                 else None)
         named = dict(model.named_parameters())
         placements = mesh_lib.tree_shardings(
             named, mesh, rules if rules is not None
             else mesh_lib.default_param_rules())
         self.dims = {}  # id(p) -> the dim split over fsdp, or None
+        self.staged = {}  # id(p) -> whether p is held as a stage's layers
         for name, p in named.items():
             pl = placements[name][f_dim]
             self.dims[id(p)] = (pl.dim if self.fsdp > 1 and pl.is_shard()
                                 else None)
+            sp = placements[name][s_dim] if s_dim is not None else None
+            self.staged[id(p)] = bool(sp is not None and sp.is_shard()
+                                      and sp.dim == 0)
         self.params = list(named.values())
         self.split = [p for p in self.params if self.dims[id(p)] is not None]
         tplan = getattr(model, "_tensor_plan", None)
@@ -225,35 +254,45 @@ class ShardedState:
         keys = set()
         for name, p in named.items():
             split = self.dims[id(p)] is not None
+            staged = self.staged[id(p)]
             g = copies.get(name) if self.tp > 1 else None
             held = g if g is not None else (1 if name in cut else self.tp)
-            key = ("split" if split else "whole", g or 1)
+            key = ("split" if split else "whole", g or 1,
+                   staged or self.stage == 1)
             self.route[id(p)] = key
             keys.add(key)
             self.owned[id(p)] = ((split or self.index == 0)
-                                 and self.t_index % held == 0)
-        self.groups = {("whole", 1): (self.batch_group, self.ranks)}
-        for split, g in sorted(keys - {("whole", 1)}):
-            own = (lambda c, g=g: c.get(T_, 0) // g)  # the holders' block
-            self.groups[(split, g)] = mesh_lib.rank_group(
-                mesh, f"reduce-{split}-{g}",
-                (lambda c, own=own: (c[F_], own(c))) if split == "split"
-                else own)
-        # the ranks of one replica of the model: fsdp x tensor
+                                 and self.t_index % held == 0
+                                 and (staged or self.s_index == 0))
+        self.groups = {("whole", 1, True): (self.batch_group, self.ranks)}
+        for split, g, within in sorted(keys - {("whole", 1, True)}):
+            def key(c, split=split, g=g, within=within):
+                k = (c.get(T_, 0) // g,)  # the holders' block
+                if split == "split":
+                    k += (c[F_],)
+                return k + ((c.get(S_, 0),) if within else ())
+            self.groups[(split, g, within)] = mesh_lib.rank_group(
+                mesh, f"reduce-{split}-{g}-{within}", key)
+        # the ranks of one replica of the model: fsdp x tensor x stage
         self.model_group, self.model_ranks = mesh_lib.rank_group(
             mesh, "model", lambda c: tuple(
-                v for a, v in c.items() if a not in (F_, T_)))
+                v for a, v in c.items() if a not in (F_, T_, S_)))
         with torch.no_grad():
             for m in model.modules():
                 for leaf, p in m._parameters.items():
-                    d = self.dims.get(id(p))
-                    if d is None:
+                    if id(p) not in self.dims or not self.is_split(p):
                         continue
                     if not isinstance(m, Block):
                         raise TypeError(
                             f"{type(m).__name__}.{leaf}: a leaf split over "
-                            "fsdp must be read through Block.leaf")
-                    m._gathered = dict(m._gathered or {}, **{leaf: (d, self)})
+                            "fsdp or stage must be read through Block.leaf")
+                    if self.staged[id(p)]:
+                        m._staged = dict(m._staged or {}, **{
+                            leaf: self.s_index * (p.shape[0] // self.stage)})
+                    d = self.dims[id(p)]
+                    if d is not None:
+                        m._gathered = dict(m._gathered or {},
+                                           **{leaf: (d, self)})
                     p.data = self.local(p, p.data)
         if self.split:
             for m in model.modules():
@@ -262,8 +301,16 @@ class ShardedState:
         self._live: Dict[int, tuple] = {}
         self.peak_gathered = 0
 
+    def is_split(self, p) -> bool:
+        """Whether p is held as a part of its leaf (over fsdp or stage)."""
+        return self.dims[id(p)] is not None or self.staged[id(p)]
+
     def local(self, p, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a whole tensor shaped like p."""
+        """This rank's shard of a whole tensor shaped like p: its stage's
+        layers, then its fsdp shard."""
+        if self.staged[id(p)]:
+            n = full.shape[0] // self.stage
+            full = full.narrow(0, self.s_index * n, n).clone()
         d = self.dims[id(p)]
         if d is None:
             return full
@@ -297,25 +344,35 @@ class ShardedState:
 
     def full(self, p, shard: torch.Tensor, dst: Optional[int] = None
              ) -> Optional[torch.Tensor]:
-        """The whole tensor over fsdp of a shard shaped like p's, on every
-        rank (dst None: an all-gather over fsdp, which every rank calls) or
-        on rank `dst` only (a gather over dst's fsdp group, whose ranks
-        call it; None on every other rank)."""
-        import torch.distributed as dist
-
-        d = self.dims[id(p)]
-        if d is None:
+        """The whole tensor over fsdp (and stage) of a shard shaped like
+        p's, on every rank (dst None: all-gathers over fsdp and stage,
+        which every rank calls) or on rank `dst` only (gathers over dst's
+        fsdp and stage groups, whose ranks call them; None on every other
+        rank)."""
+        d, staged = self.dims[id(p)], self.staged[id(p)]
+        if d is None and not staged:
             return shard
         shard = shard.detach().contiguous()
+        if staged:  # the stage's layers whole over fsdp, then the stages'
+            if d is not None:
+                shard = _AllGather.apply(shard, d, self.fsdp, self.group)
+            if dst is None:
+                return _AllGather.apply(shard, 0, self.stage, self.s_group)
+            return self._gather_to(shard, 0, self.stage, self.s_group, dst)
         if dst is None:
             return _AllGather.apply(shard, d, self.fsdp, self.group)
-        if dst not in dist.get_process_group_ranks(self.group):
+        return self._gather_to(shard, d, self.fsdp, self.group, dst)
+
+    @staticmethod
+    def _gather_to(shard, dim, n, group, dst):
+        import torch.distributed as dist
+
+        if dst not in dist.get_process_group_ranks(group):
             return None
         here = dist.get_rank() == dst
-        parts = [torch.empty_like(shard) for _ in range(self.fsdp)]
-        dist.gather(shard, parts if here else None,
-                    dst=dst, group=self.group)
-        return torch.cat(parts, d) if here else None
+        parts = [torch.empty_like(shard) for _ in range(n)]
+        dist.gather(shard, parts if here else None, dst=dst, group=group)
+        return torch.cat(parts, dim) if here else None
 
     def whole_shape(self, name: str, p, shape) -> tuple:
         """The one-device shape of leaf `name` (p: its parameter, None for
@@ -323,6 +380,8 @@ class ShardedState:
         shape = list(shape)
         if p is not None and self.dims[id(p)] is not None:
             shape[self.dims[id(p)]] *= self.fsdp
+        if p is not None and self.staged[id(p)]:
+            shape[0] *= self.stage
         lay = self.layout.get(name)
         if lay is not None and len(shape) > lay[0]:
             shape[lay[0]] = lay[1]
@@ -380,7 +439,7 @@ class ShardedState:
     def grad_norms(self, lists: Sequence[Sequence[nn.Parameter]]
                    ) -> List[torch.Tensor]:
         """The global L2 norm of each list's gradients: each distinct
-        part's squares counted once, summed over fsdp x tensor."""
+        part's squares counted once, summed over fsdp x tensor x stage."""
         import torch.distributed as dist
 
         zero = torch.zeros((), device=self.params[0].device)
@@ -408,8 +467,18 @@ def shard_train_state(model: nn.Module, mesh, rules=None) -> ShardedState:
     model already cut over the mesh's tensor axis
     (core/tensor_parallel.shard_for_training). Build the optimizer
     (make_train_step(sharded=...)) after this call, so that its moments
-    are created as shards."""
-    return ShardedState(model, mesh, rules)
+    are created as shards. A step's batch is split over the batch ranks,
+    so each MoE stack's capacity counts their global batch
+    (models/moe.BatchRanks)."""
+    from ..models.moe import BatchRanks, MoEMLP
+
+    state = ShardedState(model, mesh, rules)
+    if state.ranks > 1:
+        cp = mesh_lib.axis_size(mesh, mesh_lib.CONTEXT_AXIS)
+        for m in model.modules():
+            if isinstance(m, MoEMLP):
+                m.batch = BatchRanks(state.batch_group, state.ranks, cp)
+    return state
 
 
 def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
@@ -427,7 +496,7 @@ def make_train_step(loss_fn: Callable[[Dict], torch.Tensor],
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if (sharded is not None and optimizer == "adamw8bit"
-            and sharded.fsdp * sharded.tp > 1):
+            and sharded.fsdp * sharded.tp * sharded.stage > 1):
         raise NotImplementedError(ADAM8BIT_OVER_FSDP)
     params = [p for g in groups.values() for p in g.params]
     frozen = list(frozen)

@@ -108,9 +108,16 @@ def _to_device(batch: Dict, device) -> Dict:
 def build_mesh(mesh, fsdp: int = 1, tp: int = 1, cp: int = 1):
     """The trainers' mesh: the one handed in, else make_mesh(fsdp, tp, cp)
     when any is above 1 (as the JAX trainers build it), else None (one
-    device, no process group needed)."""
+    device, no process group needed). A stage axis raises: the trainers'
+    losses run the whole stack on every rank, and a stage-sharded state
+    sums its whole leaves over the stages (train/pipeline.py's loss with
+    make_train_step trains over stage)."""
     if mesh is None and (fsdp > 1 or tp > 1 or cp > 1):
         mesh = mesh_lib.make_mesh(fsdp=fsdp, tp=tp, cp=cp)
+    if mesh_lib.axis_size(mesh, mesh_lib.STAGE_AXIS) > 1:
+        raise NotImplementedError(
+            "a 'stage' axis: train through train/pipeline."
+            "make_pipeline_lm_loss with train_step.make_train_step")
     return mesh
 
 

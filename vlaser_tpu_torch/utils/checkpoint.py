@@ -15,16 +15,17 @@ The files are safetensors (utils/hf_convert.save_safetensors /
 load_safetensors), so restoring unpickles nothing.
 
 A train step over a mesh (`train_step.sharded`, ZeRO-3 shards over fsdp
-of a model cut over tensor) saves the same files as the one-device
-state, leaf by leaf: every rank joins the gathers of a leaf to rank 0
-(its fsdp shards, then its tensor shards, put back at their columns:
+of a model cut over tensor, layer stacks over stage) saves the same files
+as the one-device state, leaf by leaf: every rank joins the gathers of a
+leaf to rank 0 (its fsdp shards, its stages' layers, then its tensor
+shards, put back at their columns:
 the strided ViT qkv un-strided, a KV copy written once;
 ShardedState.whole), which writes it and drops it before the next
 (hf_convert.write_safetensors), so no rank ever holds more than one whole
 leaf. The AdamW moments go the same way. Restoring maps the files and
 keeps each rank's shards of the trainer's own mesh (the tensor cut, then
-the fsdp shard), reading only those, so a checkpoint moves between
-meshes (and to and from one device) unchanged.
+the stage's layers and the fsdp shard), reading only those, so a
+checkpoint moves between meshes (and to and from one device) unchanged.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def _entries(model, train_step):
         if p is not None and t.shape != p.shape:  # an optimizer's count
             p = None
         if sharded is None or (name not in sharded.layout and (
-                p is None or sharded.dims[id(p)] is None)):
+                p is None or not sharded.is_split(p))):
             return key, tuple(t.shape), t.dtype, lambda: t.detach()
         return (key, sharded.whole_shape(name, p, t.shape), t.dtype,
                 lambda: sharded.whole(name, p, t))
@@ -161,7 +162,7 @@ def restore_checkpoint(directory: str, model, train_step,
             name = k.split("/")[0]
             p = named.get(name)
             t = sharded.cut(name, t)  # its tensor shard, then fsdp's
-            split = (p is not None and sharded.dims[id(p)] is not None
+            split = (p is not None and sharded.is_split(p)
                      and t.dim() == p.dim())
             (saved if "/" in k else sd)[k] = (sharded.local(p, t) if split
                                               else t.clone())
